@@ -1,0 +1,72 @@
+"""Move parameter trees and decode caches into the port through numpy.
+
+A tree from the JAX package, with its leaves converted to numpy and keyed
+by spec path, becomes the port's parameters on `device`; the stacked
+`dense_blocks/*` leaves are split along the stack axis into the per-layer
+blocks (`models.transformer.unstack_blocks`). `cache_from_numpy` does the
+same for a paged decode cache, so both packages can start from one pool
+state. bfloat16 leaves (numpy's `ml_dtypes` bfloat16) cross bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import spec as S
+from repro_torch.models.transformer import unstack_blocks
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
+
+
+def params_from_numpy(tree: dict, device: str | torch.device) -> Any:
+    """Reference-shaped numpy parameter tree -> the port's parameters."""
+    return unstack_blocks(_tree(tree, torch.device(device)))
+
+
+def cache_from_numpy(cache: dict, device: str | torch.device) -> dict:
+    """Numpy paged decode cache (`pos`, `pt`, `*_kpool`, `*_vpool`, in the
+    reference's layout) -> the port's cache on `device`."""
+    return _tree(cache, torch.device(device))
+
+
+def numpy_params(spec: dict, seed: int) -> dict:
+    """A float32 numpy parameter tree drawn from `spec`'s distributions
+    with numpy's generator: the same parameters for any device or
+    package."""
+    rng = np.random.default_rng(seed)
+    out: dict = {}
+    for path, p in S._walk(spec):
+        if p.init == "zeros":
+            a = np.zeros(p.shape, np.float32)
+        elif p.init == "ones":
+            a = np.ones(p.shape, np.float32)
+        elif p.init in ("normal", "embed"):
+            if p.init == "embed":
+                std = p.scale if p.scale is not None else 0.02
+            else:
+                fan_in = (p.shape[p.fan_in_axis] if len(p.shape) >= 2
+                          else max(p.shape[-1], 1))
+                std = (p.scale if p.scale is not None
+                       else 1.0 / np.sqrt(fan_in))
+            a = (std * rng.standard_normal(p.shape)).astype(np.float32)
+        else:
+            raise ValueError(f"numpy_params: init {p.init!r} not supported")
+        node = out
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = a
+    return out

@@ -1,0 +1,73 @@
+"""Shared building blocks: norms, linear, SwiGLU, rotary embeddings.
+
+Forward only: the DP primitives of `repro.core.dp_layers` become
+`torch.autograd.Function`s with the training slice. Every bf16 rounding
+point of the reference is mirrored: normalisation and silu run in f32 and
+cast back before the scale or the gate multiply, and RoPE angles are f32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.spec import P
+
+
+def rmsnorm_spec(d: int, *, stack: tuple[int, ...] = (),
+                 dtype=torch.float32) -> dict:
+    return {"s": P(stack + (d,), init="ones", dtype=dtype, stack=len(stack))}
+
+
+def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(mu + eps)).to(x.dtype)
+
+
+def rmsnorm(params, x, *, eps: float = 1e-5):
+    return _normalize(x, eps) * params["s"]
+
+
+def linear_spec(din: int, dout: int, *, stack: tuple[int, ...] = (),
+                dtype=torch.float32) -> dict:
+    return {"w": P(stack + (din, dout), dtype=dtype, stack=len(stack))}
+
+
+def linear(params, x):
+    return x @ params["w"]
+
+
+def swiglu_spec(d: int, f: int, *, stack: tuple[int, ...] = (),
+                dtype=torch.float32) -> dict:
+    return {
+        "gate_up": linear_spec(d, 2 * f, stack=stack, dtype=dtype),
+        "down": linear_spec(f, d, stack=stack, dtype=dtype),
+    }
+
+
+def swiglu(params, x, *, f: int):
+    gu = linear(params["gate_up"], x)
+    gate, up = gu[..., :f], gu[..., f:]
+    h = F.silu(gate.float()).to(x.dtype) * up
+    return linear(params["down"], h)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Interleaved-pair RoPE (pairs x[..., ::2], x[..., 1::2]), as the
+    reference; not the half-split form. x: (B, T, H, hd); positions:
+    (B, T) int."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].float() * freqs  # (B, T, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)

@@ -1,0 +1,189 @@
+"""Model assembly for the dense decoder family: the counterpart of
+`repro.models.transformer`, cut to what paged serving runs.
+
+    m = build_model(cfg)
+    params = m.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cache = m.init_paged_cache(num_slots, cache_len, num_pages=..,
+                               page_len=..)
+    logits, cache = m.serve_step(params, cache, batch)   # one-token decode
+
+Parameters are plain dicts keyed by the reference's spec paths, except
+that the stacked `dense_blocks` subtree (leaves (n_layers, ...) in the
+reference, scanned with `lax.scan`) becomes a list of per-layer dicts
+that a Python loop walks. The per-layer tensors are views of one stacked
+allocation, so nothing is copied.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import spec as S
+from repro_torch.core.spec import P
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+# spec subtrees whose leaves carry a leading layer-stack dim
+STACKED = ("dense_blocks",)
+
+
+def _attn_block_spec(cfg: ModelConfig, n: int) -> dict:
+    stack = (n,)
+    return {
+        "attn_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
+        "attn": A.gqa_spec(cfg, stack=stack),
+        "mlp_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
+        "mlp": L.swiglu_spec(cfg.d_model, cfg.d_ff, stack=stack,
+                             dtype=cfg.dtype),
+    }
+
+
+def decoder_spec(cfg: ModelConfig) -> dict:
+    d, v = cfg.d_model, cfg.vocab_size
+    return {"embed": {"w": P((v, d), init="embed", dtype=cfg.dtype)},
+            "final_norm": L.rmsnorm_spec(d, dtype=cfg.dtype),
+            "head": {"w": P((d, v), dtype=cfg.dtype)},
+            "dense_blocks": _attn_block_spec(cfg, cfg.num_layers)}
+
+
+def _unstack(node, n: int) -> list:
+    if isinstance(node, dict):
+        parts = {k: _unstack(v, n) for k, v in node.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    if node.shape[0] != n:
+        raise ValueError(f"stacked leaf {tuple(node.shape)} does not lead "
+                         f"with the layer count {n}")
+    return list(node.unbind(0))
+
+
+def unstack_blocks(tree: dict) -> dict:
+    """Split every `STACKED` subtree of a reference-shaped parameter tree
+    into a list of per-layer subtrees (views along the stack axis)."""
+    out = dict(tree)
+    for name in STACKED:
+        if name in out:
+            n = out[name]["attn_norm"]["s"].shape[0]
+            out[name] = _unstack(out[name], n)
+    return out
+
+
+def _count(spec) -> int:
+    return sum(int(np.prod(p.shape, dtype=np.int64))
+               for _, p in S._walk(spec))
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    spec: dict
+    serve_step: Callable  # (params, cache, batch) -> (logits, cache)
+    init_paged_cache: Callable  # (slots, cache_len, *, num_pages, page_len)
+    num_params: int
+
+    def init_params(self, generator: torch.Generator) -> Any:
+        """Random parameters from `generator`, on its device."""
+        return unstack_blocks(S.init_params(self.spec, generator))
+
+    @staticmethod
+    def cache_slot_axes(cache) -> dict:
+        return cache_slot_axes(cache)
+
+
+def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
+                ) -> Model:
+    """The dense decoder. `device` is where `init_paged_cache` allocates;
+    `cuda` unless the caller asks for the CPU."""
+    cfg.validate()
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available; pass device='cpu' to run on the CPU")
+    spec = decoder_spec(cfg)
+    serve_step, init_paged_cache = _make_decoder_serve(cfg, device)
+    return Model(cfg=cfg, spec=spec, serve_step=serve_step,
+                 init_paged_cache=init_paged_cache, num_params=_count(spec))
+
+
+# ---------------------------------------------------------------------------
+# Decode.
+# ---------------------------------------------------------------------------
+
+# Which axis of each decode-cache tensor indexes the slot; page pools are
+# shared by every slot (None) and must pass through a slot recycle
+# untouched.
+_SLOT_AXIS_BY_KEY = {"pos": 0, "pt": 0}
+
+
+def cache_slot_axes(cache) -> dict:
+    """Map every decode-cache key to its slot axis (None = slot-free).
+    Unknown keys raise, as in the reference."""
+    out = {}
+    for k in cache:
+        if k in _SLOT_AXIS_BY_KEY:
+            out[k] = _SLOT_AXIS_BY_KEY[k]
+        elif k.endswith(("_kpool", "_vpool")):
+            out[k] = None
+        else:
+            raise KeyError(
+                f"decode-cache key {k!r} has no slot-axis entry; add it to "
+                "transformer._SLOT_AXIS_BY_KEY (or a suffix rule)")
+    return out
+
+
+def _make_decoder_serve(cfg: ModelConfig, device: torch.device):
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+
+    def init_paged_cache(batch_size: int, cache_len: int, *, num_pages: int,
+                         page_len: int):
+        """Per-slot int32 page tables plus physical page pools shared by
+        every slot. Pools carry `num_pages + 1` pages: the extra LAST page
+        is the trash page that absorbs writes from inactive rows. Tables
+        start fully trash-mapped; the engine overwrites them at
+        admission. Pools are (n_layers, num_pages + 1, page_len, KV, hd),
+        so each layer's slice `cache[key][l]` is a contiguous view."""
+        b = batch_size
+        p_tab = -(-cache_len // page_len)
+        shape = (cfg.num_layers, num_pages + 1, page_len, kvh, hd)
+        return {"pos": torch.zeros((b,), dtype=torch.int32, device=device),
+                "pt": torch.full((b, p_tab), num_pages, dtype=torch.int32,
+                                 device=device),
+                "dense_blocks_kpool": torch.zeros(shape, dtype=cfg.dtype,
+                                                  device=device),
+                "dense_blocks_vpool": torch.zeros(shape, dtype=cfg.dtype,
+                                                  device=device)}
+
+    @torch.no_grad()
+    def serve_step(params, cache, batch):
+        """batch: {'token': (B, 1) int32, optional 'active': (B,) bool};
+        returns (logits (B, V) in the model dtype, cache).
+
+        Rows with `active=False` leave every live page untouched (their
+        write goes to the trash page) and keep their position; their
+        logits are garbage and must be ignored. The pools in `cache` are
+        updated in place; the returned dict holds the same pool tensors
+        and a new `pos`."""
+        token = batch["token"]
+        active = batch.get("active")
+        pos = cache["pos"]
+        pt = cache["pt"]
+        x = params["embed"]["w"][token.long()]  # (B, 1, D)
+        kpools = cache["dense_blocks_kpool"]
+        vpools = cache["dense_blocks_vpool"]
+        for layer, bp in enumerate(params["dense_blocks"]):
+            hn = L.rmsnorm(bp["attn_norm"], x, eps=cfg.norm_eps)
+            x = x + A.gqa_decode_paged(cfg, bp["attn"], hn, kpools[layer],
+                                       vpools[layer], pt, pos, active=active)
+            hn = L.rmsnorm(bp["mlp_norm"], x, eps=cfg.norm_eps)
+            x = x + L.swiglu(bp["mlp"], hn, f=cfg.d_ff)
+        x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+        logits = L.linear(params["head"], x)
+        new_cache = dict(cache)
+        new_cache["pos"] = (pos + 1 if active is None
+                            else pos + active.to(torch.int32))
+        return logits[:, 0], new_cache
+
+    return serve_step, init_paged_cache

@@ -1,0 +1,64 @@
+"""The port stands alone: no file of `src/repro_torch/` and not
+`chip_smoke.py` imports `jax` or anything of the `repro` package, and its
+entry points default to `cuda` and raise, rather than fall back to the
+CPU, where there is no CUDA device."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(
+    str(p.relative_to(ROOT))
+    for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imports(path):
+    tree = ast.parse((ROOT / path).read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_file_imports_no_jax_and_no_repro(path):
+    bad = [m for m in _imports(path)
+           if m and m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_package_is_scanned():
+    assert "src/repro_torch/kernels/paged_attn.py" in PORT_FILES
+    assert len(PORT_FILES) > 10
+
+
+def test_build_model_defaults_to_cuda_and_raises_without_it():
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_model
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_config("tiny"))
+
+
+def test_serve_cli_defaults_to_cuda_and_raises_without_it():
+    from repro_torch.launch import serve
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    assert serve.build_serve_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "tiny", "--batch", "1", "--gen", "1"])
+
+
+def test_importing_the_port_builds_nothing():
+    from repro_torch.kernels import _build, launch_counts
+    assert _build.BUILD_LOGS == {} and _build._LIBS == {}
+    assert set(launch_counts()) == {"paged_attn"}
