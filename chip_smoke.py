@@ -8,7 +8,7 @@ exits non-zero:
 
   1 build     nvcc builds every kernel under src/repro_torch/kernels/csrc
               (the card's name and power limit, the build time).
-  3 main path qwen3-4b at full width and depth, bf16, random parameters
+  3 serve     qwen3-4b at full width and depth, bf16, random parameters
               from a seeded torch.Generator, served through the serve
               CLI's own `serve_requests`: 8 slots, page_len 16, 16
               synthetic requests of 64-192 tokens behind a 32-token
@@ -17,7 +17,7 @@ exits non-zero:
               read just after; paged_attn must have launched 36 times per
               serve_step.
   2 kernels   (run after phase 3, so its launches stay out of phase 3's
-              count) each kernel against its plain PyTorch version on the
+              count) paged_attn against its plain PyTorch version on the
               card: a sweep of ragged tables, partial last pages, trash
               entries, dv < dvp on an aliased pool, head dims 16/64/128,
               bf16 and f32; then at the main path's own shapes, on
@@ -27,6 +27,25 @@ exits non-zero:
               served on the card (kernel) and on the CPU (plain version):
               the tokens must be identical, up to an argmax tie (top-2
               gap of the CPU logits under 1e-4 at the first divergence).
+  5 train     qwen3-4b at full width and depth (bf16, random seeded
+              parameters) trained through the train CLI's own `Trainer`:
+              B = 8, T = 256, adam, epsilon 8, 1 warm-up + 3 timed steps
+              of `per_layer`, then of `non_private`. Counters are set to 0
+              before each mode's steps and read after: every step calls
+              clip_reduce 145 times (4 linears x 36 blocks + the head) and
+              per_layer ghost_norm as often, non_private never. ms per
+              step, their ratio, losses, thresholds, clip fraction, peak
+              memory, and one profiled step per mode. The kernels' inputs
+              at the five linear shapes are captured for phase 6.
+  6 kernels   ghost_norm and clip_reduce against their plain versions on
+              the card: a sweep (ragged T, T = 1, din != dout, f32 and
+              bf16, factors 0 / 1e-3 / 0.5 / 1), then at the captured
+              main-path shapes with kernel, plain, bound and library
+              times.
+  7 cuda/cpu  qwen3-4b-reduced in f32 from one numpy parameter tree and
+              one numpy batch: one per_layer `dp_clipped_gradients` on the
+              card (kernels) and on the CPU (plain versions) must agree
+              in loss, (K, B) norms and every clipped gradient leaf.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -35,6 +54,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -48,6 +68,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 TOL = dict(rtol=1e-4, atol=1e-4)  # kernel vs plain: f32 summation order
+# ghost_norm / clip_reduce vs plain: f32 sums of many terms in another
+# order, so atol is relative to the largest magnitude of the plain result
+SUM_RTOL, SUM_ATOL_FRAC = 1e-4, 1e-4
+# train card vs CPU (phase 7): the forward, backward and kernels all sum
+# in another order on each side (f32, TF32 off)
+TRAIN_RTOL, TRAIN_ATOL_FRAC = 1e-3, 1e-4
 TIE_GAP = 1e-4
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
@@ -415,6 +441,334 @@ def phase_cuda_vs_cpu(torch, gpu):
           "cuda_launches": runs["cuda"][3]})
 
 
+# ---------------------------------------------------------------------------
+# Phases 5-7: the training slice.
+# ---------------------------------------------------------------------------
+
+TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+SUM_SWEEP = [  # B, T, din, dout: ragged T, T = 1, din != dout both ways
+    (3, 37, 20, 45), (2, 1, 130, 7), (4, 64, 200, 300), (1, 33, 128, 129),
+    (5, 100, 257, 64), (8, 256, 256, 384)]
+SUM_FACTORS = [0.0, 1e-3, 0.5, 1.0]
+
+
+def linear_shapes(cfg) -> dict:
+    """(din, dout) -> name of the five linear shapes of a dense step."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    return {(d, (h + 2 * kv) * hd): "qkv", (h * hd, d): "o",
+            (d, 2 * cfg.d_ff): "gate_up", (cfg.d_ff, d): "down",
+            (d, cfg.vocab_size): "head"}
+
+
+def train_args(mode: str):
+    from repro_torch.launch import train
+    return train.build_train_parser().parse_args(
+        ["--arch", "qwen3-4b", "--clipping", mode, "--epsilon", "8",
+         "--steps", str(TRAIN_WARMUP + TRAIN_TIMED), "--batch", "8",
+         "--seq", "256", "--docs", "64", "--optimizer", "adam",
+         "--seed", "0"])
+
+
+def profile_step(torch, trainer, step_ms) -> dict:
+    """Device time of one more training step by kernel (torch.profiler,
+    CUDA activity); the idle share compares it with the unprofiled ms per
+    step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {"device_ms_per_step": device_ms,
+            "unprofiled_ms_per_step": step_ms,
+            "device_idle_share": 1.0 - device_ms / step_ms,
+            "device_ops_per_step": sum(r[2] for r in rows),
+            "top": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": n}
+                    for k, ms, n in rows[:8]]}
+
+
+def phase_train(torch, gpu):
+    """Returns (launches by kernel over both modes' counted steps, the
+    kernels' inputs captured at each linear shape of the first step)."""
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    launches = {"ghost_norm": 0, "clip_reduce": 0}
+    caps, step_ms = {}, {}
+    real = CR.clip_reduce
+    for mode in ("per_layer", "non_private"):
+        t0 = time.perf_counter()
+        trainer = train.Trainer(train_args(mode))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        shapes = linear_shapes(trainer.cfg)
+        linears = 4 * trainer.cfg.num_layers + 1
+
+        def recording(a, g, factors):
+            name = shapes.get((a.shape[-1], g.shape[-1]))
+            if name is not None and name not in caps:
+                caps[name] = (a.clone(), g.clone(), factors.clone())
+            return real(a, g, factors)
+
+        rec = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        for i in range(steps):
+            if mode == "per_layer" and i == 0:
+                CR.clip_reduce = recording
+            try:
+                t0 = time.perf_counter()
+                met = trainer.step()
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                CR.clip_reduce = real
+            rec.append({"ms": ms, "loss": float(met.loss),
+                        "mean_threshold": float(met.mean_threshold),
+                        "clip_fraction": float(met.clip_fraction),
+                        "grad_norm": float(met.grad_norm)})
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                   for r in rec):
+            raise RuntimeError(f"{mode}: non-finite loss or update: {rec}")
+        want = {"ghost_norm": linears * steps if mode == "per_layer" else 0,
+                "clip_reduce": linears * steps}
+        if {k: counts[k] for k in want} != want:
+            raise RuntimeError(f"{mode}: launches {counts} over {steps} "
+                               f"steps, expected {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        step_ms[mode] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / TRAIN_TIMED
+        emit({"phase": "train", "gpu": gpu, "arch": trainer.cfg.name,
+              "mode": mode, "backend": trainer.plan.config.backend,
+              "num_params": trainer.model.num_params,
+              "dtype": str(trainer.cfg.dtype),
+              "batch": trainer.args.batch, "seq": trainer.args.seq,
+              "groups": trainer.model.layout.num_groups,
+              "sigma": trainer.plan.sigma,
+              "sigma_new": trainer.plan.sigma_new,
+              "init_s": init_s, "warmup_steps": TRAIN_WARMUP,
+              "timed_steps": TRAIN_TIMED, "ms_per_step": step_ms[mode],
+              "tokens_per_s": trainer.args.batch * trainer.args.seq
+              / (step_ms[mode] / 1e3),
+              "steps": rec, "peak_memory_gb": peak, "launches": counts})
+        emit({"phase": "train_profile", "gpu": gpu, "mode": mode,
+              **profile_step(torch, trainer, step_ms[mode])})
+        del trainer, met
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "train_ratio", "gpu": gpu,
+          "ratio_vs_nonprivate": step_ms["per_layer"]
+          / step_ms["non_private"], "ms_per_step": step_ms})
+    if sorted(caps) != sorted(shapes.values()):
+        raise RuntimeError(f"captured {sorted(caps)} of the linear shapes")
+    return launches, caps
+
+
+def sum_check(torch, got, want):
+    """(max abs error, within tolerance) of a kernel against its plain
+    version."""
+    err = float((got - want).abs().max())
+    atol = SUM_ATOL_FRAC * float(want.abs().max())
+    return err, bool(torch.allclose(got, want, rtol=SUM_RTOL, atol=atol))
+
+
+def sum_bound(kernel, a, g, bw):
+    """(bound ms, bound_by): the inputs read once and the f32 output
+    written once against the data-sheet bandwidth, and the operations on
+    the inputs' type: B T² (din + dout) for ghost_norm (the symmetric
+    half of the grams), 2 B T din dout for clip_reduce."""
+    b, t, din = a.shape
+    dout = g.shape[-1]
+    nbytes = a.numel() * a.element_size() + g.numel() * g.element_size()
+    if kernel == "ghost_norm":
+        nbytes += 4 * b
+        ops = b * t * t * (din + dout)
+    else:
+        nbytes += 4 * b + 4 * din * dout
+        ops = 2 * b * t * din * dout
+    t_bytes = nbytes / bw
+    t_ops = ops / PEAK_OPS[str(a.dtype).split(".")[-1]]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_sum(torch, kernel, a, g, f):
+    """Yardsticks, never called by the port: two bmm grams for
+    ghost_norm, one f32 matmul with the factor on g's rows for
+    clip_reduce."""
+    if kernel == "ghost_norm":
+        a32, g32 = a.float(), g.float()
+        return (torch.bmm(a32, a32.transpose(1, 2))
+                * torch.bmm(g32, g32.transpose(1, 2))).sum((1, 2))
+    t = a.shape[1]
+    a2 = a.reshape(-1, a.shape[-1])
+    g2 = g.reshape(-1, g.shape[-1])
+    return a2.float().T @ (g2.float() * f.repeat_interleave(t)[:, None])
+
+
+def phase_train_kernels(torch, gpu, caps, num_layers):
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import ghost_norm as GN
+    bw = bandwidth(gpu)
+    impl = {"ghost_norm": (lambda a, g, f: GN.ghost_norm(a, g),
+                           lambda a, g, f: GN.ghost_norm_ref(a, g)),
+            "clip_reduce": (CR.clip_reduce, CR.clip_reduce_ref)}
+    worst = dict.fromkeys(impl, 0.0)
+    for i, (b, t, din, dout) in enumerate(SUM_SWEEP):
+        for dtype in ("float32", "bfloat16"):
+            rng = np.random.default_rng(i)
+            dt = getattr(torch, dtype)
+            a = torch.from_numpy(rng.standard_normal((b, t, din)).astype(
+                np.float32)).to("cuda", dt)
+            g = torch.from_numpy(rng.standard_normal((b, t, dout)).astype(
+                np.float32)).to("cuda", dt)
+            f = torch.tensor(np.resize(SUM_FACTORS, b), dtype=torch.float32,
+                             device="cuda")
+            for name, (kern, plain) in impl.items():
+                got, want = kern(a, g, f), plain(a, g, f)
+                torch.cuda.synchronize()
+                err, ok = sum_check(torch, got, want)
+                worst[name] = max(worst[name], err)
+                emit({"phase": "kernel_vs_plain", "kernel": name,
+                      "shape": {"b": b, "t": t, "din": din, "dout": dout},
+                      "dtype": dtype, "max_abs_err": err,
+                      "tol": {"rtol": SUM_RTOL,
+                              "atol_of_max": SUM_ATOL_FRAC}, "ok": ok})
+                if not ok:
+                    raise RuntimeError(f"{name} disagrees at {(b, t, din, dout)}"
+                                       f" {dtype}: max abs err {err}")
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    per_step = {name: dict.fromkeys(keys, 0.0) for name in impl}
+    by = {name: {"bytes": 0.0, "operations": 0.0} for name in impl}
+    for lname, (a, g, f) in caps.items():
+        calls = 1 if lname == "head" else num_layers
+        for name, (kern, plain) in impl.items():
+            got, want = kern(a, g, f), plain(a, g, f)
+            lib = library_sum(torch, name, a, g, f)
+            torch.cuda.synchronize()
+            err, ok = sum_check(torch, got, want)
+            worst[name] = max(worst[name], err)
+            if not ok:
+                raise RuntimeError(f"{name} disagrees at the main path's "
+                                   f"{lname} shapes: max abs err {err}")
+            iters = 5 if lname == "head" else 20
+            times = {
+                "ms": cuda_ms(torch, lambda: kern(a, g, f), iters, 2, flush),
+                "plain_ms": cuda_ms(torch, lambda: plain(a, g, f), iters, 2,
+                                    flush),
+                "library_ms": cuda_ms(torch, lambda: library_sum(
+                    torch, name, a, g, f), iters, 2, flush)}
+            times["bound_ms"], bound_by = sum_bound(name, a, g, bw)
+            for k in keys:
+                per_step[name][k] += calls * times[k]
+            by[name][bound_by] += calls * times["bound_ms"]
+            emit({"phase": "kernel_main_shapes", "gpu": gpu, "kernel": name,
+                  "linear": lname, "a": list(a.shape), "g": list(g.shape),
+                  "dtype": str(a.dtype), "calls_per_step": calls,
+                  "max_abs_err": err,
+                  "library_max_abs_err": float((lib - want).abs().max()),
+                  "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
+                  **times, "bound_by": bound_by})
+    src = "src/repro_torch/kernels/csrc/{}.cu"
+    replaces = {"ghost_norm": "src/repro/kernels/ghost_norm.py:77",
+                "clip_reduce": "src/repro/kernels/clip_reduce.py:47"}
+    return [{"name": name, "route": "cuda", "source": src.format(name),
+             "replaces": replaces[name], "max_abs_err": worst[name],
+             **per_step[name],
+             "bound_by": max(by[name], key=by[name].get),
+             "per": f"one training step: the sum over its "
+                    f"{4 * num_layers + 1} calls at the 5 captured linear "
+                    f"shapes"}
+            for name in impl]
+
+
+def phase_train_cuda_vs_cpu(torch, gpu):
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.core.clipping import dp_clipped_gradients
+    from repro_torch.kernels import backend, launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import build_model
+
+    cfg = get_config("qwen3-4b", reduced=True)
+    b, t = 4, 64
+    spec_model = build_model(cfg, device="cpu")
+    tree = bridge.numpy_params(spec_model.spec, seed=0)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    targets = np.roll(tokens, -1, 1)
+    targets[:, -1] = -1
+    thr = rng.uniform(0.05, 2.0, spec_model.layout.num_groups).astype(
+        np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev)
+        params = bridge.train_params_from_numpy(tree, dev)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "targets": torch.from_numpy(targets).to(dev)}
+        reset_launch_counts()
+        with backend.scoped("kernels"):
+            res = dp_clipped_gradients(
+                model.loss_fn, params, batch, model.layout,
+                mode="per_layer", batch_size=b,
+                thresholds=torch.from_numpy(thr).to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (res, launch_counts())
+    (got, cuda_counts), (want, cpu_counts) = runs["cuda"], runs["cpu"]
+    for name in ("ghost_norm", "clip_reduce"):
+        if cuda_counts[name] == 0 or cpu_counts[name] != 0:
+            raise RuntimeError(
+                f"{name} launches cuda={cuda_counts[name]} "
+                f"cpu={cpu_counts[name]}: the card run must use the kernel "
+                f"and the CPU run the plain version")
+
+    def rel(x, y):
+        x, y = x.detach().float().cpu(), y.detach().float()
+        atol = TRAIN_ATOL_FRAC * float(y.abs().max())
+        ok = bool(torch.allclose(x, y, rtol=TRAIN_RTOL, atol=atol))
+        return float((x - y).abs().max() / y.abs().max().clamp_min(1e-30)), ok
+
+    checks = {"loss": rel(got.loss, want.loss),
+              "norms_sq": rel(got.norms_sq, want.norms_sq)}
+
+    def leaves(tree, prefix=()):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], prefix + (k,))
+            else:
+                yield "/".join(prefix + (k,)), tree[k]
+
+    for (name, x), (_, y) in zip(leaves(got.grads), leaves(want.grads)):
+        checks["grad:" + name] = rel(x, y)
+    bad = {k: v[0] for k, v in checks.items() if not v[1]}
+    n = want.norms_sq
+    emit({"phase": "train_cuda_vs_cpu", "gpu": gpu, "arch": cfg.name,
+          "batch": b, "seq": t,
+          "clipped_share": float((n > torch.from_numpy(thr)[:, None] ** 2)
+                                 .float().mean()),
+          "max_err_over_max": {k: v[0] for k, v in checks.items()},
+          "tol": {"rtol": TRAIN_RTOL, "atol_of_max": TRAIN_ATOL_FRAC},
+          "cuda_launches": {k: cuda_counts[k]
+                            for k in ("ghost_norm", "clip_reduce")}})
+    if bad:
+        raise RuntimeError(f"train: card and CPU disagree: {bad}")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -430,7 +784,18 @@ def main() -> int:
     kernel = phase_kernels(torch, gpu, snap)
     kernel["launches"] = launches
     phase_cuda_vs_cpu(torch, gpu)
-    emit({"kernels": [kernel]})
+    del snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, caps = phase_train(torch, gpu)
+    from repro_torch.configs import get_config
+    train_kernels = phase_train_kernels(
+        torch, gpu, caps, get_config("qwen3-4b").num_layers)
+    del caps
+    for k in train_kernels:
+        k["launches"] = train_launches[k["name"]]
+    phase_train_cuda_vs_cpu(torch, gpu)
+    emit({"kernels": [kernel] + train_kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

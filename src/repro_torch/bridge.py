@@ -1,9 +1,10 @@
 """Move parameter trees and decode caches into the port through numpy.
 
 A tree from the JAX package, with its leaves converted to numpy and keyed
-by spec path, becomes the port's parameters on `device`; the stacked
-`dense_blocks/*` leaves are split along the stack axis into the per-layer
-blocks (`models.transformer.unstack_blocks`). `cache_from_numpy` does the
+by spec path, becomes the port's parameters on `device`: for training in
+the same stacked layout, for serving with the stacked `dense_blocks/*`
+leaves split along the stack axis into the per-layer blocks
+(`models.transformer.unstack_blocks`). `cache_from_numpy` does the
 same for a paged decode cache, so both packages can start from one pool
 state. bfloat16 leaves (numpy's `ml_dtypes` bfloat16) cross bit for bit.
 """
@@ -26,15 +27,22 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _tree(tree, device):
+def _tree(tree, device, requires_grad=False):
     if isinstance(tree, dict):
-        return {k: _tree(v, device) for k, v in tree.items()}
-    return tensor_from_numpy(tree, device)
+        return {k: _tree(v, device, requires_grad) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device).requires_grad_(requires_grad)
 
 
 def params_from_numpy(tree: dict, device: str | torch.device) -> Any:
-    """Reference-shaped numpy parameter tree -> the port's parameters."""
+    """Reference-shaped numpy parameter tree -> the port's serving
+    parameters (per-layer blocks)."""
     return unstack_blocks(_tree(tree, torch.device(device)))
+
+
+def train_params_from_numpy(tree: dict, device: str | torch.device) -> Any:
+    """Reference-shaped numpy parameter tree -> the port's training
+    parameters: the same stacked layout, every leaf requiring grad."""
+    return _tree(tree, torch.device(device), requires_grad=True)
 
 
 def cache_from_numpy(cache: dict, device: str | torch.device) -> dict:

@@ -1,0 +1,288 @@
+"""DP optimization: Algorithm 1 (adaptive per-layer DP-SGD), single device.
+
+The counterpart of the single-device part of `repro.core.dp_sgd`. It wires
+together the clipping driver (core.clipping), the private quantile
+tracker (core.quantile), noise allocation (core.noise), RDP accounting
+with the Prop 3.1 budget split (core.accounting) and a first-order
+optimizer (repro_torch.optim). All accounting happens once, in Python
+floats, when the step is built (`build_plan`).
+
+Randomness: the step of index s with seed `seed` draws the noise of each
+parameter leaf from its own `torch.Generator`, seeded from (seed, s,
+stable_hash(leaf path)), after the same static crc32 collision check as
+the reference, and the count noise from a generator seeded from
+(seed, s). Torch's Philox is not JAX's threefry, so the draws differ from
+the reference's; `standard_normal` is the one place they are made, and a
+test substitutes the reference's draws there.
+
+Microbatches, the mesh (sharded execution) and DP-LoRA are not ported
+yet (ROADMAP A.3, A.13, A.10).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import accounting
+from repro_torch.core import noise as noise_lib
+from repro_torch.core.clipping import LossFn, check_mode, dp_clipped_gradients
+from repro_torch.core.quantile import (QuantileState, clip_counts,
+                                       init_quantile_state,
+                                       update_thresholds)
+from repro_torch.core.spec import (GroupLayout, SpecTree, _walk, stable_hash,
+                                   tree_leaves)
+from repro_torch.kernels import backend as ghost_backend
+from repro_torch.optim.optimizers import slices
+
+
+@dataclasses.dataclass(frozen=True)
+class DPConfig:
+    """Configuration of the private learning run (the reference's fields
+    that the single-device per_layer / non_private step reads).
+
+    * `mode` (`--clipping`): `per_layer` or `non_private`.
+    * Privacy budget: `epsilon` (target, calibrated over `steps` steps at
+      Poisson `sampling_rate` = B/N and `delta`), or `sigma` directly.
+    * Thresholds: `adaptive` tracks the `target_quantile` of per-example
+      norms with rate `quantile_lr`, spending `quantile_budget_fraction`
+      of the budget on the clip counts (Prop 3.1); `init_threshold` is
+      C(0), or the fixed C when not adaptive. `threshold_rescale` is the
+      Appendix A.1 global rescale.
+    * `noise_strategy`: global | equal_budget | weighted (Sec. 3.3).
+    * `backend` (`--backend`): the ghost-op engine, `kernels` or `plain`
+      (`repro_torch.kernels.backend`), scoped around the step.
+    """
+
+    mode: str = "per_layer"
+    epsilon: float | None = 8.0
+    delta: float = 1e-5
+    sampling_rate: float = 0.01  # rho = B / N (Poisson subsampling)
+    steps: int = 1000  # T, for accounting
+    sigma: float | None = None  # noise multiplier (skips calibration)
+    adaptive: bool = True
+    init_threshold: float = 1.0
+    target_quantile: float = 0.5
+    quantile_lr: float = 0.3
+    quantile_budget_fraction: float = 0.01
+    noise_strategy: str = "global"
+    threshold_rescale: float | None = None
+    backend: str = "kernels"
+
+    @property
+    def private(self) -> bool:
+        return self.mode != "non_private"
+
+
+class DPState(NamedTuple):
+    qstate: QuantileState  # K adaptive thresholds
+    step: int
+
+
+class StepMetrics(NamedTuple):
+    """Device scalars: reading one waits for the step."""
+
+    loss: torch.Tensor
+    clip_fraction: torch.Tensor  # mean over groups of the fraction clipped
+    mean_threshold: torch.Tensor
+    grad_norm: torch.Tensor  # norm of the (noised, averaged) update
+
+
+@dataclasses.dataclass(frozen=True)
+class DPPlan:
+    """Everything precomputed at build time (Python floats, accounting)."""
+
+    config: DPConfig
+    num_noise_groups: int  # K for per_layer, 0 for non_private
+    sigma: float  # total-budget noise multiplier (no quantile split)
+    sigma_b: float  # clip-count noise multiplier (0 if not adaptive)
+    sigma_new: float  # gradient noise multiplier after the Prop 3.1 split
+    group_dims: np.ndarray  # (num_noise_groups,) parameter counts
+    sens_mults: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.float32))
+
+
+def build_plan(cfg: DPConfig, layout: GroupLayout) -> DPPlan:
+    check_mode(cfg.mode)
+    if not cfg.private:
+        return DPPlan(cfg, 0, 0.0, 0.0, 0.0, np.zeros(0, np.int64))
+    num_groups = layout.num_groups
+    if cfg.sigma is not None:
+        sigma = float(cfg.sigma)
+    else:
+        if cfg.epsilon is None:
+            raise ValueError("need epsilon or sigma")
+        sigma = accounting.calibrate_sigma(
+            target_eps=cfg.epsilon, sampling_rate=cfg.sampling_rate,
+            steps=cfg.steps, delta=cfg.delta)
+    if cfg.adaptive:
+        sigma_b = accounting.sigma_b_for_fraction(
+            sigma, num_groups, cfg.quantile_budget_fraction)
+        sigma_new = accounting.split_noise_multiplier(
+            sigma, sigma_b, num_groups).sigma_new
+    else:
+        sigma_b, sigma_new = 0.0, sigma
+    return DPPlan(cfg, num_groups, sigma, sigma_b, sigma_new, layout.dims,
+                  layout.sens_mults)
+
+
+def init_dp_state(plan: DPPlan, device: str | torch.device = "cpu"
+                  ) -> DPState:
+    cfg = plan.config
+    k = max(plan.num_noise_groups, 1)
+    qstate = init_quantile_state(
+        np.full((k,), cfg.init_threshold, np.float32),
+        target_quantile=cfg.target_quantile, lr=cfg.quantile_lr,
+        sigma_b=plan.sigma_b if cfg.adaptive else 0.0, device=device)
+    return DPState(qstate=qstate, step=0)
+
+
+# ---------------------------------------------------------------------------
+# Randomness and noise application.
+# ---------------------------------------------------------------------------
+
+
+def _seed(*parts) -> int:
+    """A 63-bit generator seed from integers, the same in every process."""
+    digest = hashlib.sha256(repr(parts).encode()).digest()
+    return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
+
+
+def generator(device, *parts) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(_seed(*parts))
+
+
+def standard_normal(path: str, shape: tuple[int, ...], rows: slice,
+                    gen: torch.Generator) -> torch.Tensor:
+    """float32 N(0, 1) draws for rows `rows` of leaf `path` (the leaf's
+    whole shape when it is not sliced), taken in order from the leaf's
+    own generator `gen`. The one place noise is drawn: a test replaces it
+    to feed in the reference's draws."""
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def add_noise_to_grads(spec: SpecTree, layout: GroupLayout, grads: Any,
+                       stds: torch.Tensor, seed: int, step: int) -> Any:
+    """grads + N(0, std_k²) IN PLACE, with the std of each leaf's group
+    (per stack element for stacked leaves); stds: (K,) per layout group.
+    Each leaf draws from its own generator, (seed, step, stable_hash(
+    path)); a large leaf is drawn and added slice by slice along its
+    first axis. Returns `grads`."""
+    for path, _ in _walk(spec):
+        g = grads
+        for k in path:
+            g = g[k]
+        grp = layout.group_of_leaf(path)
+        name = "/".join(path)
+        std = stds[grp.offset: grp.offset + grp.count]
+        gen = generator(g.device, seed, step, stable_hash(name))
+        start = 0
+        for part in slices(g):
+            rows = slice(start, start + (part.shape[0] if g.dim() else 1))
+            z = standard_normal(name, tuple(part.shape), rows, gen)
+            if grp.stack_shape:  # per-layer std along the stack axis
+                s = std[rows].reshape((-1,) + (1,) * (part.dim() - 1))
+            else:
+                s = std.reshape(())
+            part.copy_((part.float() + z * s).to(part.dtype))
+            start = rows.stop
+    return grads
+
+
+def _layout_stds(plan: DPPlan, thresholds: torch.Tensor) -> torch.Tensor:
+    """Per-layout-group noise stds (per_layer: one noise group each)."""
+    cfg = plan.config
+    dims = torch.as_tensor(plan.group_dims, dtype=torch.float32,
+                           device=thresholds.device)
+    mults = torch.as_tensor(plan.sens_mults, dtype=torch.float32,
+                            device=thresholds.device)
+    return noise_lib.group_noise_stds(cfg.noise_strategy, thresholds * mults,
+                                      dims, plan.sigma_new)
+
+
+def _effective_thresholds(cfg: DPConfig, plan: DPPlan, dp_state: DPState):
+    """Tracked thresholds, with the Appendix-A.1 global rescale applied."""
+    thresholds = dp_state.qstate.thresholds
+    if cfg.threshold_rescale is not None and plan.num_noise_groups > 1:
+        thresholds = (cfg.threshold_rescale * thresholds
+                      / torch.sqrt(torch.sum(thresholds ** 2) + 1e-20))
+    return thresholds
+
+
+def _grad_norm(grads) -> torch.Tensor:
+    total = None
+    for _, g in tree_leaves(grads):
+        for part in slices(g):
+            s = torch.sum(torch.square(part.float()))
+            total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _apply_update(cfg: DPConfig, optimizer, batch_size, params, opt_state,
+                  dp_state, noised, counts, thresholds, loss, count_gen):
+    """Post-clipping tail: gradient averaging, the optimizer update (in
+    place on `params`), the private quantile update, metrics. `noised`
+    is the (noised) SUMMED clipped gradient, averaged here in place."""
+    for _, g in tree_leaves(noised):
+        g.div_(batch_size)
+    new_opt_state = optimizer.update(noised, opt_state, params)
+    qstate = dp_state.qstate
+    if cfg.private and cfg.adaptive:
+        qstate = update_thresholds(qstate, counts, batch_size, count_gen)
+    metrics = StepMetrics(
+        loss=loss,
+        clip_fraction=1.0 - torch.mean(counts) / batch_size,
+        mean_threshold=torch.mean(thresholds),
+        grad_norm=_grad_norm(noised))
+    return params, new_opt_state, DPState(qstate, dp_state.step + 1), metrics
+
+
+def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
+                       optimizer: Any, cfg: DPConfig, *, batch_size: int
+                       ) -> tuple[Callable, Callable, DPPlan]:
+    """Build the private training step. Returns (init_fn, step_fn, plan).
+
+    init_fn(params) -> (opt_state, dp_state)
+    step_fn(params, opt_state, dp_state, batch, seed)
+        -> (params, opt_state, dp_state, StepMetrics)
+
+    params is the reference-layout tree of leaves with `requires_grad`;
+    step_fn updates it IN PLACE and returns it. Accounting (sigma
+    calibration, the Prop 3.1 split) happens here, once. Refuses a spec
+    whose leaf paths crc32-collide into one noise stream."""
+    if cfg.private:
+        noise_lib.check_leaf_key_collisions(
+            ["/".join(p) for p, _ in _walk(spec)])
+    plan = build_plan(cfg, layout)
+
+    def init_fn(params):
+        dev = next(t for _, t in tree_leaves(params)).device
+        return optimizer.init(params), init_dp_state(plan, dev)
+
+    def step_fn(params, opt_state, dp_state, batch, seed: int):
+        with ghost_backend.scoped(cfg.backend):
+            thresholds = _effective_thresholds(cfg, plan, dp_state)
+            if cfg.mode == "non_private":
+                res = dp_clipped_gradients(loss_fn, params, batch, layout,
+                                           mode="non_private",
+                                           batch_size=batch_size)
+                noised, counts = res.grads, torch.zeros_like(thresholds)
+            else:
+                res = dp_clipped_gradients(loss_fn, params, batch, layout,
+                                           mode="per_layer",
+                                           batch_size=batch_size,
+                                           thresholds=thresholds)
+                counts = clip_counts(res.norms_sq, thresholds)
+                noised = add_noise_to_grads(
+                    spec, layout, res.grads, _layout_stds(plan, thresholds),
+                    seed, dp_state.step)
+            count_gen = generator(thresholds.device, seed, dp_state.step)
+            return _apply_update(cfg, optimizer, batch_size, params,
+                                 opt_state, dp_state, noised, counts,
+                                 thresholds, res.loss, count_gen)
+
+    return init_fn, step_fn, plan

@@ -1,0 +1,198 @@
+"""Per-example gradient norms WITHOUT materializing per-example gradients.
+
+The counterpart of `repro.core.ghost`: the plain PyTorch paths of the
+paper's fused per-layer clipping (Sec. 3.1), built on the ghost-norm
+identity. For a linear layer y = x @ W with per-example activations
+A_i (T x d_in) and output cotangents G_i (T x d_out),
+
+    || A_i^T G_i ||_F^2  =  < A_i A_i^T ,  G_i G_i^T >        (gram path)
+
+costs O(T^2 (d_in + d_out)) and never forms the (d_in x d_out) per-example
+matrix; when T^2 > d_in * d_out the outer path (materialize the
+per-example grad transiently) is cheaper, and `linear_norms_sq` picks by
+the same cost model and memory cap as the reference. Every norm and every
+clipped sum accumulates in float32.
+
+The blocked (per-shard) functions wait for ROADMAP A.13. The policy knobs
+(`outer_max_elems`, `gram_chunk`) are arguments with the reference's
+defaults; the reference's module-global `configure()` is not ported: the
+engine (`repro_torch.kernels.backend`) carries them per scope.
+"""
+from __future__ import annotations
+
+import torch
+
+ACC_DTYPE = torch.float32
+
+DEFAULT_OUTER_MAX_ELEMS = 1 << 22  # per-example materialized grad cap
+DEFAULT_GRAM_CHUNK = 1024  # row-block size for the chunked gram path
+
+_EPS = 1e-12
+
+
+def _as3d(x: torch.Tensor) -> torch.Tensor:
+    """(B, d) -> (B, 1, d); (B, T, d) unchanged; higher ranks folded into T."""
+    if x.dim() == 2:
+        return x[:, None, :]
+    if x.dim() == 3:
+        return x
+    return x.reshape(x.shape[0], -1, x.shape[-1])
+
+
+def gram_path_cost(t: int, din: int, dout: int) -> int:
+    return t * t * (din + dout + 1)
+
+
+def outer_path_cost(t: int, din: int, dout: int) -> int:
+    return t * din * dout + din * dout
+
+
+def clip_factor(c: torch.Tensor, norms_sq: torch.Tensor) -> torch.Tensor:
+    """Per-example clip factor from encoded thresholds (f32):
+
+        c > 0     -> min(1, c / ||g_i||)   (clip to threshold)
+        c == +inf -> 1                     (no clipping)
+        c < 0     -> |c|                   (direct scale, two-pass modes)
+    """
+    c = c.float()
+    n = norms_sq.float()
+    clipped = torch.clamp(c * torch.rsqrt(n + _EPS), max=1.0)
+    factor = torch.where(torch.isinf(c), torch.ones_like(c), clipped)
+    return torch.where(c < 0, -c, factor)
+
+
+def factor_without_norms(c: torch.Tensor) -> torch.Tensor:
+    """The factor of encodings that do not read the norm: 1 for +inf, |c|
+    for c < 0. A finite c > 0 needs norms: it gives NaN here, so a caller
+    that skipped the norms for one poisons its gradient visibly instead of
+    skipping the clip (checked on the device, without a host sync)."""
+    c = c.float()
+    nan = torch.full_like(c, float("nan"))
+    factor = torch.where(torch.isinf(c) & (c > 0), torch.ones_like(c), nan)
+    return torch.where(c < 0, -c, factor)
+
+
+def linear_norms_sq(a: torch.Tensor, g: torch.Tensor, *,
+                    force_path: str | None = None,
+                    outer_max_elems: int | None = None,
+                    gram_chunk: int | None = None) -> torch.Tensor:
+    """(B,) squared Frobenius norms of per-example grads A_i^T G_i.
+
+    a: (B, T, d_in) or (B, d_in); g: (B, T, d_out) or (B, d_out).
+    force_path: 'gram' | 'gram_chunked' | 'outer' | None (auto: the
+    cheaper of gram and outer by flops, outer only while d_in * d_out <=
+    outer_max_elems, gram chunked into (B, chunk, T) row blocks when
+    T > gram_chunk)."""
+    outer_cap = (DEFAULT_OUTER_MAX_ELEMS if outer_max_elems is None
+                 else outer_max_elems)
+    chunk = DEFAULT_GRAM_CHUNK if gram_chunk is None else gram_chunk
+    a3, g3 = _as3d(a).to(ACC_DTYPE), _as3d(g).to(ACC_DTYPE)
+    b, t, din = a3.shape
+    dout = g3.shape[-1]
+    if t == 1:
+        # rank-1: ||a_i g_i^T||_F^2 = ||a_i||^2 ||g_i||^2
+        return (torch.sum(a3 * a3, dim=(1, 2))
+                * torch.sum(g3 * g3, dim=(1, 2)))
+    path = force_path
+    if path is None:
+        outer_ok = din * dout <= outer_cap
+        if outer_ok and (outer_path_cost(t, din, dout)
+                         < gram_path_cost(t, din, dout)):
+            path = "outer"
+        elif t > chunk:
+            path = "gram_chunked"
+        else:
+            path = "gram"
+    if path == "gram":
+        gram_a = torch.einsum("bti,bsi->bts", a3, a3)
+        gram_g = torch.einsum("bto,bso->bts", g3, g3)
+        return torch.sum(gram_a * gram_g, dim=(1, 2))
+    if path == "gram_chunked":
+        acc = torch.zeros((b,), dtype=ACC_DTYPE, device=a3.device)
+        for s in range(0, t, chunk):  # zero padding contributes nothing
+            ga = torch.einsum("bci,bti->bct", a3[:, s:s + chunk], a3)
+            gg = torch.einsum("bco,bto->bct", g3[:, s:s + chunk], g3)
+            acc = acc + torch.sum(ga * gg, dim=(1, 2))
+        return acc
+    if path == "outer":
+        pg = torch.einsum("bti,bto->bio", a3, g3)
+        return torch.sum(pg * pg, dim=(1, 2))
+    raise ValueError(f"unknown path {path!r}")
+
+
+def bias_norms_sq(g: torch.Tensor) -> torch.Tensor:
+    """(B,) squared norms of per-example bias grads sum_t g_t."""
+    s = torch.sum(_as3d(g).to(ACC_DTYPE), dim=1)
+    return torch.sum(s * s, dim=-1)
+
+
+def embed_norms_sq(ids: torch.Tensor, g: torch.Tensor, *,
+                   gram_chunk: int | None = None) -> torch.Tensor:
+    """(B,) squared norms of per-example embedding grads (collision-exact).
+
+    Repeated tokens within an example add into one table row, so
+
+        ||grad_i||^2 = sum_{t,t'} 1[ids_t == ids_t'] <g_t, g_t'>.
+    """
+    chunk = DEFAULT_GRAM_CHUNK if gram_chunk is None else gram_chunk
+    ids2 = ids.reshape(ids.shape[0], -1)
+    g3 = _as3d(g).to(ACC_DTYPE)
+    b, t, _ = g3.shape
+    if t <= chunk:
+        eq = (ids2[:, :, None] == ids2[:, None, :]).to(ACC_DTYPE)
+        gram_g = torch.einsum("btd,bsd->bts", g3, g3)
+        return torch.sum(eq * gram_g, dim=(1, 2))
+    acc = torch.zeros((b,), dtype=ACC_DTYPE, device=g3.device)
+    for s in range(0, t, chunk):  # row blocks against the full sequence
+        gram = torch.einsum("bcd,btd->bct", g3[:, s:s + chunk], g3)
+        eq = (ids2[:, s:s + chunk, None] == ids2[:, None, :]).to(ACC_DTYPE)
+        acc = acc + torch.sum(gram * eq, dim=(1, 2))
+    return acc
+
+
+def scale_norms_sq(xhat: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(B,) squared norms for an elementwise-scale parameter y = s * xhat:
+    the per-example grad sum_t (g ⊙ xhat)_t is a (d,)-vector."""
+    s = torch.sum(_as3d(g * xhat).to(ACC_DTYPE), dim=1)
+    return torch.sum(s * s, dim=-1)
+
+
+def vector_norms_sq(per_example_grad: torch.Tensor) -> torch.Tensor:
+    """(B,) norms² of grads already materialized per example (B, ...)."""
+    g = per_example_grad.to(ACC_DTYPE)
+    return torch.sum(g * g, dim=tuple(range(1, g.dim())))
+
+
+# ---------------------------------------------------------------------------
+# Fused clipped sums (f32: a bf16 factor or sum could let a clipped
+# contribution exceed the sensitivity bound; callers cast the result).
+# ---------------------------------------------------------------------------
+
+
+def clipped_sum_linear(a: torch.Tensor, g: torch.Tensor,
+                       factors: torch.Tensor) -> torch.Tensor:
+    """sum_i c_i A_i^T G_i as one scaled f32 contraction. factors: (B,)."""
+    a3, g3 = _as3d(a).to(ACC_DTYPE), _as3d(g).to(ACC_DTYPE)
+    gs = g3 * factors[:, None, None].to(ACC_DTYPE)
+    return torch.einsum("bti,bto->io", a3, gs)
+
+
+def clipped_sum_bias(g: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    g3 = _as3d(g).to(ACC_DTYPE)
+    return torch.einsum("bto,b->o", g3, factors.to(ACC_DTYPE))
+
+
+def clipped_sum_embed(ids: torch.Tensor, g: torch.Tensor,
+                      factors: torch.Tensor, vocab: int) -> torch.Tensor:
+    ids2 = ids.reshape(ids.shape[0], -1)
+    g3 = _as3d(g).to(ACC_DTYPE)
+    gs = (g3 * factors[:, None, None].to(ACC_DTYPE)).reshape(-1, g3.shape[-1])
+    out = torch.zeros((vocab, g3.shape[-1]), dtype=ACC_DTYPE,
+                      device=g3.device)
+    return out.index_add_(0, ids2.reshape(-1).long(), gs)
+
+
+def clipped_sum_scale(xhat: torch.Tensor, g: torch.Tensor,
+                      factors: torch.Tensor) -> torch.Tensor:
+    gx = _as3d(g * xhat).to(ACC_DTYPE)
+    return torch.einsum("btd,b->d", gx, factors.to(ACC_DTYPE))

@@ -1,0 +1,179 @@
+"""Ghost-op backend engine: pluggable dispatch for the fused-clipping ops.
+
+The counterpart of `repro.kernels.backend`. Every backward of the DP
+primitives (`repro_torch.core.dp_layers`) resolves its ghost ops through
+the engine returned by `active()`. Two backends are registered:
+
+  plain    the plain PyTorch paths of `repro_torch.core.ghost` (gram /
+           gram_chunked / outer by the cost model); the counterpart of the
+           reference's `xla` backend and the oracle of the other.
+  kernels  the hand-written Hopper kernels for the linear-layer hot path
+           (`kernels/ghost_norm.py`, `kernels/clip_reduce.py`); the
+           counterpart of `pallas`. Each wrapper runs its plain version
+           for a CPU tensor and its CUDA kernel for a CUDA tensor. Ops
+           with no kernel inherit the plain implementations, as
+           `PallasBackend` inherits the xla ones.
+
+Backend selection matrix (op x backend):
+
+  op                        plain                  kernels (CPU tensor)
+  ------------------------- ---------------------- --------------------------
+  linear_norms_sq           gram/outer/chunked     ghost_norm (ghost_norm_ref)
+  clipped_sum_linear        einsum                 clip_reduce (clip_reduce_ref)
+  linear_clip (norm+clip)   composed               composed: ghost_norm, then
+                                                   clip_reduce
+  bias/embed/scale/vector   einsum/index_add       = plain (no kernel)
+  clipped_sum_bias/embed/.. einsum/index_add       = plain (no kernel)
+
+`linear_clip` always composes the two kernels: the reference's fused
+single-kernel route (`fused_norm_clip`) needs the whole (din, dout) f32
+accumulator on chip and never fits a qwen3-4b linear (ROADMAP B.3), and
+`auto` with its autotune table waits for ROADMAP A.11.
+
+The engine is SCOPED: `with backend.scoped("kernels"): ...` pushes an
+engine for the dynamic extent of the block (a `contextvars` stack, so
+threads and tasks each see their own); outside any scope it is `plain`.
+The reference's tunables (outer-path cap, gram chunk, tile sizes) stay at
+their defaults here: no caller of the port sets them.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+from repro_torch.core import ghost
+from repro_torch.core.ghost import clip_factor, factor_without_norms
+from repro_torch.kernels import clip_reduce as clip_reduce_mod
+from repro_torch.kernels import ghost_norm as ghost_norm_mod
+
+__all__ = [
+    "Backend", "PlainBackend", "KernelsBackend", "register_backend",
+    "backends", "make_engine", "active", "scoped", "clip_factor",
+]
+
+_REGISTRY: dict[str, type["Backend"]] = {}
+
+
+def register_backend(name: str):
+    """Class decorator: register a Backend under `name`."""
+
+    def deco(cls):
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def backends() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+class Backend:
+    """The full ghost-op surface. Base implementations are the plain
+    paths; subclasses override the ops they run as kernels."""
+
+    name = "base"
+
+    # -- norms² ------------------------------------------------------------
+    def linear_norms_sq(self, a, g):
+        return ghost.linear_norms_sq(a, g)
+
+    def bias_norms_sq(self, g):
+        return ghost.bias_norms_sq(g)
+
+    def embed_norms_sq(self, ids, g):
+        return ghost.embed_norms_sq(ids, g)
+
+    def scale_norms_sq(self, xhat, g):
+        return ghost.scale_norms_sq(xhat, g)
+
+    def vector_norms_sq(self, per_example_grad):
+        return ghost.vector_norms_sq(per_example_grad)
+
+    # -- fused clipped sums ------------------------------------------------
+    def clipped_sum_linear(self, a, g, factors):
+        return ghost.clipped_sum_linear(a, g, factors)
+
+    def clipped_sum_bias(self, g, factors):
+        return ghost.clipped_sum_bias(g, factors)
+
+    def clipped_sum_embed(self, ids, g, factors, vocab):
+        return ghost.clipped_sum_embed(ids, g, factors, vocab)
+
+    def clipped_sum_scale(self, xhat, g, factors):
+        return ghost.clipped_sum_scale(xhat, g, factors)
+
+    # -- norm + clip + reduce ----------------------------------------------
+    def linear_clip(self, a, g, c, extra_norms_sq=None, *, norms=True):
+        """One linear layer's whole backward clip: (n_total, f, dW).
+
+        n_total includes `extra_norms_sq` (co-grouped params, e.g. bias);
+        f = clip_factor(c, n_total); dW = sum_i f_i A_iᵀ G_i in f32. With
+        `norms=False` (no threshold gradient was asked for) the norms are
+        skipped and n_total is None: f comes from `factor_without_norms`,
+        so `c` must be +inf or a direct scale.
+        """
+        if not norms:
+            f = factor_without_norms(c)
+            return None, f, self.clipped_sum_linear(a, g, f)
+        n = self.linear_norms_sq(a, g)
+        if extra_norms_sq is not None:
+            n = n + extra_norms_sq
+        f = clip_factor(c, n)
+        return n, f, self.clipped_sum_linear(a, g, f)
+
+
+@register_backend("plain")
+class PlainBackend(Backend):
+    """Plain PyTorch paths (repro_torch.core.ghost): the oracle."""
+
+
+@register_backend("kernels")
+class KernelsBackend(Backend):
+    """The ghost_norm and clip_reduce kernels for the linear hot path;
+    the plain paths for the cheap ops (bias/embed/scale/vector)."""
+
+    def linear_norms_sq(self, a, g):
+        a3, g3 = ghost._as3d(a), ghost._as3d(g)
+        return ghost_norm_mod.ghost_norm(a3.contiguous(), g3.contiguous())
+
+    def clipped_sum_linear(self, a, g, factors):
+        a3, g3 = ghost._as3d(a), ghost._as3d(g)
+        return clip_reduce_mod.clip_reduce(
+            a3.contiguous(), g3.contiguous(), factors.float().contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Scoped engine resolution.
+# ---------------------------------------------------------------------------
+
+_DEFAULT = PlainBackend()
+_STACK: contextvars.ContextVar[tuple[Backend, ...]] = contextvars.ContextVar(
+    "ghost_backend_stack", default=())
+
+
+def make_engine(backend: str) -> Backend:
+    """The registered backend named `backend`."""
+    try:
+        return _REGISTRY[backend]()
+    except KeyError:
+        raise ValueError(f"unknown ghost backend {backend!r}; "
+                         f"registered: {backends()}") from None
+
+
+def active() -> Backend:
+    """The engine in effect (innermost `scoped`, else `plain`)."""
+    stack = _STACK.get()
+    return stack[-1] if stack else _DEFAULT
+
+
+@contextlib.contextmanager
+def scoped(backend: str):
+    """Push the engine `backend` for the dynamic extent of the block."""
+    eng = make_engine(backend)
+    token = _STACK.set(_STACK.get() + (eng,))
+    try:
+        yield eng
+    finally:
+        _STACK.reset(token)

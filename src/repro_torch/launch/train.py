@@ -1,0 +1,164 @@
+"""Training CLI: DP-SGD with adaptive per-layer clipping (Algorithm 1).
+
+The counterpart of `repro.launch.train` for one device. The parser has
+only the flags the port runs; a flag of the reference that is not ported
+yet (mesh, microbatches, LoRA, checkpoints, the flat and group clipping
+modes) fails in argparse.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+      --clipping per_layer --epsilon 8 --steps 4 --batch 8 --seq 256 \\
+      --docs 64 --optimizer adam
+
+Add `--device cpu` (and `--reduced`, or `--arch tiny`) to run without a
+GPU. `--backend kernels` (the default) runs the linear layers' norms and
+clipped sums through the hand-written kernels (their plain versions on
+the CPU); `--backend plain` through the plain PyTorch paths.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import optim
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.accounting import compute_epsilon
+from repro_torch.core.dp_sgd import DPConfig, make_dp_train_step
+from repro_torch.core.spec import tree_leaves
+from repro_torch.data import (PoissonSampler, SyntheticLM, make_lm_batch,
+                              pack_documents)
+from repro_torch.models.transformer import build_model
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tiny", choices=ARCH_IDS)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--clipping", default="per_layer",
+                    choices=["per_layer", "non_private"])
+    ap.add_argument("--epsilon", type=float, default=8.0)
+    ap.add_argument("--delta", type=float, default=1e-5)
+    ap.add_argument("--sigma", type=float, default=None)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--docs", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--optimizer", default="adam",
+                    choices=["adam", "adamw", "sgd"])
+    ap.add_argument("--fixed-thresholds", action="store_true")
+    ap.add_argument("--init-threshold", type=float, default=1.0)
+    ap.add_argument("--quantile", type=float, default=0.5)
+    ap.add_argument("--quantile-budget", type=float, default=0.01)
+    ap.add_argument("--noise-strategy", default="global",
+                    choices=["global", "equal_budget", "weighted"])
+    ap.add_argument("--backend", default="kernels",
+                    choices=["kernels", "plain"],
+                    help="ghost-op engine (repro_torch.kernels.backend): "
+                         "the hand-written kernels, or the plain PyTorch "
+                         "paths")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the model trains (cuda unless asked)")
+    return ap
+
+
+class Trainer:
+    """One training run, built from the CLI's arguments: the model, its
+    parameters (random, from --seed, on --device), the data stream, the
+    DP plan and the step. `step()` runs one optimizer step."""
+
+    def __init__(self, args: argparse.Namespace):
+        self.args = args
+        self.cfg = get_config(args.arch, reduced=args.reduced)
+        self.model = build_model(self.cfg, device=args.device)
+        self.device = torch.device(args.device)
+        src = SyntheticLM(vocab_size=self.cfg.vocab_size,
+                          num_docs=args.docs, doc_len=args.seq * 2, seed=0)
+        self.rows = pack_documents(src.documents(), args.seq)
+        rate = args.batch / self.rows.shape[0]
+        self.sampler = PoissonSampler(num_examples=self.rows.shape[0],
+                                      rate=rate, max_batch=args.batch,
+                                      seed=1)
+        dpc = DPConfig(
+            mode=args.clipping,
+            epsilon=args.epsilon if args.sigma is None else None,
+            sigma=args.sigma, delta=args.delta, sampling_rate=rate,
+            steps=args.steps, adaptive=not args.fixed_thresholds,
+            init_threshold=args.init_threshold,
+            target_quantile=args.quantile,
+            quantile_budget_fraction=args.quantile_budget,
+            noise_strategy=args.noise_strategy, backend=args.backend)
+        sched = optim.linear_decay(args.lr, args.steps,
+                                   warmup_steps=args.steps // 20)
+        if args.optimizer == "adam":
+            opt = optim.adam(sched)
+        elif args.optimizer == "adamw":
+            opt = optim.adamw(sched)
+        else:
+            opt = optim.sgd(sched, momentum=0.9)
+        init_fn, self.step_fn, self.plan = make_dp_train_step(
+            self.model.loss_fn, self.model.spec, self.model.layout, opt, dpc,
+            batch_size=args.batch)
+        gen = torch.Generator(device=self.device).manual_seed(args.seed)
+        self.params = self.model.init_train_params(gen)
+        for _, leaf in tree_leaves(self.params):
+            leaf.requires_grad_()
+        self.opt_state, self.dp_state = init_fn(self.params)
+        self.step_seed = args.seed + 1
+
+    def next_batch(self) -> dict[str, torch.Tensor]:
+        idx = self.sampler.next_indices()
+        batch = make_lm_batch(self.rows, idx, self.args.batch)
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in batch.items()}
+
+    def step(self):
+        """One step on the next Poisson batch; returns its StepMetrics
+        (device scalars)."""
+        (self.params, self.opt_state, self.dp_state, met) = self.step_fn(
+            self.params, self.opt_state, self.dp_state, self.next_batch(),
+            self.step_seed)
+        return met
+
+    def header(self) -> str:
+        p = self.plan
+        return (f"# arch={self.cfg.name} params={self.model.num_params:,} "
+                f"groups={self.model.layout.num_groups} "
+                f"mode={p.config.mode} backend={p.config.backend} "
+                f"device={self.args.device} sigma={p.sigma:.3f} "
+                f"sigma_new={p.sigma_new:.3f} sigma_b={p.sigma_b:.3f}")
+
+
+def step_line(i: int, met) -> str:
+    return (f"step {i:5d} loss {float(met.loss):.4f} "
+            f"clip_frac {float(met.clip_fraction):.3f} "
+            f"thr {float(met.mean_threshold):.4f} "
+            f"gnorm {float(met.grad_norm):.4f}")
+
+
+def main(argv=None) -> int:
+    args = build_train_parser().parse_args(argv)
+    trainer = Trainer(args)
+    print(trainer.header(), flush=True)
+    t_start = time.time()
+    for i in range(args.steps):
+        met = trainer.step()
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(step_line(i, met), flush=True)
+    wall = time.time() - t_start
+    plan = trainer.plan
+    if plan.config.private and args.steps:
+        eps = compute_epsilon(sigma=plan.sigma,
+                              sampling_rate=plan.config.sampling_rate,
+                              steps=args.steps, delta=args.delta)
+        print(f"# spent epsilon={eps:.3f} (delta={args.delta}) "
+              f"in {args.steps} steps, {wall:.1f}s "
+              f"({wall / args.steps * 1e3:.1f} ms/step)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,9 +1,15 @@
-"""GQA attention for paged decode: the counterpart of the paged branch of
-`repro.models.attention`.
+"""GQA attention: the counterpart of `repro.models.attention` for the
+dense family.
 
-The pools are updated IN PLACE (`index_put_`): the reference returns new
-pools from a functional scatter, the port writes one row per slot into
-the existing tensor and saves a copy of the whole pool on every step.
+* Training: `attend`'s single-shot branch (f32 scores, masked softmax) and
+  `gqa_attention`, whose projections and q/k norms are DP primitives.
+  The reference's attention is plain XLA, so plain torch (einsum,
+  softmax, autograd) is its port; the double-blocked online-softmax
+  branch for T * S > 2048² is not ported yet (ROADMAP A.3).
+* Paged decode: `gqa_decode_paged` through the `paged_attn` kernel. The
+  pools are updated IN PLACE (`index_put_`): the reference returns new
+  pools from a functional scatter, the port writes one row per slot into
+  the existing tensor and saves a copy of the whole pool on every step.
 """
 from __future__ import annotations
 
@@ -11,9 +17,46 @@ import math
 
 import torch
 
+from repro_torch.core import dp_layers as dpl
 from repro_torch.kernels import paged_attn as K
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+
+
+_SINGLE_SHOT_MAX = 2048 * 2048  # T*S above this -> the blocked branch
+NEG_INF = -1e30
+INVALID_POS = 2**31 - 1 - 8  # kpos >= this => masked out
+
+
+def _mask(qpos, kpos, *, causal, window):
+    """(B, T, S) boolean validity mask."""
+    m = (kpos[:, None, :] < INVALID_POS).expand(
+        qpos.shape[0], qpos.shape[1], kpos.shape[1])
+    if causal:
+        m = m & (kpos[:, None, :] <= qpos[:, :, None])
+    if window is not None:
+        m = m & (kpos[:, None, :] > qpos[:, :, None] - window)
+    return m
+
+
+def attend(q, k, v, qpos, kpos, *, causal=True, window=None, scale=None):
+    """Grouped-query attention, the reference's single-shot branch.
+    q: (B, T, H, hd); k, v: (B, S, KV, hd); qpos (B, T), kpos (B, S)."""
+    b, t, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    if t * s > _SINGLE_SHOT_MAX:
+        raise NotImplementedError(
+            f"attention over T*S = {t}*{s} > 2048^2 takes the reference's "
+            "double-blocked branch, not ported yet: ROADMAP.md item A.3")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, t, kv, h // kv, hd) * scale
+    scores = torch.einsum("btkgd,bskd->btkgs", qg.float(), k.float())
+    m = _mask(qpos, kpos, causal=causal, window=window)
+    scores = scores.masked_fill(~m[:, :, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("btkgs,bskd->btkgd", w, v.float())
+    return out.reshape(b, t, h, dv).to(q.dtype)
 
 
 def gqa_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = ()) -> dict:
@@ -40,13 +83,38 @@ def _split_qkv(cfg, qkv):
             v.reshape(b, t, kvh, hd))
 
 
-def _qk_norm(cfg, params, q, k):
-    """Per-head RMSNorm: normalise in f32, cast, then scale (the reference
-    scales over the flattened heads, which broadcasts the same way)."""
+def _qk_norm(cfg, params, q, k, th=None):
+    """Per-head RMSNorm: normalise in f32, cast, then scale. With
+    thresholds the scale is `dp_scale` over the flattened (B, T*H, hd)
+    heads, as the reference; without, it broadcasts the same way."""
     if not cfg.qk_norm:
         return q, k
-    return (L.rmsnorm(params["q_norm"], q, eps=cfg.norm_eps),
-            L.rmsnorm(params["k_norm"], k, eps=cfg.norm_eps))
+    if th is None:
+        return (L.rmsnorm(params["q_norm"], q, eps=cfg.norm_eps),
+                L.rmsnorm(params["k_norm"], k, eps=cfg.norm_eps))
+
+    def apply(p, x, thx):
+        xh = L._normalize(x, cfg.norm_eps)
+        flat = xh.reshape(x.shape[0], -1, x.shape[-1])
+        return dpl.dp_scale(p["s"], flat, thx).reshape(x.shape)
+
+    return (apply(params["q_norm"], q, th["q_norm"]),
+            apply(params["k_norm"], k, th["k_norm"]))
+
+
+def gqa_attention(cfg: ModelConfig, params, x, th, positions, *,
+                  causal=True, window=None):
+    """Self-attention, training. x: (B, T, D); th: this block's
+    attention thresholds ({'qkv', 'o', 'q_norm', 'k_norm'}: (B,) each);
+    positions: (B, T)."""
+    qkv = L.linear(params["qkv"], x, th["qkv"])
+    q, k, v = _split_qkv(cfg, qkv)
+    q, k = _qk_norm(cfg, params, q, k, th)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    out = attend(q, k, v, positions, positions, causal=causal, window=window)
+    out = out.reshape(x.shape[0], x.shape[1], -1)
+    return L.linear(params["o"], out, th["o"])
 
 
 def _paged_write(pool, new, pt, pos, active):

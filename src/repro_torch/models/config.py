@@ -26,6 +26,10 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     dtype: torch.dtype = torch.float32
     norm_eps: float = 1e-5
+    # rematerialize each block in the training forward (activation
+    # checkpointing): backward keeps only block inputs and recomputes the
+    # rest, at about 1.33x the forward FLOPs
+    remat: bool = True
 
     @property
     def resolved_head_dim(self) -> int:

@@ -1,15 +1,19 @@
 """Shared building blocks: norms, linear, SwiGLU, rotary embeddings.
 
-Forward only: the DP primitives of `repro.core.dp_layers` become
-`torch.autograd.Function`s with the training slice. Every bf16 rounding
-point of the reference is mirrored: normalisation and silu run in f32 and
-cast back before the scale or the gate multiply, and RoPE angles are f32.
+`rmsnorm`, `linear` and `swiglu` take an optional `th`, this module's
+slice of the encoded-threshold dict. With it (training) every parameter
+goes through a DP primitive (`repro_torch.core.dp_layers`), so clipping is
+fused into backprop; without it (serving) they are the plain forward.
+Every bf16 rounding point of the reference is mirrored: normalisation and
+silu run in f32 and cast back before the scale or the gate multiply, and
+RoPE angles are f32.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dp_layers as dpl
 from repro_torch.core.spec import P
 
 
@@ -24,8 +28,10 @@ def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * torch.rsqrt(mu + eps)).to(x.dtype)
 
 
-def rmsnorm(params, x, *, eps: float = 1e-5):
-    return _normalize(x, eps) * params["s"]
+def rmsnorm(params, x, th=None, *, eps: float = 1e-5):
+    if th is None:
+        return _normalize(x, eps) * params["s"]
+    return dpl.dp_scale(params["s"], _normalize(x, eps), th)
 
 
 def linear_spec(din: int, dout: int, *, stack: tuple[int, ...] = (),
@@ -33,8 +39,10 @@ def linear_spec(din: int, dout: int, *, stack: tuple[int, ...] = (),
     return {"w": P(stack + (din, dout), dtype=dtype, stack=len(stack))}
 
 
-def linear(params, x):
-    return x @ params["w"]
+def linear(params, x, th=None):
+    if th is None:
+        return x @ params["w"]
+    return dpl.dp_linear(params["w"], params.get("b"), x, th)
 
 
 def swiglu_spec(d: int, f: int, *, stack: tuple[int, ...] = (),
@@ -45,11 +53,13 @@ def swiglu_spec(d: int, f: int, *, stack: tuple[int, ...] = (),
     }
 
 
-def swiglu(params, x, *, f: int):
-    gu = linear(params["gate_up"], x)
+def swiglu(params, x, th_prefix=None, *, f: int):
+    th = th_prefix if th_prefix is not None else {"gate_up": None,
+                                                  "down": None}
+    gu = linear(params["gate_up"], x, th["gate_up"])
     gate, up = gu[..., :f], gu[..., f:]
     h = F.silu(gate.float()).to(x.dtype) * up
-    return linear(params["down"], h)
+    return linear(params["down"], h, th["down"])
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

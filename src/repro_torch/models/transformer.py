@@ -1,17 +1,23 @@
 """Model assembly for the dense decoder family: the counterpart of
-`repro.models.transformer`, cut to what paged serving runs.
+`repro.models.transformer`, cut to what paged serving and DP training run.
 
     m = build_model(cfg)
+    # serving
     params = m.init_params(torch.Generator(device="cuda").manual_seed(0))
     cache = m.init_paged_cache(num_slots, cache_len, num_pages=..,
                                page_len=..)
     logits, cache = m.serve_step(params, cache, batch)   # one-token decode
+    # training
+    tparams = m.init_train_params(torch.Generator(device="cuda"))
+    losses = m.loss_fn(tparams, batch, th)                # (B,) per example
 
-Parameters are plain dicts keyed by the reference's spec paths, except
-that the stacked `dense_blocks` subtree (leaves (n_layers, ...) in the
-reference, scanned with `lax.scan`) becomes a list of per-layer dicts
-that a Python loop walks. The per-layer tensors are views of one stacked
-allocation, so nothing is copied.
+Parameters are plain dicts keyed by the reference's spec paths. Training
+keeps the reference's stacked layout, leaves (n_layers, ...) under
+`dense_blocks`, so gradients, noise and optimizer updates land leaf for
+leaf where the reference puts them; `loss_fn` splits the stack into
+per-layer views that a Python loop walks. Serving splits it once, at
+init (`unstack_blocks`). The views share the stacked allocation, so
+nothing is copied either way.
 """
 from __future__ import annotations
 
@@ -20,7 +26,9 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.core import dp_layers as dpl
 from repro_torch.core import spec as S
 from repro_torch.core.spec import P
 from repro_torch.models import attention as A
@@ -80,13 +88,20 @@ def _count(spec) -> int:
 class Model:
     cfg: ModelConfig
     spec: dict
+    layout: S.GroupLayout  # clipping groups of `spec`
+    loss_fn: Callable  # (stacked params, batch, th) -> (B,) losses
     serve_step: Callable  # (params, cache, batch) -> (logits, cache)
     init_paged_cache: Callable  # (slots, cache_len, *, num_pages, page_len)
     num_params: int
 
     def init_params(self, generator: torch.Generator) -> Any:
-        """Random parameters from `generator`, on its device."""
+        """Random serving parameters from `generator`, on its device."""
         return unstack_blocks(S.init_params(self.spec, generator))
+
+    def init_train_params(self, generator: torch.Generator) -> Any:
+        """Random training parameters (the reference's stacked layout)
+        from `generator`, on its device."""
+        return S.init_params(self.spec, generator)
 
     @staticmethod
     def cache_slot_axes(cache) -> dict:
@@ -104,8 +119,68 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
                            "available; pass device='cpu' to run on the CPU")
     spec = decoder_spec(cfg)
     serve_step, init_paged_cache = _make_decoder_serve(cfg, device)
-    return Model(cfg=cfg, spec=spec, serve_step=serve_step,
-                 init_paged_cache=init_paged_cache, num_params=_count(spec))
+    return Model(cfg=cfg, spec=spec, layout=S.GroupLayout(spec),
+                 loss_fn=_make_decoder_loss(cfg),
+                 serve_step=serve_step, init_paged_cache=init_paged_cache,
+                 num_params=_count(spec))
+
+
+# ---------------------------------------------------------------------------
+# Training forward.
+# ---------------------------------------------------------------------------
+
+
+def _apply_attn_block(cfg, params, x, th, positions):
+    """One block; th: this block's thresholds, (B,) per group."""
+    h = L.rmsnorm(params["attn_norm"], x, th["attn_norm"], eps=cfg.norm_eps)
+    x = x + A.gqa_attention(cfg, params["attn"], h, S.subth(th, "attn"),
+                            positions)
+    h = L.rmsnorm(params["mlp_norm"], x, th["mlp_norm"], eps=cfg.norm_eps)
+    return x + L.swiglu(params["mlp"], h, S.subth(th, "mlp"), f=cfg.d_ff)
+
+
+def _per_example_ce(logits, targets):
+    """(B,) mean CE over valid (target >= 0) positions, in f32."""
+    valid = targets >= 0
+    tsafe = torch.clamp(targets, min=0).long()
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    tok_ll = torch.gather(logits32, -1, tsafe[..., None])[..., 0]
+    ce = (lse - tok_ll) * valid
+    return torch.sum(ce, dim=-1) / torch.clamp(valid.sum(dim=-1), min=1)
+
+
+def _make_decoder_loss(cfg: ModelConfig):
+    def loss_fn(params, batch, th):
+        """Per-example losses (B,). params: the stacked (reference-layout)
+        tree; batch: {'tokens', 'targets' (-1 = ignore), optional
+        'positions'}, (B, T) each; th: {group name: stack + (B,)} encoded
+        thresholds (`GroupLayout.pack*`). Each block is rematerialized in
+        backward when `cfg.remat`."""
+        tokens = batch["tokens"]
+        bsz, t = tokens.shape
+        x = dpl.dp_embed(params["embed"]["w"], tokens, th["embed"])
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(t, device=tokens.device)[None].expand(
+                bsz, t)
+        rows = {k: v.unbind(0) for k, v in
+                S.subth(th, "dense_blocks").items()}
+        blocks = unstack_blocks(params)["dense_blocks"]
+        for layer, bp in enumerate(blocks):
+            bth = {k: r[layer] for k, r in rows.items()}
+            if cfg.remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _apply_attn_block, cfg, bp, x, bth, positions,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _apply_attn_block(cfg, bp, x, bth, positions)
+        x = L.rmsnorm(params["final_norm"], x, th["final_norm"],
+                      eps=cfg.norm_eps)
+        logits = dpl.dp_linear(params["head"]["w"], None, x, th["head"])
+        return _per_example_ce(logits, batch["targets"])
+
+    return loss_fn
 
 
 # ---------------------------------------------------------------------------

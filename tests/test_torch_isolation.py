@@ -36,7 +36,9 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 
 
 def test_port_package_is_scanned():
-    assert "src/repro_torch/kernels/paged_attn.py" in PORT_FILES
+    for name in ("kernels/paged_attn.py", "kernels/ghost_norm.py",
+                 "kernels/clip_reduce.py", "launch/train.py"):
+        assert f"src/repro_torch/{name}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
 
@@ -58,7 +60,20 @@ def test_serve_cli_defaults_to_cuda_and_raises_without_it():
         serve.main(["--arch", "tiny", "--batch", "1", "--gen", "1"])
 
 
+def test_train_cli_defaults_to_cuda_and_raises_without_it():
+    from repro_torch.launch import train
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    assert train.build_train_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "tiny", "--steps", "1", "--batch", "1",
+                    "--docs", "2"])
+
+
 def test_importing_the_port_builds_nothing():
+    import repro_torch.launch.train  # noqa: F401  (imports every module)
     from repro_torch.kernels import _build, launch_counts
     assert _build.BUILD_LOGS == {} and _build._LIBS == {}
-    assert set(launch_counts()) == {"paged_attn"}
+    assert set(launch_counts()) == {"paged_attn", "ghost_norm",
+                                    "clip_reduce"}
+    assert set(_build.sources()) == set(launch_counts())
