@@ -30,22 +30,35 @@ exits non-zero:
   5 train     qwen3-4b at full width and depth (bf16, random seeded
               parameters) trained through the train CLI's own `Trainer`:
               B = 8, T = 256, adam, epsilon 8, 1 warm-up + 3 timed steps
-              of `per_layer`, then of `non_private`. Counters are set to 0
-              before each mode's steps and read after: every step calls
-              clip_reduce 145 times (4 linears x 36 blocks + the head) and
-              per_layer ghost_norm as often, non_private never. ms per
-              step, their ratio, losses, thresholds, clip fraction, peak
-              memory, and one profiled step per mode. The kernels' inputs
-              at the five linear shapes are captured for phase 6.
-  6 kernels   ghost_norm and clip_reduce against their plain versions on
-              the card: a sweep (ragged T, T = 1, din != dout, f32 and
-              bf16, factors 0 / 1e-3 / 0.5 / 1), then at the captured
-              main-path shapes with kernel, plain, bound and library
-              times.
+              of each of six Figure-1 variants (the labels of
+              benchmarks/bench_throughput.py): per_layer, non_private,
+              ghost_flat_twopass, per_group_twopass, ghost_flat_bk,
+              per_group_bk (per_group: --group-count 2). Counters are set
+              to 0 before each variant's steps and read after; per step
+              (4 linears x 36 blocks + the head = 145 linears):
+                          ghost_norm   clip_reduce   scale_contract
+                per_layer        145           145                0
+                non_private        0           145                0
+                *_twopass        145           145                0
+                *_bk             145             0                5
+              and a BK variant must raise no fallback warning. ms per
+              step, ratio_vs_nonprivate, ratio_bk_vs_twopass per mode,
+              losses, thresholds, clip fraction, peak memory, and one
+              profiled step per variant. The kernels' inputs at the five
+              linear shapes (per_layer's first step) and the five BK
+              sinks (per_group_bk's last step) are captured for phase 6.
+  6 kernels   ghost_norm, clip_reduce and scale_contract against their
+              plain versions on the card: a sweep (S = 1 and 3 and the
+              3-D form for scale_contract, ragged T, T = 1, din != dout,
+              f32 and bf16, factors 0 / 1e-3 / 0.5 / 1), then at the
+              captured main-path shapes with kernel, plain, bound and
+              library times.
   7 cuda/cpu  qwen3-4b-reduced in f32 from one numpy parameter tree and
-              one numpy batch: one per_layer `dp_clipped_gradients` on the
-              card (kernels) and on the CPU (plain versions) must agree
-              in loss, (K, B) norms and every clipped gradient leaf.
+              one numpy batch: one `dp_clipped_gradients` each of
+              per_layer, ghost_flat (bk) and per_group (bk) on the card
+              (kernels) and on the CPU (plain versions) must agree in
+              loss, (K, B) norms and every clipped gradient leaf; on the
+              card bk must agree with twopass too.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -61,6 +74,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -446,10 +460,21 @@ def phase_cuda_vs_cpu(torch, gpu):
 # ---------------------------------------------------------------------------
 
 TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+# (label, --clipping, --execution): the Figure-1 variants of
+# benchmarks/bench_throughput.py but naive_flat; the BK variants last, so
+# the sinks captured from the last one stay out of the others' peaks
+VARIANTS = [("per_layer", "per_layer", "bk"),
+            ("non_private", "non_private", "bk"),
+            ("ghost_flat_twopass", "ghost_flat", "twopass"),
+            ("per_group_twopass", "per_group", "twopass"),
+            ("ghost_flat_bk", "ghost_flat", "bk"),
+            ("per_group_bk", "per_group", "bk")]
 SUM_SWEEP = [  # B, T, din, dout: ragged T, T = 1, din != dout both ways
     (3, 37, 20, 45), (2, 1, 130, 7), (4, 64, 200, 300), (1, 33, 128, 129),
     (5, 100, 257, 64), (8, 256, 256, 384)]
+SC_STACKS = [1, 3, None]  # scale_contract's S over the sweep; None: 3-D
 SUM_FACTORS = [0.0, 1e-3, 0.5, 1.0]
+SUM_KERNELS = ("ghost_norm", "clip_reduce", "scale_contract")
 
 
 def linear_shapes(cfg) -> dict:
@@ -461,13 +486,22 @@ def linear_shapes(cfg) -> dict:
             (d, cfg.vocab_size): "head"}
 
 
-def train_args(mode: str):
+def train_args(mode: str, execution: str = "bk"):
     from repro_torch.launch import train
     return train.build_train_parser().parse_args(
-        ["--arch", "qwen3-4b", "--clipping", mode, "--epsilon", "8",
+        ["--arch", "qwen3-4b", "--clipping", mode, "--execution", execution,
+         "--group-count", "2", "--epsilon", "8",
          "--steps", str(TRAIN_WARMUP + TRAIN_TIMED), "--batch", "8",
          "--seq", "256", "--docs", "64", "--optimizer", "adam",
          "--seed", "0"])
+
+
+def expected_launches(label: str, linears: int) -> dict:
+    """Kernel launches per step of a variant (the table in the doc)."""
+    if label.endswith("_bk"):
+        return {"ghost_norm": linears, "clip_reduce": 0, "scale_contract": 5}
+    return {"ghost_norm": 0 if label == "non_private" else linears,
+            "clip_reduce": linears, "scale_contract": 0}
 
 
 def profile_step(torch, trainer, step_ms) -> dict:
@@ -495,85 +529,116 @@ def profile_step(torch, trainer, step_ms) -> dict:
 
 
 def phase_train(torch, gpu):
-    """Returns (launches by kernel over both modes' counted steps, the
-    kernels' inputs captured at each linear shape of the first step)."""
+    """Returns (launches by kernel over every variant's counted steps, the
+    clip_reduce inputs at each linear shape of per_layer's first step, the
+    scale_contract inputs of per_group_bk's last epilogue)."""
+    from repro_torch.kernels import bk as SC
     from repro_torch.kernels import clip_reduce as CR
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
 
     steps = TRAIN_WARMUP + TRAIN_TIMED
-    launches = {"ghost_norm": 0, "clip_reduce": 0}
-    caps, step_ms = {}, {}
-    real = CR.clip_reduce
-    for mode in ("per_layer", "non_private"):
+    launches = dict.fromkeys(SUM_KERNELS, 0)
+    caps, sc_caps, step_ms = {}, {}, {}
+    real_cr, real_sc = CR.clip_reduce, SC.scale_contract
+    for label, mode, execution in VARIANTS:
         t0 = time.perf_counter()
-        trainer = train.Trainer(train_args(mode))
+        trainer = train.Trainer(train_args(mode, execution))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         shapes = linear_shapes(trainer.cfg)
         linears = 4 * trainer.cfg.num_layers + 1
 
-        def recording(a, g, factors):
+        def recording_cr(a, g, factors):
             name = shapes.get((a.shape[-1], g.shape[-1]))
             if name is not None and name not in caps:
                 caps[name] = (a.clone(), g.clone(), factors.clone())
-            return real(a, g, factors)
+            return real_cr(a, g, factors)
+
+        def recording_sc(a, g, factors):
+            # the sinks: nothing writes them after the epilogue, so a
+            # reference (not a copy of ~8 GB) keeps them for phase 6
+            name = shapes.get((a.shape[-1], g.shape[-1]))
+            if name is not None:
+                sc_caps[name] = (a, g, factors)
+            return real_sc(a, g, factors)
 
         rec = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        for i in range(steps):
-            if mode == "per_layer" and i == 0:
-                CR.clip_reduce = recording
-            try:
-                t0 = time.perf_counter()
-                met = trainer.step()
-                torch.cuda.synchronize()
-                ms = 1e3 * (time.perf_counter() - t0)
-            finally:
-                CR.clip_reduce = real
-            rec.append({"ms": ms, "loss": float(met.loss),
-                        "mean_threshold": float(met.mean_threshold),
-                        "clip_fraction": float(met.clip_fraction),
-                        "grad_norm": float(met.grad_norm)})
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(steps):
+                if i == 0 and label == "per_layer":
+                    CR.clip_reduce = recording_cr
+                if i == steps - 1 and label == "per_group_bk":
+                    # the last step: the kept sinks overlap no later step
+                    # of the measured peak
+                    SC.scale_contract = recording_sc
+                try:
+                    t0 = time.perf_counter()
+                    met = trainer.step()
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.perf_counter() - t0)
+                finally:
+                    CR.clip_reduce, SC.scale_contract = real_cr, real_sc
+                rec.append({"ms": ms, "loss": float(met.loss),
+                            "mean_threshold": float(met.mean_threshold),
+                            "clip_fraction": float(met.clip_fraction),
+                            "grad_norm": float(met.grad_norm)})
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
+        fallbacks = [str(w.message) for w in caught
+                     if "falling back to the twopass" in str(w.message)]
+        if fallbacks:
+            raise RuntimeError(f"{label}: BK fell back: {fallbacks}")
         if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                    for r in rec):
-            raise RuntimeError(f"{mode}: non-finite loss or update: {rec}")
-        want = {"ghost_norm": linears * steps if mode == "per_layer" else 0,
-                "clip_reduce": linears * steps}
+            raise RuntimeError(f"{label}: non-finite loss or update: {rec}")
+        want = {k: v * steps
+                for k, v in expected_launches(label, linears).items()}
         if {k: counts[k] for k in want} != want:
-            raise RuntimeError(f"{mode}: launches {counts} over {steps} "
+            raise RuntimeError(f"{label}: launches {counts} over {steps} "
                                f"steps, expected {want}")
         for k in launches:
             launches[k] += counts[k]
-        step_ms[mode] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / TRAIN_TIMED
+        step_ms[label] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / TRAIN_TIMED
         emit({"phase": "train", "gpu": gpu, "arch": trainer.cfg.name,
-              "mode": mode, "backend": trainer.plan.config.backend,
+              "variant": label, "mode": mode,
+              "execution": trainer.execution,
+              "backend": trainer.plan.config.backend,
               "num_params": trainer.model.num_params,
               "dtype": str(trainer.cfg.dtype),
               "batch": trainer.args.batch, "seq": trainer.args.seq,
               "groups": trainer.model.layout.num_groups,
+              "noise_groups": trainer.plan.num_noise_groups,
               "sigma": trainer.plan.sigma,
               "sigma_new": trainer.plan.sigma_new,
               "init_s": init_s, "warmup_steps": TRAIN_WARMUP,
-              "timed_steps": TRAIN_TIMED, "ms_per_step": step_ms[mode],
+              "timed_steps": TRAIN_TIMED, "ms_per_step": step_ms[label],
+              "ratio_vs_nonprivate": (step_ms[label] / step_ms["non_private"]
+                                      if "non_private" in step_ms else None),
               "tokens_per_s": trainer.args.batch * trainer.args.seq
-              / (step_ms[mode] / 1e3),
-              "steps": rec, "peak_memory_gb": peak, "launches": counts})
-        emit({"phase": "train_profile", "gpu": gpu, "mode": mode,
-              **profile_step(torch, trainer, step_ms[mode])})
+              / (step_ms[label] / 1e3),
+              "steps": rec, "peak_memory_gb": peak, "launches": counts,
+              "launches_per_step": {k: counts[k] // steps for k in want}})
+        emit({"phase": "train_profile", "gpu": gpu, "variant": label,
+              **profile_step(torch, trainer, step_ms[label])})
         del trainer, met
         gc.collect()
         torch.cuda.empty_cache()
-    emit({"phase": "train_ratio", "gpu": gpu,
-          "ratio_vs_nonprivate": step_ms["per_layer"]
-          / step_ms["non_private"], "ms_per_step": step_ms})
-    if sorted(caps) != sorted(shapes.values()):
-        raise RuntimeError(f"captured {sorted(caps)} of the linear shapes")
-    return launches, caps
+    base = step_ms["non_private"]
+    emit({"phase": "train_ratio", "gpu": gpu, "ms_per_step": step_ms,
+          "ratio_vs_nonprivate": {k: v / base for k, v in step_ms.items()},
+          "ratio_bk_vs_twopass": {
+              m: step_ms[f"{m}_bk"] / step_ms[f"{m}_twopass"]
+              for m in ("ghost_flat", "per_group")}})
+    for name, got in (("clip_reduce", caps), ("scale_contract", sc_caps)):
+        if sorted(got) != sorted(shapes.values()):
+            raise RuntimeError(f"{name}: captured {sorted(got)} of the "
+                               f"linear shapes")
+    return launches, caps, sc_caps
 
 
 def sum_check(torch, got, want):
@@ -588,16 +653,19 @@ def sum_bound(kernel, a, g, bw):
     """(bound ms, bound_by): the inputs read once and the f32 output
     written once against the data-sheet bandwidth, and the operations on
     the inputs' type: B T² (din + dout) for ghost_norm (the symmetric
-    half of the grams), 2 B T din dout for clip_reduce."""
-    b, t, din = a.shape
-    dout = g.shape[-1]
+    half of the grams), 2 B T din dout for clip_reduce, 2 S B T din dout
+    for scale_contract."""
+    din, dout = a.shape[-1], g.shape[-1]
+    rows = a.numel() // din  # B T, times S for scale_contract
     nbytes = a.numel() * a.element_size() + g.numel() * g.element_size()
     if kernel == "ghost_norm":
+        b, t = a.shape[0], a.shape[1]
         nbytes += 4 * b
         ops = b * t * t * (din + dout)
     else:
-        nbytes += 4 * b + 4 * din * dout
-        ops = 2 * b * t * din * dout
+        s = rows // (a.shape[-2] * a.shape[-3])  # stack slices (1 if 3-D)
+        nbytes += 4 * (rows // a.shape[-2]) + 4 * s * din * dout
+        ops = 2 * rows * din * dout
     t_bytes = nbytes / bw
     t_ops = ops / PEAK_OPS[str(a.dtype).split(".")[-1]]
     return (max(t_bytes, t_ops) * 1e3,
@@ -607,92 +675,128 @@ def sum_bound(kernel, a, g, bw):
 def library_sum(torch, kernel, a, g, f):
     """Yardsticks, never called by the port: two bmm grams for
     ghost_norm, one f32 matmul with the factor on g's rows for
-    clip_reduce."""
+    clip_reduce, one f32 bmm over the stack for scale_contract."""
     if kernel == "ghost_norm":
         a32, g32 = a.float(), g.float()
         return (torch.bmm(a32, a32.transpose(1, 2))
                 * torch.bmm(g32, g32.transpose(1, 2))).sum((1, 2))
-    t = a.shape[1]
+    t = a.shape[-2]
+    if kernel == "scale_contract":
+        s = f.shape[0]
+        a3 = a.reshape(s, -1, a.shape[-1]).float()
+        g3 = g.reshape(s, -1, g.shape[-1]).float()
+        return torch.bmm(a3.transpose(1, 2),
+                         g3 * f.repeat_interleave(t, dim=1)[:, :, None])
     a2 = a.reshape(-1, a.shape[-1])
     g2 = g.reshape(-1, g.shape[-1])
     return a2.float().T @ (g2.float() * f.repeat_interleave(t)[:, None])
 
 
-def phase_train_kernels(torch, gpu, caps, num_layers):
+def sweep_sum_inputs(torch, name, b, t, din, dout, dtype, stack, seed):
+    """Seeded inputs of one sweep point; scale_contract's carry a stack
+    of `stack` slices (3-D when None) with factors drawn per (s, b) from
+    SUM_FACTORS."""
+    rng = np.random.default_rng(seed)
+    lead = (b,) if stack is None else (stack, b)
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(rng.standard_normal(lead + (t, din)).astype(
+        np.float32)).to("cuda", dt)
+    g = torch.from_numpy(rng.standard_normal(lead + (t, dout)).astype(
+        np.float32)).to("cuda", dt)
+    f = rng.choice(SUM_FACTORS, size=lead) if name == "scale_contract" \
+        else np.resize(SUM_FACTORS, b)
+    return a, g, torch.tensor(f, dtype=torch.float32, device="cuda")
+
+
+def phase_train_kernels(torch, gpu, caps, sc_caps, num_layers):
+    from repro_torch.kernels import bk as SC
     from repro_torch.kernels import clip_reduce as CR
     from repro_torch.kernels import ghost_norm as GN
     bw = bandwidth(gpu)
     impl = {"ghost_norm": (lambda a, g, f: GN.ghost_norm(a, g),
                            lambda a, g, f: GN.ghost_norm_ref(a, g)),
-            "clip_reduce": (CR.clip_reduce, CR.clip_reduce_ref)}
+            "clip_reduce": (CR.clip_reduce, CR.clip_reduce_ref),
+            "scale_contract": (SC.scale_contract, SC.scale_contract_ref)}
     worst = dict.fromkeys(impl, 0.0)
     for i, (b, t, din, dout) in enumerate(SUM_SWEEP):
         for dtype in ("float32", "bfloat16"):
-            rng = np.random.default_rng(i)
-            dt = getattr(torch, dtype)
-            a = torch.from_numpy(rng.standard_normal((b, t, din)).astype(
-                np.float32)).to("cuda", dt)
-            g = torch.from_numpy(rng.standard_normal((b, t, dout)).astype(
-                np.float32)).to("cuda", dt)
-            f = torch.tensor(np.resize(SUM_FACTORS, b), dtype=torch.float32,
-                             device="cuda")
-            for name, (kern, plain) in impl.items():
+            points = [(n, None) for n in ("ghost_norm", "clip_reduce")] + [
+                ("scale_contract", s) for s in SC_STACKS]
+            for name, stack in points:
+                kern, plain = impl[name]
+                a, g, f = sweep_sum_inputs(torch, name, b, t, din, dout,
+                                           dtype, stack, seed=i)
                 got, want = kern(a, g, f), plain(a, g, f)
                 torch.cuda.synchronize()
                 err, ok = sum_check(torch, got, want)
                 worst[name] = max(worst[name], err)
                 emit({"phase": "kernel_vs_plain", "kernel": name,
-                      "shape": {"b": b, "t": t, "din": din, "dout": dout},
+                      "shape": {"s": stack, "b": b, "t": t, "din": din,
+                                "dout": dout},
                       "dtype": dtype, "max_abs_err": err,
                       "tol": {"rtol": SUM_RTOL,
                               "atol_of_max": SUM_ATOL_FRAC}, "ok": ok})
                 if not ok:
-                    raise RuntimeError(f"{name} disagrees at {(b, t, din, dout)}"
-                                       f" {dtype}: max abs err {err}")
+                    point = (stack, b, t, din, dout)
+                    raise RuntimeError(f"{name} disagrees at {point} "
+                                       f"{dtype}: max abs err {err}")
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     per_step = {name: dict.fromkeys(keys, 0.0) for name in impl}
     by = {name: {"bytes": 0.0, "operations": 0.0} for name in impl}
-    for lname, (a, g, f) in caps.items():
-        calls = 1 if lname == "head" else num_layers
-        for name, (kern, plain) in impl.items():
-            got, want = kern(a, g, f), plain(a, g, f)
-            lib = library_sum(torch, name, a, g, f)
-            torch.cuda.synchronize()
-            err, ok = sum_check(torch, got, want)
-            worst[name] = max(worst[name], err)
-            if not ok:
-                raise RuntimeError(f"{name} disagrees at the main path's "
-                                   f"{lname} shapes: max abs err {err}")
-            iters = 5 if lname == "head" else 20
-            times = {
-                "ms": cuda_ms(torch, lambda: kern(a, g, f), iters, 2, flush),
-                "plain_ms": cuda_ms(torch, lambda: plain(a, g, f), iters, 2,
-                                    flush),
-                "library_ms": cuda_ms(torch, lambda: library_sum(
-                    torch, name, a, g, f), iters, 2, flush)}
-            times["bound_ms"], bound_by = sum_bound(name, a, g, bw)
-            for k in keys:
-                per_step[name][k] += calls * times[k]
-            by[name][bound_by] += calls * times["bound_ms"]
-            emit({"phase": "kernel_main_shapes", "gpu": gpu, "kernel": name,
-                  "linear": lname, "a": list(a.shape), "g": list(g.shape),
-                  "dtype": str(a.dtype), "calls_per_step": calls,
-                  "max_abs_err": err,
-                  "library_max_abs_err": float((lib - want).abs().max()),
-                  "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
-                  **times, "bound_by": bound_by})
+    work = [(lname, name, caps[lname], 1 if lname == "head" else num_layers)
+            for lname in caps for name in ("ghost_norm", "clip_reduce")]
+    # one scale_contract call per linear leaf and step; the stacked calls
+    # run for hundreds of ms, so they are timed over few iterations
+    work += [(lname, "scale_contract", sc_caps[lname], 1)
+             for lname in sc_caps]
+    for lname, name, (a, g, f), calls in work:
+        kern, plain = impl[name]
+        got, want = kern(a, g, f), plain(a, g, f)
+        lib = library_sum(torch, name, a, g, f)
+        torch.cuda.synchronize()
+        err, ok = sum_check(torch, got, want)
+        lib_err = float((lib - want).abs().max())
+        del got, lib, want
+        worst[name] = max(worst[name], err)
+        if not ok:
+            raise RuntimeError(f"{name} disagrees at the main path's "
+                               f"{lname} shapes: max abs err {err}")
+        if name == "scale_contract":
+            iters, warm = 3, 1
+        else:
+            iters, warm = (5, 2) if lname == "head" else (20, 2)
+        times = {
+            "ms": cuda_ms(torch, lambda: kern(a, g, f), iters, warm, flush),
+            "plain_ms": cuda_ms(torch, lambda: plain(a, g, f), iters, warm,
+                                flush),
+            "library_ms": cuda_ms(torch, lambda: library_sum(
+                torch, name, a, g, f), iters, warm, flush)}
+        times["bound_ms"], bound_by = sum_bound(name, a, g, bw)
+        for k in keys:
+            per_step[name][k] += calls * times[k]
+        by[name][bound_by] += calls * times["bound_ms"]
+        emit({"phase": "kernel_main_shapes", "gpu": gpu, "kernel": name,
+              "linear": lname, "a": list(a.shape), "g": list(g.shape),
+              "dtype": str(a.dtype), "calls_per_step": calls,
+              "max_abs_err": err, "library_max_abs_err": lib_err,
+              "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
+              "timing_iters": iters, **times, "bound_by": bound_by})
     src = "src/repro_torch/kernels/csrc/{}.cu"
     replaces = {"ghost_norm": "src/repro/kernels/ghost_norm.py:77",
-                "clip_reduce": "src/repro/kernels/clip_reduce.py:47"}
+                "clip_reduce": "src/repro/kernels/clip_reduce.py:47",
+                "scale_contract": "src/repro/kernels/bk.py:53"}
+    calls_per_step = {"ghost_norm": 4 * num_layers + 1,
+                      "clip_reduce": 4 * num_layers + 1,
+                      "scale_contract": 5}
     return [{"name": name, "route": "cuda", "source": src.format(name),
              "replaces": replaces[name], "max_abs_err": worst[name],
              **per_step[name],
              "bound_by": max(by[name], key=by[name].get),
              "per": f"one training step: the sum over its "
-                    f"{4 * num_layers + 1} calls at the 5 captured linear "
-                    f"shapes"}
+                    f"{calls_per_step[name]} calls at the 5 captured "
+                    f"linear shapes"}
             for name in impl]
 
 
@@ -701,49 +805,52 @@ def phase_train_cuda_vs_cpu(torch, gpu):
     from repro_torch.configs import get_config
     from repro_torch.core.clipping import dp_clipped_gradients
     from repro_torch.kernels import backend, launch_counts, reset_launch_counts
+    from repro_torch.launch.sharding import group_shard_assignment
     from repro_torch.models.transformer import build_model
 
     cfg = get_config("qwen3-4b", reduced=True)
     b, t = 4, 64
     spec_model = build_model(cfg, device="cpu")
+    layout = spec_model.layout
     tree = bridge.numpy_params(spec_model.spec, seed=0)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
     targets = np.roll(tokens, -1, 1)
     targets[:, -1] = -1
-    thr = rng.uniform(0.05, 2.0, spec_model.layout.num_groups).astype(
-        np.float32)
-    runs = {}
-    for dev in ("cuda", "cpu"):
+    thr = rng.uniform(0.05, 2.0, layout.num_groups).astype(np.float32)
+    assign = np.asarray(group_shard_assignment(layout, 2), np.int64)
+    group_thr = rng.uniform(0.2, 1.0, 2).astype(np.float32)
+    # (label, mode, execution, device, kwargs of numpy arrays)
+    cases = [("per_layer", "per_layer", "bk", {"thresholds": thr}),
+             ("ghost_flat", "ghost_flat", "bk",
+              {"flat_threshold": np.float32(0.5)}),
+             ("per_group", "per_group", "bk",
+              {"group_assignment": assign, "group_thresholds": group_thr})]
+    counted = ("ghost_norm", "clip_reduce", "scale_contract")
+
+    def run(mode, execution, dev, kw):
         model = build_model(cfg, device=dev)
         params = bridge.train_params_from_numpy(tree, dev)
         batch = {"tokens": torch.from_numpy(tokens).to(dev),
                  "targets": torch.from_numpy(targets).to(dev)}
         reset_launch_counts()
-        with backend.scoped("kernels"):
+        with backend.scoped("kernels"), warnings.catch_warnings():
+            # a BK fallback fails the phase
+            warnings.filterwarnings("error", message="BK capture cannot")
             res = dp_clipped_gradients(
-                model.loss_fn, params, batch, model.layout,
-                mode="per_layer", batch_size=b,
-                thresholds=torch.from_numpy(thr).to(dev))
+                model.loss_fn, params, batch, model.layout, mode=mode,
+                batch_size=b, execution=execution,
+                **{k: torch.as_tensor(v, device=dev) for k, v in kw.items()})
         if dev == "cuda":
             torch.cuda.synchronize()
-        runs[dev] = (res, launch_counts())
-    (got, cuda_counts), (want, cpu_counts) = runs["cuda"], runs["cpu"]
-    for name in ("ghost_norm", "clip_reduce"):
-        if cuda_counts[name] == 0 or cpu_counts[name] != 0:
-            raise RuntimeError(
-                f"{name} launches cuda={cuda_counts[name]} "
-                f"cpu={cpu_counts[name]}: the card run must use the kernel "
-                f"and the CPU run the plain version")
+        counts = launch_counts()
+        return res, {k: counts[k] for k in counted}
 
     def rel(x, y):
-        x, y = x.detach().float().cpu(), y.detach().float()
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
         atol = TRAIN_ATOL_FRAC * float(y.abs().max())
         ok = bool(torch.allclose(x, y, rtol=TRAIN_RTOL, atol=atol))
         return float((x - y).abs().max() / y.abs().max().clamp_min(1e-30)), ok
-
-    checks = {"loss": rel(got.loss, want.loss),
-              "norms_sq": rel(got.norms_sq, want.norms_sq)}
 
     def leaves(tree, prefix=()):
         for k in sorted(tree):
@@ -752,21 +859,46 @@ def phase_train_cuda_vs_cpu(torch, gpu):
             else:
                 yield "/".join(prefix + (k,)), tree[k]
 
-    for (name, x), (_, y) in zip(leaves(got.grads), leaves(want.grads)):
-        checks["grad:" + name] = rel(x, y)
-    bad = {k: v[0] for k, v in checks.items() if not v[1]}
-    n = want.norms_sq
-    emit({"phase": "train_cuda_vs_cpu", "gpu": gpu, "arch": cfg.name,
-          "batch": b, "seq": t,
-          "clipped_share": float((n > torch.from_numpy(thr)[:, None] ** 2)
-                                 .float().mean()),
-          "max_err_over_max": {k: v[0] for k, v in checks.items()},
-          "tol": {"rtol": TRAIN_RTOL, "atol_of_max": TRAIN_ATOL_FRAC},
-          "cuda_launches": {k: cuda_counts[k]
-                            for k in ("ghost_norm", "clip_reduce")}})
-    if bad:
-        raise RuntimeError(f"train: card and CPU disagree: {bad}")
+    def compare(got, want):
+        checks = {"loss": rel(got.loss, want.loss),
+                  "norms_sq": rel(got.norms_sq, want.norms_sq)}
+        for (name, x), (_, y) in zip(leaves(got.grads), leaves(want.grads)):
+            checks["grad:" + name] = rel(x, y)
+        return checks
 
+    for label, mode, execution, kw in cases:
+        got, cuda_counts = run(mode, execution, "cuda", kw)
+        want, cpu_counts = run(mode, execution, "cpu", kw)
+        uses = [k for k, v in expected_launches(
+            f"{label}_bk" if mode != "per_layer" else label, 1).items() if v]
+        for name in uses:
+            if cuda_counts[name] == 0 or cpu_counts[name] != 0:
+                raise RuntimeError(
+                    f"{label}: {name} launches cuda={cuda_counts[name]} "
+                    f"cpu={cpu_counts[name]}: the card run must use the "
+                    f"kernel and the CPU run the plain version")
+        checks = compare(got, want)
+        twopass = {}
+        if mode != "per_layer":  # bk against twopass, on the card
+            tp, _ = run(mode, "twopass", "cuda", kw)
+            twopass = compare(got, tp)
+        bad = {k: v[0] for k, v in {**checks, **{
+            "twopass:" + k: v for k, v in twopass.items()}}.items()
+            if not v[1]}
+        n = want.norms_sq
+        out = {"phase": "train_cuda_vs_cpu", "gpu": gpu, "arch": cfg.name,
+               "mode": mode, "execution": execution, "batch": b, "seq": t,
+               "max_err_over_max": {k: v[0] for k, v in checks.items()},
+               "bk_vs_twopass_max_err_over_max":
+                   {k: v[0] for k, v in twopass.items()},
+               "tol": {"rtol": TRAIN_RTOL, "atol_of_max": TRAIN_ATOL_FRAC},
+               "cuda_launches": cuda_counts}
+        if mode == "per_layer":
+            out["clipped_share"] = float(
+                (n > torch.from_numpy(thr)[:, None] ** 2).float().mean())
+        emit(out)
+        if bad:
+            raise RuntimeError(f"train {label}: disagreement: {bad}")
 
 
 def main() -> int:
@@ -787,11 +919,13 @@ def main() -> int:
     del snap
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, caps = phase_train(torch, gpu)
+    train_launches, caps, sc_caps = phase_train(torch, gpu)
     from repro_torch.configs import get_config
     train_kernels = phase_train_kernels(
-        torch, gpu, caps, get_config("qwen3-4b").num_layers)
-    del caps
+        torch, gpu, caps, sc_caps, get_config("qwen3-4b").num_layers)
+    del caps, sc_caps
+    gc.collect()
+    torch.cuda.empty_cache()
     for k in train_kernels:
         k["launches"] = train_launches[k["name"]]
     phase_train_cuda_vs_cpu(torch, gpu)

@@ -1,5 +1,5 @@
-"""Clipping-mode drivers: the counterpart of `repro.core.clipping` for the
-modes of the training slice.
+"""Clipping modes: the counterpart of `repro.core.clipping` for one
+device.
 
 Every model exposes  loss_fn(params, batch, thresholds) -> (B,)
 per-example losses, where `thresholds` is the GroupLayout dict of encoded
@@ -12,9 +12,30 @@ per-example threshold vectors consumed by the DP primitives:
                 threshold leaves: each layer's backward clips with its own
                 C_k as the cotangent reaches it, and the norms² come back
                 as the thresholds' gradients.
+  ghost_flat  : flat (ghost) clipping, the paper's efficiency baseline.
+                Default execution is book-keeping (`bk`, `core.bk`): ONE
+                backward pass that reads the norms² AND caches each
+                layer's ghost residuals, then a scale-and-contract
+                epilogue builds the clipped sums once the flat factor is
+                known.
+  per_group   : a partition of the layout groups into supergroups
+                (per-device clipping, the paper's Sec. 4); the same BK
+                execution, with the norms² summed per supergroup before
+                the epilogue.
 
-`ghost_flat`, `per_group` and `naive_flat` (ROADMAP A.3) and the BK
-execution (A.4) are not ported yet; sharded execution is A.13.
+Executions of the flat and group modes (`execution=`, also reachable as
+the `ghost_flat_twopass` / `per_group_twopass` mode names):
+
+  bk      : one backward + epilogue. Falls back to twopass, with a
+            warning, where the layout cannot be captured (see
+            `bk.capture_clipped`).
+  twopass : pass 1 reads the norms² only (the loss runs on detached
+            parameters, so no primitive contracts a parameter gradient);
+            pass 2 applies each example's factor through direct-scale
+            thresholds (c = -f), which request no norms.
+
+`naive_flat` (the materialising oracle) needs `torch.func` over the
+custom Functions (ROADMAP A.3); sharded execution is A.13.
 """
 from __future__ import annotations
 
@@ -22,16 +43,13 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import bk
 from repro_torch.core.spec import GroupLayout, tree_leaves
 
-MODES = ("non_private", "per_layer")
-_NOT_PORTED = {
-    "ghost_flat": "A.3 (and A.4 for its BK execution)",
-    "per_group": "A.3 (and A.4 for its BK execution)",
-    "naive_flat": "A.3",
-    "ghost_flat_twopass": "A.3",
-    "per_group_twopass": "A.3",
-}
+MODES = ("non_private", "per_layer", "ghost_flat", "per_group",
+         "ghost_flat_twopass", "per_group_twopass")
+EXECUTIONS = ("bk", "twopass")
+_NOT_PORTED = {"naive_flat": "A.3"}
 
 LossFn = Callable[[Any, Any, dict], torch.Tensor]  # -> (B,)
 
@@ -51,6 +69,12 @@ def check_mode(mode: str) -> None:
         raise ValueError(f"mode {mode!r} not in {MODES}")
 
 
+def base_mode(mode: str) -> str:
+    """Strip the `_twopass` execution suffix off a mode name."""
+    suffix = "_twopass"
+    return mode[: -len(suffix)] if mode.endswith(suffix) else mode
+
+
 def _rebuild(paths, values) -> dict:
     out: dict = {}
     for path, v in zip(paths, values):
@@ -61,34 +85,128 @@ def _rebuild(paths, values) -> dict:
     return out
 
 
+def group_clip_factors(norms_sq_groups: torch.Tensor,
+                       c: torch.Tensor) -> torch.Tensor:
+    """min(1, C_g / ||g_g^(i)||) with 0-norm safety: (G, B) from (G, B)
+    norms² and (G,) thresholds, f32."""
+    norm = torch.sqrt(norms_sq_groups.float() + 1e-12)
+    return torch.clamp(c.float()[:, None] / norm, max=1.0)
+
+
+def flat_clip_factors(total_norms_sq: torch.Tensor,
+                      c: float | torch.Tensor) -> torch.Tensor:
+    """min(1, C / ||g^(i)||): the flat-clipping per-example factor, (B,)
+    f32."""
+    c = torch.as_tensor(c, dtype=torch.float32, device=total_norms_sq.device)
+    return torch.clamp(c / torch.sqrt(total_norms_sq.float() + 1e-12),
+                       max=1.0)
+
+
+def supergroup_norms(norms_sq: torch.Tensor, assignment: torch.Tensor,
+                     num_supergroups: int) -> torch.Tensor:
+    """(G, B) f32 norms² per supergroup: the (K, B) group norms² summed
+    by `assignment` (K,) (the reference's `jax.ops.segment_sum`)."""
+    out = torch.zeros((num_supergroups, norms_sq.shape[-1]),
+                      dtype=torch.float32, device=norms_sq.device)
+    return out.index_add_(0, assignment.long(), norms_sq.float())
+
+
+def _grads_only(loss_fn, params, batch, thresholds_tree):
+    """One backward pass for the parameter gradients under thresholds that
+    request no norms (+inf or direct scales)."""
+    paths, leaves = zip(*tree_leaves(params))
+    val = torch.sum(loss_fn(params, batch, thresholds_tree))
+    grads = bk.grad_or_zeros(val, list(leaves))
+    return val.detach(), _rebuild(paths, grads)
+
+
+def _norms_only(loss_fn, params, batch, layout, batch_size):
+    """One backward pass for (sum loss, (K, B) norms²): the loss runs on
+    detached parameters, so no primitive contracts a parameter gradient."""
+    dev = next(t for _, t in tree_leaves(params)).device
+    th = {k: v.requires_grad_() for k, v in layout.pack_value(
+        float("inf"), batch_size, device=dev).items()}
+    names = list(th)
+    val = torch.sum(loss_fn(bk.detached(params), batch, th))
+    norms = bk.grad_or_zeros(val, [th[k] for k in names])
+    return val.detach(), layout.unpack(dict(zip(names, norms)))
+
+
+def _norms_pass(loss_fn, params, batch, layout, batch_size, execution):
+    """The shared first stage of ghost_flat / per_group: one backward pass
+    for (sum loss, (K, B) norms²), capturing BK residuals when possible.
+
+    Returns (val, norms, cap) with cap = (residuals, recipes) under BK, or
+    None when running (or falling back to) the twopass execution."""
+    cap = (bk.capture_clipped(loss_fn, params, batch, layout, batch_size)
+           if execution == "bk" else None)
+    if cap is not None:
+        val, norms, residuals, recipes = cap
+        return val, norms, (residuals, recipes)
+    val, norms = _norms_only(loss_fn, params, batch, layout, batch_size)
+    return val, norms, None
+
+
 def dp_clipped_gradients(loss_fn: LossFn, params: Any, batch: Any,
                          layout: GroupLayout, *, mode: str, batch_size: int,
-                         thresholds: torch.Tensor | None = None
-                         ) -> ClipResult:
+                         thresholds: torch.Tensor | None = None,
+                         flat_threshold: float | torch.Tensor = 1.0,
+                         group_assignment: torch.Tensor | None = None,
+                         group_thresholds: torch.Tensor | None = None,
+                         execution: str = "bk") -> ClipResult:
     """Clipped summed gradients + norms under `mode`.
 
     params: the reference-layout tree of leaves with `requires_grad`;
-    thresholds: (K,) float32 for per_layer. The norms of non_private are
-    zeros (it never computes them)."""
+    thresholds: (K,) float32 for per_layer; flat_threshold: the scalar C
+    of ghost_flat; group_assignment: (K,) ints and group_thresholds: (G,)
+    for per_group; execution: bk | twopass for ghost_flat / per_group.
+    The norms of non_private are zeros (it never computes them)."""
     check_mode(mode)
+    if execution not in EXECUTIONS:
+        raise ValueError(f"execution {execution!r} not in {EXECUTIONS}")
+    if mode.endswith("_twopass"):
+        mode, execution = base_mode(mode), "twopass"
     paths, leaves = zip(*tree_leaves(params))
     dev = leaves[0].device
+
     if mode == "non_private":
         th = layout.pack_value(float("inf"), batch_size, device=dev)
-        val = torch.sum(loss_fn(params, batch, th))
-        grads = torch.autograd.grad(val, leaves)
+        val, grads = _grads_only(loss_fn, params, batch, th)
         norms = torch.zeros((layout.num_groups, batch_size),
                             dtype=torch.float32, device=dev)
+        return ClipResult(grads, norms, val / batch_size)
+
+    if mode == "per_layer":
+        if thresholds is None:
+            raise ValueError("per_layer mode needs thresholds (K,)")
+        th = {k: v.requires_grad_() for k, v in
+              layout.pack(thresholds.detach(), batch_size).items()}
+        names = list(th)
+        val = torch.sum(loss_fn(params, batch, th))
+        out = bk.grad_or_zeros(val, list(leaves) + [th[k] for k in names])
+        grads, norm_leaves = out[:len(leaves)], out[len(leaves):]
+        norms = layout.unpack(dict(zip(names, norm_leaves)))
         return ClipResult(_rebuild(paths, grads), norms,
                           val.detach() / batch_size)
-    if thresholds is None:
-        raise ValueError("per_layer mode needs thresholds (K,)")
-    th = {k: v.requires_grad_() for k, v in
-          layout.pack(thresholds.detach(), batch_size).items()}
-    names = list(th)
-    val = torch.sum(loss_fn(params, batch, th))
-    out = torch.autograd.grad(val, list(leaves) + [th[k] for k in names])
-    grads, norm_leaves = out[:len(leaves)], out[len(leaves):]
-    norms = layout.unpack(dict(zip(names, norm_leaves)))
-    return ClipResult(_rebuild(paths, grads), norms,
-                      val.detach() / batch_size)
+
+    if mode == "per_group" and (group_assignment is None
+                                or group_thresholds is None):
+        raise ValueError("per_group mode needs group_assignment + "
+                         "group_thresholds")
+    val, norms, cap = _norms_pass(loss_fn, params, batch, layout, batch_size,
+                                  execution)
+    if mode == "ghost_flat":
+        f = flat_clip_factors(torch.sum(norms, dim=0), flat_threshold)
+        f_rows = f[None].expand(layout.num_groups, batch_size)
+    else:  # per_group
+        assign = torch.as_tensor(group_assignment, device=dev).long()
+        super_norms = supergroup_norms(norms, assign,
+                                       group_thresholds.shape[0])
+        f_rows = group_clip_factors(super_norms, group_thresholds)[assign]
+    if cap is not None:  # BK epilogue: contract the cached residuals
+        residuals, recipes = cap
+        grads = bk.contract_clipped(layout, recipes, residuals, f_rows)
+    else:  # twopass (or BK fallback): second backward, direct scales
+        _, grads = _grads_only(loss_fn, params, batch,
+                               layout.pack_rows(-f_rows))
+    return ClipResult(grads, norms, val / batch_size)

@@ -14,24 +14,43 @@ is a `torch.autograd.Function` whose backward
      clipped gradients AND every group's norms.
 
 Threshold encoding:  c > 0 clip to c;  c == +inf no clipping;  c < 0
-direct scale |c|. PyTorch has no dead-code elimination, so the norms are
-computed only when the threshold's gradient is asked for; a threshold
-passed without `requires_grad` must then be +inf or a direct scale (a
-finite c > 0 there gives NaN gradients rather than a skipped clip).
+direct scale |c|. PyTorch has no dead-code elimination, so each backward
+computes only what is asked of it:
 
-The engine is read in the forward, in the caller's scope, and kept on the
-context: the backward of CUDA tensors runs on autograd's device thread,
-which does not see the caller's `backend.scoped(...)`. Under activation
-checkpointing the forward runs again during backward, but the backward
-that runs is the first forward's, so the norms arrive once.
+  * the norms only when the threshold's gradient is asked for; a
+    threshold passed without `requires_grad` must then be +inf or a
+    direct scale (a finite c > 0 there gives NaN gradients rather than a
+    skipped clip);
+  * the clipped sum only when the parameter's gradient is asked for: the
+    norms-only passes (the two-pass modes' first pass) run the loss on
+    detached parameters and skip every contraction, as XLA drops them in
+    the reference.
 
-`dp_shift`, `dp_broadcast`, the blocked and expert primitives and the BK
-capture channel are not ported yet (ROADMAP A.3, A.4, A.7, A.13).
+Book-keeping capture (`repro_torch.core.bk`): when the threshold arrives
+as a `bk.BkChannel` (only inside `backend.scoped(capture_residuals=True)`,
+driven by `bk.capture_clipped`), the backward returns the norms² as the
+threshold's gradient and, instead of contracting a parameter gradient,
+writes the ghost residuals (activations and output cotangents, or the
+per-example gradient of a gain) into the channel's sinks. It returns no
+parameter gradient: the BK epilogue (`bk.contract_clipped`) builds them.
+The channel's threshold tensor stays an argument of `Function.apply`, so
+its gradient flows back to the stacked threshold leaf.
+
+The engine and the channel are read in the forward, in the caller's
+scope, and kept on the context: the backward of CUDA tensors runs on
+autograd's device thread, which does not see the caller's
+`backend.scoped(...)`. Under activation checkpointing the forward runs
+again during backward, but the backward that runs is the first forward's,
+so the norms and residuals arrive once.
+
+`dp_shift`, `dp_broadcast` and the blocked and expert primitives are not
+ported yet (ROADMAP A.3, A.7, A.13).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import bk
 from repro_torch.core.ghost import clip_factor, factor_without_norms
 from repro_torch.kernels import backend
 
@@ -40,12 +59,25 @@ def _flat3(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
+def _forward_context(ctx, channel):
+    ctx.engine = backend.active()
+    ctx.channel = channel
+
+
+def _capturing(ctx) -> bk.BkChannel | None:
+    """The BK channel of this call, after the scope check."""
+    ch = ctx.channel
+    if ch is not None:
+        bk.require_capture_scope(ch, ctx.engine)
+    return ch
+
+
 class DPLinear(torch.autograd.Function):
     """y = x @ w (+ b); group = {w, b}."""
 
     @staticmethod
-    def forward(ctx, w, b, x, c):
-        ctx.engine = backend.active()
+    def forward(ctx, w, b, x, c, channel):
+        _forward_context(ctx, channel)
         ctx.has_bias = b is not None
         ctx.save_for_backward(w, x, c)
         y = x @ w
@@ -61,23 +93,37 @@ class DPLinear(torch.autograd.Function):
         dx = gy @ w.T if ctx.needs_input_grad[2] else None
         a3, g3 = _flat3(x), _flat3(gy)
         extra = (eng.bias_norms_sq(g3) if ctx.has_bias and need_n else None)
+        ch = _capturing(ctx)
+        if ch is not None or not ctx.needs_input_grad[0]:
+            # BK capture or a norms-only pass: no parameter gradient
+            n = None
+            if need_n:
+                n = eng.linear_norms_sq(a3, g3)
+                n = n if extra is None else n + extra
+            if ch is not None:
+                bk.stash(ch, a=a3, g=g3)
+            return None, None, dx, n, None
         n, f, dw = eng.linear_clip(a3, g3, c, extra, norms=need_n)
         db = (eng.clipped_sum_bias(g3, f).to(w.dtype) if ctx.has_bias
               else None)
-        return dw.to(w.dtype), db, dx, n
+        return dw.to(w.dtype), db, dx, n, None
 
 
 def dp_linear(w, b, x, c):
-    """y = x @ w (+ b) with per-example clipping of {w, b} to c (B,)."""
-    return DPLinear.apply(w, b, x, c)
+    """y = x @ w (+ b) with per-example clipping of {w, b} to c (B,), or
+    a BK capture through the channel c."""
+    ch = bk.channel_of(c)
+    if ch is not None:
+        bk.record_linear(ch, w, x)
+    return DPLinear.apply(w, b, x, bk.thresholds_of(c), ch)
 
 
 class DPEmbed(torch.autograd.Function):
     """y = table[ids]; collision-exact ghost norms."""
 
     @staticmethod
-    def forward(ctx, table, ids, c):
-        ctx.engine = backend.active()
+    def forward(ctx, table, ids, c, channel):
+        _forward_context(ctx, channel)
         ctx.vocab, ctx.dtype = table.shape[0], table.dtype
         ctx.save_for_backward(ids, c)  # not the table: only its shape
         return table[ids.long()]
@@ -88,25 +134,30 @@ class DPEmbed(torch.autograd.Function):
         eng = ctx.engine
         ids2 = ids.reshape(ids.shape[0], -1)
         g3 = _flat3(gy)
-        if ctx.needs_input_grad[2]:
-            n = eng.embed_norms_sq(ids2, g3)
-            f = clip_factor(c, n)
-        else:
-            n, f = None, factor_without_norms(c)
+        n = eng.embed_norms_sq(ids2, g3) if ctx.needs_input_grad[2] else None
+        ch = _capturing(ctx)
+        if ch is not None:
+            bk.stash(ch, g=g3, ids=ids2)
+        if ch is not None or not ctx.needs_input_grad[0]:
+            return None, None, n, None
+        f = clip_factor(c, n) if n is not None else factor_without_norms(c)
         dtable = eng.clipped_sum_embed(ids2, g3, f, ctx.vocab).to(ctx.dtype)
-        return dtable, None, n
+        return dtable, None, n, None
 
 
 def dp_embed(table, ids, c):
-    return DPEmbed.apply(table, ids, c)
+    ch = bk.channel_of(c)
+    if ch is not None:
+        bk.record_embed(ch, table, ids)
+    return DPEmbed.apply(table, ids, bk.thresholds_of(c), ch)
 
 
 class DPScale(torch.autograd.Function):
     """y = xhat * s: an elementwise gain (norm layers)."""
 
     @staticmethod
-    def forward(ctx, s, xhat, c):
-        ctx.engine = backend.active()
+    def forward(ctx, s, xhat, c, channel):
+        _forward_context(ctx, channel)
         ctx.save_for_backward(s, xhat, c)
         return xhat * s
 
@@ -115,14 +166,20 @@ class DPScale(torch.autograd.Function):
         s, xhat, c = ctx.saved_tensors
         eng = ctx.engine
         dxhat = gy * s if ctx.needs_input_grad[1] else None
-        if ctx.needs_input_grad[2]:
-            n = eng.scale_norms_sq(xhat, gy)
-            f = clip_factor(c, n)
-        else:
-            n, f = None, factor_without_norms(c)
+        n = eng.scale_norms_sq(xhat, gy) if ctx.needs_input_grad[2] else None
+        ch = _capturing(ctx)
+        if ch is not None:
+            # the per-example grad itself is small ((B, d)): stash it
+            bk.stash(ch, pg=torch.sum(_flat3(gy * xhat).float(), dim=1))
+        if ch is not None or not ctx.needs_input_grad[0]:
+            return None, dxhat, n, None
+        f = clip_factor(c, n) if n is not None else factor_without_norms(c)
         ds = eng.clipped_sum_scale(xhat, gy, f).to(s.dtype)
-        return ds, dxhat, n
+        return ds, dxhat, n, None
 
 
 def dp_scale(s, xhat, c):
-    return DPScale.apply(s, xhat, c)
+    ch = bk.channel_of(c)
+    if ch is not None:
+        bk.record_scale(ch, s, xhat)
+    return DPScale.apply(s, xhat, bk.thresholds_of(c), ch)

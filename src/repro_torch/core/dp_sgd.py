@@ -1,4 +1,4 @@
-"""DP optimization: Algorithm 1 (adaptive per-layer DP-SGD), single device.
+"""DP optimization: Algorithm 1 (adaptive group-wise DP-SGD), single device.
 
 The counterpart of the single-device part of `repro.core.dp_sgd`. It wires
 together the clipping driver (core.clipping), the private quantile
@@ -15,8 +15,8 @@ the reference, and the count noise from a generator seeded from
 the reference's; `standard_normal` is the one place they are made, and a
 test substitutes the reference's draws there.
 
-Microbatches, the mesh (sharded execution) and DP-LoRA are not ported
-yet (ROADMAP A.3, A.13, A.10).
+Microbatches, the mesh (sharded execution), DP-LoRA and `naive_flat` are
+not ported yet (ROADMAP A.3, A.13, A.10).
 """
 from __future__ import annotations
 
@@ -29,7 +29,9 @@ import torch
 
 from repro_torch.core import accounting
 from repro_torch.core import noise as noise_lib
-from repro_torch.core.clipping import LossFn, check_mode, dp_clipped_gradients
+from repro_torch.core.clipping import (LossFn, base_mode, check_mode,
+                                       dp_clipped_gradients,
+                                       supergroup_norms)
 from repro_torch.core.quantile import (QuantileState, clip_counts,
                                        init_quantile_state,
                                        update_thresholds)
@@ -42,9 +44,14 @@ from repro_torch.optim.optimizers import slices
 @dataclasses.dataclass(frozen=True)
 class DPConfig:
     """Configuration of the private learning run (the reference's fields
-    that the single-device per_layer / non_private step reads).
+    that the single-device step reads).
 
-    * `mode` (`--clipping`): `per_layer` or `non_private`.
+    * `mode` (`--clipping`): `per_layer`, `ghost_flat`, `per_group`,
+      `non_private`, or `ghost_flat_twopass` / `per_group_twopass`.
+      `execution` (`--execution`): how the flat and group modes compute
+      the clipped sums, `bk` (one backward + the BK epilogue) or
+      `twopass`; a `*_twopass` mode name forces twopass. Accounting does
+      not depend on it.
     * Privacy budget: `epsilon` (target, calibrated over `steps` steps at
       Poisson `sampling_rate` = B/N and `delta`), or `sigma` directly.
     * Thresholds: `adaptive` tracks the `target_quantile` of per-example
@@ -53,11 +60,14 @@ class DPConfig:
       C(0), or the fixed C when not adaptive. `threshold_rescale` is the
       Appendix A.1 global rescale.
     * `noise_strategy`: global | equal_budget | weighted (Sec. 3.3).
+    * per_group: `group_assignment` maps each layout group to a
+      supergroup; `num_supergroups` pads the count (else max + 1).
     * `backend` (`--backend`): the ghost-op engine, `kernels` or `plain`
       (`repro_torch.kernels.backend`), scoped around the step.
     """
 
     mode: str = "per_layer"
+    execution: str = "bk"  # bk | twopass, for ghost_flat / per_group
     epsilon: float | None = 8.0
     delta: float = 1e-5
     sampling_rate: float = 0.01  # rho = B / N (Poisson subsampling)
@@ -70,6 +80,8 @@ class DPConfig:
     quantile_budget_fraction: float = 0.01
     noise_strategy: str = "global"
     threshold_rescale: float | None = None
+    group_assignment: tuple[int, ...] | None = None  # group -> supergroup
+    num_supergroups: int | None = None
     backend: str = "kernels"
 
     @property
@@ -96,7 +108,7 @@ class DPPlan:
     """Everything precomputed at build time (Python floats, accounting)."""
 
     config: DPConfig
-    num_noise_groups: int  # K for per_layer, 0 for non_private
+    num_noise_groups: int  # K per_layer, 1 flat, G per_group, 0 non_private
     sigma: float  # total-budget noise multiplier (no quantile split)
     sigma_b: float  # clip-count noise multiplier (0 if not adaptive)
     sigma_new: float  # gradient noise multiplier after the Prop 3.1 split
@@ -109,7 +121,30 @@ def build_plan(cfg: DPConfig, layout: GroupLayout) -> DPPlan:
     check_mode(cfg.mode)
     if not cfg.private:
         return DPPlan(cfg, 0, 0.0, 0.0, 0.0, np.zeros(0, np.int64))
-    num_groups = layout.num_groups
+    mults = layout.sens_mults
+    mode = base_mode(cfg.mode)  # accounting is execution-independent
+    if mode == "ghost_flat":
+        num_groups = 1
+        dims = np.array([int(layout.dims.sum())], np.int64)
+        mults = np.ones(1, np.float32)
+    elif mode == "per_group":
+        if cfg.group_assignment is None:
+            raise ValueError("per_group mode requires group_assignment")
+        assign = np.asarray(cfg.group_assignment)
+        if assign.shape != (layout.num_groups,):
+            raise ValueError(
+                f"group_assignment must have shape ({layout.num_groups},)")
+        num_groups = (cfg.num_supergroups if cfg.num_supergroups
+                      else int(assign.max()) + 1)
+        if num_groups <= int(assign.max()):
+            raise ValueError("num_supergroups smaller than assignment range")
+        dims = np.zeros(num_groups, np.int64)
+        np.add.at(dims, assign, layout.dims)
+        mults = np.ones(num_groups, np.float32)
+        np.maximum.at(mults, assign, layout.sens_mults)
+    else:  # per_layer
+        num_groups = layout.num_groups
+        dims = layout.dims
     if cfg.sigma is not None:
         sigma = float(cfg.sigma)
     else:
@@ -125,8 +160,7 @@ def build_plan(cfg: DPConfig, layout: GroupLayout) -> DPPlan:
             sigma, sigma_b, num_groups).sigma_new
     else:
         sigma_b, sigma_new = 0.0, sigma
-    return DPPlan(cfg, num_groups, sigma, sigma_b, sigma_new, layout.dims,
-                  layout.sens_mults)
+    return DPPlan(cfg, num_groups, sigma, sigma_b, sigma_new, dims, mults)
 
 
 def init_dp_state(plan: DPPlan, device: str | torch.device = "cpu"
@@ -193,15 +227,23 @@ def add_noise_to_grads(spec: SpecTree, layout: GroupLayout, grads: Any,
     return grads
 
 
-def _layout_stds(plan: DPPlan, thresholds: torch.Tensor) -> torch.Tensor:
-    """Per-layout-group noise stds (per_layer: one noise group each)."""
+def _layout_stds(plan: DPPlan, layout: GroupLayout, thresholds: torch.Tensor,
+                 assign: torch.Tensor | None) -> torch.Tensor:
+    """Per-layout-group noise stds: per_layer has one noise group per
+    layout group; the flat mode's one std covers every layout group; a
+    supergroup's std is broadcast to its members (`assign`, (K,))."""
     cfg = plan.config
-    dims = torch.as_tensor(plan.group_dims, dtype=torch.float32,
-                           device=thresholds.device)
-    mults = torch.as_tensor(plan.sens_mults, dtype=torch.float32,
-                            device=thresholds.device)
-    return noise_lib.group_noise_stds(cfg.noise_strategy, thresholds * mults,
+    dev = thresholds.device
+    dims = torch.as_tensor(plan.group_dims, dtype=torch.float32, device=dev)
+    mults = torch.as_tensor(plan.sens_mults, dtype=torch.float32, device=dev)
+    stds = noise_lib.group_noise_stds(cfg.noise_strategy, thresholds * mults,
                                       dims, plan.sigma_new)
+    mode = base_mode(cfg.mode)
+    if mode == "ghost_flat":
+        return stds.expand(layout.num_groups)
+    if mode == "per_group":
+        return stds[assign]
+    return stds
 
 
 def _effective_thresholds(cfg: DPConfig, plan: DPPlan, dp_state: DPState):
@@ -263,23 +305,43 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
         dev = next(t for _, t in tree_leaves(params)).device
         return optimizer.init(params), init_dp_state(plan, dev)
 
+    mode = base_mode(cfg.mode)
+    execution = "twopass" if cfg.mode.endswith("_twopass") else cfg.execution
+    assign_np = (np.asarray(cfg.group_assignment, np.int64)
+                 if mode == "per_group" else None)
+
+    def clip(params, batch, thresholds, assign):
+        kw = dict(batch_size=batch_size, mode=mode)
+        if mode == "per_layer":
+            kw["thresholds"] = thresholds
+        elif mode == "ghost_flat":
+            kw.update(flat_threshold=thresholds[0], execution=execution)
+        elif mode == "per_group":
+            kw.update(group_assignment=assign, group_thresholds=thresholds,
+                      execution=execution)
+        return dp_clipped_gradients(loss_fn, params, batch, layout, **kw)
+
     def step_fn(params, opt_state, dp_state, batch, seed: int):
         with ghost_backend.scoped(cfg.backend):
             thresholds = _effective_thresholds(cfg, plan, dp_state)
-            if cfg.mode == "non_private":
-                res = dp_clipped_gradients(loss_fn, params, batch, layout,
-                                           mode="non_private",
-                                           batch_size=batch_size)
+            assign = (None if assign_np is None else
+                      torch.as_tensor(assign_np, device=thresholds.device))
+            res = clip(params, batch, thresholds, assign)
+            if mode == "non_private":
                 noised, counts = res.grads, torch.zeros_like(thresholds)
             else:
-                res = dp_clipped_gradients(loss_fn, params, batch, layout,
-                                           mode="per_layer",
-                                           batch_size=batch_size,
-                                           thresholds=thresholds)
-                counts = clip_counts(res.norms_sq, thresholds)
+                if mode == "per_layer":
+                    norms = res.norms_sq
+                elif mode == "ghost_flat":
+                    norms = torch.sum(res.norms_sq, dim=0)[None]
+                else:  # per_group
+                    norms = supergroup_norms(res.norms_sq, assign,
+                                             plan.num_noise_groups)
+                counts = clip_counts(norms, thresholds)
                 noised = add_noise_to_grads(
-                    spec, layout, res.grads, _layout_stds(plan, thresholds),
-                    seed, dp_state.step)
+                    spec, layout, res.grads,
+                    _layout_stds(plan, layout, thresholds, assign), seed,
+                    dp_state.step)
             count_gen = generator(thresholds.device, seed, dp_state.step)
             return _apply_update(cfg, optimizer, batch_size, params,
                                  opt_state, dp_state, noised, counts,

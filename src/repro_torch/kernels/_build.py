@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C entry point. It is compiled with
 `nvcc` for `sm_90a` into `build/kernels/<name>-<source hash>.so` at the
-root of the checkout, at first use, and loaded with `ctypes`. A changed
-source gets a new file name, so a stale library is never loaded. Nothing
+root of the checkout, at first use, and loaded with `ctypes`. The hash
+covers the source and every shared header `csrc/*.cuh`, so a changed
+source or header gets a new file name and a stale library is never
+loaded. Nothing
 is built when a module is imported: the CPU tests import every module and
 this machine may have no `nvcc`.
 """
@@ -40,8 +42,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -8,7 +8,8 @@ the engine returned by `active()`. Two backends are registered:
            gram_chunked / outer by the cost model); the counterpart of the
            reference's `xla` backend and the oracle of the other.
   kernels  the hand-written Hopper kernels for the linear-layer hot path
-           (`kernels/ghost_norm.py`, `kernels/clip_reduce.py`); the
+           (`kernels/ghost_norm.py`, `kernels/clip_reduce.py`) and the BK
+           epilogue (`kernels/bk.py`); the
            counterpart of `pallas`. Each wrapper runs its plain version
            for a CPU tensor and its CUDA kernel for a CUDA tensor. Ops
            with no kernel inherit the plain implementations, as
@@ -24,6 +25,8 @@ Backend selection matrix (op x backend):
                                                    clip_reduce
   bias/embed/scale/vector   einsum/index_add       = plain (no kernel)
   clipped_sum_bias/embed/.. einsum/index_add       = plain (no kernel)
+  scale_contract (BK)       einsum per slice       scale_contract
+                                                   (scale_contract_ref)
 
 `linear_clip` always composes the two kernels: the reference's fused
 single-kernel route (`fused_norm_clip`) needs the whole (din, dout) f32
@@ -34,7 +37,13 @@ The engine is SCOPED: `with backend.scoped("kernels"): ...` pushes an
 engine for the dynamic extent of the block (a `contextvars` stack, so
 threads and tasks each see their own); outside any scope it is `plain`.
 The reference's tunables (outer-path cap, gram chunk, tile sizes) stay at
-their defaults here: no caller of the port sets them.
+their defaults here: no caller of the port sets them. The one setting an
+engine carries is `capture_residuals`, the reference's
+`EngineConfig.capture_residuals`: the book-keeping capture pass
+(`repro_torch.core.bk.capture_clipped`) scopes it on, and the DP
+primitives refuse a BK channel from a forward run outside it (a capture
+pass returns no parameter gradients and must never pass for a gradient
+pass). The epilogue's `scale_contract` runs outside it.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import contextvars
 
 from repro_torch.core import ghost
 from repro_torch.core.ghost import clip_factor, factor_without_norms
+from repro_torch.kernels import bk as bk_mod
 from repro_torch.kernels import clip_reduce as clip_reduce_mod
 from repro_torch.kernels import ghost_norm as ghost_norm_mod
 
@@ -74,6 +84,9 @@ class Backend:
     paths; subclasses override the ops they run as kernels."""
 
     name = "base"
+
+    def __init__(self, *, capture_residuals: bool = False):
+        self.capture_residuals = capture_residuals
 
     # -- norms² ------------------------------------------------------------
     def linear_norms_sq(self, a, g):
@@ -123,6 +136,15 @@ class Backend:
         f = clip_factor(c, n)
         return n, f, self.clipped_sum_linear(a, g, f)
 
+    # -- BK epilogue: scaled contraction over cached residuals -------------
+    def scale_contract(self, a, g, factors):
+        """sum_i f[s,i] A[s,i]ᵀ G[s,i] per stack slice (core.bk).
+
+        a: (S, B, T, din); g: (S, B, T, dout); factors: (S, B) ->
+        (S, din, dout) f32. Accepts the unstacked 3-D form too.
+        """
+        return bk_mod.scale_contract_ref(a, g, factors)
+
 
 @register_backend("plain")
 class PlainBackend(Backend):
@@ -131,8 +153,9 @@ class PlainBackend(Backend):
 
 @register_backend("kernels")
 class KernelsBackend(Backend):
-    """The ghost_norm and clip_reduce kernels for the linear hot path;
-    the plain paths for the cheap ops (bias/embed/scale/vector)."""
+    """The ghost_norm and clip_reduce kernels for the linear hot path and
+    scale_contract for the BK epilogue; the plain paths for the cheap ops
+    (bias/embed/scale/vector)."""
 
     def linear_norms_sq(self, a, g):
         a3, g3 = ghost._as3d(a), ghost._as3d(g)
@@ -142,6 +165,10 @@ class KernelsBackend(Backend):
         a3, g3 = ghost._as3d(a), ghost._as3d(g)
         return clip_reduce_mod.clip_reduce(
             a3.contiguous(), g3.contiguous(), factors.float().contiguous())
+
+    def scale_contract(self, a, g, factors):
+        return bk_mod.scale_contract(a.contiguous(), g.contiguous(),
+                                     factors.float().contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -153,13 +180,15 @@ _STACK: contextvars.ContextVar[tuple[Backend, ...]] = contextvars.ContextVar(
     "ghost_backend_stack", default=())
 
 
-def make_engine(backend: str) -> Backend:
+def make_engine(backend: str, *, capture_residuals: bool = False
+                ) -> Backend:
     """The registered backend named `backend`."""
     try:
-        return _REGISTRY[backend]()
+        cls = _REGISTRY[backend]
     except KeyError:
         raise ValueError(f"unknown ghost backend {backend!r}; "
                          f"registered: {backends()}") from None
+    return cls(capture_residuals=capture_residuals)
 
 
 def active() -> Backend:
@@ -169,9 +198,11 @@ def active() -> Backend:
 
 
 @contextlib.contextmanager
-def scoped(backend: str):
-    """Push the engine `backend` for the dynamic extent of the block."""
-    eng = make_engine(backend)
+def scoped(backend: str | None = None, *, capture_residuals: bool = False):
+    """Push the engine `backend` (default: the active engine's backend)
+    for the dynamic extent of the block."""
+    eng = make_engine(active().name if backend is None else backend,
+                      capture_residuals=capture_residuals)
     token = _STACK.set(_STACK.get() + (eng,))
     try:
         yield eng

@@ -1,9 +1,9 @@
-"""Training CLI: DP-SGD with adaptive per-layer clipping (Algorithm 1).
+"""Training CLI: DP-SGD with adaptive group-wise clipping (Algorithm 1).
 
 The counterpart of `repro.launch.train` for one device. The parser has
 only the flags the port runs; a flag of the reference that is not ported
-yet (mesh, microbatches, LoRA, checkpoints, the flat and group clipping
-modes) fails in argparse.
+yet (mesh, microbatches, LoRA, checkpoints, `naive_flat`) fails in
+argparse.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --clipping per_layer --epsilon 8 --steps 4 --batch 8 --seq 256 \\
@@ -13,6 +13,13 @@ Add `--device cpu` (and `--reduced`, or `--arch tiny`) to run without a
 GPU. `--backend kernels` (the default) runs the linear layers' norms and
 clipped sums through the hand-written kernels (their plain versions on
 the CPU); `--backend plain` through the plain PyTorch paths.
+
+`--clipping ghost_flat` (flat clipping) and `--clipping per_group` run by
+book-keeping (`--execution bk`, the default: one backward pass and the
+`scale_contract` epilogue) or by two backward passes (`--execution
+twopass`, or the mode names `ghost_flat_twopass` / `per_group_twopass`).
+per_group's supergroups are what `--group-count` virtual model shards
+would own (`launch.sharding.group_shard_assignment`).
 """
 from __future__ import annotations
 
@@ -28,15 +35,22 @@ from repro_torch.core.dp_sgd import DPConfig, make_dp_train_step
 from repro_torch.core.spec import tree_leaves
 from repro_torch.data import (PoissonSampler, SyntheticLM, make_lm_batch,
                               pack_documents)
+from repro_torch.launch.sharding import group_shard_assignment
 from repro_torch.models.transformer import build_model
+
+CLIPPING = ["per_layer", "ghost_flat", "per_group", "non_private",
+            "ghost_flat_twopass", "per_group_twopass"]
 
 
 def build_train_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tiny", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--clipping", default="per_layer",
-                    choices=["per_layer", "non_private"])
+    ap.add_argument("--clipping", default="per_layer", choices=CLIPPING)
+    ap.add_argument("--execution", default="bk", choices=["bk", "twopass"],
+                    help="flat/group clipping execution: bk runs ONE "
+                         "backward and contracts cached ghost residuals in "
+                         "an epilogue (core.bk); twopass runs two")
     ap.add_argument("--epsilon", type=float, default=8.0)
     ap.add_argument("--delta", type=float, default=1e-5)
     ap.add_argument("--sigma", type=float, default=None)
@@ -53,6 +67,10 @@ def build_train_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quantile-budget", type=float, default=0.01)
     ap.add_argument("--noise-strategy", default="global",
                     choices=["global", "equal_budget", "weighted"])
+    ap.add_argument("--group-count", type=int, default=2,
+                    help="per_group clipping: number of virtual model "
+                         "shards whose ownership defines the supergroups "
+                         "(launch.sharding.group_shard_assignment)")
     ap.add_argument("--backend", default="kernels",
                     choices=["kernels", "plain"],
                     help="ghost-op engine (repro_torch.kernels.backend): "
@@ -82,8 +100,13 @@ class Trainer:
         self.sampler = PoissonSampler(num_examples=self.rows.shape[0],
                                       rate=rate, max_batch=args.batch,
                                       seed=1)
+        assign = nsuper = None
+        if args.clipping.startswith("per_group"):
+            nsuper = args.group_count
+            assign = group_shard_assignment(self.model.layout, nsuper)
         dpc = DPConfig(
-            mode=args.clipping,
+            mode=args.clipping, execution=args.execution,
+            group_assignment=assign, num_supergroups=nsuper,
             epsilon=args.epsilon if args.sigma is None else None,
             sigma=args.sigma, delta=args.delta, sampling_rate=rate,
             steps=args.steps, adaptive=not args.fixed_thresholds,
@@ -123,12 +146,21 @@ class Trainer:
             self.step_seed)
         return met
 
+    @property
+    def execution(self) -> str:
+        """How the flat and group modes run (a `*_twopass` mode forces
+        twopass)."""
+        mode = self.plan.config.mode
+        return ("twopass" if mode.endswith("_twopass")
+                else self.plan.config.execution)
+
     def header(self) -> str:
         p = self.plan
         return (f"# arch={self.cfg.name} params={self.model.num_params:,} "
                 f"groups={self.model.layout.num_groups} "
                 f"mode={p.config.mode} backend={p.config.backend} "
-                f"device={self.args.device} sigma={p.sigma:.3f} "
+                f"device={self.args.device} execution={self.execution} "
+                f"sigma={p.sigma:.3f} "
                 f"sigma_new={p.sigma_new:.3f} sigma_b={p.sigma_b:.3f}")
 
 

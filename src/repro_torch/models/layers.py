@@ -1,7 +1,8 @@
 """Shared building blocks: norms, linear, SwiGLU, rotary embeddings.
 
 `rmsnorm`, `linear` and `swiglu` take an optional `th`, this module's
-slice of the encoded-threshold dict. With it (training) every parameter
+slice of the encoded-threshold dict (tensors, or the BK capture's
+channels, `repro_torch.core.bk`). With it (training) every parameter
 goes through a DP primitive (`repro_torch.core.dp_layers`), so clipping is
 fused into backprop; without it (serving) they are the plain forward.
 Every bf16 rounding point of the reference is mirrored: normalisation and

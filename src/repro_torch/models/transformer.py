@@ -155,8 +155,9 @@ def _make_decoder_loss(cfg: ModelConfig):
         """Per-example losses (B,). params: the stacked (reference-layout)
         tree; batch: {'tokens', 'targets' (-1 = ignore), optional
         'positions'}, (B, T) each; th: {group name: stack + (B,)} encoded
-        thresholds (`GroupLayout.pack*`). Each block is rematerialized in
-        backward when `cfg.remat`."""
+        thresholds (`GroupLayout.pack*`), or the BK capture's channels
+        (`core.bk.build_channels`), which unbind per layer the same way.
+        Each block is rematerialized in backward when `cfg.remat`."""
         tokens = batch["tokens"]
         bsz, t = tokens.shape
         x = dpl.dp_embed(params["embed"]["w"], tokens, th["embed"])

@@ -1,12 +1,15 @@
-"""The ghost_norm and clip_reduce wrappers, and their kernels on the card.
+"""The ghost_norm, clip_reduce and scale_contract wrappers, and their
+kernels on the card.
 
 * On a CPU tensor each wrapper is its plain version and counts no launch;
   on another non-CUDA device it raises.
 * The input checks refuse what the kernels do not take (dtype, rank,
-  mismatched B or T, mixed devices, non-contiguous inputs, factors that
-  are not float32 (B,)), and accept the main path's widest shapes.
+  mismatched S, B or T, mixed devices, non-contiguous inputs, factors
+  that are not float32 of the batch shape), and accept the main path's
+  widest shapes.
 * On a Hopper card (`-m cuda`; skipped elsewhere): each kernel against its
-  plain version over ragged T, T = 1, din != dout, f32 and bf16.
+  plain version over ragged T, T = 1, din != dout, f32 and bf16, and
+  scale_contract over S in {1, 3} and its 3-D form.
 
 Only torch and numpy: these tests run where JAX is not installed.
 """
@@ -14,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bk as SC
 from repro_torch.kernels import clip_reduce as CR
 from repro_torch.kernels import ghost_norm as GN
 
@@ -40,12 +44,36 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
     assert (GN.launches, CR.launches) == before
 
 
+def _sag(s, b, t, din, dout, seed=0):
+    rng = np.random.default_rng(seed + 11 * t + din)
+    return (T(rng.standard_normal((s, b, t, din)).astype(np.float32)),
+            T(rng.standard_normal((s, b, t, dout)).astype(np.float32)),
+            T(np.resize(FACTORS, (s, b)).astype(np.float32)))
+
+
+def test_scale_contract_on_cpu_is_its_plain_version_and_counts_nothing():
+    a, g, f = _sag(3, 2, 5, 6, 4)
+    before = SC.launches
+    assert torch.equal(SC.scale_contract(a, g, f),
+                       SC.scale_contract_ref(a, g, f))
+    assert torch.equal(SC.scale_contract(a[1], g[1], f[1]),
+                       CR.clip_reduce_ref(a[1], g[1], f[1]))
+    assert SC.launches == before
+    # slice s is clip_reduce of slice s
+    want = torch.stack([CR.clip_reduce_ref(a[s], g[s], f[s])
+                        for s in range(3)])
+    torch.testing.assert_close(SC.scale_contract_ref(a, g, f), want,
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_wrappers_refuse_other_devices():
     a, g = (T(v).to("meta") for v in _ag(3, 6, 5, 7))
     with pytest.raises(ValueError, match="no kernel"):
         GN.ghost_norm(a, g)
     with pytest.raises(ValueError, match="no kernel"):
         CR.clip_reduce(a, g, torch.ones(3, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        SC.scale_contract(a[None], g[None], torch.ones(1, 3, device="meta"))
 
 
 def _valid():
@@ -84,12 +112,46 @@ def test_clip_reduce_checks_raise(case):
         CR._check(*args)
 
 
+def _valid4():
+    return list(_sag(2, 3, 6, 5, 7))
+
+
+SC_BAD = {
+    "float16": lambda a: [a[0].half(), a[1].half(), a[2]],
+    "mixed_dtype": lambda a: [a[0].bfloat16(), a[1], a[2]],
+    "non_contiguous": lambda a: [a[0].transpose(1, 2).contiguous()
+                                 .transpose(1, 2), a[1], a[2]],
+    "stack_mismatch": lambda a: [a[0][:1], a[1], a[2]],
+    "batch_mismatch": lambda a: [a[0][:, :2], a[1], a[2]],
+    "seq_mismatch": lambda a: [a[0][:, :, :4], a[1], a[2]],
+    "rank_mismatch": lambda a: [a[0][0], a[1], a[2]],
+    "rank_2": lambda a: [a[0][0, :, 0], a[1][0, :, 0], a[2][0]],
+    "mixed_devices": lambda a: [a[0], a[1].to("meta"), a[2]],
+    "factors_bf16": lambda a: a[:2] + [a[2].bfloat16()],
+    "factors_shape": lambda a: a[:2] + [a[2][0]],
+    "factors_device": lambda a: a[:2] + [a[2].to("meta")],
+    "factors_non_contiguous": lambda a: a[:2] + [a[2].T.contiguous().T],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SC_BAD))
+def test_scale_contract_checks_raise(case):
+    args = SC_BAD[case](_valid4())
+    with pytest.raises(ValueError, match="scale_contract"):
+        SC._check(*args)
+
+
 def test_checks_accept_the_main_path_shapes():
     # qwen3-4b, B = 8, T = 256: the head's (2560 -> 151,936) is the widest
     a = torch.empty((8, 256, 2560), dtype=torch.bfloat16)
     g = torch.empty((8, 256, 151_936), dtype=torch.bfloat16)
     GN._check(a, g)
     CR._check(a, g, torch.ones(8))
+    SC._check(a, g, torch.ones(8))  # the head's epilogue, 3-D form
+    # the stacked gate_up of the BK epilogue: (36, 8, 256, 2560 -> 19,456)
+    a4 = torch.empty((36, 8, 256, 2560), dtype=torch.bfloat16)
+    g4 = torch.empty((36, 8, 256, 19_456), dtype=torch.bfloat16)
+    SC._check(a4, g4, torch.ones(36, 8))
     assert GN.num_pairs(256) == 36  # 8 * 36 = 288 blocks on 132 SMs
 
 
@@ -121,3 +183,29 @@ def test_kernels_match_plain_versions_on_card(shape, dtype):
                       (s, CR.clip_reduce_ref(a, g, f))):
         atol = 1e-4 * float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+# S, B, T, din, dout: S = 1 and 3, ragged T, T = 1, din != dout both ways
+SC_CARD_SHAPES = [(1, 2, 5, 7, 9), (3, 3, 1, 16, 8), (3, 2, 37, 20, 45),
+                  (1, 8, 256, 256, 384), (3, 2, 100, 130, 260)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SC_CARD_SHAPES)
+def test_scale_contract_matches_plain_version_on_card(shape, dtype):
+    """Identical inputs on the card, the stacked form and the 3-D form of
+    slice 0; only the f32 summation order differs: rtol 1e-4, atol 1e-4
+    of the largest magnitude of the plain result."""
+    _on_card()
+    a, g, f = (x.cuda() for x in _sag(*shape))
+    a, g = a.to(getattr(torch, dtype)), g.to(getattr(torch, dtype))
+    before = SC.launches
+    got, got3 = SC.scale_contract(a, g, f), SC.scale_contract(a[0], g[0],
+                                                              f[0])
+    torch.cuda.synchronize()
+    assert SC.launches == before + 2
+    want = SC.scale_contract_ref(a, g, f)
+    for x, w in ((got, want), (got3, want[0])):
+        atol = 1e-4 * float(w.abs().max())
+        torch.testing.assert_close(x, w, rtol=1e-4, atol=atol)

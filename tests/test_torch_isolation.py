@@ -37,7 +37,8 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 
 def test_port_package_is_scanned():
     for name in ("kernels/paged_attn.py", "kernels/ghost_norm.py",
-                 "kernels/clip_reduce.py", "launch/train.py"):
+                 "kernels/clip_reduce.py", "kernels/bk.py", "core/bk.py",
+                 "launch/sharding.py", "launch/train.py"):
         assert f"src/repro_torch/{name}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
@@ -75,5 +76,5 @@ def test_importing_the_port_builds_nothing():
     from repro_torch.kernels import _build, launch_counts
     assert _build.BUILD_LOGS == {} and _build._LIBS == {}
     assert set(launch_counts()) == {"paged_attn", "ghost_norm",
-                                    "clip_reduce"}
+                                    "clip_reduce", "scale_contract"}
     assert set(_build.sources()) == set(launch_counts())

@@ -4,15 +4,17 @@ Parameters cross through the numpy bridge; the same numpy-seeded batches
 go through both packages:
 
 * `dp_clipped_gradients` (`per_layer` and `non_private`): loss, (K, B)
-  norms² and every clipped gradient leaf, on tiny and qwen3-4b-reduced;
-* two full `make_dp_train_step` steps (SGD with momentum) with the
-  reference's noise and count-noise draws substituted for the port's,
-  and Adam / AdamW as optimizer units on identical inputs;
+  norms² and every clipped gradient leaf, on tiny and qwen3-4b-reduced
+  (the flat and group modes: `test_torch_bk.py`);
+* two full `make_dp_train_step` steps (SGD with momentum) of every ported
+  mode with the reference's noise and count-noise draws substituted for
+  the port's, and Adam / AdamW as optimizer units on identical inputs;
 * the port's own draws by their distribution; the quantile update, the
   noise allocation, the schedules;
 * the accounting copy to 1e-12 and the data pipeline bit for bit;
 * remat on/off, the kernel call counts of one step (4 per block + the
-  head), `non_private` calling no norm op, and the `--device cpu` CLI.
+  head; 5 `scale_contract` calls and no `clip_reduce` under BK),
+  `non_private` calling no norm op, and the `--device cpu` CLI.
 
 Tolerances: float32, the same math summed in another order: rtol 1e-5
 and an atol of 1e-5 of the leaf's largest magnitude (1e-4 after a full
@@ -47,6 +49,7 @@ from repro_torch.core import quantile as Q
 from repro_torch.core.spec import _walk
 from repro_torch.core.clipping import dp_clipped_gradients
 from repro_torch.data import pipeline as PIPE
+from repro_torch.kernels import bk as SC
 from repro_torch.kernels import clip_reduce as CR
 from repro_torch.kernels import ghost_norm as GN
 from repro_torch.launch import train
@@ -150,8 +153,10 @@ def test_remat_changes_nothing_and_norms_arrive_once():
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7, msg=name)
 
 
-def _count_calls(monkeypatch):
+def _count_calls(monkeypatch, scale_contract=False):
     calls = {"ghost_norm": 0, "clip_reduce": 0}
+    if scale_contract:
+        calls["scale_contract"] = 0
 
     def counting(name, fn):
         def wrapped(*a, **k):
@@ -163,6 +168,9 @@ def _count_calls(monkeypatch):
                                                    GN.ghost_norm))
     monkeypatch.setattr(CR, "clip_reduce", counting("clip_reduce",
                                                     CR.clip_reduce))
+    if scale_contract:
+        monkeypatch.setattr(SC, "scale_contract", counting(
+            "scale_contract", SC.scale_contract))
     return calls
 
 
@@ -191,6 +199,29 @@ def test_kernel_calls_per_step_and_non_private_skips_norms(mode,
     assert np.isfinite(float(met.loss)) and np.isfinite(float(met.grad_norm))
 
 
+@pytest.mark.parametrize("mode,execution", [
+    ("ghost_flat", "bk"), ("per_group", "bk"), ("ghost_flat", "twopass"),
+    ("per_group_twopass", "bk")])
+def test_kernel_calls_per_step_under_bk_and_twopass(mode, execution,
+                                                    monkeypatch):
+    """BK: one ghost_norm per linear, no clip_reduce, one scale_contract
+    per linear leaf (the 4 stacked block linears and the head); twopass:
+    one ghost_norm and one clip_reduce per linear, no scale_contract."""
+    calls = _count_calls(monkeypatch, scale_contract=True)
+    args = train.build_train_parser().parse_args(
+        ["--arch", "qwen3-4b", "--reduced", "--clipping", mode,
+         "--execution", execution, "--steps", "2", "--batch", "2", "--seq",
+         "8", "--docs", "4", "--device", "cpu"])
+    trainer = train.Trainer(args)
+    met = trainer.step()
+    linears = 4 * trainer.cfg.num_layers + 1
+    bk = trainer.execution == "bk"
+    assert calls == {"ghost_norm": linears,
+                     "clip_reduce": 0 if bk else linears,
+                     "scale_contract": 5 if bk else 0}
+    assert np.isfinite(float(met.loss)) and np.isfinite(float(met.grad_norm))
+
+
 # ---------------------------------------------------------------------------
 # Full steps with the reference's draws substituted.
 # ---------------------------------------------------------------------------
@@ -211,15 +242,23 @@ def _reference_draws(spec, num_groups, key, step):
 
 @pytest.mark.parametrize("mode,rescale", [("per_layer", None),
                                           ("per_layer", 2.0),
-                                          ("non_private", None)])
+                                          ("non_private", None),
+                                          ("ghost_flat", None),
+                                          ("per_group", None),
+                                          ("per_group", 2.0)])
 def test_two_train_steps_match_reference_with_its_draws(mode, rescale,
                                                         monkeypatch):
-    """rescale: the Appendix A.1 global threshold rescale."""
+    """rescale: the Appendix A.1 global threshold rescale. per_group's
+    supergroups: what 2 virtual model shards own."""
+    from repro_torch.launch.sharding import group_shard_assignment
     m, jm = _models("tiny")
     tree = bridge.numpy_params(m.spec, seed=0)
     kw = dict(mode=mode, sigma=0.7, sampling_rate=0.05, steps=10,
               init_threshold=0.5, noise_strategy="weighted",
               threshold_rescale=rescale)
+    if mode == "per_group":
+        kw.update(group_assignment=group_shard_assignment(m.layout, 2),
+                  num_supergroups=2)
     j_init, j_step, j_plan = JDP.make_dp_train_step(
         jm.loss_fn, jm.spec, jm.layout, joptim.sgd(0.05, momentum=0.9),
         JDP.DPConfig(backend="xla", **kw), batch_size=4)
@@ -240,8 +279,8 @@ def test_two_train_steps_match_reference_with_its_draws(mode, rescale,
     po, pd = p_init(pp)
     step = jax.jit(j_step)
     for s in range(2):
-        cur["z"], cur["zq"] = _reference_draws(jm.spec, jm.layout.num_groups,
-                                               key, s)
+        cur["z"], cur["zq"] = _reference_draws(
+            jm.spec, max(j_plan.num_noise_groups, 1), key, s)
         batch = _batch(m.cfg.vocab_size, b=4, seed=10 + s)
         jp, jo, jd, jmet = step(jp, jo, jd, _j(batch), key)
         pp, po, pd, pmet = p_step(pp, po, pd, _t(batch), 0)
@@ -440,6 +479,29 @@ def test_data_pipeline_streams_are_bitwise_the_reference():
     np.testing.assert_array_equal(s.next_indices(), a)
 
 
+@pytest.mark.parametrize("mode", ["ghost_flat", "per_group",
+                                  "ghost_flat_twopass"])
+def test_train_cli_flat_and_group_modes_on_cpu(mode, capsys):
+    """bk and twopass print the same step lines (the same clipped sums in
+    another order, to the printed digits)."""
+    lines = {}
+    for execution in ("bk", "twopass"):
+        assert train.main(["--arch", "tiny", "--clipping", mode,
+                           "--execution", execution, "--group-count", "3",
+                           "--steps", "2", "--batch", "4", "--seq", "16",
+                           "--docs", "16", "--log-every", "1", "--seed", "3",
+                           "--device", "cpu"]) == 0
+        out = capsys.readouterr().out.splitlines()
+        want_exec = "twopass" if mode.endswith("_twopass") else execution
+        assert out[0].startswith(f"# arch=tiny params=106,944 groups=15 "
+                                 f"mode={mode} backend=kernels device=cpu "
+                                 f"execution={want_exec} ")
+        lines[execution] = [ln for ln in out if ln.startswith("step")]
+        assert all(np.isfinite(float(s.split()[i])) for s in
+                   lines[execution] for i in (3, 5, 7, 9))
+    assert len(lines["bk"]) == 2 and lines["bk"] == lines["twopass"]
+
+
 def test_train_cli_on_cpu(capsys):
     assert train.main(["--arch", "tiny", "--steps", "2", "--batch", "4",
                        "--seq", "16", "--docs", "16", "--log-every", "1",
@@ -455,7 +517,12 @@ def test_train_cli_on_cpu(capsys):
 
 def test_unported_modes_name_their_roadmap_item():
     m = build_model(get_config("tiny"), device="cpu")
-    for mode, item in (("ghost_flat", "A.3"), ("per_group", "A.3"),
-                       ("naive_flat", "A.3")):
-        with pytest.raises(NotImplementedError, match=item):
-            dp_sgd.build_plan(dp_sgd.DPConfig(mode=mode), m.layout)
+    with pytest.raises(NotImplementedError, match="A.3"):
+        dp_sgd.build_plan(dp_sgd.DPConfig(mode="naive_flat"), m.layout)
+    with pytest.raises(SystemExit):  # the CLI refuses it in argparse
+        train.build_train_parser().parse_args(["--clipping", "naive_flat"])
+    for mode in ("ghost_flat", "per_group_twopass"):  # ported now
+        plan = dp_sgd.build_plan(dp_sgd.DPConfig(
+            mode=mode, group_assignment=(0,) * m.layout.num_groups),
+            m.layout)
+        assert plan.num_noise_groups == 1
