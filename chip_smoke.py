@@ -33,32 +33,41 @@ exits non-zero:
               of each of six Figure-1 variants (the labels of
               benchmarks/bench_throughput.py): per_layer, non_private,
               ghost_flat_twopass, per_group_twopass, ghost_flat_bk,
-              per_group_bk (per_group: --group-count 2). Counters are set
-              to 0 before each variant's steps and read after; per step
-              (4 linears x 36 blocks + the head = 145 linears):
-                          ghost_norm   clip_reduce   scale_contract
-                per_layer        145           145                0
-                non_private        0           145                0
-                *_twopass        145           145                0
-                *_bk             145             0                5
+              per_group_bk (per_group: --group-count 2), and of
+              per_shard (per-device clipping: --group-count 16 column
+              blocks of qkv and o, run as per_layer over 1,371 groups),
+              before the BK variants. Counters are set to 0 before each
+              variant's steps and read after; per step (4 linears x 36
+              blocks + the head = 145 linears; 72 of them blocked under
+              per_shard), launches of ghost_norm / ghost_norm_blocked /
+              clip_reduce / scale_contract:
+                per_layer     145 /  0 / 145 / 0
+                non_private     0 /  0 / 145 / 0
+                *_twopass     145 /  0 / 145 / 0
+                per_shard      73 / 72 / 145 / 0
+                *_bk          145 /  0 /   0 / 5
               and a BK variant must raise no fallback warning. ms per
               step, ratio_vs_nonprivate, ratio_bk_vs_twopass per mode,
-              losses, thresholds, clip fraction, peak memory, and one
-              profiled step per variant. The kernels' inputs at the five
-              linear shapes (per_layer's first step) and the five BK
-              sinks (per_group_bk's last step) are captured for phase 6.
-  6 kernels   ghost_norm, clip_reduce and scale_contract against their
-              plain versions on the card: a sweep (S = 1 and 3 and the
-              3-D form for scale_contract, ragged T, T = 1, din != dout,
-              f32 and bf16, factors 0 / 1e-3 / 0.5 / 1), then at the
-              captured main-path shapes with kernel, plain, bound and
-              library times.
+              ratio_vs_per_layer for per_shard, losses, thresholds, clip
+              fraction, peak memory, and one profiled step per variant.
+              The kernels' inputs at the five linear shapes (per_layer's
+              first step), at the two blocked shapes (per_shard's first
+              step) and the five BK sinks (per_group_bk's last step) are
+              captured for phase 6.
+  6 kernels   ghost_norm, ghost_norm_blocked, clip_reduce and
+              scale_contract against their plain versions on the card: a
+              sweep (S = 1 and 3 and the 3-D form for scale_contract, both
+              block axes and M = 1 / 4 / 16 for ghost_norm_blocked, ragged
+              T, T = 1, din != dout, f32 and bf16, factors 0 / 1e-3 / 0.5
+              / 1), then at the captured main-path shapes with kernel,
+              plain, bound and library times.
   7 cuda/cpu  qwen3-4b-reduced in f32 from one numpy parameter tree and
               one numpy batch: one `dp_clipped_gradients` each of
-              per_layer, ghost_flat (bk) and per_group (bk) on the card
-              (kernels) and on the CPU (plain versions) must agree in
-              loss, (K, B) norms and every clipped gradient leaf; on the
-              card bk must agree with twopass too.
+              per_layer, ghost_flat (bk), per_group (bk) and per_shard
+              (per_layer over M = 4 blocks) on the card (kernels) and on
+              the CPU (plain versions) must agree in loss, (K, B) norms
+              and every clipped gradient leaf; on the card bk must agree
+              with twopass too.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -460,21 +469,30 @@ def phase_cuda_vs_cpu(torch, gpu):
 # ---------------------------------------------------------------------------
 
 TRAIN_WARMUP, TRAIN_TIMED = 1, 3
-# (label, --clipping, --execution): the Figure-1 variants of
-# benchmarks/bench_throughput.py but naive_flat; the BK variants last, so
+# (label, --clipping, --execution, --group-count): the Figure-1 variants
+# of benchmarks/bench_throughput.py but naive_flat, and per-device
+# clipping (per_shard) with the model-axis size of the reference's
+# production mesh (src/repro/launch/mesh.py: 16); the BK variants last, so
 # the sinks captured from the last one stay out of the others' peaks
-VARIANTS = [("per_layer", "per_layer", "bk"),
-            ("non_private", "non_private", "bk"),
-            ("ghost_flat_twopass", "ghost_flat", "twopass"),
-            ("per_group_twopass", "per_group", "twopass"),
-            ("ghost_flat_bk", "ghost_flat", "bk"),
-            ("per_group_bk", "per_group", "bk")]
+VARIANTS = [("per_layer", "per_layer", "bk", 2),
+            ("non_private", "non_private", "bk", 2),
+            ("ghost_flat_twopass", "ghost_flat", "twopass", 2),
+            ("per_group_twopass", "per_group", "twopass", 2),
+            ("per_shard", "per_shard", "bk", 16),
+            ("ghost_flat_bk", "ghost_flat", "bk", 2),
+            ("per_group_bk", "per_group", "bk", 2)]
 SUM_SWEEP = [  # B, T, din, dout: ragged T, T = 1, din != dout both ways
     (3, 37, 20, 45), (2, 1, 130, 7), (4, 64, 200, 300), (1, 33, 128, 129),
     (5, 100, 257, 64), (8, 256, 256, 384)]
 SC_STACKS = [1, 3, None]  # scale_contract's S over the sweep; None: 3-D
 SUM_FACTORS = [0.0, 1e-3, 0.5, 1.0]
-SUM_KERNELS = ("ghost_norm", "clip_reduce", "scale_contract")
+SUM_KERNELS = ("ghost_norm", "ghost_norm_blocked", "clip_reduce",
+               "scale_contract")
+# ghost_norm_blocked's sweep: B, T, din, dout, M, axis (ragged T, T = 1,
+# both axes, blocks narrower and wider than a 32-column chunk, M = 1)
+BLOCKED_SWEEP = [(3, 37, 20, 48, 4, "out"), (2, 1, 64, 24, 4, "in"),
+                 (4, 64, 200, 160, 16, "out"), (2, 100, 96, 130, 2, "in"),
+                 (1, 33, 128, 129, 1, "out"), (8, 256, 256, 384, 16, "out")]
 
 
 def linear_shapes(cfg) -> dict:
@@ -486,22 +504,29 @@ def linear_shapes(cfg) -> dict:
             (d, cfg.vocab_size): "head"}
 
 
-def train_args(mode: str, execution: str = "bk"):
+def train_args(mode: str, execution: str = "bk", group_count: int = 2):
     from repro_torch.launch import train
     return train.build_train_parser().parse_args(
         ["--arch", "qwen3-4b", "--clipping", mode, "--execution", execution,
-         "--group-count", "2", "--epsilon", "8",
+         "--group-count", str(group_count), "--epsilon", "8",
          "--steps", str(TRAIN_WARMUP + TRAIN_TIMED), "--batch", "8",
          "--seq", "256", "--docs", "64", "--optimizer", "adam",
          "--seed", "0"])
 
 
-def expected_launches(label: str, linears: int) -> dict:
+def expected_launches(label: str, num_layers: int) -> dict:
     """Kernel launches per step of a variant (the table in the doc)."""
+    linears = 4 * num_layers + 1
     if label.endswith("_bk"):
-        return {"ghost_norm": linears, "clip_reduce": 0, "scale_contract": 5}
+        return {"ghost_norm": linears, "ghost_norm_blocked": 0,
+                "clip_reduce": 0, "scale_contract": 5}
+    if label == "per_shard":  # qkv and o of each block are blocked
+        return {"ghost_norm": linears - 2 * num_layers,
+                "ghost_norm_blocked": 2 * num_layers,
+                "clip_reduce": linears, "scale_contract": 0}
     return {"ghost_norm": 0 if label == "non_private" else linears,
-            "clip_reduce": linears, "scale_contract": 0}
+            "ghost_norm_blocked": 0, "clip_reduce": linears,
+            "scale_contract": 0}
 
 
 def profile_step(torch, trainer, step_ms) -> dict:
@@ -531,29 +556,40 @@ def profile_step(torch, trainer, step_ms) -> dict:
 def phase_train(torch, gpu):
     """Returns (launches by kernel over every variant's counted steps, the
     clip_reduce inputs at each linear shape of per_layer's first step, the
-    scale_contract inputs of per_group_bk's last epilogue)."""
+    ghost_norm_blocked inputs at the two blocked shapes of per_shard's
+    first step, the scale_contract inputs of per_group_bk's last
+    epilogue)."""
     from repro_torch.kernels import bk as SC
     from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import ghost_norm as GN
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
 
     steps = TRAIN_WARMUP + TRAIN_TIMED
     launches = dict.fromkeys(SUM_KERNELS, 0)
-    caps, sc_caps, step_ms = {}, {}, {}
+    caps, gnb_caps, sc_caps, step_ms = {}, {}, {}, {}
     real_cr, real_sc = CR.clip_reduce, SC.scale_contract
-    for label, mode, execution in VARIANTS:
+    real_gnb = GN.ghost_norm_blocked
+    for label, mode, execution, group_count in VARIANTS:
         t0 = time.perf_counter()
-        trainer = train.Trainer(train_args(mode, execution))
+        trainer = train.Trainer(train_args(mode, execution, group_count))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         shapes = linear_shapes(trainer.cfg)
-        linears = 4 * trainer.cfg.num_layers + 1
+        num_layers = trainer.cfg.num_layers
 
         def recording_cr(a, g, factors):
             name = shapes.get((a.shape[-1], g.shape[-1]))
             if name is not None and name not in caps:
                 caps[name] = (a.clone(), g.clone(), factors.clone())
             return real_cr(a, g, factors)
+
+        def recording_gnb(a, g, num_blocks, *, block_axis="out"):
+            name = shapes.get((a.shape[-1], g.shape[-1]))
+            if name is not None and name not in gnb_caps:
+                gnb_caps[name] = (a.clone(), g.clone(),
+                                  (num_blocks, block_axis))
+            return real_gnb(a, g, num_blocks, block_axis=block_axis)
 
         def recording_sc(a, g, factors):
             # the sinks: nothing writes them after the epilogue, so a
@@ -572,6 +608,8 @@ def phase_train(torch, gpu):
             for i in range(steps):
                 if i == 0 and label == "per_layer":
                     CR.clip_reduce = recording_cr
+                if i == 0 and label == "per_shard":
+                    GN.ghost_norm_blocked = recording_gnb
                 if i == steps - 1 and label == "per_group_bk":
                     # the last step: the kept sinks overlap no later step
                     # of the measured peak
@@ -583,6 +621,7 @@ def phase_train(torch, gpu):
                     ms = 1e3 * (time.perf_counter() - t0)
                 finally:
                     CR.clip_reduce, SC.scale_contract = real_cr, real_sc
+                    GN.ghost_norm_blocked = real_gnb
                 rec.append({"ms": ms, "loss": float(met.loss),
                             "mean_threshold": float(met.mean_threshold),
                             "clip_fraction": float(met.clip_fraction),
@@ -597,7 +636,7 @@ def phase_train(torch, gpu):
                    for r in rec):
             raise RuntimeError(f"{label}: non-finite loss or update: {rec}")
         want = {k: v * steps
-                for k, v in expected_launches(label, linears).items()}
+                for k, v in expected_launches(label, num_layers).items()}
         if {k: counts[k] for k in want} != want:
             raise RuntimeError(f"{label}: launches {counts} over {steps} "
                                f"steps, expected {want}")
@@ -605,7 +644,8 @@ def phase_train(torch, gpu):
             launches[k] += counts[k]
         step_ms[label] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / TRAIN_TIMED
         emit({"phase": "train", "gpu": gpu, "arch": trainer.cfg.name,
-              "variant": label, "mode": mode,
+              "variant": label, "mode": trainer.plan.config.mode,
+              "dp_blocks": trainer.cfg.dp_blocks,
               "execution": trainer.execution,
               "backend": trainer.plan.config.backend,
               "num_params": trainer.model.num_params,
@@ -619,6 +659,7 @@ def phase_train(torch, gpu):
               "timed_steps": TRAIN_TIMED, "ms_per_step": step_ms[label],
               "ratio_vs_nonprivate": (step_ms[label] / step_ms["non_private"]
                                       if "non_private" in step_ms else None),
+              "ratio_vs_per_layer": step_ms[label] / step_ms["per_layer"],
               "tokens_per_s": trainer.args.batch * trainer.args.seq
               / (step_ms[label] / 1e3),
               "steps": rec, "peak_memory_gb": peak, "launches": counts,
@@ -633,12 +674,16 @@ def phase_train(torch, gpu):
           "ratio_vs_nonprivate": {k: v / base for k, v in step_ms.items()},
           "ratio_bk_vs_twopass": {
               m: step_ms[f"{m}_bk"] / step_ms[f"{m}_twopass"]
-              for m in ("ghost_flat", "per_group")}})
-    for name, got in (("clip_reduce", caps), ("scale_contract", sc_caps)):
-        if sorted(got) != sorted(shapes.values()):
+              for m in ("ghost_flat", "per_group")},
+          "ratio_per_shard_vs_per_layer":
+              step_ms["per_shard"] / step_ms["per_layer"]})
+    for name, got, want in (("clip_reduce", caps, shapes.values()),
+                            ("scale_contract", sc_caps, shapes.values()),
+                            ("ghost_norm_blocked", gnb_caps, ("qkv", "o"))):
+        if sorted(got) != sorted(want):
             raise RuntimeError(f"{name}: captured {sorted(got)} of the "
-                               f"linear shapes")
-    return launches, caps, sc_caps
+                               f"linear shapes {sorted(want)}")
+    return launches, caps, gnb_caps, sc_caps
 
 
 def sum_check(torch, got, want):
@@ -649,18 +694,19 @@ def sum_check(torch, got, want):
     return err, bool(torch.allclose(got, want, rtol=SUM_RTOL, atol=atol))
 
 
-def sum_bound(kernel, a, g, bw):
+def sum_bound(kernel, a, g, bw, num_blocks=1):
     """(bound ms, bound_by): the inputs read once and the f32 output
     written once against the data-sheet bandwidth, and the operations on
-    the inputs' type: B T² (din + dout) for ghost_norm (the symmetric
-    half of the grams), 2 B T din dout for clip_reduce, 2 S B T din dout
-    for scale_contract."""
+    the inputs' type: B T² (din + dout) for ghost_norm and
+    ghost_norm_blocked (the symmetric half of the grams; the blocked grams
+    cover the blocked operand once), 2 B T din dout for clip_reduce, 2 S B
+    T din dout for scale_contract."""
     din, dout = a.shape[-1], g.shape[-1]
     rows = a.numel() // din  # B T, times S for scale_contract
     nbytes = a.numel() * a.element_size() + g.numel() * g.element_size()
-    if kernel == "ghost_norm":
+    if kernel in ("ghost_norm", "ghost_norm_blocked"):
         b, t = a.shape[0], a.shape[1]
-        nbytes += 4 * b
+        nbytes += 4 * b * num_blocks
         ops = b * t * t * (din + dout)
     else:
         s = rows // (a.shape[-2] * a.shape[-3])  # stack slices (1 if 3-D)
@@ -674,12 +720,25 @@ def sum_bound(kernel, a, g, bw):
 
 def library_sum(torch, kernel, a, g, f):
     """Yardsticks, never called by the port: two bmm grams for
-    ghost_norm, one f32 matmul with the factor on g's rows for
-    clip_reduce, one f32 bmm over the stack for scale_contract."""
+    ghost_norm; for ghost_norm_blocked (f = (M, axis)) the plain path's
+    three grams (the shared operand's, the blocked one's per block, their
+    inner products) as batched f32 matmuls; one f32 matmul with the
+    factor on g's rows for clip_reduce, one f32 bmm over the stack for
+    scale_contract."""
     if kernel == "ghost_norm":
         a32, g32 = a.float(), g.float()
         return (torch.bmm(a32, a32.transpose(1, 2))
                 * torch.bmm(g32, g32.transpose(1, 2))).sum((1, 2))
+    if kernel == "ghost_norm_blocked":
+        m, axis = f
+        s, x = (a, g) if axis == "out" else (g, a)
+        b, t = s.shape[0], s.shape[1]
+        s32 = s.float()
+        xb = x.float().reshape(b, t, m, -1).transpose(1, 2)
+        gram_s = torch.matmul(s32, s32.transpose(1, 2))  # (B, T, T)
+        gram_x = torch.matmul(xb, xb.transpose(2, 3))  # (B, M, T, T)
+        return torch.matmul(gram_x.reshape(b, m, 1, t * t),
+                            gram_s.reshape(b, 1, t * t, 1))[:, :, 0, 0]
     t = a.shape[-2]
     if kernel == "scale_contract":
         s = f.shape[0]
@@ -708,38 +767,55 @@ def sweep_sum_inputs(torch, name, b, t, din, dout, dtype, stack, seed):
     return a, g, torch.tensor(f, dtype=torch.float32, device="cuda")
 
 
-def phase_train_kernels(torch, gpu, caps, sc_caps, num_layers):
+def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
+    """The training kernels against their plain versions: the sweeps,
+    then the captured main-path shapes with kernel, plain, bound and
+    library times summed over one step's calls. ghost_norm_blocked's
+    third argument is (M, block axis) where the others take factors."""
     from repro_torch.kernels import bk as SC
     from repro_torch.kernels import clip_reduce as CR
     from repro_torch.kernels import ghost_norm as GN
     bw = bandwidth(gpu)
     impl = {"ghost_norm": (lambda a, g, f: GN.ghost_norm(a, g),
                            lambda a, g, f: GN.ghost_norm_ref(a, g)),
+            "ghost_norm_blocked": (
+                lambda a, g, f: GN.ghost_norm_blocked(a, g, f[0],
+                                                      block_axis=f[1]),
+                lambda a, g, f: GN.ghost_norm_blocked_ref(a, g, *f)),
             "clip_reduce": (CR.clip_reduce, CR.clip_reduce_ref),
             "scale_contract": (SC.scale_contract, SC.scale_contract_ref)}
     worst = dict.fromkeys(impl, 0.0)
+
+    def check(name, a, g, f, point, dtype):
+        kern, plain = impl[name]
+        got, want = kern(a, g, f), plain(a, g, f)
+        torch.cuda.synchronize()
+        err, ok = sum_check(torch, got, want)
+        worst[name] = max(worst[name], err)
+        emit({"phase": "kernel_vs_plain", "kernel": name, "shape": point,
+              "dtype": dtype, "max_abs_err": err,
+              "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
+              "ok": ok})
+        if not ok:
+            raise RuntimeError(f"{name} disagrees at {point} {dtype}: max "
+                               f"abs err {err}")
+
     for i, (b, t, din, dout) in enumerate(SUM_SWEEP):
         for dtype in ("float32", "bfloat16"):
             points = [(n, None) for n in ("ghost_norm", "clip_reduce")] + [
                 ("scale_contract", s) for s in SC_STACKS]
             for name, stack in points:
-                kern, plain = impl[name]
                 a, g, f = sweep_sum_inputs(torch, name, b, t, din, dout,
                                            dtype, stack, seed=i)
-                got, want = kern(a, g, f), plain(a, g, f)
-                torch.cuda.synchronize()
-                err, ok = sum_check(torch, got, want)
-                worst[name] = max(worst[name], err)
-                emit({"phase": "kernel_vs_plain", "kernel": name,
-                      "shape": {"s": stack, "b": b, "t": t, "din": din,
-                                "dout": dout},
-                      "dtype": dtype, "max_abs_err": err,
-                      "tol": {"rtol": SUM_RTOL,
-                              "atol_of_max": SUM_ATOL_FRAC}, "ok": ok})
-                if not ok:
-                    point = (stack, b, t, din, dout)
-                    raise RuntimeError(f"{name} disagrees at {point} "
-                                       f"{dtype}: max abs err {err}")
+                check(name, a, g, f, {"s": stack, "b": b, "t": t,
+                                      "din": din, "dout": dout}, dtype)
+    for i, (b, t, din, dout, m, axis) in enumerate(BLOCKED_SWEEP):
+        for dtype in ("float32", "bfloat16"):
+            a, g, _ = sweep_sum_inputs(torch, "ghost_norm_blocked", b, t,
+                                       din, dout, dtype, None, seed=100 + i)
+            check("ghost_norm_blocked", a, g, (m, axis),
+                  {"b": b, "t": t, "din": din, "dout": dout, "m": m,
+                   "axis": axis}, dtype)
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
@@ -751,6 +827,8 @@ def phase_train_kernels(torch, gpu, caps, sc_caps, num_layers):
     # run for hundreds of ms, so they are timed over few iterations
     work += [(lname, "scale_contract", sc_caps[lname], 1)
              for lname in sc_caps]
+    work += [(lname, "ghost_norm_blocked", gnb_caps[lname], num_layers)
+             for lname in gnb_caps]
     for lname, name, (a, g, f), calls in work:
         kern, plain = impl[name]
         got, want = kern(a, g, f), plain(a, g, f)
@@ -773,7 +851,8 @@ def phase_train_kernels(torch, gpu, caps, sc_caps, num_layers):
                                 flush),
             "library_ms": cuda_ms(torch, lambda: library_sum(
                 torch, name, a, g, f), iters, warm, flush)}
-        times["bound_ms"], bound_by = sum_bound(name, a, g, bw)
+        times["bound_ms"], bound_by = sum_bound(
+            name, a, g, bw, f[0] if name == "ghost_norm_blocked" else 1)
         for k in keys:
             per_step[name][k] += calls * times[k]
         by[name][bound_by] += calls * times["bound_ms"]
@@ -785,22 +864,25 @@ def phase_train_kernels(torch, gpu, caps, sc_caps, num_layers):
               "timing_iters": iters, **times, "bound_by": bound_by})
     src = "src/repro_torch/kernels/csrc/{}.cu"
     replaces = {"ghost_norm": "src/repro/kernels/ghost_norm.py:77",
+                "ghost_norm_blocked": "src/repro/kernels/ghost_norm.py:159",
                 "clip_reduce": "src/repro/kernels/clip_reduce.py:47",
                 "scale_contract": "src/repro/kernels/bk.py:53"}
-    calls_per_step = {"ghost_norm": 4 * num_layers + 1,
-                      "clip_reduce": 4 * num_layers + 1,
-                      "scale_contract": 5}
+    linears = f"{4 * num_layers + 1} calls at the 5 captured linear shapes"
+    per = {"ghost_norm": linears, "clip_reduce": linears,
+           "scale_contract": "5 calls at the 5 captured linear shapes",
+           "ghost_norm_blocked": f"{2 * num_layers} calls at the 2 captured "
+                                 f"blocked shapes (a per_shard step)"}
     return [{"name": name, "route": "cuda", "source": src.format(name),
              "replaces": replaces[name], "max_abs_err": worst[name],
              **per_step[name],
              "bound_by": max(by[name], key=by[name].get),
-             "per": f"one training step: the sum over its "
-                    f"{calls_per_step[name]} calls at the 5 captured "
-                    f"linear shapes"}
+             "per": f"one training step: the sum over its {per[name]}"}
             for name in impl]
 
 
 def phase_train_cuda_vs_cpu(torch, gpu):
+    import dataclasses
+
     from repro_torch import bridge
     from repro_torch.configs import get_config
     from repro_torch.core.clipping import dp_clipped_gradients
@@ -820,15 +902,22 @@ def phase_train_cuda_vs_cpu(torch, gpu):
     thr = rng.uniform(0.05, 2.0, layout.num_groups).astype(np.float32)
     assign = np.asarray(group_shard_assignment(layout, 2), np.int64)
     group_thr = rng.uniform(0.2, 1.0, 2).astype(np.float32)
-    # (label, mode, execution, device, kwargs of numpy arrays)
-    cases = [("per_layer", "per_layer", "bk", {"thresholds": thr}),
-             ("ghost_flat", "ghost_flat", "bk",
+    # per_shard: the same weights (blocks split only the groups) clipped
+    # per_layer over M = 4 column blocks of qkv and o
+    shard_cfg = dataclasses.replace(cfg, dp_blocks=4)
+    shard_thr = rng.uniform(0.05, 2.0, build_model(
+        shard_cfg, device="cpu").layout.num_groups).astype(np.float32)
+    # (label, mode, execution, config, kwargs of numpy arrays)
+    cases = [("per_layer", "per_layer", "bk", cfg, {"thresholds": thr}),
+             ("ghost_flat", "ghost_flat", "bk", cfg,
               {"flat_threshold": np.float32(0.5)}),
-             ("per_group", "per_group", "bk",
-              {"group_assignment": assign, "group_thresholds": group_thr})]
-    counted = ("ghost_norm", "clip_reduce", "scale_contract")
+             ("per_group", "per_group", "bk", cfg,
+              {"group_assignment": assign, "group_thresholds": group_thr}),
+             ("per_shard", "per_layer", "bk", shard_cfg,
+              {"thresholds": shard_thr})]
+    counted = SUM_KERNELS
 
-    def run(mode, execution, dev, kw):
+    def run(mode, execution, cfg, dev, kw):
         model = build_model(cfg, device=dev)
         params = bridge.train_params_from_numpy(tree, dev)
         batch = {"tokens": torch.from_numpy(tokens).to(dev),
@@ -866,9 +955,9 @@ def phase_train_cuda_vs_cpu(torch, gpu):
             checks["grad:" + name] = rel(x, y)
         return checks
 
-    for label, mode, execution, kw in cases:
-        got, cuda_counts = run(mode, execution, "cuda", kw)
-        want, cpu_counts = run(mode, execution, "cpu", kw)
+    for label, mode, execution, case_cfg, kw in cases:
+        got, cuda_counts = run(mode, execution, case_cfg, "cuda", kw)
+        want, cpu_counts = run(mode, execution, case_cfg, "cpu", kw)
         uses = [k for k, v in expected_launches(
             f"{label}_bk" if mode != "per_layer" else label, 1).items() if v]
         for name in uses:
@@ -880,22 +969,23 @@ def phase_train_cuda_vs_cpu(torch, gpu):
         checks = compare(got, want)
         twopass = {}
         if mode != "per_layer":  # bk against twopass, on the card
-            tp, _ = run(mode, "twopass", "cuda", kw)
+            tp, _ = run(mode, "twopass", case_cfg, "cuda", kw)
             twopass = compare(got, tp)
         bad = {k: v[0] for k, v in {**checks, **{
             "twopass:" + k: v for k, v in twopass.items()}}.items()
             if not v[1]}
         n = want.norms_sq
         out = {"phase": "train_cuda_vs_cpu", "gpu": gpu, "arch": cfg.name,
-               "mode": mode, "execution": execution, "batch": b, "seq": t,
+               "variant": label, "mode": mode, "execution": execution,
+               "dp_blocks": case_cfg.dp_blocks, "batch": b, "seq": t,
                "max_err_over_max": {k: v[0] for k, v in checks.items()},
                "bk_vs_twopass_max_err_over_max":
                    {k: v[0] for k, v in twopass.items()},
                "tol": {"rtol": TRAIN_RTOL, "atol_of_max": TRAIN_ATOL_FRAC},
                "cuda_launches": cuda_counts}
         if mode == "per_layer":
-            out["clipped_share"] = float(
-                (n > torch.from_numpy(thr)[:, None] ** 2).float().mean())
+            out["clipped_share"] = float((n > torch.from_numpy(
+                kw["thresholds"])[:, None] ** 2).float().mean())
         emit(out)
         if bad:
             raise RuntimeError(f"train {label}: disagreement: {bad}")
@@ -919,11 +1009,12 @@ def main() -> int:
     del snap
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, caps, sc_caps = phase_train(torch, gpu)
+    train_launches, caps, gnb_caps, sc_caps = phase_train(torch, gpu)
     from repro_torch.configs import get_config
-    train_kernels = phase_train_kernels(
-        torch, gpu, caps, sc_caps, get_config("qwen3-4b").num_layers)
-    del caps, sc_caps
+    num_layers = get_config("qwen3-4b").num_layers
+    train_kernels = phase_train_kernels(torch, gpu, caps, gnb_caps,
+                                        sc_caps, num_layers)
+    del caps, gnb_caps, sc_caps
     gc.collect()
     torch.cuda.empty_cache()
     for k in train_kernels:

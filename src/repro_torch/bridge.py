@@ -7,6 +7,11 @@ leaves split along the stack axis into the per-layer blocks
 (`models.transformer.unstack_blocks`). `cache_from_numpy` does the
 same for a paged decode cache, so both packages can start from one pool
 state. bfloat16 leaves (numpy's `ml_dtypes` bfloat16) cross bit for bit.
+
+A blocked (per-shard) model crosses like any other: blocks split only the
+clipping groups, so its weights keep their (L, din, dout) shape, and its
+(K,) thresholds and (K, B) norms² follow `GroupLayout`'s order, which is
+the reference's.
 """
 from __future__ import annotations
 

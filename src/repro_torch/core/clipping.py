@@ -34,6 +34,10 @@ the `ghost_flat_twopass` / `per_group_twopass` mode names):
             pass 2 applies each example's factor through direct-scale
             thresholds (c = -f), which request no norms.
 
+per_shard (per-device clipping) is expressed through the layout itself
+(blocked groups, `ModelConfig.dp_blocks`, `dp_linear_blocked`) and then
+driven as per_layer: each block is its own group with a local norm.
+
 `naive_flat` (the materialising oracle) needs `torch.func` over the
 custom Functions (ROADMAP A.3); sharded execution is A.13.
 """

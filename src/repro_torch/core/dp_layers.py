@@ -43,8 +43,10 @@ autograd's device thread, which does not see the caller's
 again during backward, but the backward that runs is the first forward's,
 so the norms and residuals arrive once.
 
-`dp_shift`, `dp_broadcast` and the blocked and expert primitives are not
-ported yet (ROADMAP A.3, A.7, A.13).
+`dp_linear_blocked` clips each of M column ('out') or row ('in') blocks
+of one weight to its own threshold (per-shard clipping); it takes no BK
+channel (ROADMAP A.16). `dp_shift`, `dp_broadcast` and the expert
+primitives are not ported yet (ROADMAP A.3, A.7).
 """
 from __future__ import annotations
 
@@ -116,6 +118,72 @@ def dp_linear(w, b, x, c):
     if ch is not None:
         bk.record_linear(ch, w, x)
     return DPLinear.apply(w, b, x, bk.thresholds_of(c), ch)
+
+
+class DPLinearBlocked(torch.autograd.Function):
+    """y = x @ w (+ b); one group per column ('out') or row ('in') block
+    of {w, b}, thresholds c (B, M)."""
+
+    @staticmethod
+    def forward(ctx, w, b, x, c, block_axis):
+        _forward_context(ctx, None)
+        ctx.has_bias = b is not None
+        ctx.block_axis = block_axis
+        ctx.save_for_backward(w, x, c)
+        y = x @ w
+        if b is not None:
+            y = y + b
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        w, x, c = ctx.saved_tensors
+        eng, axis = ctx.engine, ctx.block_axis
+        need_n = ctx.needs_input_grad[3]
+        dx = gy @ w.T if ctx.needs_input_grad[2] else None
+        a3, g3 = _flat3(x), _flat3(gy)
+        bsz, t, m = g3.shape[0], g3.shape[1], c.shape[-1]
+        n = None
+        if need_n:
+            n = eng.linear_norms_sq_blocked(a3, g3, m, block_axis=axis)
+            if ctx.has_bias:
+                # an 'out' bias lives with its column blocks; an 'in' bias
+                # is whole on every block and folds into block 0
+                if axis == "out":
+                    sb = torch.sum(g3.reshape(bsz, t, m, -1).float(), dim=1)
+                    n = n + torch.sum(sb * sb, dim=-1)
+                else:
+                    n[:, 0] += eng.bias_norms_sq(g3)
+        if not ctx.needs_input_grad[0]:  # a norms-only pass
+            return None, None, dx, n, None
+        f = clip_factor(c, n) if need_n else factor_without_norms(c)
+        dw = eng.clipped_sum_linear_blocked(a3, g3, f, block_axis=axis)
+        db = None
+        if ctx.has_bias:
+            # in f32, as every clipped sum (the reference takes g's dtype
+            # here; the two agree in f32)
+            if axis == "out":
+                db = torch.einsum("btmo,bm->mo",
+                                  g3.reshape(bsz, t, m, -1).float(),
+                                  f.float()).reshape(-1)
+            else:
+                db = eng.clipped_sum_bias(g3, f[:, 0])
+            db = db.to(w.dtype)
+        return dw.to(w.dtype), db, dx, n, None
+
+
+def dp_linear_blocked(w, b, x, c, block_axis: str = "out"):
+    """y = x @ w (+ b) with the weight gradient clipped per block: c is
+    (B, M) encoded thresholds, one per column ('out') or row ('in') block
+    of w, and the norms² come back as c's gradient, (B, M)."""
+    if bk.channel_of(c) is not None:
+        raise NotImplementedError(
+            "book-keeping capture of blocked linears (the reference's "
+            "linear_blocked recipe) is not ported yet: ROADMAP.md item A.16")
+    if block_axis not in ("out", "in"):
+        raise ValueError(f"block_axis must be 'out' or 'in', got "
+                         f"{block_axis!r}")
+    return DPLinearBlocked.apply(w, b, x, c, block_axis)
 
 
 class DPEmbed(torch.autograd.Function):

@@ -15,8 +15,9 @@ the reference, and the count noise from a generator seeded from
 the reference's; `standard_normal` is the one place they are made, and a
 test substitutes the reference's draws there.
 
-Microbatches, the mesh (sharded execution), DP-LoRA and `naive_flat` are
-not ported yet (ROADMAP A.3, A.13, A.10).
+Per-shard clipping is `per_layer` over a blocked layout (`ModelConfig
+.dp_blocks`). Microbatches, the mesh (sharded execution), DP-LoRA and
+`naive_flat` are not ported yet (ROADMAP A.3, A.13, A.10).
 """
 from __future__ import annotations
 
@@ -202,27 +203,35 @@ def standard_normal(path: str, shape: tuple[int, ...], rows: slice,
 def add_noise_to_grads(spec: SpecTree, layout: GroupLayout, grads: Any,
                        stds: torch.Tensor, seed: int, step: int) -> Any:
     """grads + N(0, std_k²) IN PLACE, with the std of each leaf's group
-    (per stack element for stacked leaves); stds: (K,) per layout group.
-    Each leaf draws from its own generator, (seed, step, stable_hash(
-    path)); a large leaf is drawn and added slice by slice along its
-    first axis. Returns `grads`."""
-    for path, _ in _walk(spec):
+    (per stack element for stacked leaves, per (stack element, column
+    block) for blocked ones); stds: (K,) per layout group. Each leaf
+    draws from its own generator, (seed, step, stable_hash(path)); a large
+    leaf is drawn and added slice by slice along its first axis. A blocked
+    leaf draws what an unblocked leaf of its shape draws. Returns
+    `grads`."""
+    for path, p in _walk(spec):
         g = grads
         for k in path:
             g = g[k]
         grp = layout.group_of_leaf(path)
         name = "/".join(path)
-        std = stds[grp.offset: grp.offset + grp.count]
+        std = stds[grp.offset: grp.offset + grp.count].reshape(
+            grp.stack_shape)
         gen = generator(g.device, seed, step, stable_hash(name))
         start = 0
         for part in slices(g):
             rows = slice(start, start + (part.shape[0] if g.dim() else 1))
             z = standard_normal(name, tuple(part.shape), rows, gen)
-            if grp.stack_shape:  # per-layer std along the stack axis
-                s = std[rows].reshape((-1,) + (1,) * (part.dim() - 1))
+            s = std[rows] if p.stack else std  # per-layer std: stack axis
+            if p.blocks > 1:  # per column block of the last axis
+                m = p.blocks
+                s = s.reshape(s.shape[:-1] + (1,) * (part.dim() - p.stack
+                                                     - 1) + (m, 1))
+                z = (z.reshape(part.shape[:-1] + (m, -1)) * s).reshape(
+                    part.shape)
             else:
-                s = std.reshape(())
-            part.copy_((part.float() + z * s).to(part.dtype))
+                z = z * s.reshape(s.shape + (1,) * (part.dim() - s.dim()))
+            part.copy_((part.float() + z).to(part.dtype))
             start = rows.stop
     return grads
 

@@ -13,7 +13,9 @@ per-example grad transiently) is cheaper, and `linear_norms_sq` picks by
 the same cost model and memory cap as the reference. Every norm and every
 clipped sum accumulates in float32.
 
-The blocked (per-shard) functions wait for ROADMAP A.13. The policy knobs
+The blocked functions give the norms² and clipped sums of a weight split
+into M column ('out') or row ('in') blocks, each its own clipping group
+(per-shard clipping, `core.dp_layers.dp_linear_blocked`). The policy knobs
 (`outer_max_elems`, `gram_chunk`) are arguments with the reference's
 defaults; the reference's module-global `configure()` is not ported: the
 engine (`repro_torch.kernels.backend`) carries them per scope.
@@ -120,6 +122,47 @@ def linear_norms_sq(a: torch.Tensor, g: torch.Tensor, *,
     raise ValueError(f"unknown path {path!r}")
 
 
+def blocked_operands(a: torch.Tensor, g: torch.Tensor, num_blocks: int,
+                     block_axis: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(shared, blocked) operands of a blocked linear: (a, g) for 'out'
+    (column blocks of W are column blocks of g), (g, a) for 'in' (row
+    blocks of W are column blocks of a). Raises the reference's
+    ValueErrors for a width that M does not divide and for a bad axis."""
+    m = num_blocks
+    if m < 1:
+        raise ValueError(f"num_blocks must be >= 1, got {m}")
+    if block_axis == "out":
+        if g.shape[-1] % m:
+            raise ValueError(f"dout={g.shape[-1]} not divisible by "
+                             f"num_blocks={m}")
+        return a, g
+    if block_axis == "in":
+        if a.shape[-1] % m:
+            raise ValueError(f"din={a.shape[-1]} not divisible by "
+                             f"num_blocks={m}")
+        return g, a
+    raise ValueError(f"block_axis must be 'out' or 'in', got {block_axis!r}")
+
+
+def linear_norms_sq_blocked(a: torch.Tensor, g: torch.Tensor,
+                            num_blocks: int, *,
+                            block_axis: str = "out") -> torch.Tensor:
+    """(B, M) squared norms of per-example grads of M weight blocks.
+
+    block_axis='out': block m is columns [m dout/M, (m+1) dout/M) of W
+    (column parallel); 'in': rows [m din/M, (m+1) din/M) (row parallel).
+    Each block is its own clipping group, so no norm crosses blocks:
+    n[b, m] = <S_b S_bᵀ, X_b^m X_b^mᵀ> with S the shared operand and X^m
+    the block's columns of the other (`blocked_operands`)."""
+    s3, x3 = blocked_operands(_as3d(a).to(ACC_DTYPE),
+                              _as3d(g).to(ACC_DTYPE), num_blocks, block_axis)
+    b, t, _ = s3.shape
+    xb = x3.reshape(b, t, num_blocks, -1)
+    gram_s = torch.einsum("bti,bsi->bts", s3, s3)
+    gram_xb = torch.einsum("btmo,bsmo->bmts", xb, xb)
+    return torch.einsum("bts,bmts->bm", gram_s, gram_xb)
+
+
 def bias_norms_sq(g: torch.Tensor) -> torch.Tensor:
     """(B,) squared norms of per-example bias grads sum_t g_t."""
     s = torch.sum(_as3d(g).to(ACC_DTYPE), dim=1)
@@ -175,6 +218,35 @@ def clipped_sum_linear(a: torch.Tensor, g: torch.Tensor,
     a3, g3 = _as3d(a).to(ACC_DTYPE), _as3d(g).to(ACC_DTYPE)
     gs = g3 * factors[:, None, None].to(ACC_DTYPE)
     return torch.einsum("bti,bto->io", a3, gs)
+
+
+def fold_block_factors(a3: torch.Tensor, g3: torch.Tensor,
+                       factors: torch.Tensor, block_axis: str = "out"
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold per-block clip factors (B, M) into the blocked operand.
+
+    Returns (a3, g3) in f32 with the factor absorbed into the tensor whose
+    feature axis is blocked; shared by the plain path below and the
+    kernels backend, which then runs the contraction with unit factors.
+    The f32 fold keeps the factors unquantized (sensitivity bound)."""
+    a3, g3 = a3.to(ACC_DTYPE), g3.to(ACC_DTYPE)
+    b, t, din = a3.shape
+    dout = g3.shape[-1]
+    m = factors.shape[-1]
+    f = factors[:, None, :, None].to(ACC_DTYPE)
+    if block_axis == "out":
+        g3 = (g3.reshape(b, t, m, dout // m) * f).reshape(b, t, dout)
+    else:
+        a3 = (a3.reshape(b, t, m, din // m) * f).reshape(b, t, din)
+    return a3, g3
+
+
+def clipped_sum_linear_blocked(a: torch.Tensor, g: torch.Tensor,
+                               factors: torch.Tensor, *,
+                               block_axis: str = "out") -> torch.Tensor:
+    """sum_i A_iᵀ diag-blocked(c_i) G_i; factors: (B, M) per block."""
+    a3, g3 = fold_block_factors(_as3d(a), _as3d(g), factors, block_axis)
+    return torch.einsum("bti,bto->io", a3, g3)
 
 
 def clipped_sum_bias(g: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:

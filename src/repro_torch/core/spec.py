@@ -10,8 +10,9 @@ per-layer views the port runs.
 `GroupLayout` enumerates the clipping groups (a linear's {w, b}, a norm's
 {s}; each element of a stacked group is its own group), their sizes d_k,
 and packs the (K,) encoded thresholds into the per-group (stack + (B,))
-tensors the DP primitives take. Blocked (per-shard) groups wait for
-ROADMAP A.13.
+tensors the DP primitives take. A blocked weight (`blocks=M`, per-shard
+clipping) splits into M groups per stack element: its group's stack
+shape is `stack + (M,)` and d_k is the element's size over M.
 """
 from __future__ import annotations
 
@@ -39,16 +40,10 @@ class P:
     scale: float | None = None  # stddev override
     dtype: torch.dtype = torch.float32
     group: str | None = None  # explicit group path (shared / joint groups)
-    blocks: int = 1  # per-shard clipping groups: ROADMAP A.13
+    blocks: int = 1  # split into M per-shard clipping groups
     stack: int = 0  # number of leading scan/stack dims in `shape`
     fan_in_axis: int = -2  # axis used for fan-in init scaling
     sensitivity_mult: float = 1.0  # >1 for params shared across use sites
-
-    def __post_init__(self):
-        if self.blocks > 1:
-            raise NotImplementedError(
-                "blocked (per-shard) clipping groups are not ported yet: "
-                "ROADMAP.md item A.13")
 
 
 SpecTree = Any  # nested dict[str, P | SpecTree]
@@ -150,7 +145,10 @@ class GroupLayout:
         for path, p in _walk(spec):
             gname = _group_path(path, p)
             stack_shape = tuple(p.shape[: p.stack])
-            per_elem = int(np.prod(p.shape[p.stack:], dtype=np.int64))
+            if p.blocks > 1:  # a bias joining a blocked weight shares it
+                stack_shape = stack_shape + (p.blocks,)
+            per_elem = (int(np.prod(p.shape[p.stack:], dtype=np.int64))
+                        // p.blocks)
             if gname in groups:
                 g = groups[gname]
                 g["mult"] = max(g["mult"], p.sensitivity_mult)

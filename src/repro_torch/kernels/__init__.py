@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Each kernel module keeps an integer `launches` that its wrapper bumps on
-every kernel call (and nowhere else), so a run can show that it went
-through the kernels."""
+Each kernel's wrapper bumps an integer counter of its module on every
+kernel call (and nowhere else), so a run can show that it went through
+the kernels: `launches`, and `blocked_launches` for `ghost_norm_blocked`,
+which shares `ghost_norm`'s module."""
 from __future__ import annotations
 
 from repro_torch.kernels import bk as _bk
@@ -10,14 +11,18 @@ from repro_torch.kernels import clip_reduce as _clip_reduce
 from repro_torch.kernels import ghost_norm as _ghost_norm
 from repro_torch.kernels import paged_attn as _paged_attn
 
-KERNELS = {"paged_attn": _paged_attn, "ghost_norm": _ghost_norm,
-           "clip_reduce": _clip_reduce, "scale_contract": _bk}
+# kernel name -> (wrapper module, name of its launch counter there)
+KERNELS = {"paged_attn": (_paged_attn, "launches"),
+           "ghost_norm": (_ghost_norm, "launches"),
+           "ghost_norm_blocked": (_ghost_norm, "blocked_launches"),
+           "clip_reduce": (_clip_reduce, "launches"),
+           "scale_contract": (_bk, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)

@@ -8,8 +8,8 @@ the engine returned by `active()`. Two backends are registered:
            gram_chunked / outer by the cost model); the counterpart of the
            reference's `xla` backend and the oracle of the other.
   kernels  the hand-written Hopper kernels for the linear-layer hot path
-           (`kernels/ghost_norm.py`, `kernels/clip_reduce.py`) and the BK
-           epilogue (`kernels/bk.py`); the
+           (`kernels/ghost_norm.py`, `kernels/clip_reduce.py`), its
+           blocked form and the BK epilogue (`kernels/bk.py`); the
            counterpart of `pallas`. Each wrapper runs its plain version
            for a CPU tensor and its CUDA kernel for a CUDA tensor. Ops
            with no kernel inherit the plain implementations, as
@@ -23,6 +23,10 @@ Backend selection matrix (op x backend):
   clipped_sum_linear        einsum                 clip_reduce (clip_reduce_ref)
   linear_clip (norm+clip)   composed               composed: ghost_norm, then
                                                    clip_reduce
+  linear_norms_sq_blocked   blocked grams          ghost_norm_blocked
+                                                   (ghost_norm_blocked_ref)
+  clipped_sum_linear_blocked                       f32 fold, then clip_reduce
+                            f32 fold + einsum      with unit factors
   bias/embed/scale/vector   einsum/index_add       = plain (no kernel)
   clipped_sum_bias/embed/.. einsum/index_add       = plain (no kernel)
   scale_contract (BK)       einsum per slice       scale_contract
@@ -49,6 +53,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+
+import torch
 
 from repro_torch.core import ghost
 from repro_torch.core.ghost import clip_factor, factor_without_norms
@@ -92,6 +98,11 @@ class Backend:
     def linear_norms_sq(self, a, g):
         return ghost.linear_norms_sq(a, g)
 
+    def linear_norms_sq_blocked(self, a, g, num_blocks, *,
+                                block_axis="out"):
+        return ghost.linear_norms_sq_blocked(a, g, num_blocks,
+                                             block_axis=block_axis)
+
     def bias_norms_sq(self, g):
         return ghost.bias_norms_sq(g)
 
@@ -107,6 +118,12 @@ class Backend:
     # -- fused clipped sums ------------------------------------------------
     def clipped_sum_linear(self, a, g, factors):
         return ghost.clipped_sum_linear(a, g, factors)
+
+    def clipped_sum_linear_blocked(self, a, g, factors, *,
+                                   block_axis="out"):
+        """sum_i A_iᵀ diag-blocked(c_i) G_i in f32; factors: (B, M)."""
+        return ghost.clipped_sum_linear_blocked(a, g, factors,
+                                                block_axis=block_axis)
 
     def clipped_sum_bias(self, g, factors):
         return ghost.clipped_sum_bias(g, factors)
@@ -153,18 +170,37 @@ class PlainBackend(Backend):
 
 @register_backend("kernels")
 class KernelsBackend(Backend):
-    """The ghost_norm and clip_reduce kernels for the linear hot path and
-    scale_contract for the BK epilogue; the plain paths for the cheap ops
-    (bias/embed/scale/vector)."""
+    """The ghost_norm and clip_reduce kernels for the linear hot path,
+    ghost_norm_blocked for blocked linears, scale_contract for the BK
+    epilogue; the plain paths for the cheap ops (bias/embed/scale/vector)."""
 
     def linear_norms_sq(self, a, g):
         a3, g3 = ghost._as3d(a), ghost._as3d(g)
         return ghost_norm_mod.ghost_norm(a3.contiguous(), g3.contiguous())
 
+    def linear_norms_sq_blocked(self, a, g, num_blocks, *,
+                                block_axis="out"):
+        a3, g3 = ghost._as3d(a), ghost._as3d(g)
+        return ghost_norm_mod.ghost_norm_blocked(
+            a3.contiguous(), g3.contiguous(), num_blocks,
+            block_axis=block_axis)
+
     def clipped_sum_linear(self, a, g, factors):
         a3, g3 = ghost._as3d(a), ghost._as3d(g)
         return clip_reduce_mod.clip_reduce(
             a3.contiguous(), g3.contiguous(), factors.float().contiguous())
+
+    def clipped_sum_linear_blocked(self, a, g, factors, *,
+                                   block_axis="out"):
+        # fold the per-block factors into the blocked operand (f32, shared
+        # with the plain path), then one clip_reduce with unit factors, as
+        # the reference's pallas engine does
+        a3, g3 = ghost.fold_block_factors(ghost._as3d(a), ghost._as3d(g),
+                                          factors, block_axis)
+        ones = torch.ones((a3.shape[0],), dtype=torch.float32,
+                          device=a3.device)
+        return clip_reduce_mod.clip_reduce(a3.contiguous(), g3.contiguous(),
+                                           ones)
 
     def scale_contract(self, a, g, factors):
         return bk_mod.scale_contract(a.contiguous(), g.contiguous(),

@@ -17,7 +17,8 @@
 // pair of 32-row tiles. It loops over all din features of A, staging 32 x
 // 32 chunks of rows i and j in shared memory, to build the (32 x 32) gram
 // block A_i A_jᵀ in registers, then over all dout features of G for
-// G_i G_jᵀ; the feature loop cannot be split across blocks, because the
+// G_i G_jᵀ (`gram_tile.cuh`, shared with ghost_norm_blocked.cu); the
+// feature loop cannot be split across blocks, because the
 // elementwise product comes after the sum over features. The block then
 // reduces <A_i A_jᵀ, G_i G_jᵀ> in a fixed order and writes one float
 // partial, doubled for i < j (the summand is symmetric in (i, j), so the
@@ -35,55 +36,18 @@
 // bandwidth and L2 bound it instead. 32-row tiles give B x 36 = 288 blocks
 // at T = 256, more than two per SM. A wgmma version (bf16 products, f32
 // accumulation) comes later.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "gram_tile.cuh"
+
 namespace {
 
-constexpr int kTile = 32;   // sequence rows per tile
-constexpr int kChunk = 32;  // features staged per step
-constexpr int kPad = kTile + 1;  // odd row stride: transposed stores hit distinct banks
-constexpr int kThreads = 256;    // 16 x 16 threads, a 2 x 2 block of outputs each
-static_assert(kTile == 32 && kThreads == 256, "thread map assumes 16x16");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Adds the gram block X_i X_jᵀ (rows i0.., j0.. of one example's (T, d)
-// matrix x) into acc: acc[m][n] is entry (ty + 16 m, tx + 16 n).
-template <typename T>
-__device__ void gram_block(const T* __restrict__ x, int t_len, int d, int i0,
-                           int j0, float (*xi)[kPad], float (*xj)[kPad],
-                           float acc[2][2]) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  for (int k0 = 0; k0 < d; k0 += kChunk) {
-    for (int e = tid; e < kTile * kChunk; e += kThreads) {
-      const int r = e / kChunk, k = e - r * kChunk, f = k0 + k;
-      float vi = 0.f, vj = 0.f;
-      if (f < d) {
-        if (i0 + r < t_len) vi = to_f32(x[static_cast<size_t>(i0 + r) * d + f]);
-        if (j0 + r < t_len) vj = to_f32(x[static_cast<size_t>(j0 + r) * d + f]);
-      }
-      xi[k][r] = vi;
-      xj[k][r] = vj;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kChunk; ++k) {
-      const float a0 = xi[k][ty], a1 = xi[k][ty + 16];
-      const float b0 = xj[k][tx], b1 = xj[k][tx + 16];
-      acc[0][0] = fmaf(a0, b0, acc[0][0]);
-      acc[0][1] = fmaf(a0, b1, acc[0][1]);
-      acc[1][0] = fmaf(a1, b0, acc[1][0]);
-      acc[1][1] = fmaf(a1, b1, acc[1][1]);
-    }
-    __syncthreads();
-  }
-}
+using gram_tile::kChunk;
+using gram_tile::kPad;
+using gram_tile::kThreads;
+using gram_tile::kTile;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -94,32 +58,17 @@ ghost_norm_pairs(const T* __restrict__ a, const T* __restrict__ g,
   __shared__ float xj[kChunk][kPad];
   __shared__ float warp_sum[kThreads / 32];
   const int b = blockIdx.x / npairs;
-  const int p = blockIdx.x - b * npairs;
-  // pair p -> (i, j >= i), row by row over the upper triangle
-  int i = 0, rest = p;
-  while (rest >= nt - i) {
-    rest -= nt - i;
-    ++i;
-  }
-  const int j = i + rest;
+  int i, j;
+  gram_tile::pair_of(blockIdx.x - b * npairs, nt, &i, &j);
 
   float ga[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
   float gg[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  gram_block(a + static_cast<size_t>(b) * t_len * din, t_len, din, i * kTile,
-             j * kTile, xi, xj, ga);
-  gram_block(g + static_cast<size_t>(b) * t_len * dout, t_len, dout,
-             i * kTile, j * kTile, xi, xj, gg);
-  float s = ga[0][0] * gg[0][0] + ga[0][1] * gg[0][1] + ga[1][0] * gg[1][0] +
-            ga[1][1] * gg[1][1];
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  const int tid = threadIdx.x;
-  if (tid % 32 == 0) warp_sum[tid / 32] = s;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sum[w];
-    partial[blockIdx.x] = (i == j ? 1.f : 2.f) * total;
-  }
+  gram_tile::gram_block(a + static_cast<size_t>(b) * t_len * din, t_len, din,
+                        din, i * kTile, j * kTile, xi, xj, ga);
+  gram_tile::gram_block(g + static_cast<size_t>(b) * t_len * dout, t_len,
+                        dout, dout, i * kTile, j * kTile, xi, xj, gg);
+  const float total = gram_tile::block_sum(gram_tile::dot4(ga, gg), warp_sum);
+  if (threadIdx.x == 0) partial[blockIdx.x] = (i == j ? 1.f : 2.f) * total;
 }
 
 // out[b] = sum of example b's partials, in pair order.

@@ -20,10 +20,17 @@ book-keeping (`--execution bk`, the default: one backward pass and the
 twopass`, or the mode names `ghost_flat_twopass` / `per_group_twopass`).
 per_group's supergroups are what `--group-count` virtual model shards
 would own (`launch.sharding.group_shard_assignment`).
+
+`--clipping per_shard` is per-device clipping on one card, resolved as the
+reference's dry run resolves it: the qkv and o projections split into M =
+`--group-count` column blocks (`ModelConfig.dp_blocks`), each block its
+own clipping group, and the step runs `per_layer` over the finer (layer x
+block) groups. The header prints `dp_blocks=M` and `mode=per_layer`.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -39,7 +46,7 @@ from repro_torch.launch.sharding import group_shard_assignment
 from repro_torch.models.transformer import build_model
 
 CLIPPING = ["per_layer", "ghost_flat", "per_group", "non_private",
-            "ghost_flat_twopass", "per_group_twopass"]
+            "ghost_flat_twopass", "per_group_twopass", "per_shard"]
 
 
 def build_train_parser() -> argparse.ArgumentParser:
@@ -70,7 +77,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     ap.add_argument("--group-count", type=int, default=2,
                     help="per_group clipping: number of virtual model "
                          "shards whose ownership defines the supergroups "
-                         "(launch.sharding.group_shard_assignment)")
+                         "(launch.sharding.group_shard_assignment); "
+                         "per_shard: the number M of column blocks of the "
+                         "qkv and o projections")
     ap.add_argument("--backend", default="kernels",
                     choices=["kernels", "plain"],
                     help="ghost-op engine (repro_torch.kernels.backend): "
@@ -91,6 +100,13 @@ class Trainer:
     def __init__(self, args: argparse.Namespace):
         self.args = args
         self.cfg = get_config(args.arch, reduced=args.reduced)
+        mode = args.clipping
+        if mode == "per_shard":
+            # per-device clipping: blocked groups aligned with M virtual
+            # column shards, run as per_layer over (layer x block) groups
+            self.cfg = dataclasses.replace(self.cfg,
+                                           dp_blocks=args.group_count)
+            mode = "per_layer"
         self.model = build_model(self.cfg, device=args.device)
         self.device = torch.device(args.device)
         src = SyntheticLM(vocab_size=self.cfg.vocab_size,
@@ -101,11 +117,11 @@ class Trainer:
                                       rate=rate, max_batch=args.batch,
                                       seed=1)
         assign = nsuper = None
-        if args.clipping.startswith("per_group"):
+        if mode.startswith("per_group"):
             nsuper = args.group_count
             assign = group_shard_assignment(self.model.layout, nsuper)
         dpc = DPConfig(
-            mode=args.clipping, execution=args.execution,
+            mode=mode, execution=args.execution,
             group_assignment=assign, num_supergroups=nsuper,
             epsilon=args.epsilon if args.sigma is None else None,
             sigma=args.sigma, delta=args.delta, sampling_rate=rate,
@@ -161,7 +177,8 @@ class Trainer:
                 f"mode={p.config.mode} backend={p.config.backend} "
                 f"device={self.args.device} execution={self.execution} "
                 f"sigma={p.sigma:.3f} "
-                f"sigma_new={p.sigma_new:.3f} sigma_b={p.sigma_b:.3f}")
+                f"sigma_new={p.sigma_new:.3f} sigma_b={p.sigma_b:.3f} "
+                f"dp_blocks={self.cfg.dp_blocks}")
 
 
 def step_line(i: int, met) -> str:

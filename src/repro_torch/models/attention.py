@@ -2,7 +2,8 @@
 dense family.
 
 * Training: `attend`'s single-shot branch (f32 scores, masked softmax) and
-  `gqa_attention`, whose projections and q/k norms are DP primitives.
+  `gqa_attention`, whose projections and q/k norms are DP primitives; the
+  projections are clipped per column block when `cfg.dp_blocks > 1`.
   The reference's attention is plain XLA, so plain torch (einsum,
   softmax, autograd) is its port; the double-blocked online-softmax
   branch for T * S > 2048² is not ported yet (ROADMAP A.3).
@@ -64,8 +65,9 @@ def gqa_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = ()) -> dict:
                     cfg.resolved_head_dim)
     out = {
         "qkv": L.linear_spec(d, (h + 2 * kv) * hd, stack=stack,
-                             dtype=cfg.dtype),
-        "o": L.linear_spec(h * hd, d, stack=stack, dtype=cfg.dtype),
+                             dtype=cfg.dtype, blocks=cfg.dp_blocks),
+        "o": L.linear_spec(h * hd, d, stack=stack, dtype=cfg.dtype,
+                           blocks=cfg.dp_blocks),
     }
     if cfg.qk_norm:
         out["q_norm"] = L.rmsnorm_spec(hd, stack=stack, dtype=cfg.dtype)
@@ -102,19 +104,29 @@ def _qk_norm(cfg, params, q, k, th=None):
             apply(params["k_norm"], k, th["k_norm"]))
 
 
+def _proj(cfg: ModelConfig, params, x, th):
+    """A projection: clipped per column block (per-shard clipping) when
+    `cfg.dp_blocks > 1`, else as one group. The reference's DP-LoRA
+    branch is ROADMAP A.10."""
+    if cfg.dp_blocks > 1:
+        return L.linear_blocked(params, x, th)
+    return L.linear(params, x, th)
+
+
 def gqa_attention(cfg: ModelConfig, params, x, th, positions, *,
                   causal=True, window=None):
     """Self-attention, training. x: (B, T, D); th: this block's
-    attention thresholds ({'qkv', 'o', 'q_norm', 'k_norm'}: (B,) each);
+    attention thresholds ({'qkv', 'o', 'q_norm', 'k_norm'}: (B,) each,
+    (M, B) for the projections when `cfg.dp_blocks = M > 1`);
     positions: (B, T)."""
-    qkv = L.linear(params["qkv"], x, th["qkv"])
+    qkv = _proj(cfg, params["qkv"], x, th["qkv"])
     q, k, v = _split_qkv(cfg, qkv)
     q, k = _qk_norm(cfg, params, q, k, th)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     out = attend(q, k, v, positions, positions, causal=causal, window=window)
     out = out.reshape(x.shape[0], x.shape[1], -1)
-    return L.linear(params["o"], out, th["o"])
+    return _proj(cfg, params["o"], out, th["o"])
 
 
 def _paged_write(pool, new, pt, pos, active):

@@ -26,6 +26,9 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     dtype: torch.dtype = torch.float32
     norm_eps: float = 1e-5
+    # per-shard clipping layout: the qkv and o projections split into M
+    # column blocks, each its own clipping group (M virtual model shards)
+    dp_blocks: int = 1
     # rematerialize each block in the training forward (activation
     # checkpointing): backward keeps only block inputs and recomputes the
     # rest, at about 1.33x the forward FLOPs
@@ -45,3 +48,9 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: num_heads={self.num_heads} must be a multiple "
                 f"of num_kv_heads={self.num_kv_heads}")
+        m = self.dp_blocks
+        qkv = (self.num_heads + 2 * self.num_kv_heads) * self.resolved_head_dim
+        if m < 1 or qkv % m or self.d_model % m:
+            raise ValueError(
+                f"{self.name}: dp_blocks={m} must divide the qkv output "
+                f"width {qkv} and the o output width {self.d_model}")

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import bk
 from repro_torch.core import dp_layers as dpl
 from repro_torch.core.spec import P
 
@@ -35,15 +36,32 @@ def rmsnorm(params, x, th=None, *, eps: float = 1e-5):
     return dpl.dp_scale(params["s"], _normalize(x, eps), th)
 
 
-def linear_spec(din: int, dout: int, *, stack: tuple[int, ...] = (),
-                dtype=torch.float32) -> dict:
-    return {"w": P(stack + (din, dout), dtype=dtype, stack=len(stack))}
+def linear_spec(din: int, dout: int, *, bias: bool = False,
+                stack: tuple[int, ...] = (), dtype=torch.float32,
+                blocks: int = 1) -> dict:
+    s = len(stack)
+    out = {"w": P(stack + (din, dout), dtype=dtype, stack=s, blocks=blocks)}
+    if bias:
+        # a blocked layer splits the bias into the same M column blocks, so
+        # the {w, b} pair stays one group per block
+        out["b"] = P(stack + (dout,), init="zeros", dtype=dtype, stack=s,
+                     blocks=blocks)
+    return out
 
 
 def linear(params, x, th=None):
     if th is None:
-        return x @ params["w"]
+        y = x @ params["w"]
+        return y + params["b"] if "b" in params else y
     return dpl.dp_linear(params["w"], params.get("b"), x, th)
+
+
+def linear_blocked(params, x, th):
+    """A linear clipped per column block. th: (M, B) from the layout ->
+    (B, M) for the primitive (a BK channel passes through, to be refused
+    there)."""
+    c = th if bk.channel_of(th) is not None else th.T
+    return dpl.dp_linear_blocked(params["w"], params.get("b"), x, c, "out")
 
 
 def swiglu_spec(d: int, f: int, *, stack: tuple[int, ...] = (),

@@ -1,5 +1,5 @@
-"""The ghost_norm, clip_reduce and scale_contract wrappers, and their
-kernels on the card.
+"""The ghost_norm, ghost_norm_blocked, clip_reduce and scale_contract
+wrappers, and their kernels on the card.
 
 * On a CPU tensor each wrapper is its plain version and counts no launch;
   on another non-CUDA device it raises.
@@ -8,8 +8,9 @@ kernels on the card.
   that are not float32 of the batch shape), and accept the main path's
   widest shapes.
 * On a Hopper card (`-m cuda`; skipped elsewhere): each kernel against its
-  plain version over ragged T, T = 1, din != dout, f32 and bf16, and
-  scale_contract over S in {1, 3} and its 3-D form.
+  plain version over ragged T, T = 1, din != dout, f32 and bf16,
+  scale_contract over S in {1, 3} and its 3-D form, and ghost_norm_blocked
+  over both block axes and M in {1, 2, 4, 16}.
 
 Only torch and numpy: these tests run where JAX is not installed.
 """
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.ghost import blocked_operands
 from repro_torch.kernels import bk as SC
 from repro_torch.kernels import clip_reduce as CR
 from repro_torch.kernels import ghost_norm as GN
@@ -42,6 +44,32 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
     assert torch.equal(GN.ghost_norm(a, g), GN.ghost_norm_ref(a, g))
     assert torch.equal(CR.clip_reduce(a, g, f), CR.clip_reduce_ref(a, g, f))
     assert (GN.launches, CR.launches) == before
+
+
+def test_ghost_norm_blocked_on_cpu_is_its_plain_version():
+    """On CPU tensors: the plain version, no launch counted; M = 1 is the
+    whole layer's norm; the blocks of either axis partition it."""
+    a, g = (T(v) for v in _ag(3, 6, 8, 12))
+    before = (GN.launches, GN.blocked_launches)
+    for m, axis in ((1, "out"), (4, "out"), (2, "in"), (4, "in")):
+        got = GN.ghost_norm_blocked(a, g, m, block_axis=axis)
+        assert torch.equal(got, GN.ghost_norm_blocked_ref(a, g, m, axis))
+        assert got.shape == (3, m)
+        torch.testing.assert_close(got.sum(-1), GN.ghost_norm_ref(a, g),
+                                   rtol=1e-5, atol=1e-5)
+    assert (GN.launches, GN.blocked_launches) == before
+    with pytest.raises(ValueError, match="no kernel"):
+        GN.ghost_norm_blocked(a.to("meta"), g.to("meta"), 2)
+    with pytest.raises(ValueError, match="num_blocks must be >= 1"):
+        GN.ghost_norm_blocked(a, g, 0)
+
+
+def test_blocked_operands_follow_the_axis():
+    a, g = (T(v) for v in _ag(2, 4, 6, 8))
+    s, x = blocked_operands(a, g, 4, "out")
+    assert s is a and x is g
+    s, x = blocked_operands(a, g, 3, "in")
+    assert s is g and x is a
 
 
 def _sag(s, b, t, din, dout, seed=0):
@@ -112,6 +140,13 @@ def test_clip_reduce_checks_raise(case):
         CR._check(*args)
 
 
+@pytest.mark.parametrize("case", sorted(BAD_INPUTS))
+def test_ghost_norm_blocked_checks_raise(case):
+    args = BAD_INPUTS[case](_valid())
+    with pytest.raises(ValueError, match="ghost_norm_blocked"):
+        GN._check(args[0], args[1], "ghost_norm_blocked")
+
+
 def _valid4():
     return list(_sag(2, 3, 6, 5, 7))
 
@@ -153,6 +188,13 @@ def test_checks_accept_the_main_path_shapes():
     g4 = torch.empty((36, 8, 256, 19_456), dtype=torch.bfloat16)
     SC._check(a4, g4, torch.ones(36, 8))
     assert GN.num_pairs(256) == 36  # 8 * 36 = 288 blocks on 132 SMs
+    # per_shard (M = 16): qkv (2560 -> 6144) and o (4096 -> 2560) blocks
+    for din, dout in ((2560, 6144), (4096, 2560)):
+        a = torch.empty((8, 256, din), dtype=torch.bfloat16)
+        g = torch.empty((8, 256, dout), dtype=torch.bfloat16)
+        GN._check(a, g, "ghost_norm_blocked")
+        s, x = blocked_operands(a, g, 16, "out")
+        assert x.shape[-1] // 16 in (384, 160)
 
 
 def _on_card():
@@ -209,3 +251,29 @@ def test_scale_contract_matches_plain_version_on_card(shape, dtype):
     for x, w in ((got, want), (got3, want[0])):
         atol = 1e-4 * float(w.abs().max())
         torch.testing.assert_close(x, w, rtol=1e-4, atol=atol)
+
+
+# B, T, din, dout, M, axis: ragged T, T = 1, both axes, blocks narrower
+# and wider than a 32-column chunk, M = 1, and the o shape of per_shard
+BLOCKED_CARD_CASES = [(2, 37, 24, 40, 4, "out"), (3, 1, 16, 8, 2, "in"),
+                      (2, 70, 48, 40, 4, "out"), (1, 9, 64, 20, 4, "in"),
+                      (2, 33, 20, 45, 1, "out"), (8, 256, 512, 160, 16, "out")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BLOCKED_CARD_CASES)
+def test_ghost_norm_blocked_matches_plain_version_on_card(case, dtype):
+    """Identical inputs on the card; only the f32 summation order differs:
+    rtol 1e-4, atol 1e-4 of the largest magnitude of the plain result."""
+    _on_card()
+    b, t, din, dout, m, axis = case
+    a, g = (T(v).to("cuda", getattr(torch, dtype))
+            for v in _ag(b, t, din, dout))
+    before = GN.blocked_launches
+    got = GN.ghost_norm_blocked(a, g, m, block_axis=axis)
+    torch.cuda.synchronize()
+    assert GN.blocked_launches == before + 1
+    want = GN.ghost_norm_blocked_ref(a, g, m, axis)
+    atol = 1e-4 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)

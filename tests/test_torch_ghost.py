@@ -335,8 +335,3 @@ def test_group_layout_packing_matches_reference():
     np.testing.assert_array_equal(lay.unpack(packed).numpy(), rows)
     assert S.subth(packed, "dense_blocks/attn").keys() == {
         "qkv", "o", "q_norm", "k_norm"}
-
-
-def test_blocked_groups_are_refused():
-    with pytest.raises(NotImplementedError, match="A.13"):
-        S.P((4, 8), blocks=2)

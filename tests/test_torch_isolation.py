@@ -76,5 +76,6 @@ def test_importing_the_port_builds_nothing():
     from repro_torch.kernels import _build, launch_counts
     assert _build.BUILD_LOGS == {} and _build._LIBS == {}
     assert set(launch_counts()) == {"paged_attn", "ghost_norm",
-                                    "clip_reduce", "scale_contract"}
+                                    "ghost_norm_blocked", "clip_reduce",
+                                    "scale_contract"}
     assert set(_build.sources()) == set(launch_counts())

@@ -13,8 +13,10 @@ go through both packages:
   noise allocation, the schedules;
 * the accounting copy to 1e-12 and the data pipeline bit for bit;
 * remat on/off, the kernel call counts of one step (4 per block + the
-  head; 5 `scale_contract` calls and no `clip_reduce` under BK),
-  `non_private` calling no norm op, and the `--device cpu` CLI.
+  head; 5 `scale_contract` calls and no `clip_reduce` under BK; 2 per
+  block `ghost_norm_blocked` under per_shard), `non_private` calling no
+  norm op, and the `--device cpu` CLI (per_shard too; its noised steps:
+  `test_torch_blocked.py`).
 
 Tolerances: float32, the same math summed in another order: rtol 1e-5
 and an atol of 1e-5 of the leaf's largest magnitude (1e-4 after a full
@@ -513,6 +515,64 @@ def test_train_cli_on_cpu(capsys):
     assert [s[1] for s in steps] == ["0", "1"]
     assert all(np.isfinite(float(s[i])) for s in steps for i in (3, 5, 7, 9))
     assert out[-1].startswith("# spent epsilon=")
+
+
+def test_train_cli_per_shard_on_cpu(capsys):
+    """per_shard resolves to dp_blocks = --group-count and per_layer over
+    the (layer x block) groups (tiny, M = 4: 15 + 2 * 2 * 3 = 27 groups);
+    the plain and kernels engines print the same step lines."""
+    lines = {}
+    for engine in ("kernels", "plain"):
+        assert train.main(["--arch", "tiny", "--clipping", "per_shard",
+                           "--group-count", "4", "--backend", engine,
+                           "--steps", "2", "--batch", "4", "--seq", "16",
+                           "--docs", "16", "--log-every", "1", "--seed", "3",
+                           "--device", "cpu"]) == 0
+        out = capsys.readouterr().out.splitlines()
+        assert out[0].startswith(f"# arch=tiny params=106,944 groups=27 "
+                                 f"mode=per_layer backend={engine} "
+                                 f"device=cpu ")
+        assert out[0].endswith(" dp_blocks=4")
+        lines[engine] = [ln for ln in out if ln.startswith("step")]
+        assert all(np.isfinite(float(s.split()[i])) for s in lines[engine]
+                   for i in (3, 5, 7, 9))
+    assert len(lines["plain"]) == 2 and lines["plain"] == lines["kernels"]
+
+
+def test_train_cli_per_shard_refuses_a_group_count_that_does_not_divide():
+    with pytest.raises(ValueError, match="dp_blocks=3 must divide the qkv "
+                       "output width 128 and the o output width 64"):
+        train.main(["--arch", "tiny", "--clipping", "per_shard",
+                    "--group-count", "3", "--steps", "1", "--batch", "2",
+                    "--docs", "4", "--device", "cpu"])
+
+
+def test_kernel_calls_per_step_under_per_shard(monkeypatch):
+    """Per step: ghost_norm_blocked once per blocked projection (qkv and o
+    of each block), ghost_norm once per other linear (gate_up, down, the
+    head), clip_reduce once per linear (unit factors after the fold at
+    qkv and o), no scale_contract: 72 / 73 / 145 / 0 on qwen3-4b."""
+    calls = _count_calls(monkeypatch, scale_contract=True)
+    calls["ghost_norm_blocked"] = 0
+    real = GN.ghost_norm_blocked
+
+    def counting(*a, **k):
+        calls["ghost_norm_blocked"] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(GN, "ghost_norm_blocked", counting)
+    args = train.build_train_parser().parse_args(
+        ["--arch", "qwen3-4b", "--reduced", "--clipping", "per_shard",
+         "--group-count", "4", "--steps", "2", "--batch", "2", "--seq", "8",
+         "--docs", "4", "--device", "cpu"])
+    trainer = train.Trainer(args)
+    assert trainer.cfg.dp_blocks == 4
+    assert trainer.plan.config.mode == "per_layer"
+    met = trainer.step()
+    n = trainer.cfg.num_layers
+    assert calls == {"ghost_norm": 2 * n + 1, "ghost_norm_blocked": 2 * n,
+                     "clip_reduce": 4 * n + 1, "scale_contract": 0}
+    assert np.isfinite(float(met.loss)) and np.isfinite(float(met.grad_norm))
 
 
 def test_unported_modes_name_their_roadmap_item():
