@@ -39,14 +39,17 @@ exits non-zero:
               before the BK variants. Counters are set to 0 before each
               variant's steps and read after; per step (4 linears x 36
               blocks + the head = 145 linears; 72 of them blocked under
-              per_shard), launches of ghost_norm / ghost_norm_blocked /
-              clip_reduce / scale_contract:
-                per_layer     145 /  0 / 145 / 0
-                non_private     0 /  0 / 145 / 0
-                *_twopass     145 /  0 / 145 / 0
-                per_shard      73 / 72 / 145 / 0
-                *_bk          145 /  0 /   0 / 5
-              and a BK variant must raise no fallback warning. ms per
+              per_shard; none within the fused route's rule), launches of
+              ghost_norm / ghost_norm_blocked / clip_reduce /
+              scale_contract / fused_norm_clip:
+                per_layer     145 /  0 / 145 / 0 / 0
+                non_private     0 /  0 / 145 / 0 / 0
+                *_twopass     145 /  0 / 145 / 0 / 0
+                per_shard      73 / 72 / 145 / 0 / 0
+                *_bk          145 /  0 /   0 / 5 / 0
+              (`expected_launches` derives them from the config and the
+              route rule) and a BK variant must raise no fallback
+              warning. ms per
               step, ratio_vs_nonprivate, ratio_bk_vs_twopass per mode,
               ratio_vs_per_layer for per_shard, losses, thresholds, clip
               fraction, peak memory, and one profiled step per variant.
@@ -63,11 +66,47 @@ exits non-zero:
               plain, bound and library times.
   7 cuda/cpu  qwen3-4b-reduced in f32 from one numpy parameter tree and
               one numpy batch: one `dp_clipped_gradients` each of
-              per_layer, ghost_flat (bk), per_group (bk) and per_shard
-              (per_layer over M = 4 blocks) on the card (kernels) and on
-              the CPU (plain versions) must agree in loss, (K, B) norms
-              and every clipped gradient leaf; on the card bk must agree
-              with twopass too.
+              per_layer by the fused route (every linear of the reduced
+              config is within its rule) and by the composed one (the
+              rule patched off), ghost_flat (bk), per_group
+              (bk) and per_shard (per_layer over M = 4 blocks), and
+              per_layer on granite-moe-3b-a800m-reduced (f32), on the
+              card (kernels) and on the CPU (plain versions): they must
+              agree in loss, (K, B) norms and every clipped gradient leaf;
+              on the card bk must agree with twopass too. The card must
+              launch exactly the kernels of the route, the CPU none.
+  8 moe train granite-moe-3b-a800m at full width and depth (32 layers,
+              d_model 1536, 40 experts top-8, bf16, 3.37 B parameters,
+              2,723 clipping groups; flat dispatch) through the same
+              `Trainer`: 1 warm-up + 3 timed steps of per_layer and of
+              non_private, B = 8, T = 256, adam, epsilon 8, each with one
+              profiled step. Launches per step (65 linears outside the
+              fused route's rule: qkv and o of 32 layers and the head; 32
+              routers within it; the experts run no kernel) of
+              fused_norm_clip / ghost_norm / clip_reduce:
+                per_layer      32 / 65 / 65
+                non_private     0 /  0 / 97
+              The router's inputs of per_layer's first step are captured
+              for phase 9, and the clip_reduce inputs at the shapes no
+              qwen3-4b linear has (qkv 1536 -> 2560, o 1536 -> 1536, the
+              head 1536 -> 49155 from per_layer's first step; the router
+              1536 -> 40 from non_private's) for phase 10.
+  9 kernels   fused_norm_clip against its plain version on the card: a
+              sweep (B = 1 / 3 / 8, T = 1 / 37 / 200 / 256 / 300, din and
+              dout off the 64-wide tiles, 1024 -> 1024 at the route
+              rule's limit, c of +inf, positive, negative and mixed,
+              extra None and given, f32 and bf16), then at the captured
+              router shape with kernel, plain, bound, library (per-example
+              f32 bmm) and composed (ghost_norm + clip_reduce kernels)
+              times: device times from CUDA graph replays (a call takes
+              tens of microseconds, below the host's launch overhead),
+              eager times beside them.
+ 10 kernels   ghost_norm and clip_reduce (per_layer: qkv, o, head) and
+              clip_reduce (non_private: router) against their plain
+              versions at granite's captured inputs, with phase 6's
+              tolerances and kernel, plain, bound and library times; the
+              kernels line carries them under each kernel's "moe" key, and
+              its max_abs_err is the worst over both models' inputs.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -145,6 +184,24 @@ def cuda_ms(torch, fn, iters=50, warmup=5, flush=None):
         events.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def graph_ms(torch, fn, iters=50, flush=None):
+    """Mean ms per call of `fn` replayed from a CUDA graph, with the L2
+    flushed before each replay: the device time of a call of a few tens
+    of microseconds, which eager timing (`cuda_ms`) measures as the
+    host's launch overhead. The flush runs while the host enqueues the
+    replay, so the device does not wait on the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, iters, warmup=3, flush=flush)
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +545,7 @@ SC_STACKS = [1, 3, None]  # scale_contract's S over the sweep; None: 3-D
 SUM_FACTORS = [0.0, 1e-3, 0.5, 1.0]
 SUM_KERNELS = ("ghost_norm", "ghost_norm_blocked", "clip_reduce",
                "scale_contract")
+TRAIN_KERNELS = SUM_KERNELS + ("fused_norm_clip",)
 # ghost_norm_blocked's sweep: B, T, din, dout, M, axis (ragged T, T = 1,
 # both axes, blocks narrower and wider than a 32-column chunk, M = 1)
 BLOCKED_SWEEP = [(3, 37, 20, 48, 4, "out"), (2, 1, 64, 24, 4, "in"),
@@ -496,37 +554,70 @@ BLOCKED_SWEEP = [(3, 37, 20, 48, 4, "out"), (2, 1, 64, 24, 4, "in"),
 
 
 def linear_shapes(cfg) -> dict:
-    """(din, dout) -> name of the five linear shapes of a dense step."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv = cfg.num_heads, cfg.num_kv_heads
-    return {(d, (h + 2 * kv) * hd): "qkv", (h * hd, d): "o",
-            (d, 2 * cfg.d_ff): "gate_up", (cfg.d_ff, d): "down",
-            (d, cfg.vocab_size): "head"}
+    """(din, dout) -> name of the linear shapes of a step (five on a dense
+    config)."""
+    return {(din, dout): leaf for leaf, din, dout, _ in linear_leaves(cfg)}
 
 
-def train_args(mode: str, execution: str = "bk", group_count: int = 2):
+def train_args(mode: str, execution: str = "bk", group_count: int = 2,
+               arch: str = "qwen3-4b"):
     from repro_torch.launch import train
     return train.build_train_parser().parse_args(
-        ["--arch", "qwen3-4b", "--clipping", mode, "--execution", execution,
+        ["--arch", arch, "--clipping", mode, "--execution", execution,
          "--group-count", str(group_count), "--epsilon", "8",
          "--steps", str(TRAIN_WARMUP + TRAIN_TIMED), "--batch", "8",
          "--seq", "256", "--docs", "64", "--optimizer", "adam",
          "--seed", "0"])
 
 
-def expected_launches(label: str, num_layers: int) -> dict:
-    """Kernel launches per step of a variant (the table in the doc)."""
-    linears = 4 * num_layers + 1
+def linear_leaves(cfg) -> list:
+    """(leaf, din, dout, blocked) of every linear a training step clips:
+    qkv and o of each layer (blocked when cfg.dp_blocks > 1), gate_up and
+    down of each dense layer, the router of each MoE layer, the head. The
+    experts run no kernel."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
+    n_dense = cfg.num_layers - n_moe
+    blocked = cfg.dp_blocks > 1
+    return ([("qkv", d, (h + 2 * kv) * hd, blocked),
+             ("o", h * hd, d, blocked)] * cfg.num_layers
+            + [("gate_up", d, 2 * cfg.d_ff, False),
+               ("down", cfg.d_ff, d, False)] * n_dense
+            + [("router", d, cfg.num_experts, False)] * n_moe
+            + [("head", d, cfg.vocab_size, False)])
+
+
+def expected_launches(label: str, cfg, fused_route: bool = True) -> dict:
+    """Kernel launches per step of a variant (the tables in the doc): a
+    BK step takes ghost_norm per linear and one scale_contract per linear
+    leaf; non_private clip_reduce per linear; a blocked linear
+    ghost_norm_blocked and clip_reduce; a twopass step ghost_norm and
+    clip_reduce; per_layer fused_norm_clip where the route rule passes
+    (unless `fused_route` is off), else ghost_norm and clip_reduce."""
+    from repro_torch.kernels.fused_clip import fits
+    counts = dict.fromkeys(TRAIN_KERNELS, 0)
+
+    def add(*names):
+        for name in names:
+            counts[name] += 1
+
+    leaves = linear_leaves(cfg)
+    for _, din, dout, blocked in leaves:
+        if label.endswith("_bk"):
+            add("ghost_norm")
+        elif label == "non_private":
+            add("clip_reduce")
+        elif blocked:
+            add("ghost_norm_blocked", "clip_reduce")
+        elif not label.endswith("_twopass") and fused_route \
+                and fits(din, dout):
+            add("fused_norm_clip")
+        else:
+            add("ghost_norm", "clip_reduce")
     if label.endswith("_bk"):
-        return {"ghost_norm": linears, "ghost_norm_blocked": 0,
-                "clip_reduce": 0, "scale_contract": 5}
-    if label == "per_shard":  # qkv and o of each block are blocked
-        return {"ghost_norm": linears - 2 * num_layers,
-                "ghost_norm_blocked": 2 * num_layers,
-                "clip_reduce": linears, "scale_contract": 0}
-    return {"ghost_norm": 0 if label == "non_private" else linears,
-            "ghost_norm_blocked": 0, "clip_reduce": linears,
-            "scale_contract": 0}
+        counts["scale_contract"] = len({leaf for leaf, *_ in leaves})
+    return counts
 
 
 def profile_step(torch, trainer, step_ms) -> dict:
@@ -553,122 +644,139 @@ def profile_step(torch, trainer, step_ms) -> dict:
                     for k, ms, n in rows[:8]]}
 
 
+def train_variant(torch, gpu, label, args, step_ms, patches=()):
+    """Train one variant through the CLI's `Trainer`: TRAIN_WARMUP +
+    TRAIN_TIMED steps with every launch counter set to 0 before and read
+    after, then one profiled step. `patches` are (step, module, attribute,
+    replacement) swapped in for that step only (the input recorders).
+    Checks finite losses, no BK fallback and the launches per step;
+    emits the train and train_profile lines; records ms per step in
+    `step_ms`. Returns the launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    t0 = time.perf_counter()
+    trainer = train.Trainer(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(steps):
+            swapped = [(mod, attr, getattr(mod, attr))
+                       for s, mod, attr, _ in patches if s == i]
+            for s, mod, attr, fn in patches:
+                if s == i:
+                    setattr(mod, attr, fn)
+            try:
+                t0 = time.perf_counter()
+                met = trainer.step()
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                for mod, attr, fn in swapped:
+                    setattr(mod, attr, fn)
+            rec.append({"ms": ms, "loss": float(met.loss),
+                        "mean_threshold": float(met.mean_threshold),
+                        "clip_fraction": float(met.clip_fraction),
+                        "grad_norm": float(met.grad_norm)})
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fallbacks = [str(w.message) for w in caught
+                 if "falling back to the twopass" in str(w.message)]
+    if fallbacks:
+        raise RuntimeError(f"{label}: BK fell back: {fallbacks}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in rec):
+        raise RuntimeError(f"{label}: non-finite loss or update: {rec}")
+    per_step = expected_launches(label, trainer.cfg)
+    want = {k: v * steps for k, v in per_step.items()}
+    if {k: counts[k] for k in want} != want:
+        raise RuntimeError(f"{label}: launches {counts} over {steps} "
+                           f"steps, expected {want}")
+    step_ms[label] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / TRAIN_TIMED
+    base = step_ms.get("non_private")
+    emit({"phase": "train", "gpu": gpu, "arch": trainer.cfg.name,
+          "variant": label, "mode": trainer.plan.config.mode,
+          "dp_blocks": trainer.cfg.dp_blocks,
+          "execution": trainer.execution,
+          "backend": trainer.plan.config.backend,
+          "num_params": trainer.model.num_params,
+          "dtype": str(trainer.cfg.dtype),
+          "batch": trainer.args.batch, "seq": trainer.args.seq,
+          "groups": trainer.model.layout.num_groups,
+          "noise_groups": trainer.plan.num_noise_groups,
+          "sigma": trainer.plan.sigma,
+          "sigma_new": trainer.plan.sigma_new,
+          "init_s": init_s, "warmup_steps": TRAIN_WARMUP,
+          "timed_steps": TRAIN_TIMED, "ms_per_step": step_ms[label],
+          "ratio_vs_nonprivate": (step_ms[label] / base if base else None),
+          "ratio_vs_per_layer": step_ms[label] / step_ms["per_layer"],
+          "tokens_per_s": trainer.args.batch * trainer.args.seq
+          / (step_ms[label] / 1e3),
+          "steps": rec, "peak_memory_gb": peak, "launches": counts,
+          "launches_per_step": per_step})
+    emit({"phase": "train_profile", "gpu": gpu, "arch": trainer.cfg.name,
+          "variant": label, **profile_step(torch, trainer, step_ms[label])})
+    del trainer, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_train(torch, gpu):
     """Returns (launches by kernel over every variant's counted steps, the
     clip_reduce inputs at each linear shape of per_layer's first step, the
     ghost_norm_blocked inputs at the two blocked shapes of per_shard's
     first step, the scale_contract inputs of per_group_bk's last
     epilogue)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import bk as SC
     from repro_torch.kernels import clip_reduce as CR
     from repro_torch.kernels import ghost_norm as GN
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch import train
 
-    steps = TRAIN_WARMUP + TRAIN_TIMED
-    launches = dict.fromkeys(SUM_KERNELS, 0)
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
     caps, gnb_caps, sc_caps, step_ms = {}, {}, {}, {}
     real_cr, real_sc = CR.clip_reduce, SC.scale_contract
     real_gnb = GN.ghost_norm_blocked
+    shapes = linear_shapes(get_config("qwen3-4b"))
+
+    def recording_cr(a, g, factors):
+        name = shapes.get((a.shape[-1], g.shape[-1]))
+        if name is not None and name not in caps:
+            caps[name] = (a.clone(), g.clone(), factors.clone())
+        return real_cr(a, g, factors)
+
+    def recording_gnb(a, g, num_blocks, *, block_axis="out"):
+        name = shapes.get((a.shape[-1], g.shape[-1]))
+        if name is not None and name not in gnb_caps:
+            gnb_caps[name] = (a.clone(), g.clone(),
+                              (num_blocks, block_axis))
+        return real_gnb(a, g, num_blocks, block_axis=block_axis)
+
+    def recording_sc(a, g, factors):
+        # the sinks: nothing writes them after the epilogue, so a
+        # reference (not a copy of ~8 GB) keeps them for phase 6
+        name = shapes.get((a.shape[-1], g.shape[-1]))
+        if name is not None:
+            sc_caps[name] = (a, g, factors)
+        return real_sc(a, g, factors)
+
+    last = TRAIN_WARMUP + TRAIN_TIMED - 1
+    # per_group_bk's last step: the kept sinks overlap no later step of
+    # the measured peak
+    patches = {"per_layer": [(0, CR, "clip_reduce", recording_cr)],
+               "per_shard": [(0, GN, "ghost_norm_blocked", recording_gnb)],
+               "per_group_bk": [(last, SC, "scale_contract", recording_sc)]}
     for label, mode, execution, group_count in VARIANTS:
-        t0 = time.perf_counter()
-        trainer = train.Trainer(train_args(mode, execution, group_count))
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        shapes = linear_shapes(trainer.cfg)
-        num_layers = trainer.cfg.num_layers
-
-        def recording_cr(a, g, factors):
-            name = shapes.get((a.shape[-1], g.shape[-1]))
-            if name is not None and name not in caps:
-                caps[name] = (a.clone(), g.clone(), factors.clone())
-            return real_cr(a, g, factors)
-
-        def recording_gnb(a, g, num_blocks, *, block_axis="out"):
-            name = shapes.get((a.shape[-1], g.shape[-1]))
-            if name is not None and name not in gnb_caps:
-                gnb_caps[name] = (a.clone(), g.clone(),
-                                  (num_blocks, block_axis))
-            return real_gnb(a, g, num_blocks, block_axis=block_axis)
-
-        def recording_sc(a, g, factors):
-            # the sinks: nothing writes them after the epilogue, so a
-            # reference (not a copy of ~8 GB) keeps them for phase 6
-            name = shapes.get((a.shape[-1], g.shape[-1]))
-            if name is not None:
-                sc_caps[name] = (a, g, factors)
-            return real_sc(a, g, factors)
-
-        rec = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            for i in range(steps):
-                if i == 0 and label == "per_layer":
-                    CR.clip_reduce = recording_cr
-                if i == 0 and label == "per_shard":
-                    GN.ghost_norm_blocked = recording_gnb
-                if i == steps - 1 and label == "per_group_bk":
-                    # the last step: the kept sinks overlap no later step
-                    # of the measured peak
-                    SC.scale_contract = recording_sc
-                try:
-                    t0 = time.perf_counter()
-                    met = trainer.step()
-                    torch.cuda.synchronize()
-                    ms = 1e3 * (time.perf_counter() - t0)
-                finally:
-                    CR.clip_reduce, SC.scale_contract = real_cr, real_sc
-                    GN.ghost_norm_blocked = real_gnb
-                rec.append({"ms": ms, "loss": float(met.loss),
-                            "mean_threshold": float(met.mean_threshold),
-                            "clip_fraction": float(met.clip_fraction),
-                            "grad_norm": float(met.grad_norm)})
-        counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        fallbacks = [str(w.message) for w in caught
-                     if "falling back to the twopass" in str(w.message)]
-        if fallbacks:
-            raise RuntimeError(f"{label}: BK fell back: {fallbacks}")
-        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
-                   for r in rec):
-            raise RuntimeError(f"{label}: non-finite loss or update: {rec}")
-        want = {k: v * steps
-                for k, v in expected_launches(label, num_layers).items()}
-        if {k: counts[k] for k in want} != want:
-            raise RuntimeError(f"{label}: launches {counts} over {steps} "
-                               f"steps, expected {want}")
+        counts = train_variant(torch, gpu, label,
+                               train_args(mode, execution, group_count),
+                               step_ms, patches.get(label, ()))
         for k in launches:
             launches[k] += counts[k]
-        step_ms[label] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / TRAIN_TIMED
-        emit({"phase": "train", "gpu": gpu, "arch": trainer.cfg.name,
-              "variant": label, "mode": trainer.plan.config.mode,
-              "dp_blocks": trainer.cfg.dp_blocks,
-              "execution": trainer.execution,
-              "backend": trainer.plan.config.backend,
-              "num_params": trainer.model.num_params,
-              "dtype": str(trainer.cfg.dtype),
-              "batch": trainer.args.batch, "seq": trainer.args.seq,
-              "groups": trainer.model.layout.num_groups,
-              "noise_groups": trainer.plan.num_noise_groups,
-              "sigma": trainer.plan.sigma,
-              "sigma_new": trainer.plan.sigma_new,
-              "init_s": init_s, "warmup_steps": TRAIN_WARMUP,
-              "timed_steps": TRAIN_TIMED, "ms_per_step": step_ms[label],
-              "ratio_vs_nonprivate": (step_ms[label] / step_ms["non_private"]
-                                      if "non_private" in step_ms else None),
-              "ratio_vs_per_layer": step_ms[label] / step_ms["per_layer"],
-              "tokens_per_s": trainer.args.batch * trainer.args.seq
-              / (step_ms[label] / 1e3),
-              "steps": rec, "peak_memory_gb": peak, "launches": counts,
-              "launches_per_step": {k: counts[k] // steps for k in want}})
-        emit({"phase": "train_profile", "gpu": gpu, "variant": label,
-              **profile_step(torch, trainer, step_ms[label])})
-        del trainer, met
-        gc.collect()
-        torch.cuda.empty_cache()
     base = step_ms["non_private"]
     emit({"phase": "train_ratio", "gpu": gpu, "ms_per_step": step_ms,
           "ratio_vs_nonprivate": {k: v / base for k, v in step_ms.items()},
@@ -767,16 +875,14 @@ def sweep_sum_inputs(torch, name, b, t, din, dout, dtype, stack, seed):
     return a, g, torch.tensor(f, dtype=torch.float32, device="cuda")
 
 
-def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
-    """The training kernels against their plain versions: the sweeps,
-    then the captured main-path shapes with kernel, plain, bound and
-    library times summed over one step's calls. ghost_norm_blocked's
-    third argument is (M, block axis) where the others take factors."""
+def train_impls():
+    """name -> (kernel wrapper, plain version) of the training kernels but
+    fused_norm_clip; ghost_norm_blocked's third argument is (M, block
+    axis) where the others take factors."""
     from repro_torch.kernels import bk as SC
     from repro_torch.kernels import clip_reduce as CR
     from repro_torch.kernels import ghost_norm as GN
-    bw = bandwidth(gpu)
-    impl = {"ghost_norm": (lambda a, g, f: GN.ghost_norm(a, g),
+    return {"ghost_norm": (lambda a, g, f: GN.ghost_norm(a, g),
                            lambda a, g, f: GN.ghost_norm_ref(a, g)),
             "ghost_norm_blocked": (
                 lambda a, g, f: GN.ghost_norm_blocked(a, g, f[0],
@@ -784,6 +890,55 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
                 lambda a, g, f: GN.ghost_norm_blocked_ref(a, g, *f)),
             "clip_reduce": (CR.clip_reduce, CR.clip_reduce_ref),
             "scale_contract": (SC.scale_contract, SC.scale_contract_ref)}
+
+
+SHAPE_KEYS = ("ms", "plain_ms", "bound_ms", "library_ms")
+
+
+def main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw, flush,
+                   **extra) -> dict:
+    """One kernel at one captured main-path input against its plain
+    version (the sweep's tolerances), then kernel, plain, bound and
+    library ms per call; emits the kernel_main_shapes line and returns
+    it. Raises on a disagreement."""
+    kern, plain = train_impls()[name]
+    got, want = kern(a, g, f), plain(a, g, f)
+    lib = library_sum(torch, name, a, g, f)
+    torch.cuda.synchronize()
+    err, ok = sum_check(torch, got, want)
+    lib_err = float((lib - want).abs().max())
+    del got, lib, want
+    if not ok:
+        raise RuntimeError(f"{name} disagrees at the main path's {lname} "
+                           f"shapes {extra}: max abs err {err}")
+    if name == "scale_contract":  # the stacked calls run for hundreds of ms
+        iters, warm = 3, 1
+    else:
+        iters, warm = (5, 2) if lname == "head" else (20, 2)
+    times = {
+        "ms": cuda_ms(torch, lambda: kern(a, g, f), iters, warm, flush),
+        "plain_ms": cuda_ms(torch, lambda: plain(a, g, f), iters, warm,
+                            flush),
+        "library_ms": cuda_ms(torch, lambda: library_sum(
+            torch, name, a, g, f), iters, warm, flush)}
+    times["bound_ms"], bound_by = sum_bound(
+        name, a, g, bw, f[0] if name == "ghost_norm_blocked" else 1)
+    row = {"phase": "kernel_main_shapes", "gpu": gpu, "kernel": name,
+           **extra, "linear": lname, "a": list(a.shape), "g": list(g.shape),
+           "dtype": str(a.dtype), "calls_per_step": calls,
+           "max_abs_err": err, "library_max_abs_err": lib_err,
+           "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
+           "timing_iters": iters, **times, "bound_by": bound_by}
+    emit(row)
+    return row
+
+
+def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
+    """The training kernels against their plain versions: the sweeps,
+    then the captured main-path shapes with kernel, plain, bound and
+    library times summed over one step's calls."""
+    bw = bandwidth(gpu)
+    impl = train_impls()
     worst = dict.fromkeys(impl, 0.0)
 
     def check(name, a, g, f, point, dtype):
@@ -818,50 +973,22 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
                    "axis": axis}, dtype)
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
-    per_step = {name: dict.fromkeys(keys, 0.0) for name in impl}
+    per_step = {name: dict.fromkeys(SHAPE_KEYS, 0.0) for name in impl}
     by = {name: {"bytes": 0.0, "operations": 0.0} for name in impl}
     work = [(lname, name, caps[lname], 1 if lname == "head" else num_layers)
             for lname in caps for name in ("ghost_norm", "clip_reduce")]
-    # one scale_contract call per linear leaf and step; the stacked calls
-    # run for hundreds of ms, so they are timed over few iterations
+    # one scale_contract call per linear leaf and step
     work += [(lname, "scale_contract", sc_caps[lname], 1)
              for lname in sc_caps]
     work += [(lname, "ghost_norm_blocked", gnb_caps[lname], num_layers)
              for lname in gnb_caps]
     for lname, name, (a, g, f), calls in work:
-        kern, plain = impl[name]
-        got, want = kern(a, g, f), plain(a, g, f)
-        lib = library_sum(torch, name, a, g, f)
-        torch.cuda.synchronize()
-        err, ok = sum_check(torch, got, want)
-        lib_err = float((lib - want).abs().max())
-        del got, lib, want
-        worst[name] = max(worst[name], err)
-        if not ok:
-            raise RuntimeError(f"{name} disagrees at the main path's "
-                               f"{lname} shapes: max abs err {err}")
-        if name == "scale_contract":
-            iters, warm = 3, 1
-        else:
-            iters, warm = (5, 2) if lname == "head" else (20, 2)
-        times = {
-            "ms": cuda_ms(torch, lambda: kern(a, g, f), iters, warm, flush),
-            "plain_ms": cuda_ms(torch, lambda: plain(a, g, f), iters, warm,
-                                flush),
-            "library_ms": cuda_ms(torch, lambda: library_sum(
-                torch, name, a, g, f), iters, warm, flush)}
-        times["bound_ms"], bound_by = sum_bound(
-            name, a, g, bw, f[0] if name == "ghost_norm_blocked" else 1)
-        for k in keys:
-            per_step[name][k] += calls * times[k]
-        by[name][bound_by] += calls * times["bound_ms"]
-        emit({"phase": "kernel_main_shapes", "gpu": gpu, "kernel": name,
-              "linear": lname, "a": list(a.shape), "g": list(g.shape),
-              "dtype": str(a.dtype), "calls_per_step": calls,
-              "max_abs_err": err, "library_max_abs_err": lib_err,
-              "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
-              "timing_iters": iters, **times, "bound_by": bound_by})
+        row = main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw,
+                             flush)
+        worst[name] = max(worst[name], row["max_abs_err"])
+        for k in SHAPE_KEYS:
+            per_step[name][k] += calls * row[k]
+        by[name][row["bound_by"]] += calls * row["bound_ms"]
     src = "src/repro_torch/kernels/csrc/{}.cu"
     replaces = {"ghost_norm": "src/repro/kernels/ghost_norm.py:77",
                 "ghost_norm_blocked": "src/repro/kernels/ghost_norm.py:159",
@@ -876,7 +1003,8 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
              "replaces": replaces[name], "max_abs_err": worst[name],
              **per_step[name],
              "bound_by": max(by[name], key=by[name].get),
-             "per": f"one training step: the sum over its {per[name]}"}
+             "per": f"one qwen3-4b training step: the sum over its "
+                    f"{per[name]}"}
             for name in impl]
 
 
@@ -887,18 +1015,23 @@ def phase_train_cuda_vs_cpu(torch, gpu):
     from repro_torch.configs import get_config
     from repro_torch.core.clipping import dp_clipped_gradients
     from repro_torch.kernels import backend, launch_counts, reset_launch_counts
+    from repro_torch.kernels import fused_clip as FC
     from repro_torch.launch.sharding import group_shard_assignment
     from repro_torch.models.transformer import build_model
 
     cfg = get_config("qwen3-4b", reduced=True)
+    moe_cfg = get_config("granite-moe-3b-a800m", reduced=True)
     b, t = 4, 64
-    spec_model = build_model(cfg, device="cpu")
-    layout = spec_model.layout
-    tree = bridge.numpy_params(spec_model.spec, seed=0)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
     targets = np.roll(tokens, -1, 1)
     targets[:, -1] = -1
+    trees, layouts = {}, {}
+    for c in (cfg, moe_cfg):
+        spec_model = build_model(c, device="cpu")
+        trees[c.name] = bridge.numpy_params(spec_model.spec, seed=0)
+        layouts[c.name] = spec_model.layout
+    layout = layouts[cfg.name]
     thr = rng.uniform(0.05, 2.0, layout.num_groups).astype(np.float32)
     assign = np.asarray(group_shard_assignment(layout, 2), np.int64)
     group_thr = rng.uniform(0.2, 1.0, 2).astype(np.float32)
@@ -907,29 +1040,46 @@ def phase_train_cuda_vs_cpu(torch, gpu):
     shard_cfg = dataclasses.replace(cfg, dp_blocks=4)
     shard_thr = rng.uniform(0.05, 2.0, build_model(
         shard_cfg, device="cpu").layout.num_groups).astype(np.float32)
-    # (label, mode, execution, config, kwargs of numpy arrays)
-    cases = [("per_layer", "per_layer", "bk", cfg, {"thresholds": thr}),
-             ("ghost_flat", "ghost_flat", "bk", cfg,
+    moe_thr = rng.uniform(0.05, 2.0, layouts[moe_cfg.name].num_groups
+                          ).astype(np.float32)
+    # (label, mode, execution, config, fused route, kwargs of numpy
+    # arrays): per_layer on qwen3-4b-reduced by both routes (every linear
+    # there is within the fused route's rule; the composed one runs with
+    # the rule patched off), and on the MoE config
+    cases = [("per_layer", "per_layer", "bk", cfg, True,
+              {"thresholds": thr}),
+             ("per_layer_composed", "per_layer", "bk", cfg, False,
+              {"thresholds": thr}),
+             ("ghost_flat", "ghost_flat", "bk", cfg, True,
               {"flat_threshold": np.float32(0.5)}),
-             ("per_group", "per_group", "bk", cfg,
+             ("per_group", "per_group", "bk", cfg, True,
               {"group_assignment": assign, "group_thresholds": group_thr}),
-             ("per_shard", "per_layer", "bk", shard_cfg,
-              {"thresholds": shard_thr})]
-    counted = SUM_KERNELS
+             ("per_shard", "per_layer", "bk", shard_cfg, True,
+              {"thresholds": shard_thr}),
+             ("moe_per_layer", "per_layer", "bk", moe_cfg, True,
+              {"thresholds": moe_thr})]
+    counted = TRAIN_KERNELS
 
-    def run(mode, execution, cfg, dev, kw):
+    def run(mode, execution, cfg, fused, dev, kw):
         model = build_model(cfg, device=dev)
-        params = bridge.train_params_from_numpy(tree, dev)
+        params = bridge.train_params_from_numpy(trees[cfg.name], dev)
         batch = {"tokens": torch.from_numpy(tokens).to(dev),
                  "targets": torch.from_numpy(targets).to(dev)}
         reset_launch_counts()
-        with backend.scoped("kernels"), warnings.catch_warnings():
-            # a BK fallback fails the phase
-            warnings.filterwarnings("error", message="BK capture cannot")
-            res = dp_clipped_gradients(
-                model.loss_fn, params, batch, model.layout, mode=mode,
-                batch_size=b, execution=execution,
-                **{k: torch.as_tensor(v, device=dev) for k, v in kw.items()})
+        real_fits = FC.fits
+        if not fused:
+            FC.fits = lambda din, dout: False
+        try:
+            with backend.scoped("kernels"), warnings.catch_warnings():
+                # a BK fallback fails the phase
+                warnings.filterwarnings("error", message="BK capture cannot")
+                res = dp_clipped_gradients(
+                    model.loss_fn, params, batch, model.layout, mode=mode,
+                    batch_size=b, execution=execution,
+                    **{k: torch.as_tensor(v, device=dev)
+                       for k, v in kw.items()})
+        finally:
+            FC.fits = real_fits
         if dev == "cuda":
             torch.cuda.synchronize()
         counts = launch_counts()
@@ -955,28 +1105,29 @@ def phase_train_cuda_vs_cpu(torch, gpu):
             checks["grad:" + name] = rel(x, y)
         return checks
 
-    for label, mode, execution, case_cfg, kw in cases:
-        got, cuda_counts = run(mode, execution, case_cfg, "cuda", kw)
-        want, cpu_counts = run(mode, execution, case_cfg, "cpu", kw)
-        uses = [k for k, v in expected_launches(
-            f"{label}_bk" if mode != "per_layer" else label, 1).items() if v]
-        for name in uses:
-            if cuda_counts[name] == 0 or cpu_counts[name] != 0:
-                raise RuntimeError(
-                    f"{label}: {name} launches cuda={cuda_counts[name]} "
-                    f"cpu={cpu_counts[name]}: the card run must use the "
-                    f"kernel and the CPU run the plain version")
+    for label, mode, execution, case_cfg, fused, kw in cases:
+        got, cuda_counts = run(mode, execution, case_cfg, fused, "cuda", kw)
+        want, cpu_counts = run(mode, execution, case_cfg, fused, "cpu", kw)
+        # one clip is one step: the card launches exactly the kernels of
+        # the route, the CPU none
+        expected = expected_launches(
+            f"{label}_bk" if mode != "per_layer" else label, case_cfg, fused)
+        if cuda_counts != expected or any(cpu_counts.values()):
+            raise RuntimeError(
+                f"{label}: launches cuda={cuda_counts} cpu={cpu_counts}, "
+                f"expected cuda={expected} and none on the CPU")
         checks = compare(got, want)
         twopass = {}
         if mode != "per_layer":  # bk against twopass, on the card
-            tp, _ = run(mode, "twopass", case_cfg, "cuda", kw)
+            tp, _ = run(mode, "twopass", case_cfg, fused, "cuda", kw)
             twopass = compare(got, tp)
         bad = {k: v[0] for k, v in {**checks, **{
             "twopass:" + k: v for k, v in twopass.items()}}.items()
             if not v[1]}
         n = want.norms_sq
-        out = {"phase": "train_cuda_vs_cpu", "gpu": gpu, "arch": cfg.name,
-               "variant": label, "mode": mode, "execution": execution,
+        out = {"phase": "train_cuda_vs_cpu", "gpu": gpu,
+               "arch": case_cfg.name, "variant": label, "mode": mode,
+               "execution": execution, "fused_route": fused,
                "dp_blocks": case_cfg.dp_blocks, "batch": b, "seq": t,
                "max_err_over_max": {k: v[0] for k, v in checks.items()},
                "bk_vs_twopass_max_err_over_max":
@@ -989,6 +1140,247 @@ def phase_train_cuda_vs_cpu(torch, gpu):
         emit(out)
         if bad:
             raise RuntimeError(f"train {label}: disagreement: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-9: MoE training and the fused kernel.
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+# launches per step (the table in the doc): 65 linears outside the fused
+# route's rule (qkv and o of 32 layers, the head) and 32 routers within it
+MOE_LAUNCHES = {
+    "per_layer": {"fused_norm_clip": 32, "ghost_norm": 65,
+                  "clip_reduce": 65, "ghost_norm_blocked": 0,
+                  "scale_contract": 0},
+    "non_private": {"fused_norm_clip": 0, "ghost_norm": 0,
+                    "clip_reduce": 97, "ghost_norm_blocked": 0,
+                    "scale_contract": 0}}
+# fused_norm_clip's sweep: B, T, din, dout (T = 1, T past one 256-row
+# chunk, din and dout off the 64-wide tiles both ways, the fit rule's
+# limit, a small ragged case)
+FUSED_SWEEP = [(1, 1, 64, 4096), (3, 200, 1000, 40), (8, 300, 40, 1000),
+               (8, 256, 1024, 1024), (3, 37, 20, 45)]
+# the granite linears that run ghost_norm and clip_reduce (per_layer) or
+# clip_reduce alone (non_private) at shapes no qwen3-4b linear has
+MOE_COMPOSED = {"per_layer": ("qkv", "o", "head"),
+                "non_private": ("router",)}
+FUSED_THRESHOLDS = {"inf": [math.inf], "positive": [0.5, 0.01],
+                    "negative": [-0.7, -2.0],
+                    "mixed": [0.5, math.inf, -0.7, 0.01]}
+
+
+def phase_moe_train(torch, gpu):
+    """Returns (launches by kernel over both variants' counted steps, the
+    router's fused_norm_clip inputs (a, g, c, extra) from per_layer's
+    first step, the clip_reduce inputs (a, g, factors) by linear at the
+    shapes qwen3-4b never gives ghost_norm and clip_reduce: qkv, o and the
+    head from per_layer's first step, the router from non_private's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import fused_clip as FC
+    cfg = get_config(MOE_ARCH)
+    for label, want in MOE_LAUNCHES.items():
+        if expected_launches(label, cfg) != want:
+            raise RuntimeError(f"{label}: the route rule expects "
+                               f"{expected_launches(label, cfg)}, the "
+                               f"table {want}")
+    real, real_cr = FC.fused_norm_clip, CR.clip_reduce
+    shapes = linear_shapes(cfg)
+    cap, cr_caps = [], {}
+
+    def recording(a, g, c, extra=None):
+        if not cap:
+            cap.append(tuple(None if x is None else x.clone()
+                             for x in (a, g, c, extra)))
+        return real(a, g, c, extra)
+
+    def recording_cr(names):
+        def rec(a, g, factors):
+            name = shapes.get((a.shape[-1], g.shape[-1]))
+            if name in names and name not in cr_caps:
+                cr_caps[name] = (a.clone(), g.clone(), factors.clone())
+            return real_cr(a, g, factors)
+        return rec
+
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    step_ms = {}
+    patches = {"per_layer": [(0, FC, "fused_norm_clip", recording),
+                             (0, CR, "clip_reduce",
+                              recording_cr(MOE_COMPOSED["per_layer"]))],
+               "non_private": [(0, CR, "clip_reduce",
+                                recording_cr(MOE_COMPOSED["non_private"]))]}
+    for label in MOE_LAUNCHES:
+        counts = train_variant(torch, gpu, label,
+                               train_args(label, arch=MOE_ARCH), step_ms,
+                               patches[label])
+        for k in launches:
+            launches[k] += counts[k]
+    emit({"phase": "moe_train_ratio", "gpu": gpu, "arch": cfg.name,
+          "ms_per_step": step_ms,
+          "ratio_vs_nonprivate":
+              step_ms["per_layer"] / step_ms["non_private"]})
+    if not cap:
+        raise RuntimeError("per_layer never launched fused_norm_clip")
+    want = sorted(n for names in MOE_COMPOSED.values() for n in names)
+    if sorted(cr_caps) != want:
+        raise RuntimeError(f"clip_reduce: captured {sorted(cr_caps)} of "
+                           f"the {MOE_ARCH} linears {want}")
+    return launches, cap[0], cr_caps
+
+
+def phase_moe_kernels(torch, gpu, cr_caps, num_layers):
+    """ghost_norm and clip_reduce against their plain versions at the
+    inputs granite's steps gave them (phase 6's tolerances and timing):
+    both at qkv, o and the head of a per_layer step, clip_reduce at the
+    router of a non_private step. Returns name -> the kernels line's
+    `moe` entry: the worst error, the kernel, plain, bound and library
+    ms summed over each variant's step, and the per-call rows."""
+    bw = bandwidth(gpu)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    for variant, names in MOE_COMPOSED.items():
+        kernels = (("ghost_norm", "clip_reduce") if variant == "per_layer"
+                   else ("clip_reduce",))
+        for lname in names:
+            a, g, f = cr_caps[lname]
+            calls = 1 if lname == "head" else num_layers
+            for name in kernels:
+                row = main_shape_row(torch, gpu, name, lname, a, g, f, calls,
+                                     bw, flush, arch=MOE_ARCH,
+                                     variant=variant)
+                o = out.setdefault(name, {"max_abs_err": 0.0,
+                                          "per_step": {}, "shapes": []})
+                o["max_abs_err"] = max(o["max_abs_err"], row["max_abs_err"])
+                step = o["per_step"].setdefault(
+                    variant, {**dict.fromkeys(SHAPE_KEYS, 0.0), "calls": 0})
+                for k in SHAPE_KEYS:
+                    step[k] += calls * row[k]
+                step["calls"] += calls
+                o["shapes"].append({k: row[k] for k in (
+                    "variant", "linear", "a", "g", "calls_per_step",
+                    "max_abs_err", *SHAPE_KEYS, "bound_by")})
+    return out
+
+
+def fused_inputs(torch, b, t, din, dout, dtype, thresholds, seed):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(rng.standard_normal((b, t, din)).astype(
+        np.float32)).to("cuda", dt)
+    g = torch.from_numpy(rng.standard_normal((b, t, dout)).astype(
+        np.float32)).to("cuda", dt)
+    c = torch.tensor(np.resize(FUSED_THRESHOLDS[thresholds], b),
+                     dtype=torch.float32, device="cuda")
+    extra = torch.from_numpy(rng.uniform(0.0, 1.0, b).astype(
+        np.float32)).cuda()
+    return a, g, c, extra
+
+
+def fused_bound(a, g, extra, bw):
+    """(bound ms, bound_by): a, g, c (and extra) read once, n and the f32
+    dW written once; 2 B T din dout operations on the inputs' type."""
+    b, t, din = a.shape
+    dout = g.shape[-1]
+    nbytes = (a.numel() * a.element_size() + g.numel() * g.element_size()
+              + 4 * b * (2 if extra is None else 3) + 4 * din * dout)
+    t_bytes = nbytes / bw
+    t_ops = 2 * b * t * din * dout / PEAK_OPS[str(a.dtype).split(".")[-1]]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fused_library(torch, a, g, c, extra):
+    """Yardstick, never called by the port: the per-example gradients as
+    one f32 bmm, their norms², the factors, the weighted sum."""
+    from repro_torch.core.ghost import clip_factor
+    w = torch.bmm(a.float().transpose(1, 2), g.float())
+    n = w.square().sum((1, 2))
+    f = clip_factor(c, n if extra is None else n + extra)
+    return n, torch.einsum("b,bio->io", f, w)
+
+
+def fused_composed(a, g, c, extra):
+    """What the fused route replaces: the ghost_norm and clip_reduce
+    kernels with the factor between them."""
+    from repro_torch.core.ghost import clip_factor
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import ghost_norm as GN
+    n = GN.ghost_norm(a, g)
+    f = clip_factor(c, n if extra is None else n + extra)
+    return n, CR.clip_reduce(a, g, f)
+
+
+def phase_fused_kernel(torch, gpu, router):
+    """fused_norm_clip against its plain version: the sweep, then the
+    router's captured inputs with kernel, plain, bound, library and
+    composed-kernels times (per call, and per step over its 32 calls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_clip as FC
+    bw = bandwidth(gpu)
+    worst = 0.0
+
+    def check(a, g, c, extra, point):
+        nonlocal worst
+        got = FC.fused_norm_clip(a, g, c, extra)
+        want = FC.fused_norm_clip_ref(a, g, c, extra)
+        torch.cuda.synchronize()
+        errs = [sum_check(torch, x, w) for x, w in zip(got, want)]
+        err = max(e for e, _ in errs)
+        worst = max(worst, err)
+        emit({"phase": "kernel_vs_plain", "kernel": "fused_norm_clip",
+              "shape": point, "dtype": str(a.dtype),
+              "max_abs_err": {"n": errs[0][0], "dw": errs[1][0]},
+              "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
+              "ok": all(ok for _, ok in errs)})
+        if not all(ok for _, ok in errs):
+            raise RuntimeError(f"fused_norm_clip disagrees at {point} "
+                               f"{a.dtype}: max abs err {errs}")
+        return err
+
+    for i, (b, t, din, dout) in enumerate(FUSED_SWEEP):
+        for dtype in ("float32", "bfloat16"):
+            for thresholds in FUSED_THRESHOLDS:
+                a, g, c, extra = fused_inputs(torch, b, t, din, dout, dtype,
+                                              thresholds, seed=200 + i)
+                for e in (None, extra):
+                    check(a, g, c, e, {"b": b, "t": t, "din": din,
+                                       "dout": dout, "c": thresholds,
+                                       "extra": e is not None})
+
+    a, g, c, extra = router
+    err = check(a, g, c, extra, {"router": list(a.shape) + [g.shape[-1]]})
+    lib_n, lib_dw = fused_library(torch, a, g, c, extra)
+    want_n, want_dw = FC.fused_norm_clip_ref(a, g, c, extra)
+    lib_err = max(float((lib_n - want_n).abs().max()),
+                  float((lib_dw - want_dw).abs().max()))
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fns = {"ms": lambda: FC.fused_norm_clip(a, g, c, extra),
+           "plain_ms": lambda: FC.fused_norm_clip_ref(a, g, c, extra),
+           "library_ms": lambda: fused_library(torch, a, g, c, extra),
+           "composed_ms": lambda: fused_composed(a, g, c, extra)}
+    # device times from graph replays; eager times (host launch overhead
+    # included) beside them
+    times = {k: graph_ms(torch, fn, flush=flush) for k, fn in fns.items()}
+    eager = {k: cuda_ms(torch, fn, flush=flush) for k, fn in fns.items()}
+    times["bound_ms"], bound_by = fused_bound(a, g, extra, bw)
+    calls = get_config(MOE_ARCH).num_layers  # one router per layer
+    emit({"phase": "kernel_main_shapes", "gpu": gpu,
+          "kernel": "fused_norm_clip", "linear": "router",
+          "a": list(a.shape), "g": list(g.shape), "dtype": str(a.dtype),
+          "extra": extra is not None, "calls_per_step": calls,
+          "max_abs_err": err, "library_max_abs_err": lib_err,
+          "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
+          **times, "bound_by": bound_by, "timing": "CUDA graph replay",
+          "eager": eager})
+    return {"name": "fused_norm_clip", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_norm_clip.cu",
+            "replaces": "src/repro/kernels/fused_clip.py:94",
+            "max_abs_err": worst,
+            **{k: calls * v for k, v in times.items()},
+            "bound_by": bound_by,
+            "per": f"one {MOE_ARCH} training step: the sum over its {calls} "
+                   f"calls at the captured router shape"}
 
 
 def main() -> int:
@@ -1017,10 +1409,22 @@ def main() -> int:
     del caps, gnb_caps, sc_caps
     gc.collect()
     torch.cuda.empty_cache()
-    for k in train_kernels:
-        k["launches"] = train_launches[k["name"]]
     phase_train_cuda_vs_cpu(torch, gpu)
-    emit({"kernels": [kernel] + train_kernels})
+    moe_launches, router, moe_caps = phase_moe_train(torch, gpu)
+    fused = phase_fused_kernel(torch, gpu, router)
+    del router
+    moe = phase_moe_kernels(torch, gpu, moe_caps,
+                            get_config(MOE_ARCH).num_layers)
+    del moe_caps
+    # the training kernels' launches over both training paths; the worst
+    # error over both paths' inputs, granite's times beside qwen3-4b's
+    for k in train_kernels + [fused]:
+        k["launches"] = train_launches[k["name"]] + moe_launches[k["name"]]
+        if k["name"] in moe:
+            k["moe"] = moe[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   moe[k["name"]]["max_abs_err"])
+    emit({"kernels": [kernel] + train_kernels + [fused]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

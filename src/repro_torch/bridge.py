@@ -3,15 +3,17 @@
 A tree from the JAX package, with its leaves converted to numpy and keyed
 by spec path, becomes the port's parameters on `device`: for training in
 the same stacked layout, for serving with the stacked `dense_blocks/*`
-leaves split along the stack axis into the per-layer blocks
-(`models.transformer.unstack_blocks`). `cache_from_numpy` does the
+(and `moe_blocks/*`) leaves split along the stack axis into the per-layer
+blocks (`models.transformer.unstack_blocks`). `cache_from_numpy` does the
 same for a paged decode cache, so both packages can start from one pool
 state. bfloat16 leaves (numpy's `ml_dtypes` bfloat16) cross bit for bit.
 
 A blocked (per-shard) model crosses like any other: blocks split only the
 clipping groups, so its weights keep their (L, din, dout) shape, and its
 (K,) thresholds and (K, B) norms² follow `GroupLayout`'s order, which is
-the reference's.
+the reference's. So does an MoE model: its expert leaves
+(`moe_blocks/moe/w_gu`, `w_down`) keep their (L, E, din, dout) shape, one
+clipping group per (layer, expert).
 """
 from __future__ import annotations
 

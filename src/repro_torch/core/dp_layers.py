@@ -45,8 +45,11 @@ so the norms and residuals arrive once.
 
 `dp_linear_blocked` clips each of M column ('out') or row ('in') blocks
 of one weight to its own threshold (per-shard clipping); it takes no BK
-channel (ROADMAP A.16). `dp_shift`, `dp_broadcast` and the expert
-primitives are not ported yet (ROADMAP A.3, A.7).
+channel (ROADMAP A.16). `dp_expert_linear` clips each expert of an MoE
+layer's stacked weight to its own threshold, with exact per-example norms
+through the token dispatch; it takes no BK channel either (the expert
+recipes, ROADMAP A.7). `dp_shift`, `dp_broadcast` and
+`dp_expert_linear_grouped` are not ported yet (ROADMAP A.3, A.7).
 """
 from __future__ import annotations
 
@@ -251,3 +254,62 @@ def dp_scale(s, xhat, c):
     if ch is not None:
         bk.record_scale(ch, s, xhat)
     return DPScale.apply(s, xhat, bk.thresholds_of(c), ch)
+
+
+class DPExpertLinear(torch.autograd.Function):
+    """y[e] = x[e] @ w[e] over dispatched expert slots; one group per
+    expert, thresholds c (E, B).
+
+    The slots of one expert mix tokens of different examples, so the norm
+    of example i's gradient of expert e needs example-masked grams:
+
+        n[e, i] = sum over slots s, s' of e with ex(s) = ex(s') = i of
+                  <x_s, x_s'> <g_s, g_s'>
+
+    built as M_eᵀ (X_e X_eᵀ * G_e G_eᵀ) M_e, read on the diagonal, where
+    M_e (C, B + 1) is the one-hot of the slots' example ids (empty slots in
+    the overflow column B, dropped). The grams and the clipped sum are
+    plain f32 torch matmuls, as the reference leaves them to XLA; the
+    clipped sum accumulates in f32 with an f32 factor (the reference's is a
+    bf16 einsum with a bf16 factor on a bf16 model; the two agree in f32).
+    """
+
+    @staticmethod
+    def forward(ctx, w, x, exids, c):
+        ctx.save_for_backward(w, x, exids, c)
+        return torch.einsum("ecd,edf->ecf", x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        w, x, exids, c = ctx.saved_tensors
+        need_n = ctx.needs_input_grad[3]
+        dx = (torch.einsum("ecf,edf->ecd", gy, w) if ctx.needs_input_grad[1]
+              else None)
+        bsz = c.shape[-1]
+        seg = torch.where(exids >= 0, exids.long(), bsz)  # empty -> B
+        x32, g32 = x.float(), gy.float()
+        n = None
+        if need_n:
+            onehot = torch.nn.functional.one_hot(seg, bsz + 1).float()
+            gram = (torch.bmm(x32, x32.transpose(1, 2))
+                    * torch.bmm(g32, g32.transpose(1, 2)))  # (E, C, C)
+            n = torch.sum(onehot * torch.bmm(gram, onehot), dim=1)[:, :bsz]
+        if not ctx.needs_input_grad[0]:  # a norms-only pass
+            return None, dx, None, n
+        f = clip_factor(c, n) if need_n else factor_without_norms(c)
+        fpad = torch.cat([f, torch.zeros_like(f[:, :1])], dim=1)
+        fslot = torch.gather(fpad, 1, seg)[..., None]  # (E, C, 1)
+        dw = torch.bmm((x32 * fslot).transpose(1, 2), g32)
+        return dw.to(w.dtype), dx, None, n
+
+
+def dp_expert_linear(w, x, exids, c):
+    """y (E, C, dout) = x @ w per expert, with the gradient of each expert
+    clipped per example: w (E, din, dout); x (E, C, din) dispatched slots;
+    exids (E, C) the example id of each slot, -1 for an empty one; c (E, B)
+    encoded thresholds, whose gradient is the (E, B) norms²."""
+    if bk.channel_of(c) is not None:
+        raise NotImplementedError(
+            "book-keeping capture of expert linears (the reference's expert "
+            "recipe) is not ported yet: ROADMAP.md item A.7")
+    return DPExpertLinear.apply(w, x, exids, c)

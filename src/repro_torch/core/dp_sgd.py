@@ -203,8 +203,9 @@ def standard_normal(path: str, shape: tuple[int, ...], rows: slice,
 def add_noise_to_grads(spec: SpecTree, layout: GroupLayout, grads: Any,
                        stds: torch.Tensor, seed: int, step: int) -> Any:
     """grads + N(0, std_k²) IN PLACE, with the std of each leaf's group
-    (per stack element for stacked leaves, per (stack element, column
-    block) for blocked ones); stds: (K,) per layout group. Each leaf
+    (per stack element for stacked leaves, so per (layer, expert) for an
+    expert leaf's two stack dims, per (stack element, column block) for
+    blocked ones); stds: (K,) per layout group. Each leaf
     draws from its own generator, (seed, step, stable_hash(path)); a large
     leaf is drawn and added slice by slice along its first axis. A blocked
     leaf draws what an unblocked leaf of its shape draws. Returns

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import bk as _bk
 from repro_torch.kernels import clip_reduce as _clip_reduce
+from repro_torch.kernels import fused_clip as _fused_clip
 from repro_torch.kernels import ghost_norm as _ghost_norm
 from repro_torch.kernels import paged_attn as _paged_attn
 
@@ -16,6 +17,7 @@ KERNELS = {"paged_attn": (_paged_attn, "launches"),
            "ghost_norm": (_ghost_norm, "launches"),
            "ghost_norm_blocked": (_ghost_norm, "blocked_launches"),
            "clip_reduce": (_clip_reduce, "launches"),
+           "fused_norm_clip": (_fused_clip, "launches"),
            "scale_contract": (_bk, "launches")}
 
 

@@ -21,7 +21,10 @@ Backend selection matrix (op x backend):
   ------------------------- ---------------------- --------------------------
   linear_norms_sq           gram/outer/chunked     ghost_norm (ghost_norm_ref)
   clipped_sum_linear        einsum                 clip_reduce (clip_reduce_ref)
-  linear_clip (norm+clip)   composed               composed: ghost_norm, then
+  linear_clip (norm+clip)   composed               fused_norm_clip
+                                                   (fused_norm_clip_ref) where
+                                                   the route rule passes, else
+                                                   composed: ghost_norm, then
                                                    clip_reduce
   linear_norms_sq_blocked   blocked grams          ghost_norm_blocked
                                                    (ghost_norm_blocked_ref)
@@ -32,17 +35,23 @@ Backend selection matrix (op x backend):
   scale_contract (BK)       einsum per slice       scale_contract
                                                    (scale_contract_ref)
 
-`linear_clip` always composes the two kernels: the reference's fused
-single-kernel route (`fused_norm_clip`) needs the whole (din, dout) f32
-accumulator on chip and never fits a qwen3-4b linear (ROADMAP B.3), and
-`auto` with its autotune table waits for ROADMAP A.11.
+`KernelsBackend.linear_clip` takes the fused route when the norms are
+asked for and `fused_clip.fits(din, dout)` passes: the reference
+engine's rule (`PallasBackend._fused_fits`), its 12 MiB guard and
+`bt = 256` arithmetic kept as they are so that both packages send the
+same layers to the fused kernel (the router of an MoE layer, the linears
+of the reduced configs). The card has no VMEM; a route rule
+measured on Hopper belongs to the measured table of ROADMAP A.11, with
+`auto`. Without norms (`non_private`, a direct-scale pass) the factor
+needs no norm and `clip_reduce` alone runs.
 
 The engine is SCOPED: `with backend.scoped("kernels"): ...` pushes an
 engine for the dynamic extent of the block (a `contextvars` stack, so
 threads and tasks each see their own); outside any scope it is `plain`.
-The reference's tunables (outer-path cap, gram chunk, tile sizes) stay at
-their defaults here: no caller of the port sets them. The one setting an
-engine carries is `capture_residuals`, the reference's
+The reference's tunables (outer-path cap, gram chunk, tile sizes,
+`prefer_fused`) stay at their defaults here: no caller of the port sets
+them, so the fused route is always allowed. The one setting an engine
+carries is `capture_residuals`, the reference's
 `EngineConfig.capture_residuals`: the book-keeping capture pass
 (`repro_torch.core.bk.capture_clipped`) scopes it on, and the DP
 primitives refuse a BK channel from a forward run outside it (a capture
@@ -60,6 +69,7 @@ from repro_torch.core import ghost
 from repro_torch.core.ghost import clip_factor, factor_without_norms
 from repro_torch.kernels import bk as bk_mod
 from repro_torch.kernels import clip_reduce as clip_reduce_mod
+from repro_torch.kernels import fused_clip as fused_clip_mod
 from repro_torch.kernels import ghost_norm as ghost_norm_mod
 
 __all__ = [
@@ -170,9 +180,22 @@ class PlainBackend(Backend):
 
 @register_backend("kernels")
 class KernelsBackend(Backend):
-    """The ghost_norm and clip_reduce kernels for the linear hot path,
-    ghost_norm_blocked for blocked linears, scale_contract for the BK
-    epilogue; the plain paths for the cheap ops (bias/embed/scale/vector)."""
+    """The ghost_norm and clip_reduce kernels for the linear hot path, or
+    fused_norm_clip where the route rule passes; ghost_norm_blocked for
+    blocked linears, scale_contract for the BK epilogue; the plain paths
+    for the cheap ops (bias/embed/scale/vector)."""
+
+    def linear_clip(self, a, g, c, extra_norms_sq=None, *, norms=True):
+        a3, g3 = ghost._as3d(a), ghost._as3d(g)
+        if not (norms and fused_clip_mod.fits(a3.shape[-1], g3.shape[-1])):
+            return super().linear_clip(a3, g3, c, extra_norms_sq,
+                                       norms=norms)
+        extra = (None if extra_norms_sq is None
+                 else extra_norms_sq.float().contiguous())
+        n_w, dw = fused_clip_mod.fused_norm_clip(
+            a3.contiguous(), g3.contiguous(), c.float().contiguous(), extra)
+        n = n_w if extra is None else n_w + extra
+        return n, clip_factor(c, n), dw
 
     def linear_norms_sq(self, a, g):
         a3, g3 = ghost._as3d(a), ghost._as3d(g)

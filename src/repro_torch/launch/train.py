@@ -26,6 +26,11 @@ reference's dry run resolves it: the qkv and o projections split into M =
 `--group-count` column blocks (`ModelConfig.dp_blocks`), each block its
 own clipping group, and the step runs `per_layer` over the finer (layer x
 block) groups. The header prints `dp_blocks=M` and `mode=per_layer`.
+
+`--arch granite-moe-3b-a800m` trains the MoE family (flat dispatch, one
+clipping group per expert and layer). Its flat and group modes run by two
+passes only: `--execution bk` raises in the first step, since the
+book-keeping of the expert layers is ROADMAP A.7.
 """
 from __future__ import annotations
 

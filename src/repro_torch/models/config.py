@@ -1,8 +1,9 @@
-"""Model configuration for the dense decoder family.
+"""Model configuration for the dense and MoE decoder families.
 
 The counterpart of `repro.models.config.ModelConfig`, cut to the fields
-the dense family reads; the MLA, MoE, recurrent, encoder-decoder and
-M-RoPE fields arrive with their families. `dtype` is a torch dtype.
+the dense and MoE (GQA attention, flat dispatch) families read; the MLA,
+recurrent, encoder-decoder and M-RoPE fields arrive with their families.
+`dtype` is a torch dtype.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # dense (the only family ported so far)
+    arch_type: str  # dense | moe
     num_layers: int
     d_model: int
     d_ff: int
@@ -24,6 +25,16 @@ class ModelConfig:
     head_dim: int | None = None  # default d_model // num_heads
     qk_norm: bool = False  # per-head RMSNorm on q, k (Qwen3)
     rope_theta: float = 10_000.0
+    attention_kind: str = "gqa"  # gqa (mla: ROADMAP A.7)
+    # MoE: token-choice top-k routing with capacity dispatch
+    num_experts: int = 0  # 0 => dense MLP
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0  # per-expert hidden dim (d_ff: the dense layers')
+    first_k_dense: int = 0  # leading dense layers
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    moe_dispatch: str = "flat"  # flat: global capacity, masked-gram norms
     dtype: torch.dtype = torch.float32
     norm_eps: float = 1e-5
     # per-shard clipping layout: the qkv and o projections split into M
@@ -41,9 +52,22 @@ class ModelConfig:
         return self.d_model // max(self.num_heads, 1)
 
     def validate(self) -> None:
-        if self.arch_type != "dense":
+        if self.arch_type not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{self.name}: only the dense decoder family is ported")
+                f"{self.name}: only the dense and MoE decoder families are "
+                f"ported")
+        if self.attention_kind != "gqa":
+            raise NotImplementedError(
+                f"{self.name}: attention {self.attention_kind!r} is not "
+                f"ported yet (MLA: ROADMAP.md item A.7)")
+        if self.num_experts:
+            if self.moe_dispatch != "flat":
+                raise NotImplementedError(
+                    f"{self.name}: moe_dispatch {self.moe_dispatch!r} is not "
+                    f"ported yet (moe_block_grouped: ROADMAP.md item A.7)")
+            if self.num_experts_per_tok < 1 or self.moe_d_ff < 1:
+                raise ValueError(f"{self.name}: an MoE config needs "
+                                 f"num_experts_per_tok and moe_d_ff")
         if self.num_kv_heads < 1 or self.num_heads % self.num_kv_heads:
             raise ValueError(
                 f"{self.name}: num_heads={self.num_heads} must be a multiple "

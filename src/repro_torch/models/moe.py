@@ -1,0 +1,135 @@
+"""Mixture-of-Experts: token-choice top-k routing with capacity dispatch.
+
+The counterpart of `repro.models.moe`, flat dispatch (`moe_dispatch =
+"flat"`): one global capacity per expert over all B·T tokens, tokens
+dispatched into stacked (E, C, d) expert buffers by slots from a cumsum
+over the routing one-hot (no (tokens, E, C) dispatch tensors), overflow
+tokens dropped. Every expert is its own clipping group, with exact per-example
+norms through the token mixing (`core.dp_layers.dp_expert_linear`); the
+router is a plain `dp_linear`. The Switch-style load-balance auxiliary
+loss is returned per example, since DP needs per-example attribution end
+to end. `moe_block_grouped` (per-(example, expert) buffers) is not ported
+yet (ROADMAP A.7).
+
+Two places where torch differs from JAX and the port keeps the
+reference's result: `jax.lax.top_k` puts the lower expert index first on
+a tie, so the experts come from a stable descending sort and the gate
+values from a `gather` on the probabilities (which keeps their gradient);
+and the reference's `mode="drop"` scatter of tokens into the buffers
+becomes a gather: each slot reads the (token, choice) row routed to it,
+or a zero row, through an index built with one scatter whose every index
+is distinct (a dropped choice writes to a discarded position of its own).
+Every gradient then flows through `index_select`, whose backward adds
+into distinct rows (the shared zero row aside), and a sum over the k
+choices, never through an accumulating `index_put` over duplicates.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import dp_layers as dpl
+from repro_torch.core.spec import P, subth
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def moe_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = ()) -> dict:
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    s = len(stack)
+    out = {
+        "router": L.linear_spec(d, e, stack=stack, dtype=cfg.dtype),
+        # gate+up fused per expert; each expert = one clipping group
+        "w_gu": P(stack + (e, d, 2 * f), dtype=cfg.dtype, stack=s + 1),
+        "w_down": P(stack + (e, f, d), dtype=cfg.dtype, stack=s + 1),
+    }
+    if cfg.num_shared_experts:
+        fs = f * cfg.num_shared_experts
+        out["shared"] = L.swiglu_spec(d, fs, stack=stack, dtype=cfg.dtype)
+    return out
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert: tokens · k · capacity_factor / E, rounded up to
+    8, at least 8."""
+    c = int(tokens * cfg.num_experts_per_tok * cfg.capacity_factor
+            / cfg.num_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def _slot_sources(flat_slot: torch.Tensor, keep: torch.Tensor,
+                  rows: int) -> torch.Tensor:
+    """(rows,) int64: for each buffer slot, the index j of the kept
+    (token, choice) routed there, or nk (a zero row) for an empty slot.
+    Dropped choice j writes to position rows + j, cut off: every index of
+    the scatter is distinct."""
+    nk = keep.numel()
+    j = torch.arange(nk, device=keep.device)
+    idx = torch.where(keep, flat_slot, rows + j)
+    src = torch.full((rows + nk,), nk, dtype=torch.long, device=keep.device)
+    return src.scatter_(0, idx, j)[:rows]
+
+
+def moe_block(cfg: ModelConfig, params, x, th):
+    """x: (B, T, D) -> (y (B, T, D), aux_loss (B,)).
+
+    th keys: 'router' (B,), 'w_gu' and 'w_down' ((E, B) per expert), and
+    'shared/*' when shared experts are configured."""
+    b, t, d = x.shape
+    e, k, f = cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_d_ff
+    n = b * t
+    cap = capacity(cfg, n)
+
+    logits = L.linear(params["router"], x, th["router"])  # (B, T, E)
+    probs = torch.softmax(logits.reshape(n, e).float(), dim=-1)
+    # top-k, the lower index first on a tie (as jax.lax.top_k)
+    gate_idx = torch.sort(probs, dim=-1, descending=True,
+                          stable=True).indices[:, :k]  # (n, k)
+    gate_vals = torch.gather(probs, 1, gate_idx)
+    gate_vals = gate_vals / torch.clamp(
+        torch.sum(gate_vals, -1, keepdim=True), min=1e-9)  # renormalize
+
+    # ---- slot of each (token, choice) within its expert's buffer: the
+    # count of earlier choices of the same expert (a scan along the nk
+    # choices, laid out as the inner dim) ----
+    exp_flat = gate_idx.reshape(-1)  # (n k,)
+    onehot_t = F.one_hot(exp_flat, e).T.contiguous()  # (E, n k)
+    pos_in_expert = torch.cumsum(onehot_t, dim=1) - onehot_t
+    slot_flat = torch.gather(pos_in_expert, 0, exp_flat[None])[0]
+    keep = slot_flat < cap
+
+    # ---- dispatch into (E, cap, d), and each slot's example id ----
+    src = _slot_sources(exp_flat * cap + slot_flat, keep, e * cap)
+    x_rep = x.reshape(n, 1, d).expand(n, k, d).reshape(n * k, d)
+    buf = torch.cat([x_rep, x_rep.new_zeros((1, d))]).index_select(
+        0, src).reshape(e, cap, d)
+    ex_rep = torch.arange(b, device=x.device).repeat_interleave(t * k)
+    exid_buf = torch.cat([ex_rep, ex_rep.new_full((1,), -1)])[src].reshape(
+        e, cap)
+
+    # ---- expert computation (each expert its own DP group) ----
+    h = dpl.dp_expert_linear(params["w_gu"], buf, exid_buf, th["w_gu"])
+    gate_h, up_h = h[..., :f], h[..., f:]
+    act = F.silu(gate_h.float()).to(h.dtype) * up_h
+    out_buf = dpl.dp_expert_linear(params["w_down"], act, exid_buf,
+                                   th["w_down"])  # (E, cap, d)
+
+    # ---- combine: gather back and weight by the gates (a dropped choice
+    # reads slot 0 of its expert, times 0) ----
+    gathered = out_buf.reshape(e * cap, d).index_select(
+        0, exp_flat * cap + torch.where(keep, slot_flat, 0))
+    gathered = gathered * (keep[:, None] * gate_vals.reshape(-1)[:, None]
+                           ).to(gathered.dtype)
+    y = torch.sum(gathered.reshape(n, k, d), dim=1)
+    y = y.reshape(b, t, d).to(x.dtype)
+
+    if cfg.num_shared_experts:
+        y = y + L.swiglu(params["shared"], x, subth(th, "shared"),
+                         f=f * cfg.num_shared_experts)
+
+    # ---- Switch-style load-balance aux loss, per example ----
+    frac_prob = torch.mean(probs.reshape(b, t, e), dim=1)  # (B, E)
+    top1 = F.one_hot(gate_idx[:, 0].reshape(b, t), e).float()
+    frac_tok = torch.mean(top1, dim=1)  # (B, E)
+    aux = cfg.router_aux_coef * e * torch.sum(frac_prob * frac_tok, dim=-1)
+    return y, aux

@@ -1,5 +1,6 @@
-"""Model assembly for the dense decoder family: the counterpart of
-`repro.models.transformer`, cut to what paged serving and DP training run.
+"""Model assembly for the dense and MoE decoder families: the counterpart
+of `repro.models.transformer`, cut to what paged serving and DP training
+run (MoE: training only; its serving waits for ROADMAP A.7).
 
     m = build_model(cfg)
     # serving
@@ -13,11 +14,13 @@
 
 Parameters are plain dicts keyed by the reference's spec paths. Training
 keeps the reference's stacked layout, leaves (n_layers, ...) under
-`dense_blocks`, so gradients, noise and optimizer updates land leaf for
-leaf where the reference puts them; `loss_fn` splits the stack into
-per-layer views that a Python loop walks. Serving splits it once, at
-init (`unstack_blocks`). The views share the stacked allocation, so
-nothing is copied either way.
+`dense_blocks` and, for an MoE config, `moe_blocks` (its first
+`first_k_dense` layers dense, the rest MoE, in the reference's order), so
+gradients, noise and optimizer updates land leaf for leaf where the
+reference puts them; `loss_fn` splits each stack into per-layer views
+that a Python loop walks. Serving splits them once, at init
+(`unstack_blocks`). The views share the stacked allocation, so nothing is
+copied either way.
 """
 from __future__ import annotations
 
@@ -33,29 +36,43 @@ from repro_torch.core import spec as S
 from repro_torch.core.spec import P
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
-# spec subtrees whose leaves carry a leading layer-stack dim
-STACKED = ("dense_blocks",)
+# spec subtrees whose leaves carry a leading layer-stack dim, in the
+# order the layers run: (name, whether its blocks are MoE)
+STACKS = (("dense_blocks", False), ("moe_blocks", True))
+STACKED = tuple(name for name, _ in STACKS)
 
 
-def _attn_block_spec(cfg: ModelConfig, n: int) -> dict:
+def _attn_block_spec(cfg: ModelConfig, n: int, *, moe_layer: bool) -> dict:
     stack = (n,)
-    return {
+    spec = {
         "attn_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
         "attn": A.gqa_spec(cfg, stack=stack),
         "mlp_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
-        "mlp": L.swiglu_spec(cfg.d_model, cfg.d_ff, stack=stack,
-                             dtype=cfg.dtype),
     }
+    if moe_layer:
+        spec["moe"] = MOE.moe_spec(cfg, stack=stack)
+    else:
+        spec["mlp"] = L.swiglu_spec(cfg.d_model, cfg.d_ff, stack=stack,
+                                    dtype=cfg.dtype)
+    return spec
 
 
 def decoder_spec(cfg: ModelConfig) -> dict:
     d, v = cfg.d_model, cfg.vocab_size
-    return {"embed": {"w": P((v, d), init="embed", dtype=cfg.dtype)},
+    spec = {"embed": {"w": P((v, d), init="embed", dtype=cfg.dtype)},
             "final_norm": L.rmsnorm_spec(d, dtype=cfg.dtype),
-            "head": {"w": P((d, v), dtype=cfg.dtype)},
-            "dense_blocks": _attn_block_spec(cfg, cfg.num_layers)}
+            "head": {"w": P((d, v), dtype=cfg.dtype)}}
+    n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
+    n_dense = cfg.num_layers - n_moe
+    if n_dense:
+        spec["dense_blocks"] = _attn_block_spec(cfg, n_dense,
+                                                moe_layer=False)
+    if n_moe:
+        spec["moe_blocks"] = _attn_block_spec(cfg, n_moe, moe_layer=True)
+    return spec
 
 
 def _unstack(node, n: int) -> list:
@@ -110,15 +127,19 @@ class Model:
 
 def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
                 ) -> Model:
-    """The dense decoder. `device` is where `init_paged_cache` allocates;
-    `cuda` unless the caller asks for the CPU."""
+    """The dense or MoE decoder. `device` is where `init_paged_cache`
+    allocates; `cuda` unless the caller asks for the CPU. An MoE model
+    trains; its `serve_step` and `init_paged_cache` raise."""
     cfg.validate()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available; pass device='cpu' to run on the CPU")
     spec = decoder_spec(cfg)
-    serve_step, init_paged_cache = _make_decoder_serve(cfg, device)
+    if cfg.num_experts:
+        serve_step = init_paged_cache = _moe_serving_not_ported(cfg)
+    else:
+        serve_step, init_paged_cache = _make_decoder_serve(cfg, device)
     return Model(cfg=cfg, spec=spec, layout=S.GroupLayout(spec),
                  loss_fn=_make_decoder_loss(cfg),
                  serve_step=serve_step, init_paged_cache=init_paged_cache,
@@ -130,13 +151,20 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
 # ---------------------------------------------------------------------------
 
 
-def _apply_attn_block(cfg, params, x, th, positions):
-    """One block; th: this block's thresholds, (B,) per group."""
+def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False):
+    """One block -> (x, aux): aux is the MoE block's (B,) f32 load-balance
+    loss, None for a dense block; th: this block's thresholds, (B,) per
+    group ((E, B) per expert group)."""
     h = L.rmsnorm(params["attn_norm"], x, th["attn_norm"], eps=cfg.norm_eps)
     x = x + A.gqa_attention(cfg, params["attn"], h, S.subth(th, "attn"),
                             positions)
     h = L.rmsnorm(params["mlp_norm"], x, th["mlp_norm"], eps=cfg.norm_eps)
-    return x + L.swiglu(params["mlp"], h, S.subth(th, "mlp"), f=cfg.d_ff)
+    if moe_layer:
+        y, aux = MOE.moe_block(cfg, params["moe"], h, S.subth(th, "moe"))
+    else:
+        y = L.swiglu(params["mlp"], h, S.subth(th, "mlp"), f=cfg.d_ff)
+        aux = None
+    return x + y, aux
 
 
 def _per_example_ce(logits, targets):
@@ -152,10 +180,11 @@ def _per_example_ce(logits, targets):
 
 def _make_decoder_loss(cfg: ModelConfig):
     def loss_fn(params, batch, th):
-        """Per-example losses (B,). params: the stacked (reference-layout)
-        tree; batch: {'tokens', 'targets' (-1 = ignore), optional
-        'positions'}, (B, T) each; th: {group name: stack + (B,)} encoded
-        thresholds (`GroupLayout.pack*`), or the BK capture's channels
+        """Per-example losses (B,): the cross-entropy plus the MoE layers'
+        load-balance losses. params: the stacked (reference-layout) tree;
+        batch: {'tokens', 'targets' (-1 = ignore), optional 'positions'},
+        (B, T) each; th: {group name: stack + (B,)} encoded thresholds
+        (`GroupLayout.pack*`), or the BK capture's channels
         (`core.bk.build_channels`), which unbind per layer the same way.
         Each block is rematerialized in backward when `cfg.remat`."""
         tokens = batch["tokens"]
@@ -165,21 +194,29 @@ def _make_decoder_loss(cfg: ModelConfig):
         if positions is None:
             positions = torch.arange(t, device=tokens.device)[None].expand(
                 bsz, t)
-        rows = {k: v.unbind(0) for k, v in
-                S.subth(th, "dense_blocks").items()}
-        blocks = unstack_blocks(params)["dense_blocks"]
-        for layer, bp in enumerate(blocks):
-            bth = {k: r[layer] for k, r in rows.items()}
-            if cfg.remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    _apply_attn_block, cfg, bp, x, bth, positions,
-                    use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = _apply_attn_block(cfg, bp, x, bth, positions)
+        aux = None
+        stacks = unstack_blocks(params)
+        for name, moe_layer in STACKS:
+            if name not in stacks:
+                continue
+            rows = {k: v.unbind(0) for k, v in S.subth(th, name).items()}
+            for layer, bp in enumerate(stacks[name]):
+                bth = {k: r[layer] for k, r in rows.items()}
+                if cfg.remat:
+                    x, aux_l = torch.utils.checkpoint.checkpoint(
+                        _apply_attn_block, cfg, bp, x, bth, positions,
+                        moe_layer, use_reentrant=False,
+                        preserve_rng_state=False)
+                else:
+                    x, aux_l = _apply_attn_block(cfg, bp, x, bth, positions,
+                                                 moe_layer)
+                if aux_l is not None:
+                    aux = aux_l if aux is None else aux + aux_l
         x = L.rmsnorm(params["final_norm"], x, th["final_norm"],
                       eps=cfg.norm_eps)
         logits = dpl.dp_linear(params["head"]["w"], None, x, th["head"])
-        return _per_example_ce(logits, batch["targets"])
+        ce = _per_example_ce(logits, batch["targets"])
+        return ce if aux is None else ce + aux
 
     return loss_fn
 
@@ -208,6 +245,15 @@ def cache_slot_axes(cache) -> dict:
                 f"decode-cache key {k!r} has no slot-axis entry; add it to "
                 "transformer._SLOT_AXIS_BY_KEY (or a suffix rule)")
     return out
+
+
+def _moe_serving_not_ported(cfg: ModelConfig):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(
+            f"{cfg.name}: serving an MoE model is not ported yet: "
+            f"ROADMAP.md item A.7")
+
+    return refuse
 
 
 def _make_decoder_serve(cfg: ModelConfig, device: torch.device):

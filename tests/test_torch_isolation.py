@@ -77,5 +77,5 @@ def test_importing_the_port_builds_nothing():
     assert _build.BUILD_LOGS == {} and _build._LIBS == {}
     assert set(launch_counts()) == {"paged_attn", "ghost_norm",
                                     "ghost_norm_blocked", "clip_reduce",
-                                    "scale_contract"}
+                                    "scale_contract", "fused_norm_clip"}
     assert set(_build.sources()) == set(launch_counts())

@@ -13,10 +13,12 @@ go through both packages:
   noise allocation, the schedules;
 * the accounting copy to 1e-12 and the data pipeline bit for bit;
 * remat on/off, the kernel call counts of one step (4 per block + the
-  head; 5 `scale_contract` calls and no `clip_reduce` under BK; 2 per
-  block `ghost_norm_blocked` under per_shard), `non_private` calling no
-  norm op, and the `--device cpu` CLI (per_shard too; its noised steps:
-  `test_torch_blocked.py`).
+  head, `fused_norm_clip` for each under per_layer, since every linear of
+  the reduced config is within the fused route's rule, or `ghost_norm`
+  and `clip_reduce` on the composed route; 5 `scale_contract` calls and
+  no `clip_reduce` under BK; 2 per block `ghost_norm_blocked` under
+  per_shard), `non_private` calling no norm op, and the `--device cpu`
+  CLI (per_shard too; its noised steps: `test_torch_blocked.py`).
 
 Tolerances: float32, the same math summed in another order: rtol 1e-5
 and an atol of 1e-5 of the leaf's largest magnitude (1e-4 after a full
@@ -53,6 +55,7 @@ from repro_torch.core.clipping import dp_clipped_gradients
 from repro_torch.data import pipeline as PIPE
 from repro_torch.kernels import bk as SC
 from repro_torch.kernels import clip_reduce as CR
+from repro_torch.kernels import fused_clip as FC
 from repro_torch.kernels import ghost_norm as GN
 from repro_torch.launch import train
 from repro_torch.models.transformer import build_model
@@ -156,7 +159,7 @@ def test_remat_changes_nothing_and_norms_arrive_once():
 
 
 def _count_calls(monkeypatch, scale_contract=False):
-    calls = {"ghost_norm": 0, "clip_reduce": 0}
+    calls = {"ghost_norm": 0, "clip_reduce": 0, "fused_norm_clip": 0}
     if scale_contract:
         calls["scale_contract"] = 0
 
@@ -170,6 +173,8 @@ def _count_calls(monkeypatch, scale_contract=False):
                                                    GN.ghost_norm))
     monkeypatch.setattr(CR, "clip_reduce", counting("clip_reduce",
                                                     CR.clip_reduce))
+    monkeypatch.setattr(FC, "fused_norm_clip", counting(
+        "fused_norm_clip", FC.fused_norm_clip))
     if scale_contract:
         monkeypatch.setattr(SC, "scale_contract", counting(
             "scale_contract", SC.scale_contract))
@@ -179,9 +184,11 @@ def _count_calls(monkeypatch, scale_contract=False):
 @pytest.mark.parametrize("mode", ["per_layer", "non_private"])
 def test_kernel_calls_per_step_and_non_private_skips_norms(mode,
                                                            monkeypatch):
-    """One step calls clip_reduce once per linear (4 per block + the head,
-    145 on qwen3-4b) and ghost_norm as often under per_layer; non_private
-    runs no norm op at all (its factor is 1 whatever the norm)."""
+    """One step clips each linear (4 per block + the head) once: under
+    per_layer by fused_norm_clip, since every linear of the reduced config
+    is within the fused route's rule (on qwen3-4b none is: ghost_norm and
+    clip_reduce, 145 each); non_private calls clip_reduce alone and runs
+    no norm op at all (its factor is 1 whatever the norm)."""
     calls = _count_calls(monkeypatch)
     if mode == "non_private":
         def boom(*a, **k):
@@ -196,8 +203,26 @@ def test_kernel_calls_per_step_and_non_private_skips_norms(mode,
     trainer = train.Trainer(args)
     met = trainer.step()
     linears = 4 * trainer.cfg.num_layers + 1
-    assert calls == {"ghost_norm": linears if mode == "per_layer" else 0,
-                     "clip_reduce": linears}
+    fused = mode == "per_layer"
+    assert calls == {"ghost_norm": 0, "clip_reduce": 0 if fused else linears,
+                     "fused_norm_clip": linears if fused else 0}
+    assert np.isfinite(float(met.loss)) and np.isfinite(float(met.grad_norm))
+
+
+def test_kernel_calls_per_step_on_the_composed_route(monkeypatch):
+    """Where the fit rule fails, per_layer composes ghost_norm and then
+    clip_reduce at every linear, as on qwen3-4b at full width (the rule
+    is patched off here, since every reduced linear passes it)."""
+    calls = _count_calls(monkeypatch)
+    monkeypatch.setattr(FC, "fits", lambda din, dout: False)
+    args = train.build_train_parser().parse_args(
+        ["--arch", "qwen3-4b", "--reduced", "--steps", "2", "--batch", "2",
+         "--seq", "8", "--docs", "4", "--device", "cpu"])
+    trainer = train.Trainer(args)
+    met = trainer.step()
+    linears = 4 * trainer.cfg.num_layers + 1
+    assert calls == {"ghost_norm": linears, "clip_reduce": linears,
+                     "fused_norm_clip": 0}
     assert np.isfinite(float(met.loss)) and np.isfinite(float(met.grad_norm))
 
 
@@ -220,7 +245,7 @@ def test_kernel_calls_per_step_under_bk_and_twopass(mode, execution,
     bk = trainer.execution == "bk"
     assert calls == {"ghost_norm": linears,
                      "clip_reduce": 0 if bk else linears,
-                     "scale_contract": 5 if bk else 0}
+                     "scale_contract": 5 if bk else 0, "fused_norm_clip": 0}
     assert np.isfinite(float(met.loss)) and np.isfinite(float(met.grad_norm))
 
 
@@ -548,10 +573,11 @@ def test_train_cli_per_shard_refuses_a_group_count_that_does_not_divide():
 
 
 def test_kernel_calls_per_step_under_per_shard(monkeypatch):
-    """Per step: ghost_norm_blocked once per blocked projection (qkv and o
-    of each block), ghost_norm once per other linear (gate_up, down, the
-    head), clip_reduce once per linear (unit factors after the fold at
-    qkv and o), no scale_contract: 72 / 73 / 145 / 0 on qwen3-4b."""
+    """Per step: ghost_norm_blocked and clip_reduce (unit factors after the
+    fold) once per blocked projection (qkv and o of each block); each other
+    linear (gate_up, down, the head) by fused_norm_clip, within the fused
+    route's rule at this size (on qwen3-4b: ghost_norm and clip_reduce,
+    72 / 73 / 145 / 0); no scale_contract."""
     calls = _count_calls(monkeypatch, scale_contract=True)
     calls["ghost_norm_blocked"] = 0
     real = GN.ghost_norm_blocked
@@ -570,8 +596,9 @@ def test_kernel_calls_per_step_under_per_shard(monkeypatch):
     assert trainer.plan.config.mode == "per_layer"
     met = trainer.step()
     n = trainer.cfg.num_layers
-    assert calls == {"ghost_norm": 2 * n + 1, "ghost_norm_blocked": 2 * n,
-                     "clip_reduce": 4 * n + 1, "scale_contract": 0}
+    assert calls == {"ghost_norm": 0, "ghost_norm_blocked": 2 * n,
+                     "clip_reduce": 2 * n, "scale_contract": 0,
+                     "fused_norm_clip": 2 * n + 1}
     assert np.isfinite(float(met.loss)) and np.isfinite(float(met.grad_norm))
 
 
