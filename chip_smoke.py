@@ -55,15 +55,21 @@ exits non-zero:
               fraction, peak memory, and one profiled step per variant.
               The kernels' inputs at the five linear shapes (per_layer's
               first step), at the two blocked shapes (per_shard's first
-              step) and the five BK sinks (per_group_bk's last step) are
-              captured for phase 6.
+              step: ghost_norm_blocked's, and clip_reduce's with the
+              (B, M) factors, all 145 of whose calls must take bf16
+              inputs, no f32 fold) and the five BK sinks (per_group_bk's
+              last step) are captured for phase 6.
   6 kernels   ghost_norm, ghost_norm_blocked, clip_reduce and
               scale_contract against their plain versions on the card: a
               sweep (S = 1 and 3 and the 3-D form for scale_contract, both
-              block axes and M = 1 / 4 / 16 for ghost_norm_blocked, ragged
-              T, T = 1, din != dout, f32 and bf16, factors 0 / 1e-3 / 0.5
-              / 1), then at the captured main-path shapes with kernel,
-              plain, bound and library times.
+              block axes and M = 1 / 4 / 16 for ghost_norm_blocked and for
+              clip_reduce's block factors, ragged T, T = 1, din != dout,
+              granite's router 1536 -> 40, an odd dout past 4,096, f32 and
+              bf16, factors 0 / 1e-3 / 0.5 / 1; two calls of clip_reduce
+              and scale_contract bitwise equal), then at the captured
+              main-path shapes (and per_shard's blocked clip_reduce) with
+              kernel, plain, bound and library times and the bitwise
+              repeat.
   7 cuda/cpu  qwen3-4b-reduced in f32 from one numpy parameter tree and
               one numpy batch: one `dp_clipped_gradients` each of
               per_layer by the fused route (every linear of the reduced
@@ -538,9 +544,22 @@ VARIANTS = [("per_layer", "per_layer", "bk", 2),
             ("per_shard", "per_shard", "bk", 16),
             ("ghost_flat_bk", "ghost_flat", "bk", 2),
             ("per_group_bk", "per_group", "bk", 2)]
-SUM_SWEEP = [  # B, T, din, dout: ragged T, T = 1, din != dout both ways
+# B, T, din, dout: ragged T, T = 1, din != dout both ways, granite's
+# router (1536 -> 40: 12 output tiles, split over the examples) and an odd
+# dout past 4,096 (g's rows unaligned: plain loads instead of TMA)
+SUM_SWEEP = [
     (3, 37, 20, 45), (2, 1, 130, 7), (4, 64, 200, 300), (1, 33, 128, 129),
-    (5, 100, 257, 64), (8, 256, 256, 384)]
+    (5, 100, 257, 64), (8, 256, 256, 384), (8, 256, 1536, 40),
+    (2, 70, 192, 4097)]
+# clip_reduce with (B, M) block factors: B, T, din, dout, M, axis (both
+# axes; M = 16 with o's 160-wide blocks, not a multiple of the 128-wide
+# tile; M = 4; M = 1; ragged T, T = 1)
+BLOCK_FACTOR_SWEEP = [(4, 64, 256, 2560, 16, "out"),
+                      (4, 64, 2560, 256, 16, "in"),
+                      (3, 37, 640, 320, 4, "out"), (3, 37, 320, 640, 4, "in"),
+                      (2, 33, 130, 96, 1, "out"), (2, 1, 96, 45, 1, "in")]
+# kernels whose two calls on one input must give the same bits (no atomics)
+BITWISE = ("clip_reduce", "scale_contract")
 SC_STACKS = [1, 3, None]  # scale_contract's S over the sweep; None: 3-D
 SUM_FACTORS = [0.0, 1e-3, 0.5, 1.0]
 SUM_KERNELS = ("ghost_norm", "ghost_norm_blocked", "clip_reduce",
@@ -732,7 +751,9 @@ def phase_train(torch, gpu):
     clip_reduce inputs at each linear shape of per_layer's first step, the
     ghost_norm_blocked inputs at the two blocked shapes of per_shard's
     first step, the scale_contract inputs of per_group_bk's last
-    epilogue)."""
+    epilogue, the blocked clip_reduce inputs (a, g, ((B, M) factors,
+    axis)) of per_shard's first step). Checks that every clip_reduce call
+    of that step took bfloat16 inputs."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import bk as SC
     from repro_torch.kernels import clip_reduce as CR
@@ -740,15 +761,24 @@ def phase_train(torch, gpu):
 
     launches = dict.fromkeys(TRAIN_KERNELS, 0)
     caps, gnb_caps, sc_caps, step_ms = {}, {}, {}, {}
+    blk_caps, shard_dtypes = {}, []
     real_cr, real_sc = CR.clip_reduce, SC.scale_contract
     real_gnb = GN.ghost_norm_blocked
     shapes = linear_shapes(get_config("qwen3-4b"))
 
-    def recording_cr(a, g, factors):
+    def recording_cr(a, g, factors, block_axis="out"):
         name = shapes.get((a.shape[-1], g.shape[-1]))
         if name is not None and name not in caps:
             caps[name] = (a.clone(), g.clone(), factors.clone())
-        return real_cr(a, g, factors)
+        return real_cr(a, g, factors, block_axis)
+
+    def recording_blocked_cr(a, g, factors, block_axis="out"):
+        shard_dtypes.append(str(a.dtype))
+        name = shapes.get((a.shape[-1], g.shape[-1]))
+        if factors.dim() == 2 and name is not None and name not in blk_caps:
+            # on the host: the later variants' peaks stay as they were
+            blk_caps[name] = (a.cpu(), g.cpu(), (factors.cpu(), block_axis))
+        return real_cr(a, g, factors, block_axis)
 
     def recording_gnb(a, g, num_blocks, *, block_axis="out"):
         name = shapes.get((a.shape[-1], g.shape[-1]))
@@ -769,7 +799,8 @@ def phase_train(torch, gpu):
     # per_group_bk's last step: the kept sinks overlap no later step of
     # the measured peak
     patches = {"per_layer": [(0, CR, "clip_reduce", recording_cr)],
-               "per_shard": [(0, GN, "ghost_norm_blocked", recording_gnb)],
+               "per_shard": [(0, GN, "ghost_norm_blocked", recording_gnb),
+                             (0, CR, "clip_reduce", recording_blocked_cr)],
                "per_group_bk": [(last, SC, "scale_contract", recording_sc)]}
     for label, mode, execution, group_count in VARIANTS:
         counts = train_variant(torch, gpu, label,
@@ -787,11 +818,25 @@ def phase_train(torch, gpu):
               step_ms["per_shard"] / step_ms["per_layer"]})
     for name, got, want in (("clip_reduce", caps, shapes.values()),
                             ("scale_contract", sc_caps, shapes.values()),
-                            ("ghost_norm_blocked", gnb_caps, ("qkv", "o"))):
+                            ("ghost_norm_blocked", gnb_caps, ("qkv", "o")),
+                            ("blocked clip_reduce", blk_caps, ("qkv", "o"))):
         if sorted(got) != sorted(want):
             raise RuntimeError(f"{name}: captured {sorted(got)} of the "
                                f"linear shapes {sorted(want)}")
-    return launches, caps, gnb_caps, sc_caps
+    # per_shard's contraction takes the bf16 operands and its (B, M)
+    # factors as they are: no f32 fold before it
+    per_step = expected_launches("per_shard", get_config("qwen3-4b"))
+    if shard_dtypes != ["torch.bfloat16"] * per_step["clip_reduce"]:
+        raise RuntimeError(f"per_shard's first step: clip_reduce inputs "
+                           f"{shard_dtypes}, expected "
+                           f"{per_step['clip_reduce']} bfloat16 calls")
+    emit({"phase": "per_shard_contraction", "gpu": gpu,
+          "clip_reduce_calls": len(shard_dtypes), "dtypes":
+              sorted(set(shard_dtypes)),
+          "blocked": {k: {"a": list(v[0].shape), "g": list(v[1].shape),
+                          "factors": list(v[2][0].shape), "axis": v[2][1]}
+                      for k, v in blk_caps.items()}})
+    return launches, caps, gnb_caps, sc_caps, blk_caps
 
 
 def sum_check(torch, got, want):
@@ -807,8 +852,8 @@ def sum_bound(kernel, a, g, bw, num_blocks=1):
     written once against the data-sheet bandwidth, and the operations on
     the inputs' type: B T² (din + dout) for ghost_norm and
     ghost_norm_blocked (the symmetric half of the grams; the blocked grams
-    cover the blocked operand once), 2 B T din dout for clip_reduce, 2 S B
-    T din dout for scale_contract."""
+    cover the blocked operand once), 2 B T din dout for clip_reduce (its
+    factors (B, num_blocks)), 2 S B T din dout for scale_contract."""
     din, dout = a.shape[-1], g.shape[-1]
     rows = a.numel() // din  # B T, times S for scale_contract
     nbytes = a.numel() * a.element_size() + g.numel() * g.element_size()
@@ -818,7 +863,7 @@ def sum_bound(kernel, a, g, bw, num_blocks=1):
         ops = b * t * t * (din + dout)
     else:
         s = rows // (a.shape[-2] * a.shape[-3])  # stack slices (1 if 3-D)
-        nbytes += 4 * (rows // a.shape[-2]) + 4 * s * din * dout
+        nbytes += 4 * (rows // a.shape[-2]) * num_blocks + 4 * s * din * dout
         ops = 2 * rows * din * dout
     t_bytes = nbytes / bw
     t_ops = ops / PEAK_OPS[str(a.dtype).split(".")[-1]]
@@ -831,8 +876,9 @@ def library_sum(torch, kernel, a, g, f):
     ghost_norm; for ghost_norm_blocked (f = (M, axis)) the plain path's
     three grams (the shared operand's, the blocked one's per block, their
     inner products) as batched f32 matmuls; one f32 matmul with the
-    factor on g's rows for clip_reduce, one f32 bmm over the stack for
-    scale_contract."""
+    factor on g's rows for clip_reduce (with (B, M) block factors, f =
+    (factors, axis): the f32 fold into the blocked operand, then one f32
+    matmul), one f32 bmm over the stack for scale_contract."""
     if kernel == "ghost_norm":
         a32, g32 = a.float(), g.float()
         return (torch.bmm(a32, a32.transpose(1, 2))
@@ -848,6 +894,10 @@ def library_sum(torch, kernel, a, g, f):
         return torch.matmul(gram_x.reshape(b, m, 1, t * t),
                             gram_s.reshape(b, 1, t * t, 1))[:, :, 0, 0]
     t = a.shape[-2]
+    if isinstance(f, tuple):
+        from repro_torch.core.ghost import fold_block_factors
+        a32, g32 = fold_block_factors(a, g, *f)
+        return a32.reshape(-1, a.shape[-1]).T @ g32.reshape(-1, g.shape[-1])
     if kernel == "scale_contract":
         s = f.shape[0]
         a3 = a.reshape(s, -1, a.shape[-1]).float()
@@ -878,7 +928,8 @@ def sweep_sum_inputs(torch, name, b, t, din, dout, dtype, stack, seed):
 def train_impls():
     """name -> (kernel wrapper, plain version) of the training kernels but
     fused_norm_clip; ghost_norm_blocked's third argument is (M, block
-    axis) where the others take factors."""
+    axis) where the others take factors, clip_reduce's factors or
+    ((B, M) factors, block axis)."""
     from repro_torch.kernels import bk as SC
     from repro_torch.kernels import clip_reduce as CR
     from repro_torch.kernels import ghost_norm as GN
@@ -888,8 +939,15 @@ def train_impls():
                 lambda a, g, f: GN.ghost_norm_blocked(a, g, f[0],
                                                       block_axis=f[1]),
                 lambda a, g, f: GN.ghost_norm_blocked_ref(a, g, *f)),
-            "clip_reduce": (CR.clip_reduce, CR.clip_reduce_ref),
+            "clip_reduce": (
+                lambda a, g, f: CR.clip_reduce(a, g, *_pair(f)),
+                lambda a, g, f: CR.clip_reduce_ref(a, g, *_pair(f))),
             "scale_contract": (SC.scale_contract, SC.scale_contract_ref)}
+
+
+def _pair(f):
+    """(factors, block axis) of clip_reduce's third argument."""
+    return f if isinstance(f, tuple) else (f, "out")
 
 
 SHAPE_KEYS = ("ms", "plain_ms", "bound_ms", "library_ms")
@@ -907,10 +965,16 @@ def main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw, flush,
     torch.cuda.synchronize()
     err, ok = sum_check(torch, got, want)
     lib_err = float((lib - want).abs().max())
-    del got, lib, want
+    del lib, want
     if not ok:
         raise RuntimeError(f"{name} disagrees at the main path's {lname} "
                            f"shapes {extra}: max abs err {err}")
+    if name in BITWISE:
+        extra["bitwise_repeat"] = bool(torch.equal(got, kern(a, g, f)))
+        if not extra["bitwise_repeat"]:
+            raise RuntimeError(f"{name}: two calls at the main path's "
+                               f"{lname} shapes differ")
+    del got
     if name == "scale_contract":  # the stacked calls run for hundreds of ms
         iters, warm = 3, 1
     else:
@@ -921,10 +985,13 @@ def main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw, flush,
                             flush),
         "library_ms": cuda_ms(torch, lambda: library_sum(
             torch, name, a, g, f), iters, warm, flush)}
-    times["bound_ms"], bound_by = sum_bound(
-        name, a, g, bw, f[0] if name == "ghost_norm_blocked" else 1)
+    blocks = (f[0] if name == "ghost_norm_blocked" else
+              f[0].shape[1] if isinstance(f, tuple) else 1)
+    times["bound_ms"], bound_by = sum_bound(name, a, g, bw, blocks)
     row = {"phase": "kernel_main_shapes", "gpu": gpu, "kernel": name,
            **extra, "linear": lname, "a": list(a.shape), "g": list(g.shape),
+           **({"factors": list(f[0].shape), "axis": f[1]}
+              if name == "clip_reduce" and isinstance(f, tuple) else {}),
            "dtype": str(a.dtype), "calls_per_step": calls,
            "max_abs_err": err, "library_max_abs_err": lib_err,
            "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
@@ -933,10 +1000,13 @@ def main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw, flush,
     return row
 
 
-def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
-    """The training kernels against their plain versions: the sweeps,
-    then the captured main-path shapes with kernel, plain, bound and
-    library times summed over one step's calls."""
+def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, blk_caps,
+                        num_layers):
+    """The training kernels against their plain versions: the sweeps (two
+    calls of each contraction bitwise equal at every point), then the
+    captured main-path shapes with kernel, plain, bound and library times
+    summed over one step's calls; clip_reduce's blocked calls of a
+    per_shard step under its "per_shard" key."""
     bw = bandwidth(gpu)
     impl = train_impls()
     worst = dict.fromkeys(impl, 0.0)
@@ -947,13 +1017,18 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
         torch.cuda.synchronize()
         err, ok = sum_check(torch, got, want)
         worst[name] = max(worst[name], err)
+        same = bool(torch.equal(got, kern(a, g, f))) \
+            if name in BITWISE else None
         emit({"phase": "kernel_vs_plain", "kernel": name, "shape": point,
               "dtype": dtype, "max_abs_err": err,
               "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
-              "ok": ok})
+              "ok": ok, "bitwise_repeat": same})
         if not ok:
             raise RuntimeError(f"{name} disagrees at {point} {dtype}: max "
                                f"abs err {err}")
+        if same is False:
+            raise RuntimeError(f"{name}: two calls at {point} {dtype} "
+                               f"differ")
 
     for i, (b, t, din, dout) in enumerate(SUM_SWEEP):
         for dtype in ("float32", "bfloat16"):
@@ -969,6 +1044,15 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
             a, g, _ = sweep_sum_inputs(torch, "ghost_norm_blocked", b, t,
                                        din, dout, dtype, None, seed=100 + i)
             check("ghost_norm_blocked", a, g, (m, axis),
+                  {"b": b, "t": t, "din": din, "dout": dout, "m": m,
+                   "axis": axis}, dtype)
+    for i, (b, t, din, dout, m, axis) in enumerate(BLOCK_FACTOR_SWEEP):
+        for dtype in ("float32", "bfloat16"):
+            a, g, _ = sweep_sum_inputs(torch, "clip_reduce", b, t, din,
+                                       dout, dtype, None, seed=200 + i)
+            f = torch.tensor(np.resize(SUM_FACTORS, (b, m)),
+                             dtype=torch.float32, device="cuda")
+            check("clip_reduce", a, g, (f, axis),
                   {"b": b, "t": t, "din": din, "dout": dout, "m": m,
                    "axis": axis}, dtype)
 
@@ -989,6 +1073,18 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
         for k in SHAPE_KEYS:
             per_step[name][k] += calls * row[k]
         by[name][row["bound_by"]] += calls * row["bound_ms"]
+    shard = {**dict.fromkeys(SHAPE_KEYS, 0.0), "calls": 0, "shapes": []}
+    for lname, (a, g, (f, axis)) in blk_caps.items():
+        row = main_shape_row(torch, gpu, "clip_reduce", lname, a.cuda(),
+                             g.cuda(), (f.cuda(), axis), num_layers, bw,
+                             flush, variant="per_shard")
+        worst["clip_reduce"] = max(worst["clip_reduce"], row["max_abs_err"])
+        for k in SHAPE_KEYS:
+            shard[k] += num_layers * row[k]
+        shard["calls"] += num_layers
+        shard["shapes"].append({k: row[k] for k in (
+            "linear", "a", "g", "factors", "axis", "calls_per_step",
+            "max_abs_err", *SHAPE_KEYS, "bound_by")})
     src = "src/repro_torch/kernels/csrc/{}.cu"
     replaces = {"ghost_norm": "src/repro/kernels/ghost_norm.py:77",
                 "ghost_norm_blocked": "src/repro/kernels/ghost_norm.py:159",
@@ -1004,7 +1100,10 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, num_layers):
              **per_step[name],
              "bound_by": max(by[name], key=by[name].get),
              "per": f"one qwen3-4b training step: the sum over its "
-                    f"{per[name]}"}
+                    f"{per[name]}",
+             **({"per_shard": {**shard, "per": "the blocked calls (M = 16) "
+                               "of one per_shard step"}}
+                if name == "clip_reduce" else {})}
             for name in impl]
 
 
@@ -1196,11 +1295,11 @@ def phase_moe_train(torch, gpu):
         return real(a, g, c, extra)
 
     def recording_cr(names):
-        def rec(a, g, factors):
+        def rec(a, g, factors, block_axis="out"):
             name = shapes.get((a.shape[-1], g.shape[-1]))
             if name in names and name not in cr_caps:
                 cr_caps[name] = (a.clone(), g.clone(), factors.clone())
-            return real_cr(a, g, factors)
+            return real_cr(a, g, factors, block_axis)
         return rec
 
     launches = dict.fromkeys(TRAIN_KERNELS, 0)
@@ -1401,12 +1500,13 @@ def main() -> int:
     del snap
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, caps, gnb_caps, sc_caps = phase_train(torch, gpu)
+    train_launches, caps, gnb_caps, sc_caps, blk_caps = phase_train(torch,
+                                                                   gpu)
     from repro_torch.configs import get_config
     num_layers = get_config("qwen3-4b").num_layers
     train_kernels = phase_train_kernels(torch, gpu, caps, gnb_caps,
-                                        sc_caps, num_layers)
-    del caps, gnb_caps, sc_caps
+                                        sc_caps, blk_caps, num_layers)
+    del caps, gnb_caps, sc_caps, blk_caps
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_cuda_vs_cpu(torch, gpu)

@@ -226,9 +226,10 @@ def fold_block_factors(a3: torch.Tensor, g3: torch.Tensor,
     """Fold per-block clip factors (B, M) into the blocked operand.
 
     Returns (a3, g3) in f32 with the factor absorbed into the tensor whose
-    feature axis is blocked; shared by the plain path below and the
-    kernels backend, which then runs the contraction with unit factors.
-    The f32 fold keeps the factors unquantized (sensitivity bound)."""
+    feature axis is blocked; shared by the plain path below and
+    `kernels.clip_reduce.clip_reduce_ref` (the kernel applies the factors
+    in its f32 epilogue instead). The f32 fold keeps the factors
+    unquantized (sensitivity bound)."""
     a3, g3 = a3.to(ACC_DTYPE), g3.to(ACC_DTYPE)
     b, t, din = a3.shape
     dout = g3.shape[-1]

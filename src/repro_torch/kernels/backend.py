@@ -28,8 +28,9 @@ Backend selection matrix (op x backend):
                                                    clip_reduce
   linear_norms_sq_blocked   blocked grams          ghost_norm_blocked
                                                    (ghost_norm_blocked_ref)
-  clipped_sum_linear_blocked                       f32 fold, then clip_reduce
-                            f32 fold + einsum      with unit factors
+  clipped_sum_linear_blocked                       clip_reduce with (B, M)
+                            f32 fold + einsum      factors (clip_reduce_ref:
+                                                   the fold + einsum)
   bias/embed/scale/vector   einsum/index_add       = plain (no kernel)
   clipped_sum_bias/embed/.. einsum/index_add       = plain (no kernel)
   scale_contract (BK)       einsum per slice       scale_contract
@@ -62,8 +63,6 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-
-import torch
 
 from repro_torch.core import ghost
 from repro_torch.core.ghost import clip_factor, factor_without_norms
@@ -215,15 +214,13 @@ class KernelsBackend(Backend):
 
     def clipped_sum_linear_blocked(self, a, g, factors, *,
                                    block_axis="out"):
-        # fold the per-block factors into the blocked operand (f32, shared
-        # with the plain path), then one clip_reduce with unit factors, as
-        # the reference's pallas engine does
-        a3, g3 = ghost.fold_block_factors(ghost._as3d(a), ghost._as3d(g),
-                                          factors, block_axis)
-        ones = torch.ones((a3.shape[0],), dtype=torch.float32,
-                          device=a3.device)
-        return clip_reduce_mod.clip_reduce(a3.contiguous(), g3.contiguous(),
-                                           ones)
+        # the per-block factors go into clip_reduce's f32 epilogue: the
+        # reference's pallas engine folds them into an f32 copy of the
+        # blocked operand first, the same function
+        a3, g3 = ghost._as3d(a), ghost._as3d(g)
+        return clip_reduce_mod.clip_reduce(
+            a3.contiguous(), g3.contiguous(), factors.float().contiguous(),
+            block_axis)
 
     def scale_contract(self, a, g, factors):
         return bk_mod.scale_contract(a.contiguous(), g.contiguous(),

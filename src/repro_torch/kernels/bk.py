@@ -15,7 +15,12 @@ The 3-D form, a (B, T, din), g (B, T, dout), factors (B,), returns
 `scale_contract` is the wrapper. A CPU tensor goes to
 `scale_contract_ref`; a CUDA tensor goes to the hand-written kernel
 `csrc/scale_contract.cu`, S slices in one launch, or raises. There is no
-fallback from one to the other. `launches` counts the kernel's launches.
+fallback from one to the other. The kernel dispatches on dtype as
+`clip_reduce` does: bfloat16 on the tensor cores (`csrc/contract_mma.cuh`),
+float32 on the CUDA cores (`csrc/contract_tile.cuh`), with the same split
+over examples (partial tiles the wrapper allocates) where a slice has few
+output tiles, so slice s sums in `clip_reduce`'s order. `launches` counts
+the calls that launch the kernel.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.clip_reduce import clip_reduce_ref
 
 launches = 0  # kernel launches since the last reset
-_fn = None
+_fns = None
 
 
 def scale_contract_ref(a: torch.Tensor, g: torch.Tensor,
@@ -43,14 +48,19 @@ def scale_contract_ref(a: torch.Tensor, g: torch.Tensor,
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("scale_contract").scale_contract_launch
+    """(launch, splits) entry points of the built library."""
+    global _fns
+    if _fns is None:
+        lib = _build.load("scale_contract")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        fn = lib.scale_contract_launch
+        fn.argtypes = [vp, vp, vp, vp, vp] + [ci] * 6 + [vp]
         fn.restype = ci
-        _fn = fn
-    return _fn
+        splits = lib.scale_contract_splits
+        splits.argtypes = [ci] * 4
+        splits.restype = ci
+        _fns = fn, splits
+    return _fns
 
 
 def _check(a, g, factors):
@@ -76,10 +86,12 @@ def _check(a, g, factors):
          "inputs must be contiguous")
     need(min(a.shape) > 0 and g.shape[-1] > 0, "empty input")
     s = a.shape[0] if a.dim() == 4 else 1
-    need(a.shape[-3] * a.shape[-2] < 2**31 and s < 2**16
-         and -(-a.shape[-1] // 128) < 2**16,
-         "B * T must fit in int32, S in 65,535 and din in 65,535 tiles "
-         "of 128")
+    need(s * a.shape[-3] * a.shape[-2] < 2**31
+         and s * min(a.shape[-3], 132) < 2**16
+         and -(-a.shape[-1] // 64) < 2**16
+         and -(-g.shape[-1] // 64) < 2**16,
+         "S * B * T must fit in int32, S times the split in 65,535, din "
+         "and dout in 65,535 tiles of 64")
 
 
 def scale_contract(a: torch.Tensor, g: torch.Tensor,
@@ -94,12 +106,15 @@ def scale_contract(a: torch.Tensor, g: torch.Tensor,
     squeeze = a.dim() == 3
     s, b, t, din = (1,) * squeeze + tuple(a.shape)
     dout = g.shape[-1]
+    bf16 = int(a.dtype == torch.bfloat16)
+    fn, splits_fn = _kernel()
     out = torch.empty((s, din, dout), dtype=torch.float32, device=a.device)
-    fn = _kernel()
+    splits = splits_fn(b, din, dout, bf16)
+    part = (torch.empty((s * splits, din, dout), dtype=torch.float32,
+                        device=a.device) if splits > 1 else out)
     with torch.cuda.device(a.device):
         rc = fn(a.data_ptr(), g.data_ptr(), factors.data_ptr(),
-                out.data_ptr(), s, b, t, din, dout,
-                int(a.dtype == torch.bfloat16),
+                out.data_ptr(), part.data_ptr(), s, b, t, din, dout, bf16,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scale_contract: kernel launch failed with CUDA "

@@ -1,10 +1,14 @@
-// The scaled contraction shared by clip_reduce.cu and scale_contract.cu:
-// one block computes one 128 x 128 tile of
+// The scaled contraction of clip_reduce.cu and scale_contract.cu for
+// float32 inputs, on the CUDA cores (bfloat16 inputs take the tensor-core
+// loop of contract_mma.cuh): one block computes one 128 x 128 tile of
 //
 //     out[i, j] = sum_r a[r, i] * (c[r / T] * g[r, j])   over the R = B T rows
 //
-// for a (R, din), g (R, dout), float or bfloat16, factors c (B,) float and
-// a float (din, dout) output, all row-major and contiguous.
+// for a (R, din), g (R, dout), float, factors c (B,) float and a float
+// (din, dout) output, all row-major and contiguous. With M > 1 blocks the
+// factors are (B, M): row r's factor of column j is c[r / T, j / W]
+// (axis "out", W = dout / M), or a's rows take c[r / T, i / W] (axis
+// "in", W = din / M) and g is staged unscaled.
 //
 // The block loops over all R rows itself, 16 rows per step: it stages
 // a[r0:r0+16, i-tile] and g[r0:r0+16, j-tile] in shared memory (both are
@@ -16,14 +20,11 @@
 // this file sum in the same order. Rows past R and features past din /
 // dout load as zero.
 //
-// The clip factor is applied to g in float as the tile is staged, never
-// rounded to bfloat16 or TF32 (the sensitivity bound needs the factor
-// exact: see repro/core/ghost.py:clipped_sum_linear). A tensor-core
-// version must keep that property: take A_bᵀ G_b per example from bf16
-// products with f32 accumulation, then scale in f32.
+// The clip factor is applied to g (or a) in float as the tile is staged,
+// never rounded to bfloat16 or TF32 (the sensitivity bound needs the
+// factor exact: see repro/core/ghost.py:clipped_sum_linear).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -37,11 +38,6 @@ constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 8 outputs each
 static_assert(kBI == 128 && kBJ == 128 && kThreads == 256,
               "thread map assumes 16x16 threads of two 4-wide halves");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // Output offset of this thread's m-th row (or column) within the tile:
 // two 4-wide groups 64 apart, so a warp's float4 reads cover distinct banks.
 __device__ __forceinline__ int lane_offset(int t, int m) {
@@ -50,13 +46,13 @@ __device__ __forceinline__ int lane_offset(int t, int m) {
 
 // The tile at (i0, j0) of one contraction; called by every thread of a
 // kThreads-thread block.
-template <typename T>
-__device__ __forceinline__ void contract(const T* __restrict__ a,
-                                         const T* __restrict__ g,
+__device__ __forceinline__ void contract(const float* __restrict__ a,
+                                         const float* __restrict__ g,
                                          const float* __restrict__ factors,
                                          float* __restrict__ out, int R,
-                                         int t_len, int din, int dout, int i0,
-                                         int j0) {
+                                         int t_len, int din, int dout,
+                                         int m_blocks, int block_w,
+                                         int axis_in, int i0, int j0) {
   __shared__ __align__(16) float as[kBR][kBI];
   __shared__ __align__(16) float gs[kBR][kBJ];
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -69,16 +65,21 @@ __device__ __forceinline__ void contract(const T* __restrict__ a,
   for (int r0 = 0; r0 < R; r0 += kBR) {
     for (int e = tid; e < kBR * kBI; e += kThreads) {
       const int rr = e / kBI, ii = e - rr * kBI, r = r0 + rr, i = i0 + ii;
-      as[rr][ii] = (r < R && i < din)
-                       ? to_f32(a[static_cast<size_t>(r) * din + i])
-                       : 0.f;
+      as[rr][ii] =
+          (r < R && i < din)
+              ? (axis_in ? factors[(r / t_len) * m_blocks + i / block_w]
+                         : 1.f) *
+                    a[static_cast<size_t>(r) * din + i]
+              : 0.f;
     }
     for (int e = tid; e < kBR * kBJ; e += kThreads) {
       const int rr = e / kBJ, jj = e - rr * kBJ, r = r0 + rr, j = j0 + jj;
-      gs[rr][jj] = (r < R && j < dout)
-                       ? factors[r / t_len] *
-                             to_f32(g[static_cast<size_t>(r) * dout + j])
-                       : 0.f;
+      gs[rr][jj] =
+          (r < R && j < dout)
+              ? (axis_in ? 1.f
+                         : factors[(r / t_len) * m_blocks + j / block_w]) *
+                    g[static_cast<size_t>(r) * dout + j]
+              : 0.f;
     }
     __syncthreads();
 #pragma unroll

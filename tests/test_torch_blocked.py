@@ -8,6 +8,11 @@ the CPU in f32.
 * `linear_norms_sq_blocked`, `fold_block_factors` and
   `clipped_sum_linear_blocked` against `repro.core.ghost`, and both
   engines' blocked ops;
+* `clip_reduce_ref` with (B, M) block factors against the reference's
+  fold followed by its Pallas `clip_reduce` (interpret mode) and against
+  `repro.core.ghost.clipped_sum_linear_blocked`: both axes, M in
+  {1, 4, 16}, ragged T; the kernels engine's blocked sum is one
+  `clip_reduce` call with the (B, M) factors and no fold;
 * `dp_linear_blocked` (output, input cotangent, clipped weight and bias
   gradients, the (B, M) norms² as the threshold's gradient) against
   `jax.vjp` of the reference primitive, both axes, with and without bias,
@@ -42,6 +47,7 @@ from repro.core import ghost as JG
 from repro.core import spec as JS
 from repro.kernels import backend as jax_backend
 from repro.kernels import ref as JREF
+from repro.kernels.clip_reduce import clip_reduce as jax_clip_reduce
 from repro.kernels.ghost_norm import ghost_norm_blocked as jax_blocked
 from repro.launch import sharding as JSH
 from repro.models import layers as JL
@@ -55,6 +61,7 @@ from repro_torch.core import quantile as Q
 from repro_torch.core import spec as S
 from repro_torch.core.clipping import dp_clipped_gradients
 from repro_torch.kernels import backend
+from repro_torch.kernels import clip_reduce as CR
 from repro_torch.kernels import ghost_norm as GN
 from repro_torch.launch import sharding
 from repro_torch.models import layers as L
@@ -190,6 +197,63 @@ def test_engine_blocked_ops_on_cpu(engine, case):
     assert launch_counts() == before
     close(n, JG.linear_norms_sq_blocked(ja, jg, m, block_axis=axis))
     close(s, JG.clipped_sum_linear_blocked(ja, jg, jf, block_axis=axis))
+
+
+# B, T, din, dout, M, axis: both axes, M = 16 / 4 / 1, ragged T, T = 1
+BLOCK_FACTOR_CASES = [(3, 10, 12, 32, 16, "out"), (2, 7, 48, 20, 16, "in"),
+                      (3, 37, 20, 24, 4, "out"), (2, 5, 16, 12, 4, "in"),
+                      (2, 9, 8, 6, 1, "out"), (2, 1, 6, 10, 1, "in")]
+
+
+@pytest.mark.parametrize("case", BLOCK_FACTOR_CASES)
+def test_clip_reduce_ref_block_factors_match_reference(case):
+    """clip_reduce_ref with (B, M) factors is the reference's pallas
+    engine (fold, then the Pallas clip_reduce with unit factors, interpret
+    mode) and its plain path; f32, the same math summed in another order:
+    rtol 1e-5, atol 1e-5 of the largest magnitude."""
+    b, t, din, dout, m, axis = case
+    a, g = _ag(b, t, din, dout, seed=11)
+    f = np.random.default_rng(12).uniform(0, 1, (b, m)).astype(np.float32)
+    ja, jg, jf = jnp.asarray(a), jnp.asarray(g), jnp.asarray(f)
+    got = CR.clip_reduce_ref(T(a), T(g), T(f), axis)
+    assert got.dtype == torch.float32 and got.shape == (din, dout)
+    assert torch.equal(CR.clip_reduce(T(a), T(g), T(f), axis), got)
+    fa, fg = JG.fold_block_factors(ja, jg, jf, axis)
+    close(got, jax_clip_reduce(fa, fg, jnp.ones((b,), jnp.float32),
+                               interpret=True))
+    close(got, JG.clipped_sum_linear_blocked(ja, jg, jf, block_axis=axis))
+    if m == 1:  # one block: the per-example factor
+        close(got, CR.clip_reduce_ref(T(a), T(g), T(f[:, 0])))
+
+
+def test_kernels_engine_blocked_sum_is_one_clip_reduce(monkeypatch):
+    """The kernels engine hands the bf16 operands and the (B, M) factors
+    to clip_reduce as they are: one call, no fold before it (the plain
+    version folds inside clip_reduce_ref, which stays unpatched)."""
+    calls, real = [], CR.clip_reduce
+
+    def recording(a, g, factors, block_axis="out"):
+        calls.append((a.dtype, g.dtype, tuple(factors.shape), block_axis))
+        return real(a, g, factors, block_axis)
+
+    def no_fold(*a, **k):
+        raise AssertionError("the engine folded the factors")
+
+    monkeypatch.setattr(CR, "clip_reduce", recording)
+    monkeypatch.setattr(G, "fold_block_factors", no_fold)
+    a, g = _ag(3, 10, 12, 32, seed=13)
+    f = np.random.default_rng(14).uniform(0, 1, (3, 4)).astype(np.float32)
+    ta, tg = T(a).bfloat16(), T(g).bfloat16()
+    for axis in ("out", "in"):
+        with backend.scoped("kernels"):
+            got = backend.active().clipped_sum_linear_blocked(
+                ta, tg, T(f), block_axis=axis)
+        fa, fg = JG.fold_block_factors(
+            jnp.asarray(ta.float().numpy()), jnp.asarray(tg.float().numpy()),
+            jnp.asarray(f), axis)
+        close(got, jnp.einsum("bti,bto->io", fa, fg))
+    assert calls == [(torch.bfloat16, torch.bfloat16, (3, 4), "out"),
+                     (torch.bfloat16, torch.bfloat16, (3, 4), "in")]
 
 
 # ---------------------------------------------------------------------------

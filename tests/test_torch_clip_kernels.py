@@ -5,12 +5,16 @@ wrappers, and their kernels on the card.
   on another non-CUDA device it raises.
 * The input checks refuse what the kernels do not take (dtype, rank,
   mismatched S, B or T, mixed devices, non-contiguous inputs, factors
-  that are not float32 of the batch shape), and accept the main path's
-  widest shapes.
+  that are not float32 of the batch shape, block factors whose M does
+  not match or divide the blocked axis, a bad block axis), and accept
+  every main-path shape of qwen3-4b and granite-moe-3b-a800m.
 * On a Hopper card (`-m cuda`; skipped elsewhere): each kernel against its
-  plain version over ragged T, T = 1, din != dout, f32 and bf16,
-  scale_contract over S in {1, 3} and its 3-D form, and ghost_norm_blocked
-  over both block axes and M in {1, 2, 4, 16}.
+  plain version over ragged T, T = 1, din != dout, f32 and bf16, granite's
+  router (1536 -> 40, the split over examples) and an odd dout past 4,096
+  (plain loads instead of TMA), scale_contract over S in {1, 3} and its
+  3-D form, clip_reduce with (B, M) block factors on both axes (M = 1 / 4
+  / 16, o's 160-wide blocks), ghost_norm_blocked over both block axes and
+  M in {1, 2, 4, 16}; two calls of each contraction bitwise equal.
 
 Only torch and numpy: these tests run where JAX is not installed.
 """
@@ -197,6 +201,52 @@ def test_checks_accept_the_main_path_shapes():
         assert x.shape[-1] // 16 in (384, 160)
 
 
+BAD_BLOCK_FACTORS = {
+    # (B, M) factors: a wrong batch, an M that does not divide the axis
+    # (dout = 7, din = 5), a bad axis
+    "blocks_batch": (lambda a: a[:2] + [torch.ones(2, 7)], "out",
+                     "must be"),
+    "blocks_divide_out": (lambda a: a[:2] + [torch.ones(3, 2)], "out",
+                          "must divide the out axis"),
+    "blocks_divide_in": (lambda a: a[:2] + [torch.ones(3, 2)], "in",
+                         "must divide the in axis"),
+    "blocks_rank_3": (lambda a: a[:2] + [torch.ones(3, 7, 1)], "out",
+                      "must be"),
+    "blocks_axis": (lambda a: a[:2] + [torch.ones(3, 7)], "rows",
+                    "block_axis must be"),
+    "blocks_bf16": (lambda a: a[:2] + [torch.ones(3, 7).bfloat16()], "out",
+                    "float32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_BLOCK_FACTORS))
+def test_clip_reduce_refuses_bad_block_factors(case):
+    make, axis, msg = BAD_BLOCK_FACTORS[case]
+    args = make(_valid())
+    with pytest.raises(ValueError, match=msg):
+        CR._check(*args, axis)
+
+
+# (B, T, din, dout) of every linear a step clips (B = 8, T = 256) and its
+# (B, M) block factors: qwen3-4b's qkv, o, gate_up, down and head (qkv and
+# o blocked by M = 16 under per_shard), granite-moe-3b-a800m's qkv, o,
+# router (1536 -> 40) and head (1536 -> 49,155, odd)
+MAIN_LINEARS = [(2560, 6144, 16), (4096, 2560, 16), (2560, 19_456, 1),
+                (9728, 2560, 1), (2560, 151_936, 1), (1536, 2560, 16),
+                (1536, 1536, 16), (1536, 40, 1), (1536, 49_155, 1)]
+
+
+@pytest.mark.parametrize("din,dout,m", MAIN_LINEARS)
+def test_clip_reduce_checks_accept_every_main_path_linear(din, dout, m):
+    a = torch.empty((8, 256, din), dtype=torch.bfloat16)
+    g = torch.empty((8, 256, dout), dtype=torch.bfloat16)
+    CR._check(a, g, torch.ones(8))
+    SC._check(a, g, torch.ones(8))
+    for axis in ("out", "in"):
+        CR._check(a, g, torch.ones(8, m), axis)
+        CR._check(a.float(), g.float(), torch.ones(8, m), axis)
+
+
 def _on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -204,7 +254,10 @@ def _on_card():
         pytest.skip("needs compute capability 9.x (Hopper)")
 
 
-CARD_SHAPES = KERNEL_SHAPES + [(8, 256, 256, 384), (2, 100, 130, 260)]
+# + granite's router (1536 -> 40: 12 tiles, split over the examples) and
+# an odd dout past 4,096 (g's rows unaligned: plain loads, not TMA)
+CARD_SHAPES = KERNEL_SHAPES + [(8, 256, 256, 384), (2, 100, 130, 260),
+                               (8, 256, 1536, 40), (2, 70, 192, 4097)]
 
 
 @pytest.mark.cuda
@@ -229,7 +282,8 @@ def test_kernels_match_plain_versions_on_card(shape, dtype):
 
 # S, B, T, din, dout: S = 1 and 3, ragged T, T = 1, din != dout both ways
 SC_CARD_SHAPES = [(1, 2, 5, 7, 9), (3, 3, 1, 16, 8), (3, 2, 37, 20, 45),
-                  (1, 8, 256, 256, 384), (3, 2, 100, 130, 260)]
+                  (1, 8, 256, 256, 384), (3, 2, 100, 130, 260),
+                  (2, 8, 256, 1536, 40), (2, 2, 70, 192, 4097)]
 
 
 @pytest.mark.cuda
@@ -277,3 +331,62 @@ def test_ghost_norm_blocked_matches_plain_version_on_card(case, dtype):
     want = GN.ghost_norm_blocked_ref(a, g, m, axis)
     atol = 1e-4 * float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+# B, T, din, dout, M, axis: (B, M) block factors along dout and din, M = 1
+# / 4 / 16, o's blocks of per_shard (160 wide, not a multiple of the
+# 128-wide tile), ragged T and a block axis of odd width
+BLOCK_FACTOR_CASES = [(3, 37, 64, 2560, 16, "out"), (3, 37, 2560, 64, 16,
+                                                     "in"),
+                      (2, 64, 320, 160, 4, "out"), (2, 64, 160, 96, 4, "in"),
+                      (4, 33, 96, 130, 1, "out"), (2, 9, 45, 40, 1, "in"),
+                      (2, 5, 135, 24, 3, "in")]
+
+
+def _block_factors(b, m, seed=0):
+    rng = np.random.default_rng(seed + b * 31 + m)
+    f = rng.choice(np.array([0.0, 1e-3, 0.5, 1.0, 0.25], np.float32),
+                   size=(b, m))
+    return T(f.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BLOCK_FACTOR_CASES)
+def test_clip_reduce_block_factors_match_plain_version_on_card(case, dtype):
+    """(B, M) factors in the kernel's f32 epilogue against the plain
+    version's f32 fold + einsum; rtol 1e-4, atol 1e-4 of the largest
+    magnitude of the plain result."""
+    _on_card()
+    b, t, din, dout, m, axis = case
+    a, g = (T(v).to("cuda", getattr(torch, dtype))
+            for v in _ag(b, t, din, dout))
+    f = _block_factors(b, m).cuda()
+    before = CR.launches
+    got = CR.clip_reduce(a, g, f, axis)
+    torch.cuda.synchronize()
+    assert CR.launches == before + 1
+    want = CR.clip_reduce_ref(a, g, f, axis)
+    atol = 1e-4 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 256, 1536, 40), (8, 256, 512, 640),
+                                   (2, 70, 192, 4097)])
+def test_contractions_are_bitwise_repeatable_on_card(shape):
+    """No atomics: two calls give the same bits, with the split over
+    examples (the router), without it, and with plain loads."""
+    _on_card()
+    a, g = (T(v).to("cuda", torch.bfloat16) for v in _ag(*shape))
+    f = T(np.resize(FACTORS, shape[0])).cuda()
+    assert torch.equal(CR.clip_reduce(a, g, f), CR.clip_reduce(a, g, f))
+    fb = _block_factors(shape[0], 4).cuda() if shape[-1] % 4 == 0 else None
+    if fb is not None:
+        assert torch.equal(CR.clip_reduce(a, g, fb), CR.clip_reduce(a, g, fb))
+    a4, g4, f4 = a[None].expand(2, *a.shape).contiguous(), \
+        g[None].expand(2, *g.shape).contiguous(), f[None].repeat(2, 1)
+    first = SC.scale_contract(a4, g4, f4)
+    assert torch.equal(first, SC.scale_contract(a4, g4, f4))
+    # slice s sums in clip_reduce's order
+    assert torch.equal(first[1], CR.clip_reduce(a, g, f))

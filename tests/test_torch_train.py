@@ -573,8 +573,8 @@ def test_train_cli_per_shard_refuses_a_group_count_that_does_not_divide():
 
 
 def test_kernel_calls_per_step_under_per_shard(monkeypatch):
-    """Per step: ghost_norm_blocked and clip_reduce (unit factors after the
-    fold) once per blocked projection (qkv and o of each block); each other
+    """Per step: ghost_norm_blocked and clip_reduce (with the (B, M)
+    block factors) once per blocked projection (qkv and o of each block); each other
     linear (gate_up, down, the head) by fused_norm_clip, within the fused
     route's rule at this size (on qwen3-4b: ghost_norm and clip_reduce,
     72 / 73 / 145 / 0); no scale_contract."""
