@@ -7,7 +7,10 @@ Phases, each printing one JSON line; any failure raises, so the script
 exits non-zero:
 
   1 build     nvcc builds every kernel under src/repro_torch/kernels/csrc
-              (the card's name and power limit, the build time).
+              (the card's name and power limit, the build time, and from
+              -Xptxas -v each kernel's name, registers and spills,
+              ptxas's notes on the wgmma pipeline and the bytes of spill
+              stores per library).
   3 serve     qwen3-4b at full width and depth, bf16, random parameters
               from a seeded torch.Generator, served through the serve
               CLI's own `serve_requests`: 8 slots, page_len 16, 16
@@ -64,12 +67,18 @@ exits non-zero:
               sweep (S = 1 and 3 and the 3-D form for scale_contract, both
               block axes and M = 1 / 4 / 16 for ghost_norm_blocked and for
               clip_reduce's block factors, ragged T, T = 1, din != dout,
-              granite's router 1536 -> 40, an odd dout past 4,096, f32 and
-              bf16, factors 0 / 1e-3 / 0.5 / 1; two calls of clip_reduce
-              and scale_contract bitwise equal), then at the captured
+              granite's router 1536 -> 40, an odd dout past 4,096, T =
+              1024 (the ghost norms' one-chunk plan), ghost_norm_blocked's
+              24-column blocks (a multiple of 8, not of 16), f32 and bf16,
+              factors 0 / 1e-3 / 0.5 / 1; two calls of each of the four
+              kernels bitwise equal at every point), then at the captured
               main-path shapes (and per_shard's blocked clip_reduce) with
-              kernel, plain, bound and library times and the bitwise
-              repeat.
+              kernel, plain, bound and library times, the bitwise repeat,
+              and for the ghost norms a CUDA-graph replay time beside the
+              eager one (a call takes tens of microseconds), the
+              device ms of each kernel a call launches (torch.profiler),
+              and the kernel's and the plain version's relative errors
+              against a float64 evaluation.
   7 cuda/cpu  qwen3-4b-reduced in f32 from one numpy parameter tree and
               one numpy batch: one `dp_clipped_gradients` each of
               per_layer by the fused route (every linear of the reduced
@@ -110,7 +119,8 @@ exits non-zero:
  10 kernels   ghost_norm and clip_reduce (per_layer: qkv, o, head) and
               clip_reduce (non_private: router) against their plain
               versions at granite's captured inputs, with phase 6's
-              tolerances and kernel, plain, bound and library times; the
+              tolerances, bitwise repeats and times (ghost_norm's graph
+              replay too); the
               kernels line carries them under each kernel's "moe" key, and
               its max_abs_err is the worst over both models' inputs.
 
@@ -297,12 +307,18 @@ def phase_build(torch, gpu):
     t0 = time.perf_counter()
     libs = _build.build()
     build_s = time.perf_counter() - t0
+    # -Xptxas -v: each kernel's name, registers and spills, and ptxas's
+    # notes on the wgmma pipeline (C75xx)
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "Compiling entry" in ln or "registers" in ln
+                    or "spill" in ln or "(C75" in ln]
              for name, log in _build.BUILD_LOGS.items()}
+    spills = {name: sum(int(ln.split(" bytes spill stores")[0].split()[-1])
+                        for ln in log.splitlines() if "spill stores" in ln)
+              for name, log in _build.BUILD_LOGS.items()}
     emit({"phase": "build", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernels": sorted(libs),
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s, "ptxas": ptxas, "spill_store_bytes": spills})
 
 
 def phase_main_path(torch, gpu):
@@ -545,12 +561,14 @@ VARIANTS = [("per_layer", "per_layer", "bk", 2),
             ("ghost_flat_bk", "ghost_flat", "bk", 2),
             ("per_group_bk", "per_group", "bk", 2)]
 # B, T, din, dout: ragged T, T = 1, din != dout both ways, granite's
-# router (1536 -> 40: 12 output tiles, split over the examples) and an odd
-# dout past 4,096 (g's rows unaligned: plain loads instead of TMA)
+# router (1536 -> 40: 12 output tiles, split over the examples), an odd
+# dout past 4,096 (g's rows unaligned: plain loads instead of TMA) and T =
+# 1024 (the ghost norm's plan takes one chunk of the shared operand, five
+# tensor-core chains of 512 features)
 SUM_SWEEP = [
     (3, 37, 20, 45), (2, 1, 130, 7), (4, 64, 200, 300), (1, 33, 128, 129),
     (5, 100, 257, 64), (8, 256, 256, 384), (8, 256, 1536, 40),
-    (2, 70, 192, 4097)]
+    (2, 70, 192, 4097), (4, 1024, 2304, 2560)]
 # clip_reduce with (B, M) block factors: B, T, din, dout, M, axis (both
 # axes; M = 16 with o's 160-wide blocks, not a multiple of the 128-wide
 # tile; M = 4; M = 1; ragged T, T = 1)
@@ -559,17 +577,24 @@ BLOCK_FACTOR_SWEEP = [(4, 64, 256, 2560, 16, "out"),
                       (3, 37, 640, 320, 4, "out"), (3, 37, 320, 640, 4, "in"),
                       (2, 33, 130, 96, 1, "out"), (2, 1, 96, 45, 1, "in")]
 # kernels whose two calls on one input must give the same bits (no atomics)
-BITWISE = ("clip_reduce", "scale_contract")
+BITWISE = ("clip_reduce", "scale_contract", "ghost_norm",
+           "ghost_norm_blocked")
+# kernels whose main-shape rows carry a CUDA-graph replay time beside the
+# eager one (tens of microseconds a call: eager timing sees the host)
+GRAPHED = ("ghost_norm", "ghost_norm_blocked")
 SC_STACKS = [1, 3, None]  # scale_contract's S over the sweep; None: 3-D
 SUM_FACTORS = [0.0, 1e-3, 0.5, 1.0]
 SUM_KERNELS = ("ghost_norm", "ghost_norm_blocked", "clip_reduce",
                "scale_contract")
 TRAIN_KERNELS = SUM_KERNELS + ("fused_norm_clip",)
 # ghost_norm_blocked's sweep: B, T, din, dout, M, axis (ragged T, T = 1,
-# both axes, blocks narrower and wider than a 32-column chunk, M = 1)
+# both axes, blocks narrower and wider than a 32-column chunk, M = 1,
+# blocks of 24 columns: a multiple of 8, not of 16, so TMA's 4-D map with
+# two k16 steps of the 64-feature box)
 BLOCKED_SWEEP = [(3, 37, 20, 48, 4, "out"), (2, 1, 64, 24, 4, "in"),
                  (4, 64, 200, 160, 16, "out"), (2, 100, 96, 130, 2, "in"),
-                 (1, 33, 128, 129, 1, "out"), (8, 256, 256, 384, 16, "out")]
+                 (1, 33, 128, 129, 1, "out"), (8, 256, 256, 384, 16, "out"),
+                 (4, 64, 256, 384, 16, "out")]
 
 
 def linear_shapes(cfg) -> dict:
@@ -953,6 +978,60 @@ def _pair(f):
 SHAPE_KEYS = ("ms", "plain_ms", "bound_ms", "library_ms")
 
 
+def launch_split(torch, fn, calls=5) -> dict:
+    """Where a call of `fn` spends its device time, by kernel
+    (torch.profiler, CUDA activity, the L2 warm): the mean ms per
+    recorded launch and the launches recorded over `calls` calls. The
+    mean is per launch, not per call: the profiler may drop some of a
+    run's events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: {"ms": e.self_device_time_total / 1e3 / e.count,
+                         "launches": e.count}
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
+def f64_norms(torch, name, a, g, f):
+    """The ghost norms by the gram identity in float64: (B,) for
+    ghost_norm, (B, M) for ghost_norm_blocked (f = (M, axis))."""
+    a64, g64 = a.double(), g.double()
+    if name == "ghost_norm":
+        return (torch.bmm(a64, a64.transpose(1, 2))
+                * torch.bmm(g64, g64.transpose(1, 2))).sum((1, 2))
+    m, axis = f
+    s, x = (a64, g64) if axis == "out" else (g64, a64)
+    b, t = s.shape[0], s.shape[1]
+    xb = x.reshape(b, t, m, -1).transpose(1, 2)  # (B, M, T, w)
+    gram_s = torch.bmm(s, s.transpose(1, 2))
+    return (torch.matmul(xb, xb.transpose(2, 3)) * gram_s[:, None]).sum(
+        (2, 3))
+
+
+def f64_errors(torch, name, kern, plain, a, g, f) -> dict:
+    """Largest relative error of the kernel and of the f32 plain version
+    against the float64 evaluation, and the kernel's mean signed relative
+    error (a bias shows there)."""
+    want = f64_norms(torch, name, a, g, f)
+    got, ref32 = kern(a, g, f).double(), plain(a, g, f).double()
+    den = want.abs().clamp_min(torch.finfo(torch.float64).tiny)
+    return {"f64_rel_err": float(((got - want).abs() / den).max()),
+            "f64_signed_rel_err": float(((got - want) / den).mean()),
+            "plain_f64_rel_err": float(((ref32 - want).abs() / den).max())}
+
+
+def step_keys(name) -> tuple:
+    """The times a kernel's main-shape rows carry."""
+    return SHAPE_KEYS + (("graph_ms",) if name in GRAPHED else ())
+
+
 def main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw, flush,
                    **extra) -> dict:
     """One kernel at one captured main-path input against its plain
@@ -985,6 +1064,11 @@ def main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw, flush,
                             flush),
         "library_ms": cuda_ms(torch, lambda: library_sum(
             torch, name, a, g, f), iters, warm, flush)}
+    if name in GRAPHED:
+        times["graph_ms"] = graph_ms(torch, lambda: kern(a, g, f), iters,
+                                     flush)
+        extra["launch_ms"] = launch_split(torch, lambda: kern(a, g, f))
+        extra.update(f64_errors(torch, name, kern, plain, a, g, f))
     blocks = (f[0] if name == "ghost_norm_blocked" else
               f[0].shape[1] if isinstance(f, tuple) else 1)
     times["bound_ms"], bound_by = sum_bound(name, a, g, bw, blocks)
@@ -1057,7 +1141,7 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, blk_caps,
                    "axis": axis}, dtype)
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    per_step = {name: dict.fromkeys(SHAPE_KEYS, 0.0) for name in impl}
+    per_step = {name: dict.fromkeys(step_keys(name), 0.0) for name in impl}
     by = {name: {"bytes": 0.0, "operations": 0.0} for name in impl}
     work = [(lname, name, caps[lname], 1 if lname == "head" else num_layers)
             for lname in caps for name in ("ghost_norm", "clip_reduce")]
@@ -1070,7 +1154,7 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, blk_caps,
         row = main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw,
                              flush)
         worst[name] = max(worst[name], row["max_abs_err"])
-        for k in SHAPE_KEYS:
+        for k in per_step[name]:
             per_step[name][k] += calls * row[k]
         by[name][row["bound_by"]] += calls * row["bound_ms"]
     shard = {**dict.fromkeys(SHAPE_KEYS, 0.0), "calls": 0, "shapes": []}
@@ -1352,13 +1436,14 @@ def phase_moe_kernels(torch, gpu, cr_caps, num_layers):
                                           "per_step": {}, "shapes": []})
                 o["max_abs_err"] = max(o["max_abs_err"], row["max_abs_err"])
                 step = o["per_step"].setdefault(
-                    variant, {**dict.fromkeys(SHAPE_KEYS, 0.0), "calls": 0})
-                for k in SHAPE_KEYS:
+                    variant, {**dict.fromkeys(step_keys(name), 0.0),
+                              "calls": 0})
+                for k in step_keys(name):
                     step[k] += calls * row[k]
                 step["calls"] += calls
                 o["shapes"].append({k: row[k] for k in (
                     "variant", "linear", "a", "g", "calls_per_step",
-                    "max_abs_err", *SHAPE_KEYS, "bound_by")})
+                    "max_abs_err", *step_keys(name), "bound_by")})
     return out
 
 

@@ -1,17 +1,18 @@
-// The gram block shared by ghost_norm.cu and ghost_norm_blocked.cu: one
-// block of 256 threads computes the (32 x 32) block X_i X_jᵀ of two
-// 32-row tiles i, j of one example's (T, ld) row-major matrix, over d of
-// its columns, in float registers (a 2 x 2 block of outputs per thread).
+// The float32 path of ghost_norm.cu and ghost_norm_blocked.cu, on the CUDA
+// cores (their bfloat16 path is gram_mma.cuh): one block of 256 threads
+// computes the (32 x 32) block X_i X_jᵀ of two 32-row tiles i, j of one
+// example's (T, ld) row-major matrix, over d of its columns, in float
+// registers (a 2 x 2 block of outputs per thread).
 //
 // The block loops over the d columns itself, staging 32 x 32 chunks of
 // rows i and j in shared memory, transposed, with an odd row stride so the
 // transposed stores hit distinct banks. Rows past T and columns past d
 // load as zero, so ragged T and narrow column ranges need no padding.
 // `block_sum` then reduces one float per thread in a fixed order, so both
-// kernels that include this file are deterministic.
+// kernels that include this file are deterministic; gram_mma.cuh uses it
+// and `pair_of` too.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -26,28 +27,21 @@ constexpr int kPad = kTile + 1;
 constexpr int kThreads = 256;
 static_assert(kTile == 32 && kThreads == 256, "thread map assumes 16x16");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // Adds the gram block X_i X_jᵀ into acc: x points at column 0 of the
 // range in row 0 of one example, ld is the row stride in elements, d the
 // number of columns in the range; acc[m][n] is entry (ty + 16 m, tx + 16 n).
-template <typename T>
-__device__ void gram_block(const T* __restrict__ x, int t_len, int ld, int d,
-                           int i0, int j0, float (*xi)[kPad],
-                           float (*xj)[kPad], float acc[2][2]) {
+__device__ inline void gram_block(const float* __restrict__ x, int t_len,
+                                  int ld, int d, int i0, int j0,
+                                  float (*xi)[kPad], float (*xj)[kPad],
+                                  float acc[2][2]) {
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   for (int k0 = 0; k0 < d; k0 += kChunk) {
     for (int e = tid; e < kTile * kChunk; e += kThreads) {
       const int r = e / kChunk, k = e - r * kChunk, f = k0 + k;
       float vi = 0.f, vj = 0.f;
       if (f < d) {
-        if (i0 + r < t_len)
-          vi = to_f32(x[static_cast<size_t>(i0 + r) * ld + f]);
-        if (j0 + r < t_len)
-          vj = to_f32(x[static_cast<size_t>(j0 + r) * ld + f]);
+        if (i0 + r < t_len) vi = x[static_cast<size_t>(i0 + r) * ld + f];
+        if (j0 + r < t_len) vj = x[static_cast<size_t>(j0 + r) * ld + f];
       }
       xi[k][r] = vi;
       xj[k][r] = vj;

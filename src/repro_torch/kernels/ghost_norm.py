@@ -17,19 +17,47 @@ Shapes:
 to the plain version; a CUDA tensor goes to the hand-written kernel
 (`csrc/ghost_norm.cu`, `csrc/ghost_norm_blocked.cu`) or raises. There is
 no fallback from one to the other. `launches` and `blocked_launches`
-count the wrappers' kernel calls (one per call, though each kernel takes
-two launches: tile pairs, then the sum of their partials).
+count the wrappers' kernel calls (one per call, whatever the launches
+inside it).
+
+On the card (NVIDIA H100, sm_90a) the bytes bound both kernels: B T²
+(din + dout) operations against 2 B T (din + dout) bf16 bytes, 64
+operations per byte at T = 256, below the card's bf16 ridge of about
+295. Both compute out[b, m] = <S_b S_bᵀ, X_b^m X_b^mᵀ> with a shared
+operand S and M column blocks of X (`ghost_norm`: M = 1, S the narrower
+of a and g, `shared_operands`).
+
+* bfloat16 runs `csrc/gram_mma.cuh` on the tensor cores: 128 x 128 tiles
+  (i <= j) of the grams by wgmma from a 4-stage ring of 64-feature boxes
+  filled by TMA (plain loads where a block width is not a multiple of 8),
+  in three phases. Phase 1 builds S's tiles over `shared_chunks` feature
+  chunks into the workspace and sums them in chunk order; phase 2 builds
+  X's tiles over `blocked_chunks` chunks per column block (never across a
+  block boundary) and multiplies each into the reduced S tile in
+  registers, one float per (b, m, tile, chunk), doubled off the diagonal;
+  phase 3 sums each (b, m)'s floats in order. `plan` gives the counts and
+  the workspace, from the shapes alone, as the C entry points compute
+  them: two calls give the same bits, and the book-keeping and two-pass
+  executions the same norms.
+* float32 keeps the CUDA-core loop of `csrc/gram_tile.cuh`: one block per
+  pair of 32-row tiles, a partial per (pair, m), summed in pair order.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.ghost import blocked_operands
 from repro_torch.kernels import _build
 
-TILE = 32  # sequence rows per tile, as csrc/ghost_norm.cu:kTile
+# as csrc/gram_mma.cuh: rows per tile side, features per box, the blocks a
+# phase aims at (one wave on 132 SMs), boxes per tensor-core chain (its
+# sums are added in f32), floats of one f32 tile
+ROWS, ATOM, WAVE, CHAIN = 128, 64, 132, 8
+TILE_FLOATS = ROWS * ROWS
+F32_TILE = 32  # rows per tile of the float32 path, as csrc/gram_tile.cuh
 
 launches = 0  # ghost_norm kernel calls since the last reset
 blocked_launches = 0  # ghost_norm_blocked kernel calls since the last reset
@@ -65,19 +93,53 @@ def ghost_norm_blocked_ref(a: torch.Tensor, g: torch.Tensor,
     return torch.sum(pg * pg, dim=(2, 3))
 
 
-def num_pairs(t: int) -> int:
-    """Tile pairs (i, j >= i) per example, as csrc/ghost_norm.cu:
-    ghost_norm_num_pairs computes them."""
-    nt = -(-t // TILE)
-    return nt * (nt + 1) // 2
+class GramPlan(NamedTuple):
+    """How one call of either kernel splits its work (see module doc)."""
+    tiles: int           # 128 x 128 gram tiles (i <= j) per example
+    shared_chunks: int   # feature chunks of S (phase 1)
+    blocked_chunks: int  # feature chunks of each column block of X
+    workspace: int       # floats of scratch, bfloat16 inputs
+    f32_workspace: int   # floats of scratch, float32 inputs
+
+
+def plan(b: int, t: int, ds: int, dx: int, m: int = 1) -> GramPlan:
+    """The plan of a call on S (b, t, ds) and X (b, t, dx) in m column
+    blocks, as csrc/gram_mma.cuh:make_plan: one wave of blocks per phase
+    where the grid allows (one chunk of S from b * tiles >= 132 on, e.g.
+    T = 1024 at B = 8), each chunk at least one 64-feature box."""
+    nt = -(-t // ROWS)
+    tiles = nt * (nt + 1) // 2
+    jobs = b * tiles
+    c1 = max(1, min(-(-ds // ATOM), WAVE // jobs))
+    c2 = max(1, min(-(-(dx // m) // ATOM), WAVE // (jobs * m)))
+    ws = jobs * TILE_FLOATS + (jobs * c1 * TILE_FLOATS if c1 > 1 else 0) \
+        + jobs * m * c2
+    nt32 = -(-t // F32_TILE)
+    return GramPlan(tiles, c1, c2, ws, b * m * (nt32 * (nt32 + 1) // 2))
+
+
+def chunk_bounds(width: int, chunks: int) -> list[tuple[int, int]]:
+    """[lo, hi) feature ranges of the `chunks` chunks of a `width`-wide
+    operand or column block: whole 64-feature boxes, split as evenly as
+    integer division allows, as the kernel splits them."""
+    n = -(-width // ATOM)
+    return [(ATOM * (c * n // chunks), min(width, ATOM * ((c + 1) * n
+                                                          // chunks)))
+            for c in range(chunks)]
+
+
+def shared_operands(a: torch.Tensor, g: torch.Tensor):
+    """(S, X) of `ghost_norm`: the narrower of a and g is shared, so the
+    wider one streams through phase 2 (ties: a)."""
+    return (a, g) if a.shape[-1] <= g.shape[-1] else (g, a)
 
 
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("ghost_norm").ghost_norm_launch
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, vp, cl, vp, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
         _fn = fn
     return _fn
@@ -87,8 +149,8 @@ def _kernel_blocked():
     global _fn_blocked
     if _fn_blocked is None:
         fn = _build.load("ghost_norm_blocked").ghost_norm_blocked_launch
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, vp, cl, vp, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
         _fn_blocked = fn
     return _fn_blocked
@@ -117,16 +179,18 @@ def ghost_norm(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cuda":
         raise ValueError(f"ghost_norm: no kernel for device {a.device}")
     _check(a, g)
-    b, t, din = a.shape
-    dout = g.shape[-1]
-    partial = torch.empty((b * num_pairs(t),), dtype=torch.float32,
-                          device=a.device)
+    shared, other = shared_operands(a, g)
+    b, t, ds = shared.shape
+    dx = other.shape[-1]
+    bf16 = a.dtype == torch.bfloat16
+    p = plan(b, t, ds, dx)
+    ws = torch.empty((p.workspace if bf16 else p.f32_workspace,),
+                     dtype=torch.float32, device=a.device)
     out = torch.empty((b,), dtype=torch.float32, device=a.device)
     fn = _kernel()
     with torch.cuda.device(a.device):
-        rc = fn(a.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), b, t, din, dout,
-                int(a.dtype == torch.bfloat16),
+        rc = fn(shared.data_ptr(), other.data_ptr(), ws.data_ptr(),
+                ws.numel(), out.data_ptr(), b, t, ds, dx, int(bf16),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ghost_norm: kernel launch failed with CUDA "
@@ -150,14 +214,16 @@ def ghost_norm_blocked(a: torch.Tensor, g: torch.Tensor, num_blocks: int, *,
     _check(a, g, "ghost_norm_blocked")
     b, t, _ = a.shape
     m = num_blocks
-    partial = torch.empty((b * m * num_pairs(t),), dtype=torch.float32,
-                          device=a.device)
+    ds, dx = shared.shape[-1], blocked.shape[-1]
+    bf16 = a.dtype == torch.bfloat16
+    p = plan(b, t, ds, dx, m)
+    ws = torch.empty((p.workspace if bf16 else p.f32_workspace,),
+                     dtype=torch.float32, device=a.device)
     out = torch.empty((b, m), dtype=torch.float32, device=a.device)
     fn = _kernel_blocked()
     with torch.cuda.device(a.device):
-        rc = fn(shared.data_ptr(), blocked.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), b, t, shared.shape[-1], blocked.shape[-1], m,
-                int(a.dtype == torch.bfloat16),
+        rc = fn(shared.data_ptr(), blocked.data_ptr(), ws.data_ptr(),
+                ws.numel(), out.data_ptr(), b, t, ds, dx, m, int(bf16),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ghost_norm_blocked: kernel launch failed with "

@@ -14,7 +14,11 @@ wrappers, and their kernels on the card.
   (plain loads instead of TMA), scale_contract over S in {1, 3} and its
   3-D form, clip_reduce with (B, M) block factors on both axes (M = 1 / 4
   / 16, o's 160-wide blocks), ghost_norm_blocked over both block axes and
-  M in {1, 2, 4, 16}; two calls of each contraction bitwise equal.
+  M in {1, 2, 4, 16} (blocks of 24 columns: a multiple of 8, not of 16),
+  the ghost norms at T = 1024 (one chunk of the shared operand, five
+  chains); two calls of each contraction and of each ghost norm bitwise
+  equal; the ghost norms' C entry points size the workspace as
+  `ghost_norm.plan`.
 
 Only torch and numpy: these tests run where JAX is not installed.
 """
@@ -191,7 +195,10 @@ def test_checks_accept_the_main_path_shapes():
     a4 = torch.empty((36, 8, 256, 2560), dtype=torch.bfloat16)
     g4 = torch.empty((36, 8, 256, 19_456), dtype=torch.bfloat16)
     SC._check(a4, g4, torch.ones(36, 8))
-    assert GN.num_pairs(256) == 36  # 8 * 36 = 288 blocks on 132 SMs
+    # bf16: 3 tiles of 128 rows per example, S's 40 boxes in 5 chunks and
+    # g's 96 in 5 (8 x 3 x 5 = 120 blocks a phase on 132 SMs); f32: 36
+    # pairs of 32-row tiles per example
+    assert GN.plan(8, 256, 2560, 6144) == (3, 5, 5, 2_359_416, 288)
     # per_shard (M = 16): qkv (2560 -> 6144) and o (4096 -> 2560) blocks
     for din, dout in ((2560, 6144), (4096, 2560)):
         a = torch.empty((8, 256, din), dtype=torch.bfloat16)
@@ -254,10 +261,12 @@ def _on_card():
         pytest.skip("needs compute capability 9.x (Hopper)")
 
 
-# + granite's router (1536 -> 40: 12 tiles, split over the examples) and
-# an odd dout past 4,096 (g's rows unaligned: plain loads, not TMA)
+# + granite's router (1536 -> 40: 12 tiles, split over the examples), an
+# odd dout past 4,096 (g's rows unaligned: plain loads, not TMA) and T =
+# 1024 (the ghost norm's one-chunk plan, five chains of 512 features)
 CARD_SHAPES = KERNEL_SHAPES + [(8, 256, 256, 384), (2, 100, 130, 260),
-                               (8, 256, 1536, 40), (2, 70, 192, 4097)]
+                               (8, 256, 1536, 40), (2, 70, 192, 4097),
+                               (4, 1024, 2304, 2560)]
 
 
 @pytest.mark.cuda
@@ -308,10 +317,12 @@ def test_scale_contract_matches_plain_version_on_card(shape, dtype):
 
 
 # B, T, din, dout, M, axis: ragged T, T = 1, both axes, blocks narrower
-# and wider than a 32-column chunk, M = 1, and the o shape of per_shard
+# and wider than a 32-column chunk, M = 1, the o shape of per_shard and
+# 24-column blocks (TMA's 4-D map with 48-byte strides, two k16 steps)
 BLOCKED_CARD_CASES = [(2, 37, 24, 40, 4, "out"), (3, 1, 16, 8, 2, "in"),
                       (2, 70, 48, 40, 4, "out"), (1, 9, 64, 20, 4, "in"),
-                      (2, 33, 20, 45, 1, "out"), (8, 256, 512, 160, 16, "out")]
+                      (2, 33, 20, 45, 1, "out"), (8, 256, 512, 160, 16, "out"),
+                      (4, 64, 256, 384, 16, "out")]
 
 
 @pytest.mark.cuda
@@ -390,3 +401,51 @@ def test_contractions_are_bitwise_repeatable_on_card(shape):
     assert torch.equal(first, SC.scale_contract(a4, g4, f4))
     # slice s sums in clip_reduce's order
     assert torch.equal(first[1], CR.clip_reduce(a, g, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 256, 2560, 6144), (2, 70, 192, 4097),
+                                   (4, 1024, 2304, 2560), (3, 37, 20, 45)])
+def test_ghost_norms_are_bitwise_repeatable_on_card(shape):
+    """No atomics and a plan from the shapes alone: two calls give the same
+    bits, by TMA and by plain loads (odd widths), with several chunks and
+    with one, and whatever the inputs' alignment."""
+    _on_card()
+    a, g = (T(v).to("cuda", torch.bfloat16) for v in _ag(*shape))
+    assert torch.equal(GN.ghost_norm(a, g), GN.ghost_norm(a, g))
+    # an offset of one element: plain loads instead of TMA, the same plan
+    a1 = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")[1:]
+    a1 = a1.view(a.shape).copy_(a)
+    assert torch.equal(GN.ghost_norm(a1, g), GN.ghost_norm(a, g))
+    for m, axis in ((4, "out"), (2, "in")):
+        if (g if axis == "out" else a).shape[-1] % m:
+            continue
+        assert torch.equal(GN.ghost_norm_blocked(a, g, m, block_axis=axis),
+                           GN.ghost_norm_blocked(a, g, m, block_axis=axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [1, 0])
+def test_gram_workspace_entry_points_match_the_plan(bf16):
+    """The C entry points compute the plan's workspace, at the main-path
+    shapes, T = 1, T = 1024 and T = 2048."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    _on_card()
+    gn = _build.load("ghost_norm").ghost_norm_workspace
+    gb = _build.load("ghost_norm_blocked").ghost_norm_blocked_workspace
+    gn.restype = gb.restype = ctypes.c_longlong
+    for b, t, din, dout, m in [(8, 256, 2560, 6144, 16), (8, 256, 4096, 2560,
+                                                          16),
+                               (8, 256, 2560, 151_936, 1), (8, 256, 1536,
+                                                            49_155, 1),
+                               (3, 1, 16, 8, 2), (4, 1024, 2304, 2560, 1),
+                               (8, 2048, 2560, 6144, 16)]:
+        ds, dx = min(din, dout), max(din, dout)  # ghost_norm's (S, X)
+        p = GN.plan(b, t, ds, dx)
+        assert gn(b, t, ds, dx, bf16) == (p.workspace if bf16
+                                          else p.f32_workspace)
+        p = GN.plan(b, t, din, dout, m)
+        assert gb(b, t, din, dout, m, bf16) == (p.workspace if bf16
+                                                else p.f32_workspace)
