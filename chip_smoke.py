@@ -22,10 +22,20 @@ exits non-zero:
   2 kernels   (run after phase 3, so its launches stay out of phase 3's
               count) paged_attn against its plain PyTorch version on the
               card: a sweep of ragged tables, partial last pages, trash
-              entries, dv < dvp on an aliased pool, head dims 16/64/128,
-              bf16 and f32; then at the main path's own shapes, on
-              q/pools/pt/pos captured from layer 0 during phase 3, with
-              kernel, plain, bound and library (gather + SDPA) times.
+              entries, dv < dvp on an aliased pool, head dims 3/12/16/
+              64/128 (rows of 6, 24 and 32 bytes among them), bf16 and
+              f32, MLA's latent widths (KV = 1, G = 128, dq = 576, dv =
+              512 on an aliased pool, B = 2 and 8, an f32 query over bf16
+              and over f32 pools, 4,096 tokens) and long GQA contexts
+              (4,096 tokens at qwen3-4b's head layout, 32 splits at B =
+              1), two calls bitwise equal at every point; then at the
+              main path's own shapes, on q/pools/pt/pos captured from
+              layer 0 during phase 3, and at MLA's (B = 8, 4,096 tokens,
+              f32 q over a bf16 pool), with kernel (eager and CUDA-graph
+              replay), plain, bound and library (gather + SDPA) times,
+              the bitwise repeat, the device ms of the split kernel
+              and of the combine (torch.profiler) and the host's µs to
+              enqueue a call.
   4 cuda/cpu  qwen3-4b-reduced in f32 from one numpy parameter tree,
               served on the card (kernel) and on the CPU (plain version):
               the tokens must be identical, up to an argmax tie (top-2
@@ -224,10 +234,12 @@ def graph_ms(torch, fn, iters=50, flush=None):
 # Phase 2 helpers.
 # ---------------------------------------------------------------------------
 
-def sweep_inputs(torch, b, kv, g, dq, dv, n, page_len, p_tab, dtype, seed):
+def sweep_inputs(torch, b, kv, g, dq, dv, n, page_len, p_tab, dtype, seed,
+                 pool_dtype=None, full=False):
     """Ragged page tables with trash-mapped tails (trash page = n),
-    positions covering one token, a partial page and a full table; an
-    aliased pool when dv is given."""
+    positions covering one token, a partial page and a full table (every
+    position full with `full`); an aliased pool when dv is given; the
+    pools in `pool_dtype` (default: q's)."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, kv, g, dq)).astype(np.float32)
     kp = rng.standard_normal((n + 1, page_len, kv, dq)).astype(np.float32)
@@ -236,41 +248,62 @@ def sweep_inputs(torch, b, kv, g, dq, dv, n, page_len, p_tab, dtype, seed):
     pos[-1] = p_tab * page_len - 1
     if b > 2:
         pos[1] = page_len + page_len // 2
+    if full:
+        pos[:] = p_tab * page_len - 1
     pt = rng.integers(0, n, size=(b, p_tab)).astype(np.int32)
     for i in range(b):
         pt[i, pos[i] // page_len + 1:] = n
     dt = getattr(torch, dtype)
+    pdt = dt if pool_dtype is None else getattr(torch, pool_dtype)
     tq = torch.from_numpy(q).to("cuda", dt)
-    tk = torch.from_numpy(kp).to("cuda", dt)
+    tk = torch.from_numpy(kp).to("cuda", pdt)
     if dv is None:
         vp = rng.standard_normal(kp.shape).astype(np.float32)
-        tv = torch.from_numpy(vp).to("cuda", dt)
+        tv = torch.from_numpy(vp).to("cuda", pdt)
     else:
         tv = tk
     return (tq, tk, tv, torch.from_numpy(pt).cuda(),
             torch.from_numpy(pos).cuda())
 
 
-SWEEP = [  # b, kv, g, dq, dv (None: separate value pool), n, L, P
-    (3, 2, 2, 16, None, 7, 8, 3),
-    (4, 1, 1, 16, None, 9, 2, 5),
-    (3, 2, 4, 64, None, 9, 16, 4),
-    (2, 1, 8, 64, 32, 5, 4, 4),        # aliased pool, dv < dvp
-    (8, 8, 4, 128, None, 40, 16, 17),  # qwen3-4b head layout
-    (2, 2, 16, 128, 64, 6, 16, 3),     # aliased pool, dv < dvp
-    (3, 1, 3, 128, None, 12, 16, 6),   # odd G
+SAME = (("float32", None), ("bfloat16", None))  # q dtype, pool dtype
+MIXED = (("float32", "bfloat16"), ("float32", "float32"))
+SWEEP = [  # b, kv, g, dq, dv (None: separate value pool), n, L, P; dtypes
+    ((3, 2, 2, 16, None, 7, 8, 3), SAME),
+    ((4, 1, 1, 16, None, 9, 2, 5), SAME),
+    ((3, 2, 4, 64, None, 9, 16, 4), SAME),
+    ((2, 1, 8, 64, 32, 5, 4, 4), SAME),         # aliased pool, dv < dvp
+    ((8, 8, 4, 128, None, 40, 16, 17), SAME),   # qwen3-4b head layout
+    ((2, 2, 16, 128, 64, 6, 16, 3), SAME),      # aliased pool, dv < dvp
+    ((3, 1, 3, 128, None, 12, 16, 6), SAME),    # odd G
+    ((3, 2, 3, 12, None, 7, 8, 3), SAME),       # 24- / 48-byte rows
+    ((2, 2, 2, 3, 2, 7, 4, 5), SAME),           # 6-byte bf16 rows, aliased
+    # MLA's latent decode (deepseek-v3): KV = 1, G = 128, dq = 512 + 64,
+    # the value read cut to 512 on the aliased pool, 4,096 tokens
+    ((2, 1, 128, 576, 512, 300, 16, 256), MIXED),
+    ((8, 1, 128, 576, 512, 600, 16, 256), MIXED),
+    # long GQA contexts at qwen3-4b's head layout: 4,096 tokens (5
+    # splits of 832 rows), and B = 1 (32 splits of 128)
+    ((8, 8, 4, 128, None, 2100, 16, 256), SAME),
+    ((1, 8, 4, 128, None, 300, 16, 256), SAME + (("float32", "bfloat16"),)),
 ]
+# the MLA point timed beside the main path: B = 8, 4,096 tokens each, an
+# f32 query over a bf16 latent pool
+MLA_TIMED = ((8, 1, 128, 576, 512, 600, 16, 256), "float32", "bfloat16")
+HOST_CALLS = 200
 
 
 def library_attn(torch, q, kpool, vpool, pt, pos, scale, dv):
     """Yardstick, never called by the port: gather through the table, then
-    one F.scaled_dot_product_attention call."""
+    one F.scaled_dot_product_attention call (the pools cast to q's dtype
+    where they differ)."""
     import torch.nn.functional as F
     b, kv, g, dq = q.shape
     s = pt.shape[1] * kpool.shape[1]
     idx = pt.long()
-    k = kpool[idx].reshape(b, s, kv, dq).transpose(1, 2)
-    v = vpool[idx].reshape(b, s, kv, -1)[..., :dv].transpose(1, 2)
+    k = kpool[idx].reshape(b, s, kv, dq).transpose(1, 2).to(q.dtype)
+    v = vpool[idx].reshape(b, s, kv, -1)[..., :dv].transpose(1, 2).to(
+        q.dtype)
     mask = (torch.arange(s, device=q.device)[None] <= pos[:, None])
     out = F.scaled_dot_product_attention(
         q.reshape(b, kv * g, 1, dq), k, v, attn_mask=mask[:, None, None],
@@ -280,15 +313,18 @@ def library_attn(torch, q, kpool, vpool, pt, pos, scale, dv):
 
 def paged_attn_bound(q, kpool, vpool, pt, pos, dv, bw):
     """(bound ms, bound_by) for the work this input needs: each valid K/V
-    row, q, the used table entries and pos read once, out written once;
-    2 * (dq + dv) operations per (query head, valid row)."""
+    row (an aliased pool's row once: its first dv features are the value),
+    q, the used table entries and pos read once, out written once; 2 * (dq
+    + dv) operations per (query head, valid row), at the peak rate of q's
+    type."""
     b, kv, g, dq = q.shape
     page_len = kpool.shape[1]
     cap = pt.shape[1] * page_len
     n_valid = np.minimum(pos.cpu().numpy().astype(np.int64) + 1, cap)
-    esize = q.element_size()
+    esize = kpool.element_size()
     rows = int(n_valid.sum())
-    nbytes = (rows * kv * (dq + dv) * esize + q.numel() * esize
+    row_width = dq if vpool.data_ptr() == kpool.data_ptr() else dq + dv
+    nbytes = (rows * kv * row_width * esize + q.numel() * q.element_size()
               + b * kv * g * dv * 4
               + int((-(-n_valid // page_len)).sum()) * 4 + b * 4)
     ops = rows * kv * g * 2 * (dq + dv)
@@ -433,6 +469,9 @@ def profile_decode(torch, gpu, model, params, eng, step_ms, steps=3):
           "unprofiled_ms_per_serve_step": step_ms,
           "device_idle_share": 1.0 - device_ms / step_ms,
           "device_ops_per_serve_step": sum(r[2] for r in rows),
+          # the split kernel and the combine
+          "paged_attn_ms_per_step": sum(ms for k, ms, _ in rows
+                                        if "paged_attn" in k),
           "top": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": n}
                   for k, ms, n in rows[:8]]})
 
@@ -441,59 +480,115 @@ def phase_kernels(torch, gpu, main_snap):
     from repro_torch.kernels import paged_attn as K
     bw = bandwidth(gpu)
     worst = 0.0
-    for i, shape in enumerate(SWEEP):
-        for dtype in ("float32", "bfloat16"):
-            q, kp, vp, pt, pos = sweep_inputs(torch, *shape, dtype, seed=i)
+    for i, (shape, dtypes) in enumerate(SWEEP):
+        for dtype, pool_dtype in dtypes:
+            q, kp, vp, pt, pos = sweep_inputs(torch, *shape, dtype, seed=i,
+                                              pool_dtype=pool_dtype)
             dv = shape[4]
             scale = 1.0 / math.sqrt(shape[3])
             got = K.paged_attn(q, kp, vp, pt, pos, scale=scale, dv=dv)
+            again = K.paged_attn(q, kp, vp, pt, pos, scale=scale, dv=dv)
             want = K.paged_attn_ref(q, kp, vp, pt, pos, scale=scale, dv=dv)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             ok = bool(torch.allclose(got, want, **TOL))
+            bitwise = bool(torch.equal(got, again))
             worst = max(worst, err)
+            pl = K.plan(*shape[:3], shape[3], vp.shape[-1] if dv is None
+                        else dv, shape[7], shape[6], kp.dtype, dv is not None)
             emit({"phase": "kernel_vs_plain", "kernel": "paged_attn",
                   "shape": dict(zip(["b", "kv", "g", "dq", "dv", "n", "L",
                                      "P"], shape)), "dtype": dtype,
-                  "max_abs_err": err, "tol": TOL, "ok": ok})
+                  "pool_dtype": pool_dtype or dtype,
+                  "plan": pl._asdict(), "max_abs_err": err, "tol": TOL,
+                  "ok": ok, "bitwise_repeat": bitwise})
             if not ok:
                 raise RuntimeError(f"paged_attn disagrees at {shape} "
-                                   f"{dtype}: max abs err {err}")
+                                   f"{dtype}/{pool_dtype}: max abs err "
+                                   f"{err}")
+            if not bitwise:
+                raise RuntimeError(f"paged_attn: two calls at {shape} "
+                                   f"{dtype}/{pool_dtype} differ")
+            del q, kp, vp, got, again, want
 
-    q, kp, vp, pt, pos, kw = main_snap
-    dv = vp.shape[-1]
-    got = K.paged_attn(q, kp, vp, pt, pos, **kw)
-    want = K.paged_attn_ref(q, kp, vp, pt, pos, **kw)
-    lib = library_attn(torch, q, kp, vp, pt, pos, kw["scale"], dv)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    worst = max(worst, err)
-    if not torch.allclose(got, want, **TOL):
-        raise RuntimeError(f"paged_attn disagrees at the main path's "
-                           f"shapes: max abs err {err}")
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    ms = cuda_ms(torch, lambda: K.paged_attn(q, kp, vp, pt, pos, **kw),
-                 flush=flush)
-    plain_ms = cuda_ms(torch, lambda: K.paged_attn_ref(q, kp, vp, pt, pos,
-                                                       **kw), flush=flush)
-    lib_ms = cuda_ms(torch, lambda: library_attn(torch, q, kp, vp, pt, pos,
-                                                 kw["scale"], dv),
-                     flush=flush)
-    bound_ms, bound_by = paged_attn_bound(q, kp, vp, pt, pos, dv, bw)
+    q, kp, vp, pt, pos, kw = main_snap
+    row = paged_attn_times(torch, gpu, K, "main_path", q, kp, vp, pt, pos,
+                           kw["scale"], vp.shape[-1], bw, flush)
+    shape, dtype, pool_dtype = MLA_TIMED
+    mla_in = sweep_inputs(torch, *shape, dtype, seed=99,
+                          pool_dtype=pool_dtype, full=True)
+    mla = paged_attn_times(torch, gpu, K, "mla", *mla_in,
+                           1.0 / math.sqrt(192), shape[4], bw, flush)
+    worst = max(worst, row["max_abs_err"], mla["max_abs_err"])
     result = {"name": "paged_attn", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
               "replaces": "src/repro/kernels/paged_attn.py:83",
-              "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by,
-              "library_ms": lib_ms}
-    emit({"phase": "kernel_main_shapes", "gpu": gpu, "kernel": "paged_attn",
-          "q": list(q.shape), "kpool": list(kp.shape), "pt": list(pt.shape),
-          "pos": pos.tolist(), "dtype": str(q.dtype), "max_abs_err": err,
-          "library_max_abs_err": float((lib.float() - want).abs().max()),
-          "tol": TOL, **{k: result[k] for k in
-                         ("ms", "plain_ms", "bound_ms", "bound_by",
-                          "library_ms")}})
+              "max_abs_err": worst,
+              **{k: row[k] for k in ("ms", "graph_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+              "mla": {k: mla[k] for k in ("q", "kpool", "dtype",
+                                          "pool_dtype", "ms", "graph_ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "max_abs_err")}}
     return result
+
+
+def paged_attn_times(torch, gpu, K, label, q, kp, vp, pt, pos, scale, dv,
+                     bw, flush) -> dict:
+    """paged_attn at one input against its plain version (TOL), the
+    bitwise repeat, then kernel (eager and CUDA-graph replay), plain,
+    library and bound ms per call, the L2 flushed before each, and the
+    device ms of the split kernel and the combine; emits and returns the
+    kernel_main_shapes line. Raises on a disagreement."""
+    kw = dict(scale=scale, dv=dv)
+    got = K.paged_attn(q, kp, vp, pt, pos, **kw)
+    again = K.paged_attn(q, kp, vp, pt, pos, **kw)
+    want = K.paged_attn_ref(q, kp, vp, pt, pos, **kw)
+    lib = library_attn(torch, q, kp, vp, pt, pos, scale, dv)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **TOL):
+        raise RuntimeError(f"paged_attn disagrees at the {label} shapes: "
+                           f"max abs err {err}")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"paged_attn: two calls at the {label} shapes "
+                           f"differ")
+    lib_err = float((lib.float() - want).abs().max())
+    del got, again, want, lib
+    call = lambda: K.paged_attn(q, kp, vp, pt, pos, **kw)  # noqa: E731
+    times = {
+        "ms": cuda_ms(torch, call, flush=flush),
+        "graph_ms": graph_ms(torch, call, flush=flush),
+        "plain_ms": cuda_ms(torch, lambda: K.paged_attn_ref(
+            q, kp, vp, pt, pos, **kw), flush=flush),
+        "library_ms": cuda_ms(torch, lambda: library_attn(
+            torch, q, kp, vp, pt, pos, scale, dv), flush=flush)}
+    times["bound_ms"], bound_by = paged_attn_bound(q, kp, vp, pt, pos, dv,
+                                                   bw)
+    # the host's time to enqueue a call (the wrapper's checks, plan,
+    # allocation and two launches), which a serving step pays 36 times
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        call()
+    host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    b, kv, g, dq = q.shape
+    pl = K.plan(b, kv, g, dq, dv, pt.shape[1], kp.shape[1], kp.dtype,
+                vp.data_ptr() == kp.data_ptr())
+    row = {"phase": "kernel_main_shapes", "gpu": gpu, "kernel": "paged_attn",
+           "point": label, "q": list(q.shape), "kpool": list(kp.shape),
+           "vpool_is_kpool": vp.data_ptr() == kp.data_ptr(),
+           "pt": list(pt.shape), "pos": pos.tolist(),
+           "dtype": str(q.dtype), "pool_dtype": str(kp.dtype),
+           "plan": pl._asdict(), "max_abs_err": err,
+           "library_max_abs_err": lib_err, "tol": TOL,
+           "bitwise_repeat": True, **times, "bound_by": bound_by,
+           "host_us_per_call": host_us,
+           "launch_ms": launch_split(torch, call)}
+    emit(row)
+    return row
 
 
 def phase_cuda_vs_cpu(torch, gpu):

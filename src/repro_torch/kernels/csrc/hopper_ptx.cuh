@@ -1,7 +1,7 @@
-// Hopper (sm_90a) PTX helpers shared by the tensor-core kernels
-// (contract_mma.cuh, gram_mma.cuh): shared-memory addresses, mbarriers,
-// TMA tile loads, the wgmma fence / commit / wait, and the driver's
-// tensor-map encoder reached through the runtime.
+// Hopper (sm_90a) PTX helpers shared by the kernels (contract_mma.cuh,
+// gram_mma.cuh, paged_attn.cu): shared-memory addresses, mbarriers, TMA
+// tile loads, cp.async copies, the wgmma fence / commit / wait, and the
+// driver's tensor-map encoder reached through the runtime.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -62,6 +62,48 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Asynchronous copy of `bytes` (16, 8 or 4) from global memory to the
+// shared-memory address `dst` (smem_u32), both aligned to `bytes`; 2 falls
+// back to a plain load and store (odd bf16 widths). Completion is tracked
+// by commit groups.
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else if (bytes == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("st.shared.u16 [%0], %1;" ::"r"(dst),
+                 "h"(*static_cast<const uint16_t*>(src))
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most `n` of this thread's commit groups are in flight
+// (n is uniform; the instruction takes an immediate, so it is switched).
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;" ::: "memory"); break;
+  }
 }
 
 template <int N>
