@@ -217,6 +217,36 @@ __device__ __forceinline__ void load_boxes(uint8_t* dst,
     }
 }
 
+// A block's accumulator fragments (m64nN per warpgroup: rows r, r + 8 of
+// warp w's 16, r = m0 + 16 w + lane / 4; columns 8 j + 2 (lane % 4) +
+// {0, 1}) into the float (din, dout) matrix `out`, as float2 pairs where
+// dout is even; rows past din and columns past dout are not stored.
+template <int kRegs>
+__device__ __forceinline__ void store_tile(const float (&acc)[kRegs],
+                                           float* out, int m0, int n0,
+                                           int din, int dout) {
+  const int lane = threadIdx.x % 32;
+  const int r = m0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const bool pairs = (dout % 2) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r + 8 * h;
+    if (i >= din) continue;
+    float* row = out + static_cast<size_t>(i) * dout;
+#pragma unroll
+    for (int j = 0; j < kRegs / 4; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (pairs && col + 1 < dout) {
+        *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
+      } else {
+        if (col < dout) row[col] = v0;
+        if (col + 1 < dout) row[col + 1] = v1;
+      }
+    }
+  }
+}
+
 template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 contract_kernel(const __grid_constant__ Params p) {
@@ -349,27 +379,8 @@ contract_kernel(const __grid_constant__ Params p) {
     refill(it - 1);
   }
 
-  // the fragment: rows r, r + 8; columns 8 j + 2 (lane % 4) + {0, 1}
-  float* out = p.out + static_cast<size_t>(z) * p.din * p.dout;
-  const int r = m0 + wg * 64 + warp * 16 + lane / 4;
-  const bool pairs = (p.dout % 2) == 0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = r + 8 * h;
-    if (i >= p.din) continue;
-    float* row = out + static_cast<size_t>(i) * p.dout;
-#pragma unroll
-    for (int j = 0; j < kRegs / 4; ++j) {
-      const int col = n0 + 8 * j + 2 * (lane % 4);
-      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      if (pairs && col + 1 < p.dout) {
-        *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
-      } else {
-        if (col < p.dout) row[col] = v0;
-        if (col + 1 < p.dout) row[col + 1] = v1;
-      }
-    }
-  }
+  store_tile(acc, p.out + static_cast<size_t>(z) * p.din * p.dout, m0, n0,
+             p.din, p.dout);
 }
 
 // out[s] = sum over p of part[s splits + p], p in order.

@@ -14,7 +14,11 @@ in the `kernels` engine, against the JAX package.
   when norms are asked for;
 * the composed route (the fit rule patched off) gives the same answer;
 * on a Hopper card (`-m cuda`; skipped elsewhere) the kernel against its
-  plain version.
+  plain version, up to B = 16,384 (past the first kernel's limit) and B =
+  1024 at the route rule's 1024 x 1024 limit with extra memory within
+  the plan's scratch; two calls bitwise equal; a CUDA-graph replay, twice,
+  bitwise equal to the eager call; one device kernel a call; the C plan
+  equal to `fused_clip.plan`.
 
 Tolerances: f32, the same math summed in another order: rtol 1e-5, and
 for dW an atol of 1e-5 of its largest magnitude (entries near zero).
@@ -244,9 +248,11 @@ def _on_card():
 
 
 # B, T, din, dout: ragged T, T = 1, T past one 256-row chunk, din and dout
-# off the 64-wide tiles, the router of granite-moe-3b-a800m, the fit limit
+# off the 64-wide tiles, the router of granite-moe-3b-a800m, the fit limit,
+# a DP-scale batch there (1,024 rounds of one example), 16,384 examples
 CARD_CASES = [(3, 37, 20, 45), (1, 1, 64, 4096), (3, 200, 1000, 40),
-              (8, 300, 40, 1000), (8, 256, 1536, 40), (8, 256, 1024, 1024)]
+              (8, 300, 40, 1000), (8, 256, 1536, 40), (8, 256, 1024, 1024),
+              (1024, 8, 1024, 1024), (16384, 1, 64, 40)]
 
 
 @pytest.mark.cuda
@@ -270,3 +276,112 @@ def test_kernel_matches_plain_version_on_card(case, enc, dtype):
         for x, w in zip(got, FC.fused_norm_clip_ref(a, g, c, e)):
             atol = 1e-4 * float(w.abs().max())
             torch.testing.assert_close(x, w, rtol=1e-4, atol=atol)
+
+
+def _card_inputs(case, enc="mixed", dtype="bfloat16"):
+    a, g, c, extra = _inputs(*case, enc)
+    dt = getattr(torch, dtype)
+    return (T(a).to("cuda", dt), T(g).to("cuda", dt), T(c).cuda(),
+            T(extra).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_two_calls_give_the_same_bits_on_card(case, dtype):
+    _on_card()
+    a, g, c, extra = _card_inputs(case, dtype=dtype)
+    first, second = (FC.fused_norm_clip(a, g, c, extra) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_extra_memory_stays_within_the_plans_scratch_on_card(dtype):
+    """B = 1024 at the route rule's 1024 x 1024 limit: beside its inputs
+    and outputs a call holds the plan's scratch (1 KB here; the first
+    kernel's workspace was 4.3 GB), within 1 MB of the allocator's
+    rounding."""
+    _on_card()
+    case = (1024, 8, 1024, 1024)
+    a, g, c, extra = _card_inputs(case, dtype=dtype)
+    FC.fused_norm_clip(a, g, c, extra)  # the barrier words, once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    n, dw = FC.fused_norm_clip(a, g, c, extra)
+    torch.cuda.synchronize()
+    extra_bytes = (torch.cuda.max_memory_allocated() - before
+                   - 4 * (n.numel() + dw.numel()))
+    p = FC.plan(*case, a.dtype, FC.sm_count(a.device))
+    assert extra_bytes <= 4 * p.scratch + (1 << 20), (extra_bytes, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(8, 256, 1536, 40), (3, 37, 20, 45),
+                                  (64, 8, 1024, 1024)])
+def test_graph_replay_gives_the_eager_bits_on_card(case):
+    """The cooperative launch captured in a CUDA graph and replayed twice:
+    the barrier words need no reset between replays."""
+    _on_card()
+    a, g, c, extra = _card_inputs(case)
+    want = FC.fused_norm_clip(a, g, c, extra)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        FC.fused_norm_clip(a, g, c, extra)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = FC.fused_norm_clip(a, g, c, extra)
+    for _ in range(2):
+        for x in got:
+            x.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_device_kernel_a_call_on_card(dtype):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _on_card()
+    a, g, c, extra = _card_inputs((8, 256, 1536, 40), dtype=dtype)
+    FC.fused_norm_clip(a, g, c, extra)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            FC.fused_norm_clip(a, g, c, extra)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    assert len(kernels) == 1 and "fused_kernel" in next(iter(kernels)), \
+        kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_c_plan_is_the_python_plan(dtype):
+    """The C entry point fused_norm_clip_plan gives `fused_clip.plan` and
+    `plan_fits`, at 132 and 114 SMs and at the card's count."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    _on_card()
+    c_plan = _build.load("fused_norm_clip").fused_norm_clip_plan
+    c_plan.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    c_plan.restype = ctypes.c_int
+    shapes = [(8, 256, 1536, 40), (1024, 8, 1024, 1024), (16384, 1, 64, 40),
+              (3, 37, 20, 45), (1, 1, 64, 4096), (5, 300, 200, 130),
+              (2, 3, 8192, 8192)]
+    for sms in (132, 114, FC.sm_count(torch.device("cuda"))):
+        for shape in shapes:
+            want = FC.plan(*shape, dtype, sms)
+            out = (ctypes.c_longlong * len(want))()
+            fit = c_plan(*shape, int(dtype == torch.bfloat16), sms, out)
+            assert (tuple(out), bool(fit)) == (
+                tuple(want), FC.plan_fits(want, sms)), (shape, sms)
