@@ -78,7 +78,9 @@ exits non-zero:
               block axes and M = 1 / 4 / 16 for ghost_norm_blocked and for
               clip_reduce's block factors, ragged T, T = 1, din != dout,
               granite's router 1536 -> 40, an odd dout past 4,096, T =
-              1024 (the ghost norms' one-chunk plan), ghost_norm_blocked's
+              1024 (the ghost norms' one-chunk plan), T = 4096 at qwen3-
+              4b's qkv and head widths for ghost_norm and clip_reduce (the
+              long-context path's length), ghost_norm_blocked's
               24-column blocks (a multiple of 8, not of 16), f32 and bf16,
               factors 0 / 1e-3 / 0.5 / 1; two calls of each of the four
               kernels bitwise equal at every point), then at the captured
@@ -92,10 +94,13 @@ exits non-zero:
   7 cuda/cpu  qwen3-4b-reduced in f32 from one numpy parameter tree and
               one numpy batch: one `dp_clipped_gradients` each of
               per_layer by the fused route (every linear of the reduced
-              config is within its rule) and by the composed one (the
-              rule patched off), ghost_flat (bk), per_group
-              (bk) and per_shard (per_layer over M = 4 blocks), and
-              per_layer on granite-moe-3b-a800m-reduced (f32), on the
+              config is within its rule), by the composed one (the rule
+              patched off) and in 2 microbatches (`dp_sgd
+              .clipped_microbatches`, the accumulation), naive_flat (one
+              no-norm backward per example: 4 x 9 clip_reduce),
+              ghost_flat (bk), per_group (bk) and per_shard (per_layer
+              over M = 4 blocks), and per_layer on
+              granite-moe-3b-a800m-reduced (f32), on the
               card (kernels) and on the CPU (plain versions): they must
               agree in loss, (K, B) norms and every clipped gradient leaf;
               on the card bk must agree with twopass too. The card must
@@ -142,10 +147,41 @@ exits non-zero:
               replay too); the
               kernels line carries them under each kernel's "moe" key, and
               its max_abs_err is the worst over both models' inputs.
+ 11 scale     the rest of single-device training at full width through
+              the same `Trainer` (1 warm-up + 3 timed steps each, the
+              sampling rate 1/16 of phase 5): qwen3-4b naive_flat (B = 8,
+              T = 256, --microbatches 4: the fewest whose per-example
+              gradients, 8.8 GB each, fit beside the f32 accumulator) as
+              the seventh Figure-1 variant with its ratio_vs_nonprivate;
+              per_layer at B = 64 in 8 microbatches on qwen3-4b and on
+              granite; qwen3-4b per_layer at T = 4096, B = 2 (every
+              layer's attention on the double-blocked branch). None is
+              profiled (the profiler's post-processing of one such step
+              takes about two minutes). Each prints ms per step,
+              ms per example against its model's B = 8 per_layer run,
+              peak memory, and each step's mean threshold and clip
+              fraction. Launches per step of ghost_norm / clip_reduce /
+              fused_norm_clip (`expected_launches`, per microbatch times
+              the microbatches; naive_flat one clip_reduce per linear and
+              example):
+                qwen3-4b naive_flat        0 / 1,160 /   0
+                qwen3-4b per_layer B = 64  1,160 / 1,160 / 0
+                granite per_layer B = 64   520 /   520 / 256
+                qwen3-4b per_layer T = 4096  145 / 145 / 0
+              naive_flat's clip_reduce inputs at the five linear shapes
+              (its first step, kept on the host: B = 2 a call, factor 1,
+              one example's rows zero) then go through clip_reduce, and
+              the T = 4096 path's through ghost_norm and clip_reduce,
+              against their plain versions with phase 6's tolerances,
+              times and float64 errors, under each kernel's "naive_flat"
+              and "long_context" keys of the kernels line (times summed
+              over a step's calls: 8 per linear and layer for
+              naive_flat).
 
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
-scale of the checks' atol), the worst over its checks.
+scale of the checks' atol), the worst over its checks; its launches are
+the sum over phases 5, 8 and 11.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -682,6 +718,10 @@ SUM_SWEEP = [
     (3, 37, 20, 45), (2, 1, 130, 7), (4, 64, 200, 300), (1, 33, 128, 129),
     (5, 100, 257, 64), (8, 256, 256, 384), (8, 256, 1536, 40),
     (2, 70, 192, 4097), (4, 1024, 2304, 2560)]
+# ghost_norm and clip_reduce at the long-context path's B = 2, T = 4096
+# and qwen3-4b's widths: qkv 2560 -> 6144 and the head 2560 -> 151,936,
+# with factors 1 and 0.5
+LONG_SWEEP = [(2, 4096, 2560, 6144), (2, 4096, 2560, 151936)]
 # clip_reduce with (B, M) block factors: B, T, din, dout, M, axis (both
 # axes; M = 16 with o's 160-wide blocks, not a multiple of the 128-wide
 # tile; M = 4; M = 1; ragged T, T = 1)
@@ -717,14 +757,15 @@ def linear_shapes(cfg) -> dict:
 
 
 def train_args(mode: str, execution: str = "bk", group_count: int = 2,
-               arch: str = "qwen3-4b"):
+               arch: str = "qwen3-4b", batch: int = 8, seq: int = 256,
+               microbatches: int = 1, docs: int = 64):
     from repro_torch.launch import train
     return train.build_train_parser().parse_args(
         ["--arch", arch, "--clipping", mode, "--execution", execution,
          "--group-count", str(group_count), "--epsilon", "8",
-         "--steps", str(TRAIN_WARMUP + TRAIN_TIMED), "--batch", "8",
-         "--seq", "256", "--docs", "64", "--optimizer", "adam",
-         "--seed", "0"])
+         "--steps", str(TRAIN_WARMUP + TRAIN_TIMED), "--batch", str(batch),
+         "--seq", str(seq), "--docs", str(docs), "--microbatches",
+         str(microbatches), "--optimizer", "adam", "--seed", "0"])
 
 
 def linear_leaves(cfg) -> list:
@@ -745,13 +786,16 @@ def linear_leaves(cfg) -> list:
             + [("head", d, cfg.vocab_size, False)])
 
 
-def expected_launches(label: str, cfg, fused_route: bool = True) -> dict:
-    """Kernel launches per step of a variant (the tables in the doc): a
-    BK step takes ghost_norm per linear and one scale_contract per linear
-    leaf; non_private clip_reduce per linear; a blocked linear
-    ghost_norm_blocked and clip_reduce; a twopass step ghost_norm and
-    clip_reduce; per_layer fused_norm_clip where the route rule passes
-    (unless `fused_route` is off), else ghost_norm and clip_reduce."""
+def expected_launches(label: str, cfg, fused_route: bool = True, *,
+                      batch: int = 8, microbatches: int = 1) -> dict:
+    """Kernel launches per step of a variant (the tables in the doc), per
+    microbatch times `microbatches`: a BK step takes ghost_norm per linear
+    and one scale_contract per linear leaf; non_private clip_reduce per
+    linear; naive_flat clip_reduce per linear and example (one no-norm
+    backward per example); a blocked linear ghost_norm_blocked and
+    clip_reduce; a twopass step ghost_norm and clip_reduce; per_layer
+    fused_norm_clip where the route rule passes (unless `fused_route` is
+    off), else ghost_norm and clip_reduce."""
     from repro_torch.kernels.fused_clip import fits
     counts = dict.fromkeys(TRAIN_KERNELS, 0)
 
@@ -765,6 +809,8 @@ def expected_launches(label: str, cfg, fused_route: bool = True) -> dict:
             add("ghost_norm")
         elif label == "non_private":
             add("clip_reduce")
+        elif label == "naive_flat":
+            counts["clip_reduce"] += batch // microbatches
         elif blocked:
             add("ghost_norm_blocked", "clip_reduce")
         elif not label.endswith("_twopass") and fused_route \
@@ -774,7 +820,7 @@ def expected_launches(label: str, cfg, fused_route: bool = True) -> dict:
             add("ghost_norm", "clip_reduce")
     if label.endswith("_bk"):
         counts["scale_contract"] = len({leaf for leaf, *_ in leaves})
-    return counts
+    return {k: v * microbatches for k, v in counts.items()}
 
 
 def profile_step(torch, trainer, step_ms) -> dict:
@@ -784,6 +830,7 @@ def profile_step(torch, trainer, step_ms) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         trainer.step()
@@ -793,7 +840,8 @@ def profile_step(torch, trainer, step_ms) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    return {"device_ms_per_step": device_ms,
+    return {"profile_s": time.perf_counter() - t0,
+            "device_ms_per_step": device_ms,
             "unprofiled_ms_per_step": step_ms,
             "device_idle_share": 1.0 - device_ms / step_ms,
             "device_ops_per_step": sum(r[2] for r in rows),
@@ -801,14 +849,17 @@ def profile_step(torch, trainer, step_ms) -> dict:
                     for k, ms, n in rows[:8]]}
 
 
-def train_variant(torch, gpu, label, args, step_ms, patches=()):
+def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
+                  kind=None, profile=True):
     """Train one variant through the CLI's `Trainer`: TRAIN_WARMUP +
     TRAIN_TIMED steps with every launch counter set to 0 before and read
-    after, then one profiled step. `patches` are (step, module, attribute,
-    replacement) swapped in for that step only (the input recorders).
-    Checks finite losses, no BK fallback and the launches per step;
-    emits the train and train_profile lines; records ms per step in
-    `step_ms`. Returns the launch counts."""
+    after, then (with `profile`) one profiled step. `patches` are (step,
+    module, attribute, replacement) swapped in for that step only (the
+    input recorders). Checks finite losses, no BK fallback and the
+    launches per step of `kind` (default: the label) at the run's batch
+    and microbatches; emits the train (and train_profile) lines; records
+    ms per step in `step_ms`, whose non_private and per_layer entries (B
+    = 8) give the ratios. Returns the launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     steps = TRAIN_WARMUP + TRAIN_TIMED
@@ -849,13 +900,15 @@ def train_variant(torch, gpu, label, args, step_ms, patches=()):
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                for r in rec):
         raise RuntimeError(f"{label}: non-finite loss or update: {rec}")
-    per_step = expected_launches(label, trainer.cfg)
+    batch, nmb = trainer.args.batch, trainer.args.microbatches
+    per_step = expected_launches(kind or label, trainer.cfg, batch=batch,
+                                 microbatches=nmb)
     want = {k: v * steps for k, v in per_step.items()}
     if {k: counts[k] for k in want} != want:
         raise RuntimeError(f"{label}: launches {counts} over {steps} "
                            f"steps, expected {want}")
     step_ms[label] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / TRAIN_TIMED
-    base = step_ms.get("non_private")
+    base, per_layer = step_ms.get("non_private"), step_ms["per_layer"]
     emit({"phase": "train", "gpu": gpu, "arch": trainer.cfg.name,
           "variant": label, "mode": trainer.plan.config.mode,
           "dp_blocks": trainer.cfg.dp_blocks,
@@ -863,7 +916,7 @@ def train_variant(torch, gpu, label, args, step_ms, patches=()):
           "backend": trainer.plan.config.backend,
           "num_params": trainer.model.num_params,
           "dtype": str(trainer.cfg.dtype),
-          "batch": trainer.args.batch, "seq": trainer.args.seq,
+          "batch": batch, "seq": trainer.args.seq, "microbatches": nmb,
           "groups": trainer.model.layout.num_groups,
           "noise_groups": trainer.plan.num_noise_groups,
           "sigma": trainer.plan.sigma,
@@ -871,21 +924,27 @@ def train_variant(torch, gpu, label, args, step_ms, patches=()):
           "init_s": init_s, "warmup_steps": TRAIN_WARMUP,
           "timed_steps": TRAIN_TIMED, "ms_per_step": step_ms[label],
           "ratio_vs_nonprivate": (step_ms[label] / base if base else None),
-          "ratio_vs_per_layer": step_ms[label] / step_ms["per_layer"],
-          "tokens_per_s": trainer.args.batch * trainer.args.seq
+          "ratio_vs_per_layer": step_ms[label] / per_layer,
+          "ms_per_example": step_ms[label] / batch,
+          "ms_per_example_vs_per_layer_b8":
+              step_ms[label] / batch / (per_layer / 8),
+          "tokens_per_s": batch * trainer.args.seq
           / (step_ms[label] / 1e3),
           "steps": rec, "peak_memory_gb": peak, "launches": counts,
           "launches_per_step": per_step})
-    emit({"phase": "train_profile", "gpu": gpu, "arch": trainer.cfg.name,
-          "variant": label, **profile_step(torch, trainer, step_ms[label])})
+    if profile:
+        emit({"phase": "train_profile", "gpu": gpu,
+              "arch": trainer.cfg.name, "variant": label,
+              **profile_step(torch, trainer, step_ms[label])})
     del trainer, met
     gc.collect()
     torch.cuda.empty_cache()
     return counts
 
 
-def phase_train(torch, gpu):
-    """Returns (launches by kernel over every variant's counted steps, the
+def phase_train(torch, gpu, step_ms):
+    """Records each variant's ms per step in `step_ms`. Returns (launches
+    by kernel over every variant's counted steps, the
     clip_reduce inputs at each linear shape of per_layer's first step, the
     ghost_norm_blocked inputs at the two blocked shapes of per_shard's
     first step, the scale_contract inputs of per_group_bk's last
@@ -898,7 +957,7 @@ def phase_train(torch, gpu):
     from repro_torch.kernels import ghost_norm as GN
 
     launches = dict.fromkeys(TRAIN_KERNELS, 0)
-    caps, gnb_caps, sc_caps, step_ms = {}, {}, {}, {}
+    caps, gnb_caps, sc_caps = {}, {}, {}
     blk_caps, shard_dtypes = {}, []
     real_cr, real_sc = CR.clip_reduce, SC.scale_contract
     real_gnb = GN.ghost_norm_blocked
@@ -1277,6 +1336,15 @@ def phase_train_kernels(torch, gpu, caps, gnb_caps, sc_caps, blk_caps,
                                            dtype, stack, seed=i)
                 check(name, a, g, f, {"s": stack, "b": b, "t": t,
                                       "din": din, "dout": dout}, dtype)
+    for i, (b, t, din, dout) in enumerate(LONG_SWEEP):
+        for dtype in ("float32", "bfloat16"):
+            a, g, _ = sweep_sum_inputs(torch, "clip_reduce", b, t, din,
+                                       dout, dtype, None, seed=300 + i)
+            f = torch.tensor(SUM_FACTORS[::-1][:b], device="cuda")
+            for name in ("ghost_norm", "clip_reduce"):
+                check(name, a, g, f, {"b": b, "t": t, "din": din,
+                                      "dout": dout}, dtype)
+            del a, g, f
     for i, (b, t, din, dout, m, axis) in enumerate(BLOCKED_SWEEP):
         for dtype in ("float32", "bfloat16"):
             a, g, _ = sweep_sum_inputs(torch, "ghost_norm_blocked", b, t,
@@ -1355,6 +1423,7 @@ def phase_train_cuda_vs_cpu(torch, gpu):
     from repro_torch import bridge
     from repro_torch.configs import get_config
     from repro_torch.core.clipping import dp_clipped_gradients
+    from repro_torch.core.dp_sgd import clipped_microbatches
     from repro_torch.kernels import backend, launch_counts, reset_launch_counts
     from repro_torch.kernels import fused_clip as FC
     from repro_torch.launch.sharding import group_shard_assignment
@@ -1383,29 +1452,36 @@ def phase_train_cuda_vs_cpu(torch, gpu):
         shard_cfg, device="cpu").layout.num_groups).astype(np.float32)
     moe_thr = rng.uniform(0.05, 2.0, layouts[moe_cfg.name].num_groups
                           ).astype(np.float32)
-    # (label, mode, execution, config, fused route, kwargs of numpy
-    # arrays): per_layer on qwen3-4b-reduced by both routes (every linear
-    # there is within the fused route's rule; the composed one runs with
-    # the rule patched off), and on the MoE config
-    cases = [("per_layer", "per_layer", "bk", cfg, True,
+    # (label, mode, execution, config, fused route, microbatches, kwargs
+    # of numpy arrays): per_layer on qwen3-4b-reduced by both routes
+    # (every linear there is within the fused route's rule; the composed
+    # one runs with the rule patched off) and in 2 microbatches (the
+    # accumulation), naive_flat (one backward per example), and per_layer
+    # on the MoE config
+    cases = [("per_layer", "per_layer", "bk", cfg, True, 1,
               {"thresholds": thr}),
-             ("per_layer_composed", "per_layer", "bk", cfg, False,
+             ("per_layer_composed", "per_layer", "bk", cfg, False, 1,
               {"thresholds": thr}),
-             ("ghost_flat", "ghost_flat", "bk", cfg, True,
+             ("per_layer_mb2", "per_layer", "bk", cfg, True, 2,
+              {"thresholds": thr}),
+             ("naive_flat", "naive_flat", "bk", cfg, True, 1,
               {"flat_threshold": np.float32(0.5)}),
-             ("per_group", "per_group", "bk", cfg, True,
+             ("ghost_flat", "ghost_flat", "bk", cfg, True, 1,
+              {"flat_threshold": np.float32(0.5)}),
+             ("per_group", "per_group", "bk", cfg, True, 1,
               {"group_assignment": assign, "group_thresholds": group_thr}),
-             ("per_shard", "per_layer", "bk", shard_cfg, True,
+             ("per_shard", "per_layer", "bk", shard_cfg, True, 1,
               {"thresholds": shard_thr}),
-             ("moe_per_layer", "per_layer", "bk", moe_cfg, True,
+             ("moe_per_layer", "per_layer", "bk", moe_cfg, True, 1,
               {"thresholds": moe_thr})]
     counted = TRAIN_KERNELS
 
-    def run(mode, execution, cfg, fused, dev, kw):
+    def run(mode, execution, cfg, fused, nmb, dev, kw):
         model = build_model(cfg, device=dev)
         params = bridge.train_params_from_numpy(trees[cfg.name], dev)
         batch = {"tokens": torch.from_numpy(tokens).to(dev),
                  "targets": torch.from_numpy(targets).to(dev)}
+        kw = {k: torch.as_tensor(v, device=dev) for k, v in kw.items()}
         reset_launch_counts()
         real_fits = FC.fits
         if not fused:
@@ -1414,11 +1490,11 @@ def phase_train_cuda_vs_cpu(torch, gpu):
             with backend.scoped("kernels"), warnings.catch_warnings():
                 # a BK fallback fails the phase
                 warnings.filterwarnings("error", message="BK capture cannot")
-                res = dp_clipped_gradients(
-                    model.loss_fn, params, batch, model.layout, mode=mode,
-                    batch_size=b, execution=execution,
-                    **{k: torch.as_tensor(v, device=dev)
-                       for k, v in kw.items()})
+                res = clipped_microbatches(
+                    lambda mb, n: dp_clipped_gradients(
+                        model.loss_fn, params, mb, model.layout, mode=mode,
+                        batch_size=n, execution=execution, **kw),
+                    batch, b, nmb)
         finally:
             FC.fits = real_fits
         if dev == "cuda":
@@ -1446,21 +1522,24 @@ def phase_train_cuda_vs_cpu(torch, gpu):
             checks["grad:" + name] = rel(x, y)
         return checks
 
-    for label, mode, execution, case_cfg, fused, kw in cases:
-        got, cuda_counts = run(mode, execution, case_cfg, fused, "cuda", kw)
-        want, cpu_counts = run(mode, execution, case_cfg, fused, "cpu", kw)
+    for label, mode, execution, case_cfg, fused, nmb, kw in cases:
+        got, cuda_counts = run(mode, execution, case_cfg, fused, nmb, "cuda",
+                               kw)
+        want, cpu_counts = run(mode, execution, case_cfg, fused, nmb, "cpu",
+                               kw)
         # one clip is one step: the card launches exactly the kernels of
         # the route, the CPU none
-        expected = expected_launches(
-            f"{label}_bk" if mode != "per_layer" else label, case_cfg, fused)
+        kind = f"{label}_bk" if mode in ("ghost_flat", "per_group") else label
+        expected = expected_launches(kind, case_cfg, fused, batch=b,
+                                     microbatches=nmb)
         if cuda_counts != expected or any(cpu_counts.values()):
             raise RuntimeError(
                 f"{label}: launches cuda={cuda_counts} cpu={cpu_counts}, "
                 f"expected cuda={expected} and none on the CPU")
         checks = compare(got, want)
         twopass = {}
-        if mode != "per_layer":  # bk against twopass, on the card
-            tp, _ = run(mode, "twopass", case_cfg, fused, "cuda", kw)
+        if mode in ("ghost_flat", "per_group"):  # bk against twopass
+            tp, _ = run(mode, "twopass", case_cfg, fused, nmb, "cuda", kw)
             twopass = compare(got, tp)
         bad = {k: v[0] for k, v in {**checks, **{
             "twopass:" + k: v for k, v in twopass.items()}}.items()
@@ -1469,6 +1548,7 @@ def phase_train_cuda_vs_cpu(torch, gpu):
         out = {"phase": "train_cuda_vs_cpu", "gpu": gpu,
                "arch": case_cfg.name, "variant": label, "mode": mode,
                "execution": execution, "fused_route": fused,
+               "microbatches": nmb,
                "dp_blocks": case_cfg.dp_blocks, "batch": b, "seq": t,
                "max_err_over_max": {k: v[0] for k, v in checks.items()},
                "bk_vs_twopass_max_err_over_max":
@@ -1518,8 +1598,9 @@ FUSED_THRESHOLDS = {"inf": [math.inf], "positive": [0.5, 0.01],
                     "mixed": [0.5, math.inf, -0.7, 0.01]}
 
 
-def phase_moe_train(torch, gpu):
-    """Returns (launches by kernel over both variants' counted steps, the
+def phase_moe_train(torch, gpu, step_ms):
+    """Records each variant's ms per step in `step_ms`. Returns (launches
+    by kernel over both variants' counted steps, the
     router's fused_norm_clip inputs (a, g, c, extra) from per_layer's
     first step, the clip_reduce inputs (a, g, factors) by linear at the
     shapes qwen3-4b never gives ghost_norm and clip_reduce: qkv, o and the
@@ -1552,7 +1633,6 @@ def phase_moe_train(torch, gpu):
         return rec
 
     launches = dict.fromkeys(TRAIN_KERNELS, 0)
-    step_ms = {}
     patches = {"per_layer": [(0, FC, "fused_norm_clip", recording),
                              (0, CR, "clip_reduce",
                               recording_cr(MOE_COMPOSED["per_layer"]))],
@@ -1577,26 +1657,26 @@ def phase_moe_train(torch, gpu):
     return launches, cap[0], cr_caps
 
 
-def phase_moe_kernels(torch, gpu, cr_caps, num_layers):
-    """ghost_norm and clip_reduce against their plain versions at the
-    inputs granite's steps gave them (phase 6's tolerances and timing):
-    both at qkv, o and the head of a per_layer step, clip_reduce at the
-    router of a non_private step. Returns name -> the kernels line's
-    `moe` entry: the worst error, the kernel, plain, bound and library
-    ms summed over each variant's step, and the per-call rows."""
+def captured_rows(torch, gpu, caps, num_layers, variants, repeats=1,
+                  **tags):
+    """ghost_norm and clip_reduce against their plain versions at inputs a
+    training path gave them (phase 6's tolerances and timing): `caps`
+    maps a linear to its captured (a, g, factors), on the card or the
+    host; `variants` maps a variant to (its linears, the kernels they
+    ran); each linear runs once a layer (the head once) times `repeats`
+    a step (naive_flat: one backward per example). Returns name -> a
+    kernels-line entry: the worst error, the kernel, plain, bound and
+    library ms summed over each variant's step, and the per-call rows."""
     bw = bandwidth(gpu)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     out = {}
-    for variant, names in MOE_COMPOSED.items():
-        kernels = (("ghost_norm", "clip_reduce") if variant == "per_layer"
-                   else ("clip_reduce",))
-        for lname in names:
-            a, g, f = cr_caps[lname]
-            calls = 1 if lname == "head" else num_layers
+    for variant, (lnames, kernels) in variants.items():
+        for lname in lnames:
+            a, g, f = (x.cuda() for x in caps[lname])
+            calls = repeats * (1 if lname == "head" else num_layers)
             for name in kernels:
                 row = main_shape_row(torch, gpu, name, lname, a, g, f, calls,
-                                     bw, flush, arch=MOE_ARCH,
-                                     variant=variant)
+                                     bw, flush, variant=variant, **tags)
                 o = out.setdefault(name, {"max_abs_err": 0.0,
                                           "max_rel_err": 0.0,
                                           "per_step": {}, "shapes": []})
@@ -1612,6 +1692,7 @@ def phase_moe_kernels(torch, gpu, cr_caps, num_layers):
                     "variant", "linear", "a", "g", "calls_per_step",
                     "max_abs_err", "max_rel_err",
                     *step_keys(name), "bound_by")})
+            del a, g, f
     return out
 
 
@@ -1829,6 +1910,82 @@ def phase_fused_kernel(torch, gpu, router):
             "dp_scale": dp_scale}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the rest of single-device training at full width.
+# ---------------------------------------------------------------------------
+
+# (label, arch, --clipping, B, T, --microbatches, --docs): naive_flat as
+# the seventh Figure-1 variant in the fewest microbatches whose
+# per-example gradients (8.8 GB each) fit beside the f32 accumulator, a
+# DP-scale batch of 64 on both models, and qwen3-4b at T = 4096 (every
+# layer's attention on the blocked branch); --docs keeps the sampling
+# rate B / N at phase 5's 1/16, so sigma and the count noise are those of
+# the B = 8 runs. None is profiled: the profiler's post-processing of a
+# step of 120,000-134,000 device ops takes about two minutes.
+SCALE_PATHS = [
+    ("naive_flat", "qwen3-4b", "naive_flat", 8, 256, 4, 64),
+    ("per_layer_b64", "qwen3-4b", "per_layer", 64, 256, 8, 512),
+    ("moe_per_layer_b64", MOE_ARCH, "per_layer", 64, 256, 8, 512),
+    ("per_layer_t4096", "qwen3-4b", "per_layer", 2, 4096, 1, 16),
+]
+# the qwen3-4b paths whose clip_reduce inputs no earlier phase checks:
+# naive_flat's (B = 2 a call, factor 1, one example's rows zero) and
+# T = 4096's; the B = 64 paths' microbatches of 8 give phases 6 and 10's
+# B = 8 shapes
+CAPTURED_PATHS = ("naive_flat", "per_layer_t4096")
+
+
+def phase_scale_train(torch, gpu, qwen_ms, moe_ms):
+    """Each of SCALE_PATHS through the CLI's `Trainer` (train_variant: the
+    launches per step of its mode at its batch and microbatches; ratios
+    and ms per example against the B = 8 runs of phases 5 and 8, whose ms
+    per step `qwen_ms` and `moe_ms` hold and which take each path's ms
+    per step under its label). Returns (launches by kernel over every
+    path's counted steps, path label -> the clip_reduce inputs at each
+    linear shape of its first step, on the host, for naive_flat and the
+    T = 4096 path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import clip_reduce as CR
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    caps, real_cr = {}, CR.clip_reduce
+    shapes = linear_shapes(get_config("qwen3-4b"))
+
+    def recording_cr(path):
+        def rec(a, g, factors, block_axis="out"):
+            name = shapes.get((a.shape[-1], g.shape[-1]))
+            if name is not None and name not in caps[path]:
+                # on the host: the path's peak stays its own
+                caps[path][name] = (a.cpu(), g.cpu(), factors.cpu())
+            return real_cr(a, g, factors, block_axis)
+        return rec
+
+    for label, arch, mode, batch, seq, nmb, docs in SCALE_PATHS:
+        patches = []
+        if label in CAPTURED_PATHS:
+            caps[label] = {}
+            patches = [(0, CR, "clip_reduce", recording_cr(label))]
+        counts = train_variant(
+            torch, gpu, label, train_args(mode, arch=arch, batch=batch,
+                                          seq=seq, microbatches=nmb,
+                                          docs=docs),
+            moe_ms if arch == MOE_ARCH else qwen_ms, patches, kind=mode,
+            profile=False)
+        for k in launches:
+            launches[k] += counts[k]
+    for label, got in caps.items():
+        if sorted(got) != sorted(shapes.values()):
+            raise RuntimeError(f"{label}: clip_reduce captured {sorted(got)} "
+                               f"of {sorted(shapes.values())}")
+    step_ms = {p[0]: (moe_ms if p[1] == MOE_ARCH else qwen_ms)[p[0]]
+               for p in SCALE_PATHS}
+    emit({"phase": "scale_train_ratio", "gpu": gpu, "ms_per_step": step_ms,
+          "ms_per_example": {p[0]: step_ms[p[0]] / p[3]
+                             for p in SCALE_PATHS},
+          "naive_flat_ratio_vs_nonprivate":
+              step_ms["naive_flat"] / qwen_ms["non_private"]})
+    return launches, caps
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1838,17 +1995,29 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def clock(after):  # the run's own time budget, phase by phase
+        emit({"phase": "clock", "after": after,
+              "elapsed_s": time.perf_counter() - t_start})
+
     gpu = gpu_name_and_power()
     phase_build(torch, gpu)
+    clock("build")
     launches, snap = phase_main_path(torch, gpu)
+    clock("serve")
     kernel = phase_kernels(torch, gpu, snap)
     kernel["launches"] = launches
+    clock("paged_attn kernels")
     phase_cuda_vs_cpu(torch, gpu)
+    clock("serve cuda/cpu")
     del snap
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, caps, gnb_caps, sc_caps, blk_caps = phase_train(torch,
-                                                                   gpu)
+    qwen_ms, moe_ms = {}, {}
+    train_launches, caps, gnb_caps, sc_caps, blk_caps = phase_train(
+        torch, gpu, qwen_ms)
+    clock("train")
     from repro_torch.configs import get_config
     num_layers = get_config("qwen3-4b").num_layers
     train_kernels = phase_train_kernels(torch, gpu, caps, gnb_caps,
@@ -1856,21 +2025,50 @@ def main() -> int:
     del caps, gnb_caps, sc_caps, blk_caps
     gc.collect()
     torch.cuda.empty_cache()
+    clock("train kernels")
     phase_train_cuda_vs_cpu(torch, gpu)
-    moe_launches, router, moe_caps = phase_moe_train(torch, gpu)
+    clock("train cuda/cpu")
+    moe_launches, router, moe_caps = phase_moe_train(torch, gpu, moe_ms)
+    clock("moe train")
     fused = phase_fused_kernel(torch, gpu, router)
     del router
-    moe = phase_moe_kernels(torch, gpu, moe_caps,
-                            get_config(MOE_ARCH).num_layers)
+    clock("fused kernel")
+    # phase 10: granite's composed linears of a per_layer step, and its
+    # router's clip_reduce of a non_private step
+    moe = captured_rows(torch, gpu, moe_caps, get_config(MOE_ARCH).num_layers,
+                        {"per_layer": (MOE_COMPOSED["per_layer"],
+                                       ("ghost_norm", "clip_reduce")),
+                         "non_private": (MOE_COMPOSED["non_private"],
+                                         ("clip_reduce",))}, arch=MOE_ARCH)
     del moe_caps
-    # the training kernels' launches over both training paths; the worst
-    # error over both paths' inputs, granite's times beside qwen3-4b's
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock("moe kernels")
+    scale_launches, scale_caps = phase_scale_train(torch, gpu, qwen_ms,
+                                                   moe_ms)
+    clock("scale train")
+    # naive_flat: one backward per example, B = 8 of them a step
+    naive = captured_rows(torch, gpu, scale_caps["naive_flat"], num_layers, {
+        "naive_flat": (tuple(scale_caps["naive_flat"]), ("clip_reduce",))},
+        repeats=next(p[3] for p in SCALE_PATHS if p[0] == "naive_flat"))
+    long = captured_rows(torch, gpu, scale_caps["per_layer_t4096"],
+                         num_layers, {"per_layer_t4096": (
+                             tuple(scale_caps["per_layer_t4096"]),
+                             ("ghost_norm", "clip_reduce"))})
+    del scale_caps
+    clock("scale kernels")
+    # the training kernels' launches over every training path; the worst
+    # error over every path's inputs, granite's, naive_flat's and the
+    # T = 4096 path's times beside qwen3-4b's
     for k in train_kernels + [fused]:
-        k["launches"] = train_launches[k["name"]] + moe_launches[k["name"]]
-        if k["name"] in moe:
-            k["moe"] = moe[k["name"]]
-            for key in ("max_abs_err", "max_rel_err"):
-                k[key] = max(k[key], moe[k["name"]][key])
+        k["launches"] = sum(run[k["name"]] for run in (
+            train_launches, moe_launches, scale_launches))
+        for key, extra in (("moe", moe), ("naive_flat", naive),
+                           ("long_context", long)):
+            if k["name"] in extra:
+                k[key] = extra[k["name"]]
+                for err in ("max_abs_err", "max_rel_err"):
+                    k[err] = max(k[err], extra[k["name"]][err])
     emit({"kernels": [kernel] + train_kernels + [fused]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -55,7 +55,7 @@ from repro_torch.core.spec import GroupLayout, P, tree_leaves
 from repro_torch.kernels import backend
 
 # recipe kinds of the reference that no ported primitive records yet
-_NOT_PORTED = {"linear_blocked": "A.16", "shift": "A.3", "broadcast": "A.3",
+_NOT_PORTED = {"linear_blocked": "A.16", "shift": "A.8", "broadcast": "A.8",
                "lora": "A.10", "expert": "A.7", "expert_grouped": "A.7"}
 
 

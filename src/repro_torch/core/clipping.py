@@ -34,12 +34,29 @@ the `ghost_flat_twopass` / `per_group_twopass` mode names):
             pass 2 applies each example's factor through direct-scale
             thresholds (c = -f), which request no norms.
 
+  naive_flat  : the Opacus-style oracle and the Figure-1 "usual flat"
+                baseline: per-example gradients, materialised as
+                `jax.jacrev` gives them in the reference, then their norms²
+                per layout group, one flat factor per example, and an f32
+                contraction of the factors with them. O(B x params)
+                memory; `DPConfig.microbatches` bounds B.
+
+naive_flat's per-example gradients are the rows of the Jacobian of the
+(B,) loss vector: ONE forward with +inf thresholds, then one
+`torch.autograd.grad` per example with a one-hot cotangent (the graph
+retained between them; a checkpointed block recomputes its forward in
+each). Each backward runs the primitives' no-norm path, so a linear's
+weight gradient goes through `clip_reduce` with factor 1 on the card. The
+forward is the batch's, so an MoE's dispatch couples the examples as in
+the reference. (`torch.func` cannot replace this: functorch refuses the
+primitives' `forward(ctx, ...)` Functions, and their CUDA backward takes
+no batched tensors.)
+
 per_shard (per-device clipping) is expressed through the layout itself
 (blocked groups, `ModelConfig.dp_blocks`, `dp_linear_blocked`) and then
 driven as per_layer: each block is its own group with a local norm.
 
-`naive_flat` (the materialising oracle) needs `torch.func` over the
-custom Functions (ROADMAP A.3); sharded execution is A.13.
+DP-LoRA (`trainable_key`) is ROADMAP A.10; sharded execution is A.13.
 """
 from __future__ import annotations
 
@@ -48,12 +65,12 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core import bk
-from repro_torch.core.spec import GroupLayout, tree_leaves
+from repro_torch.core.spec import P, GroupLayout, _walk, tree_leaves
+from repro_torch.optim.optimizers import slices
 
-MODES = ("non_private", "per_layer", "ghost_flat", "per_group",
+MODES = ("non_private", "per_layer", "ghost_flat", "per_group", "naive_flat",
          "ghost_flat_twopass", "per_group_twopass")
 EXECUTIONS = ("bk", "twopass")
-_NOT_PORTED = {"naive_flat": "A.3"}
 
 LossFn = Callable[[Any, Any, dict], torch.Tensor]  # -> (B,)
 
@@ -65,10 +82,6 @@ class ClipResult(NamedTuple):
 
 
 def check_mode(mode: str) -> None:
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"clipping mode {mode!r} is not ported yet: ROADMAP.md item "
-            f"{_NOT_PORTED[mode]}")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
 
@@ -151,21 +164,109 @@ def _norms_pass(loss_fn, params, batch, layout, batch_size, execution):
     return val, norms, None
 
 
+def _naive_group_norms(layout: GroupLayout, jac: list[dict]) -> torch.Tensor:
+    """(K, B) f32 per-layout-group norms² of materialised per-example
+    gradients, `jac[b]` example b's gradient tree: a stacked leaf gives
+    one row per stack element, a blocked leaf one row per column block
+    (the blocks after the stack), as every other mode reports them."""
+    dev = next(t for _, t in tree_leaves(jac[0])).device
+    cols = [torch.zeros(layout.num_groups, dtype=torch.float32, device=dev)
+            for _ in jac]
+    for path, node in _walk(layout._spec):
+        grp = layout.group_of_leaf(path)
+        for col, grads in zip(cols, jac):
+            col[grp.offset: grp.offset + grp.count] += _leaf_norms_sq(
+                _at(grads, path), node).reshape(-1)
+    return torch.stack(cols, dim=1)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _leaf_norms_sq(g: torch.Tensor, node: P) -> torch.Tensor:
+    """The squared norms of one example's gradient of leaf `node` by group
+    element (the stack shape, then the blocks), in f32, slice by slice
+    along the first axis to bound the f32 temporaries."""
+    m, keep = node.blocks, node.stack + (node.blocks > 1)
+
+    def part_sq(x):
+        x = x.float()
+        if m > 1:
+            x = torch.movedim(x.reshape(x.shape[:-1] + (m, -1)), -2,
+                              node.stack)
+        return torch.sum(torch.square(x.reshape(x.shape[:keep] + (-1,))),
+                         dim=-1)
+
+    parts = [part_sq(x) for x in slices(g)]
+    # slices split the stack axis of a stacked leaf, else an axis within
+    # its one group element
+    return torch.cat(parts) if node.stack else sum(parts)
+
+
+def _per_example_grads(loss_fn, params, batch, layout, batch_size):
+    """(mean loss, [example b's gradient tree for b < B]): the rows of
+    the (B,) loss vector's Jacobian in the parameters' dtype, by one
+    forward with +inf thresholds and one backward per example."""
+    paths, leaves = zip(*tree_leaves(params))
+    dev = leaves[0].device
+    th = layout.pack_value(float("inf"), batch_size, device=dev)
+    losses = loss_fn(params, batch, th)
+    onehot = torch.eye(batch_size, dtype=losses.dtype, device=dev)
+    jac = []
+    for b in range(batch_size):
+        grads = torch.autograd.grad(losses, leaves, grad_outputs=onehot[b],
+                                    retain_graph=b < batch_size - 1,
+                                    allow_unused=True)
+        jac.append(_rebuild(paths, [torch.zeros_like(x) if g is None else g
+                                    for x, g in zip(leaves, grads)]))
+    return torch.mean(losses.detach()), jac
+
+
+def _naive_contract(layout: GroupLayout, jac: list[dict],
+                    f: torch.Tensor) -> dict:
+    """sum_b f_b jac[b] per leaf in f32, cast to the leaf's dtype; each
+    example's leaf is released once contracted."""
+    paths, leaves = [], []
+    for path, node in _walk(layout._spec):
+        rows = [_at(grads, path[:-1]).pop(path[-1]) for grads in jac]
+        leaf = torch.empty(node.shape, dtype=rows[0].dtype,
+                           device=rows[0].device)
+        for dst, *src in zip(slices(leaf), *(slices(r) for r in rows)):
+            acc = torch.zeros(dst.shape, dtype=torch.float32,
+                              device=dst.device)
+            for fb, x in zip(f, src):
+                acc.add_(x.float() * fb)
+            dst.copy_(acc)
+        del rows
+        paths.append(path)
+        leaves.append(leaf)
+    return _rebuild(paths, leaves)
+
+
 def dp_clipped_gradients(loss_fn: LossFn, params: Any, batch: Any,
                          layout: GroupLayout, *, mode: str, batch_size: int,
                          thresholds: torch.Tensor | None = None,
                          flat_threshold: float | torch.Tensor = 1.0,
                          group_assignment: torch.Tensor | None = None,
                          group_thresholds: torch.Tensor | None = None,
+                         trainable_key: str | None = None,
                          execution: str = "bk") -> ClipResult:
     """Clipped summed gradients + norms under `mode`.
 
     params: the reference-layout tree of leaves with `requires_grad`;
     thresholds: (K,) float32 for per_layer; flat_threshold: the scalar C
-    of ghost_flat; group_assignment: (K,) ints and group_thresholds: (G,)
-    for per_group; execution: bk | twopass for ghost_flat / per_group.
-    The norms of non_private are zeros (it never computes them)."""
+    of ghost_flat and naive_flat; group_assignment: (K,) ints and
+    group_thresholds: (G,) for per_group; execution: bk | twopass for
+    ghost_flat / per_group. The norms of non_private are zeros (it never
+    computes them). `trainable_key` (DP-LoRA) is not ported yet."""
     check_mode(mode)
+    if trainable_key is not None:
+        raise NotImplementedError(
+            "training a parameter subtree (trainable_key, DP-LoRA) is not "
+            "ported yet: ROADMAP.md item A.10")
     if execution not in EXECUTIONS:
         raise ValueError(f"execution {execution!r} not in {EXECUTIONS}")
     if mode.endswith("_twopass"):
@@ -192,6 +293,13 @@ def dp_clipped_gradients(loss_fn: LossFn, params: Any, batch: Any,
         norms = layout.unpack(dict(zip(names, norm_leaves)))
         return ClipResult(_rebuild(paths, grads), norms,
                           val.detach() / batch_size)
+
+    if mode == "naive_flat":  # the materialising oracle
+        loss, jac = _per_example_grads(loss_fn, params, batch, layout,
+                                       batch_size)
+        norms = _naive_group_norms(layout, jac)
+        f = flat_clip_factors(torch.sum(norms, dim=0), flat_threshold)
+        return ClipResult(_naive_contract(layout, jac, f), norms, loss)
 
     if mode == "per_group" and (group_assignment is None
                                 or group_thresholds is None):

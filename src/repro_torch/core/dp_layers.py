@@ -48,8 +48,9 @@ of one weight to its own threshold (per-shard clipping); it takes no BK
 channel (ROADMAP A.16). `dp_expert_linear` clips each expert of an MoE
 layer's stacked weight to its own threshold, with exact per-example norms
 through the token dispatch; it takes no BK channel either (the expert
-recipes, ROADMAP A.7). `dp_shift`, `dp_broadcast` and
-`dp_expert_linear_grouped` are not ported yet (ROADMAP A.3, A.7).
+recipes, ROADMAP A.7). `dp_shift` and `dp_broadcast` (with the recurrent
+families, ROADMAP A.8) and `dp_expert_linear_grouped` (A.7) are not
+ported yet.
 """
 from __future__ import annotations
 

@@ -16,8 +16,10 @@ the reference's; `standard_normal` is the one place they are made, and a
 test substitutes the reference's draws there.
 
 Per-shard clipping is `per_layer` over a blocked layout (`ModelConfig
-.dp_blocks`). Microbatches, the mesh (sharded execution), DP-LoRA and
-`naive_flat` are not ported yet (ROADMAP A.3, A.13, A.10).
+.dp_blocks`). Microbatches (`DPConfig.microbatches`) accumulate the
+clipped sums exactly (per-example clipping commutes with the split); the
+noise is drawn once per step. The mesh (sharded execution, and with it
+`batch_axes`) and DP-LoRA are not ported yet (ROADMAP A.13, A.10).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import torch
 
 from repro_torch.core import accounting
 from repro_torch.core import noise as noise_lib
-from repro_torch.core.clipping import (LossFn, base_mode, check_mode,
+from repro_torch.core.clipping import (ClipResult, LossFn, _rebuild,
+                                       base_mode, check_mode,
                                        dp_clipped_gradients,
                                        supergroup_norms)
 from repro_torch.core.quantile import (QuantileState, clip_counts,
@@ -48,7 +51,8 @@ class DPConfig:
     that the single-device step reads).
 
     * `mode` (`--clipping`): `per_layer`, `ghost_flat`, `per_group`,
-      `non_private`, or `ghost_flat_twopass` / `per_group_twopass`.
+      `naive_flat`, `non_private`, or `ghost_flat_twopass` /
+      `per_group_twopass`.
       `execution` (`--execution`): how the flat and group modes compute
       the clipped sums, `bk` (one backward + the BK epilogue) or
       `twopass`; a `*_twopass` mode name forces twopass. Accounting does
@@ -65,6 +69,10 @@ class DPConfig:
       supergroup; `num_supergroups` pads the count (else max + 1).
     * `backend` (`--backend`): the ghost-op engine, `kernels` or `plain`
       (`repro_torch.kernels.backend`), scoped around the step.
+    * `microbatches` (`--microbatches`): the batch is clipped in this many
+      equal parts (Algorithm 2's structure); the clipped sums accumulate
+      in f32 and the norms and loss are those of the whole batch, while
+      the noise is added once per step.
     """
 
     mode: str = "per_layer"
@@ -84,6 +92,7 @@ class DPConfig:
     group_assignment: tuple[int, ...] | None = None  # group -> supergroup
     num_supergroups: int | None = None
     backend: str = "kernels"
+    microbatches: int = 1
 
     @property
     def private(self) -> bool:
@@ -124,7 +133,7 @@ def build_plan(cfg: DPConfig, layout: GroupLayout) -> DPPlan:
         return DPPlan(cfg, 0, 0.0, 0.0, 0.0, np.zeros(0, np.int64))
     mults = layout.sens_mults
     mode = base_mode(cfg.mode)  # accounting is execution-independent
-    if mode == "ghost_flat":
+    if mode in ("ghost_flat", "naive_flat"):
         num_groups = 1
         dims = np.array([int(layout.dims.sum())], np.int64)
         mults = np.ones(1, np.float32)
@@ -249,7 +258,7 @@ def _layout_stds(plan: DPPlan, layout: GroupLayout, thresholds: torch.Tensor,
     stds = noise_lib.group_noise_stds(cfg.noise_strategy, thresholds * mults,
                                       dims, plan.sigma_new)
     mode = base_mode(cfg.mode)
-    if mode == "ghost_flat":
+    if mode in ("ghost_flat", "naive_flat"):
         return stds.expand(layout.num_groups)
     if mode == "per_group":
         return stds[assign]
@@ -293,6 +302,44 @@ def _apply_update(cfg: DPConfig, optimizer, batch_size, params, opt_state,
     return params, new_opt_state, DPState(qstate, dp_state.step + 1), metrics
 
 
+def clipped_microbatches(clip_one: Callable, batch: dict, batch_size: int,
+                         microbatches: int) -> ClipResult:
+    """Exact accumulation over microbatches: `clip_one(batch_mb,
+    mb_size)` -> ClipResult clips each of `microbatches` consecutive
+    equal slices of the batch's (B, ...) tensors (`make_dp_train_step`
+    refuses a batch_size that `microbatches` does not divide). Each
+    slice's clipped sums (in the parameters' dtype) are added into an f32
+    accumulator, cast to the parameters' dtype once at the end; the norms
+    come back as (K, B) in example order; the loss is the mean of the
+    slices'."""
+    mb = batch_size // microbatches
+    if microbatches == 1:
+        return clip_one(batch, mb)
+    acc: list = []  # (path, f32 sum, dtype) per leaf
+    loss, norms = 0.0, []
+    for i in range(microbatches):
+        res = clip_one({k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
+                       mb)
+        if not acc:
+            acc = [(path, torch.zeros(g.shape, dtype=torch.float32,
+                                      device=g.device), g.dtype)
+                   for path, g in tree_leaves(res.grads)]
+        for (_, a, _), (_, g) in zip(acc, tree_leaves(res.grads)):
+            a.add_(g)
+        loss = loss + res.loss
+        norms.append(res.norms_sq)
+        del res
+    paths, leaves = [], []
+    while acc:  # release each f32 sum once cast
+        path, a, dtype = acc.pop(0)
+        paths.append(path)
+        leaves.append(a.to(dtype))
+        del a
+    return ClipResult(_rebuild(paths, leaves), torch.stack(norms, dim=1)
+                      .reshape(norms[0].shape[0], batch_size),
+                      loss / microbatches)
+
+
 def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
                        optimizer: Any, cfg: DPConfig, *, batch_size: int
                        ) -> tuple[Callable, Callable, DPPlan]:
@@ -319,17 +366,22 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
     execution = "twopass" if cfg.mode.endswith("_twopass") else cfg.execution
     assign_np = (np.asarray(cfg.group_assignment, np.int64)
                  if mode == "per_group" else None)
+    if batch_size % cfg.microbatches:
+        raise ValueError("batch_size must divide by microbatches")
 
     def clip(params, batch, thresholds, assign):
-        kw = dict(batch_size=batch_size, mode=mode)
+        kw = dict(mode=mode)
         if mode == "per_layer":
             kw["thresholds"] = thresholds
-        elif mode == "ghost_flat":
+        elif mode in ("ghost_flat", "naive_flat"):
             kw.update(flat_threshold=thresholds[0], execution=execution)
         elif mode == "per_group":
             kw.update(group_assignment=assign, group_thresholds=thresholds,
                       execution=execution)
-        return dp_clipped_gradients(loss_fn, params, batch, layout, **kw)
+        return clipped_microbatches(
+            lambda mb, n: dp_clipped_gradients(loss_fn, params, mb, layout,
+                                               batch_size=n, **kw),
+            batch, batch_size, cfg.microbatches)
 
     def step_fn(params, opt_state, dp_state, batch, seed: int):
         with ghost_backend.scoped(cfg.backend):
@@ -342,7 +394,7 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
             else:
                 if mode == "per_layer":
                     norms = res.norms_sq
-                elif mode == "ghost_flat":
+                elif mode in ("ghost_flat", "naive_flat"):
                     norms = torch.sum(res.norms_sq, dim=0)[None]
                 else:  # per_group
                     norms = supergroup_norms(res.norms_sq, assign,

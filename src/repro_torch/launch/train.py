@@ -2,8 +2,7 @@
 
 The counterpart of `repro.launch.train` for one device. The parser has
 only the flags the port runs; a flag of the reference that is not ported
-yet (mesh, microbatches, LoRA, checkpoints, `naive_flat`) fails in
-argparse.
+yet (mesh, LoRA, checkpoints) fails in argparse.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --clipping per_layer --epsilon 8 --steps 4 --batch 8 --seq 256 \\
@@ -19,7 +18,14 @@ book-keeping (`--execution bk`, the default: one backward pass and the
 `scale_contract` epilogue) or by two backward passes (`--execution
 twopass`, or the mode names `ghost_flat_twopass` / `per_group_twopass`).
 per_group's supergroups are what `--group-count` virtual model shards
-would own (`launch.sharding.group_shard_assignment`).
+would own (`launch.sharding.group_shard_assignment`). `--clipping
+naive_flat` is the materialising oracle (per-example gradients, then one
+flat factor each): O(B x params) memory.
+
+`--microbatches N` clips the batch in N equal parts and accumulates the
+clipped sums exactly in f32 (the noise is drawn once per step); it is how
+a DP-scale batch, or naive_flat's per-example gradients, fit one card.
+The header prints `microbatches=N`.
 
 `--clipping per_shard` is per-device clipping on one card, resolved as the
 reference's dry run resolves it: the qkv and o projections split into M =
@@ -50,8 +56,9 @@ from repro_torch.data import (PoissonSampler, SyntheticLM, make_lm_batch,
 from repro_torch.launch.sharding import group_shard_assignment
 from repro_torch.models.transformer import build_model
 
-CLIPPING = ["per_layer", "ghost_flat", "per_group", "non_private",
-            "ghost_flat_twopass", "per_group_twopass", "per_shard"]
+CLIPPING = ["per_layer", "ghost_flat", "per_group", "naive_flat",
+            "non_private", "ghost_flat_twopass", "per_group_twopass",
+            "per_shard"]
 
 
 def build_train_parser() -> argparse.ArgumentParser:
@@ -73,6 +80,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optimizer", default="adam",
                     choices=["adam", "adamw", "sgd"])
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="clip the batch in this many equal parts, "
+                         "accumulating the clipped sums exactly")
     ap.add_argument("--fixed-thresholds", action="store_true")
     ap.add_argument("--init-threshold", type=float, default=1.0)
     ap.add_argument("--quantile", type=float, default=0.5)
@@ -134,7 +144,8 @@ class Trainer:
             init_threshold=args.init_threshold,
             target_quantile=args.quantile,
             quantile_budget_fraction=args.quantile_budget,
-            noise_strategy=args.noise_strategy, backend=args.backend)
+            noise_strategy=args.noise_strategy, backend=args.backend,
+            microbatches=args.microbatches)
         sched = optim.linear_decay(args.lr, args.steps,
                                    warmup_steps=args.steps // 20)
         if args.optimizer == "adam":
@@ -181,6 +192,7 @@ class Trainer:
                 f"groups={self.model.layout.num_groups} "
                 f"mode={p.config.mode} backend={p.config.backend} "
                 f"device={self.args.device} execution={self.execution} "
+                f"microbatches={p.config.microbatches} "
                 f"sigma={p.sigma:.3f} "
                 f"sigma_new={p.sigma_new:.3f} sigma_b={p.sigma_b:.3f} "
                 f"dp_blocks={self.cfg.dp_blocks}")

@@ -1,12 +1,12 @@
 """GQA attention: the counterpart of `repro.models.attention` for the
 dense family.
 
-* Training: `attend`'s single-shot branch (f32 scores, masked softmax) and
-  `gqa_attention`, whose projections and q/k norms are DP primitives; the
-  projections are clipped per column block when `cfg.dp_blocks > 1`.
+* Training: `attend` (f32 scores; a masked softmax in one shot up to
+  T * S = 2048², above it the reference's double-blocked online softmax)
+  and `gqa_attention`, whose projections and q/k norms are DP primitives;
+  the projections are clipped per column block when `cfg.dp_blocks > 1`.
   The reference's attention is plain XLA, so plain torch (einsum,
-  softmax, autograd) is its port; the double-blocked online-softmax
-  branch for T * S > 2048² is not ported yet (ROADMAP A.3).
+  softmax, autograd) is its port.
 * Paged decode: `gqa_decode_paged` through the `paged_attn` kernel. The
   pools are updated IN PLACE (`index_put_`): the reference returns new
   pools from a functional scatter, the port writes one row per slot into
@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import dp_layers as dpl
 from repro_torch.kernels import paged_attn as K
@@ -25,6 +26,7 @@ from repro_torch.models.config import ModelConfig
 
 
 _SINGLE_SHOT_MAX = 2048 * 2048  # T*S above this -> the blocked branch
+_QB, _KB = 512, 1024  # query / kv block sizes of the blocked branch
 NEG_INF = -1e30
 INVALID_POS = 2**31 - 1 - 8  # kpos >= this => masked out
 
@@ -40,24 +42,74 @@ def _mask(qpos, kpos, *, causal, window):
     return m
 
 
+def _scores(qg, k):
+    """q: (B, T, KV, G, hd), k: (B, S, KV, hd) -> (B, T, KV, G, S) f32."""
+    return torch.einsum("btkgd,bskd->btkgs", qg.float(), k.float())
+
+
 def attend(q, k, v, qpos, kpos, *, causal=True, window=None, scale=None):
-    """Grouped-query attention, the reference's single-shot branch.
-    q: (B, T, H, hd); k, v: (B, S, KV, hd); qpos (B, T), kpos (B, S)."""
+    """Grouped-query attention. q: (B, T, H, hd); k, v: (B, S, KV, hd);
+    qpos (B, T), kpos (B, S). Single shot up to T * S = 2048², else the
+    double-blocked online softmax (`_attend_blocked`)."""
     b, t, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
-    if t * s > _SINGLE_SHOT_MAX:
-        raise NotImplementedError(
-            f"attention over T*S = {t}*{s} > 2048^2 takes the reference's "
-            "double-blocked branch, not ported yet: ROADMAP.md item A.3")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(b, t, kv, h // kv, hd) * scale
-    scores = torch.einsum("btkgd,bskd->btkgs", qg.float(), k.float())
+    if t * s > _SINGLE_SHOT_MAX:
+        out = _attend_blocked(qg, k, v, qpos, kpos, causal=causal,
+                              window=window)
+        return out.reshape(b, t, h, dv).to(q.dtype)
+    scores = _scores(qg, k)
     m = _mask(qpos, kpos, causal=causal, window=window)
     scores = scores.masked_fill(~m[:, :, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("btkgs,bskd->btkgd", w, v.float())
     return out.reshape(b, t, h, dv).to(q.dtype)
+
+
+def _attend_blocked(qg, k, v, qpos, kpos, *, causal, window):
+    """The reference's double-blocked online softmax, (B, T, KV, G, dv)
+    f32: query blocks of _QB, within each a running (max, sum, acc) over
+    KV blocks of _KB. T and S are padded to whole blocks, qpos with -1
+    and kpos with the int32 maximum (masked as invalid), and the output
+    cut back to T. NEG_INF is finite, so a fully masked block adds
+    exp(0) = 1 per key until a later unmasked block's alpha = 0 wipes it
+    out, as in the reference. Autograd keeps each block's tensors: under
+    remat one layer's at a time."""
+    b, t, kv, g, _ = qg.shape
+    s, dv = k.shape[1], v.shape[-1]
+    qb, kb = min(_QB, t), min(_KB, s)
+    nqb, nkb = -(-t // qb), -(-s // kb)
+    pad_t, pad_s = nqb * qb - t, nkb * kb - s
+    qg = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, pad_t))
+    qpos = F.pad(qpos, (0, pad_t), value=-1)
+    k = F.pad(k, (0, 0, 0, 0, 0, pad_s))
+    v = F.pad(v, (0, 0, 0, 0, 0, pad_s))
+    kpos = F.pad(kpos, (0, pad_s), value=2**31 - 1)
+    outs = []
+    for i in range(nqb):
+        rows = slice(i * qb, (i + 1) * qb)
+        qi, qpos_i = qg[:, rows], qpos[:, rows]
+        m_run = torch.full((b, qb, kv, g), NEG_INF, dtype=torch.float32,
+                           device=qg.device)
+        l_run = torch.zeros_like(m_run)
+        acc = torch.zeros((b, qb, kv, g, dv), dtype=torch.float32,
+                          device=qg.device)
+        for j in range(nkb):
+            cols = slice(j * kb, (j + 1) * kb)
+            sc = _scores(qi, k[:, cols])
+            msk = _mask(qpos_i, kpos[:, cols], causal=causal, window=window)
+            sc = torch.where(msk[:, :, None, None, :], sc, NEG_INF)
+            m_new = torch.maximum(m_run, torch.amax(sc, dim=-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l_run = l_run * alpha + torch.sum(p, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "btkgs,bskd->btkgd", p, v[:, cols].float())
+            m_run = m_new
+        outs.append(acc / torch.clamp(l_run[..., None], min=1e-30))
+    return torch.cat(outs, dim=1)[:, :t]
 
 
 def gqa_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = ()) -> dict:

@@ -1,9 +1,13 @@
-"""The port stands alone: no file of `src/repro_torch/` and not
-`chip_smoke.py` imports `jax` or anything of the `repro` package, and its
-entry points default to `cuda` and raise, rather than fall back to the
-CPU, where there is no CUDA device."""
+"""The port stands alone: no file of `src/repro_torch/`, not
+`chip_smoke.py` and not `examples/torch_quickstart.py` imports `jax` or
+anything of the `repro` package, and its entry points default to `cuda`
+and raise, rather than fall back to the CPU, where there is no CUDA
+device."""
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -11,7 +15,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     str(p.relative_to(ROOT))
-    for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + ["chip_smoke.py"]
+    for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        "chip_smoke.py", "examples/torch_quickstart.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -69,6 +74,18 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "tiny", "--steps", "1", "--batch", "1",
                     "--docs", "2"])
+
+
+def test_torch_quickstart_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
+         "--steps", "1"], capture_output=True, text=True, env=env,
+        timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "step" not in out.stdout
 
 
 def test_importing_the_port_builds_nothing():

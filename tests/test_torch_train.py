@@ -603,13 +603,24 @@ def test_kernel_calls_per_step_under_per_shard(monkeypatch):
 
 
 def test_unported_modes_name_their_roadmap_item():
+    """Every clipping mode of the reference is ported (naive_flat takes
+    one flat noise group, as ghost_flat, and the CLI accepts it); what
+    stays unported names its item: DP-LoRA's `trainable_key` (A.10), and
+    the BK recipes of `dp_shift` / `dp_broadcast` (the recurrent
+    families, A.8)."""
+    from repro_torch.core import bk
     m = build_model(get_config("tiny"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        dp_sgd.build_plan(dp_sgd.DPConfig(mode="naive_flat"), m.layout)
-    with pytest.raises(SystemExit):  # the CLI refuses it in argparse
-        train.build_train_parser().parse_args(["--clipping", "naive_flat"])
-    for mode in ("ghost_flat", "per_group_twopass"):  # ported now
+    assert train.build_train_parser().parse_args(
+        ["--clipping", "naive_flat"]).clipping == "naive_flat"
+    for mode in ("ghost_flat", "per_group_twopass", "naive_flat"):
         plan = dp_sgd.build_plan(dp_sgd.DPConfig(
             mode=mode, group_assignment=(0,) * m.layout.num_groups),
             m.layout)
         assert plan.num_noise_groups == 1
+    params = bridge.train_params_from_numpy(
+        bridge.numpy_params(m.spec, seed=0), "cpu")
+    with pytest.raises(NotImplementedError, match="A.10"):
+        dp_clipped_gradients(m.loss_fn, params, _t(_batch(m.cfg.vocab_size)),
+                             m.layout, mode="non_private", batch_size=B,
+                             trainable_key="lora")
+    assert bk._NOT_PORTED["shift"] == bk._NOT_PORTED["broadcast"] == "A.8"
