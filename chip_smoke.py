@@ -65,7 +65,9 @@ exits non-zero:
               warning. ms per
               step, ratio_vs_nonprivate, ratio_bk_vs_twopass per mode,
               ratio_vs_per_layer for per_shard, losses, thresholds, clip
-              fraction, peak memory, and one profiled step per variant.
+              fraction, peak memory, and one profiled step of per_layer
+              and of non_private (the others are not profiled: a profile
+              costs 11-24 s of the time limit).
               The kernels' inputs at the five linear shapes (per_layer's
               first step), at the two blocked shapes (per_shard's first
               step: ghost_norm_blocked's, and clip_reduce's with the
@@ -178,10 +180,35 @@ exits non-zero:
               over a step's calls: 8 per linear and layer for
               naive_flat).
 
+ 12 service   the crash-safe training service (`launch.service`) on phase
+              5's settings (qwen3-4b at full width and depth, per_layer,
+              B = 8, T = 256, adam, epsilon 8, rate 1/16; 4 steps, a
+              checkpoint every 2), on one shared `ServiceRuntime`:
+              (a) the first step from the seeded state twice, each state's
+              39 leaf crc32s compared bitwise (printed, differing leaves
+              named), then 3 more steps: the uninterrupted run's final
+              crcs, in memory; (b) a `TrainService` crashed by
+              FaultInjector("post-ledger-append", 3, mode="raise"), its
+              state dropped, a second incarnation resumed to 4 steps: the
+              final manifest's crcs must equal (a)'s, the ledger hold 4
+              records before and after the resume (re-executed steps add
+              none) and the final step verify; each save's, the load's and
+              the verify's seconds and GB/s, the raw and stored bytes, the
+              codec, threads and free disk, and one host thread's zlib
+              rates on bf16 weights (level 6, Huffman only, stored);
+              ghost_norm / clip_reduce launches 145 each per executed
+              step, re-executions included (5 executed steps in (a), 5 in
+              (b)); (c) the service CLI in subprocesses at --reduced width:
+              `--fault-at post-ledger-append:3` exits 86, the resume exits
+              0 with the crcs of an uninterrupted CLI run, a flipped byte
+              in the newest shard falls back to step 2 and re-trains to the
+              same crcs, and `--calib-steps 2` stops cleanly with
+              status=budget_exhausted at step 2, epsilon within budget.
+
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8 and 11.
+the sum over phases 5, 8, 11 and 12.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -697,6 +724,9 @@ def phase_cuda_vs_cpu(torch, gpu):
 # ---------------------------------------------------------------------------
 
 TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+# phase 5's profiled variants: the Figure-1 pair (a profile costs 11-24 s
+# of the run's time limit)
+PROFILED = ("per_layer", "non_private")
 # (label, --clipping, --execution, --group-count): the Figure-1 variants
 # of benchmarks/bench_throughput.py but naive_flat, and per-device
 # clipping (per_shard) with the model-axis size of the reference's
@@ -1002,7 +1032,8 @@ def phase_train(torch, gpu, step_ms):
     for label, mode, execution, group_count in VARIANTS:
         counts = train_variant(torch, gpu, label,
                                train_args(mode, execution, group_count),
-                               step_ms, patches.get(label, ()))
+                               step_ms, patches.get(label, ()),
+                               profile=label in PROFILED)
         for k in launches:
             launches[k] += counts[k]
     base = step_ms["non_private"]
@@ -1986,6 +2017,381 @@ def phase_scale_train(torch, gpu, qwen_ms, moe_ms):
     return launches, caps
 
 
+# phase 12: the crash-safe service on phase 5's training settings
+SERVICE_ARGV = ["--arch", "qwen3-4b", "--clipping", "per_layer",
+                "--epsilon", "8", "--steps", "4", "--batch", "8",
+                "--seq", "256", "--docs", "64", "--optimizer", "adam",
+                "--seed", "0", "--checkpoint-every", "2", "--log-every", "1"]
+SERVICE_CRASH = ("post-ledger-append", 3)
+# (c)'s CLI runs at --reduced width (a few seconds a run)
+SERVICE_CLI_ARGV = ["--arch", "qwen3-4b", "--reduced", "--clipping",
+                    "per_layer", "--epsilon", "8", "--steps", "4",
+                    "--batch", "8", "--seq", "64", "--docs", "64",
+                    "--seed", "0", "--checkpoint-every", "2",
+                    "--log-every", "1"]
+SERVICE_CLI_TIMEOUT = 300
+
+
+def service_args(service_dir: str):
+    from repro_torch.launch import service
+    return service.build_service_parser().parse_args(
+        ["--service-dir", service_dir, *SERVICE_ARGV])
+
+
+def leaf_names(tree, prefix="") -> list:
+    """Names of a state's leaves in the checkpoint's flatten order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [n for f, v in zip(tree._fields, tree)
+                for n in leaf_names(v, f"{prefix}{f}/")]
+    return [prefix.rstrip("/")]
+
+
+def run_steps(torch, runtime, state, sampler, steps):
+    """`steps` service steps of `runtime` on `state` (updated in place);
+    returns each step's loss."""
+    from repro_torch.data import make_lm_batch
+    losses = []
+    for _ in range(steps):
+        batch = make_lm_batch(runtime.rows, sampler.next_indices(),
+                              runtime.batch)
+        batch = {k: torch.from_numpy(v).to(runtime.device)
+                 for k, v in batch.items()}
+        p, o, d, met = runtime.step(state["params"], state["opt_state"],
+                                    state["dp_state"], batch,
+                                    runtime.seed + 1)
+        state.update(params=p, opt_state=o, dp_state=d)
+        losses.append(float(met.loss))
+    return losses
+
+
+def step_repeat_and_reference(torch, gpu, runtime, steps):
+    """(a): the first step from the seeded state twice, each state's
+    per-leaf crc32 before and after compared bitwise (every leaf that
+    differs named); then `steps` - 1 more steps from the second: the
+    uninterrupted run's final crcs, computed in memory (no checkpoint
+    written). Returns those crcs and the steps executed."""
+    from repro_torch.checkpoint import tree_crcs
+    from repro_torch.launch.train import init_state
+    runs = []
+    for _ in range(2):
+        if runs:
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        state = init_state(runtime.model, runtime.init_fn, runtime.seed,
+                           runtime.device)
+        sampler = runtime.make_sampler()
+        before = tree_crcs(state)
+        t0 = time.perf_counter()
+        loss = run_steps(torch, runtime, state, sampler, 1)[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after = tree_crcs(state)
+        runs.append({"before": before, "after": after, "loss": loss,
+                     "step_s": t1 - t0,
+                     "crc_s": time.perf_counter() - t1})
+    names = leaf_names(state)
+    differ = [n for n, x, y in zip(names, runs[0]["after"],
+                                   runs[1]["after"]) if x != y]
+    emit({"phase": "step_repeat", "gpu": gpu, "arch": runtime.cfg.name,
+          "mode": runtime.plan.config.mode, "batch": runtime.batch,
+          "leaves": len(names),
+          "initial_bitwise": runs[0]["before"] == runs[1]["before"],
+          "bitwise": not differ, "differing_leaves": differ,
+          "losses": [r["loss"] for r in runs],
+          "crcs": dict(zip(names, runs[1]["after"])),
+          "crc_s": runs[1]["crc_s"]})
+    if runs[0]["before"] != runs[1]["before"] or differ:
+        raise RuntimeError(f"a repeated step from the same state differs "
+                           f"in {differ}")
+    losses = run_steps(torch, runtime, state, sampler, steps - 1)
+    torch.cuda.synchronize()
+    crcs = tree_crcs(state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return crcs, [r["loss"] for r in runs] + losses, steps + 1
+
+
+def state_bytes(torch, runtime) -> int:
+    """Raw bytes of the service's checkpointed state (0-d leaves: 4)."""
+    from repro_torch.checkpoint.store import tree_flatten
+    from repro_torch.core.spec import meta_params
+    params = meta_params(runtime.model.spec)
+    opt, dp = runtime.init_fn(params)
+    return sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+               else 4 for x in tree_flatten([params, opt, dp]))
+
+
+def codec_probe(torch, runtime) -> dict:
+    """zlib level 6 (the reference's), Huffman coding only and stored
+    blocks (the store's pieces) on 16 MiB of bf16 weights as the model
+    initializes them (N(0, 0.02)): MB/s of one host thread each way and
+    the stored fraction."""
+    import zlib
+    gen = torch.Generator(device=runtime.device).manual_seed(runtime.seed)
+    x = (torch.randn(8 << 20, generator=gen, device=runtime.device)
+         * 0.02).to(torch.bfloat16)
+    raw = x.view(torch.int16).cpu().numpy().tobytes()
+    out = {}
+    for name, level, strategy in (("zlib6", 6, zlib.Z_DEFAULT_STRATEGY),
+                                  ("huffman_only", 1, zlib.Z_HUFFMAN_ONLY),
+                                  ("stored", 0, zlib.Z_DEFAULT_STRATEGY)):
+        t0 = time.perf_counter()
+        c = zlib.compressobj(level, zlib.DEFLATED, 15, 8, strategy)
+        comp = c.compress(raw) + c.flush()
+        t1 = time.perf_counter()
+        if zlib.decompress(comp) != raw:
+            raise RuntimeError(f"codec probe: {name} does not round-trip")
+        out[name] = {"deflate_mb_per_s": len(raw) / (t1 - t0) / 1e6,
+                     "inflate_mb_per_s":
+                         len(raw) / (time.perf_counter() - t1) / 1e6,
+                     "stored_fraction": len(comp) / len(raw)}
+    return out
+
+
+def cli_service(work, name, *extra):
+    """Start the service CLI in a subprocess over `work/name`."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.service",
+           "--service-dir", os.path.join(work, name), *SERVICE_CLI_ARGV,
+           *extra]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    proc.started = time.perf_counter()
+    proc.run_args = (name, list(extra))
+    return proc
+
+
+def cli_wait(proc, expect) -> str:
+    """Wait for a `cli_service` run; its exit code must be `expect`.
+    Returns its standard output."""
+    out, err = proc.communicate(timeout=SERVICE_CLI_TIMEOUT)
+    name, extra = proc.run_args
+    if proc.returncode != expect:
+        raise RuntimeError(f"service CLI {name} {extra}: exit "
+                           f"{proc.returncode}, expected {expect}\n"
+                           f"{out[-2000:]}\n{err[-4000:]}")
+    emit({"phase": "service_cli", "run": name, "args": extra,
+          "exit": proc.returncode, "s": time.perf_counter() - proc.started,
+          "lines": [ln for ln in out.splitlines()
+                    if ln.startswith("# service")]})
+    return out
+
+
+def phase_service_cli(work) -> dict:
+    """(c): the service CLI at --reduced width in subprocesses: the
+    uninterrupted run and the budget stop beside the crash, resume,
+    corrupt-shard and fallback chain."""
+    import re
+    from repro_torch.checkpoint import store
+    from repro_torch.launch.service import PrivacyLedger
+
+    def crcs(name):
+        return store.manifest_crcs(os.path.join(work, name, "ckpt"), 4)
+
+    point, step = SERVICE_CRASH
+    # sigma calibrated for 2 steps: the gate refuses step 2
+    side = [cli_service(work, "straight"),
+            cli_service(work, "budget", "--calib-steps", "2")]
+    try:
+        cli_wait(cli_service(work, "crash", "--fault-at", f"{point}:{step}"),
+                 86)
+        cli_wait(cli_service(work, "crash"), 0)
+        crash_crcs = crcs("crash")
+        # one flipped byte in the newest shard: the resume falls back to
+        # the previous verified step and re-trains the gap
+        ckpt = os.path.join(work, "crash", "ckpt")
+        shard = os.path.join(ckpt, "step_00000004", sorted(
+            f for f in os.listdir(os.path.join(ckpt, "step_00000004"))
+            if f.startswith("shard_"))[-1])
+        with open(shard, "r+b") as f:
+            f.seek(os.path.getsize(shard) // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+        fallback = store.latest_verified_step(ckpt)
+        out = cli_wait(cli_service(work, "crash"), 0)
+        resumed_at = int(re.search(r"resume_at=(\d+)", out).group(1))
+        cli_wait(side[0], 0)
+        budget_out = cli_wait(side[1], 0)
+    finally:
+        for proc in side:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    if crash_crcs != crcs("straight"):
+        raise RuntimeError("CLI resume: final crcs differ from the "
+                           "uninterrupted CLI run's")
+    if fallback != 2 or resumed_at != 2 or crcs("crash") != crcs("straight"):
+        raise RuntimeError(f"corrupt shard: fallback {fallback}, resumed at "
+                           f"{resumed_at}, final crcs equal "
+                           f"{crcs('crash') == crcs('straight')}")
+    records = len(PrivacyLedger(os.path.join(work, "crash",
+                                             "ledger.jsonl")).replay())
+    m = re.search(r"status=budget_exhausted step=(\d+) epsilon=([0-9.]+) "
+                  r"budget=([0-9.]+)", budget_out)
+    if m is None or int(m.group(1)) != 2 or \
+            float(m.group(2)) > float(m.group(3)):
+        raise RuntimeError(f"budget stop: {budget_out[-1000:]}")
+    return {"crash_exit": 86, "resume_crcs_equal": True,
+            "corrupt_fallback_step": fallback,
+            "resumed_at_after_corruption": resumed_at,
+            "ledger_records": records,
+            "budget_stop": {"step": int(m.group(1)),
+                            "epsilon": float(m.group(2)),
+                            "budget": float(m.group(3))}}
+
+
+def phase_service(torch, gpu):
+    """Phase 12. Returns the launches by kernel over (a) and (b)."""
+    import shutil
+    from repro_torch.checkpoint import store
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import service
+    from repro_torch.launch.service import (FaultInjector, PrivacyLedger,
+                                            SimulatedCrash, TrainService)
+    work = os.path.join(ROOT, "build", "smoke_service")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    args = service_args(os.path.join(work, "svc"))
+    t0 = time.perf_counter()
+    runtime = service.build_runtime(args)
+    build_s = time.perf_counter() - t0
+    raw = state_bytes(torch, runtime)
+    free = shutil.disk_usage(work).free
+    need = 2 * raw + (4 << 30)  # two published steps, the stage, slack
+    if free < need:
+        raise RuntimeError(f"phase 12 needs {need / 1e9:.1f} GB of disk "
+                           f"under {work} (two {raw / 1e9:.1f} GB "
+                           f"checkpoints), {free / 1e9:.1f} GB free")
+    steps = args.steps
+    per_step = expected_launches("per_layer", runtime.cfg)
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+
+    def count(executed, what):
+        got = launch_counts()
+        want = {k: v * executed for k, v in per_step.items()}
+        if {k: got[k] for k in want} != want:
+            raise RuntimeError(f"{what}: launches {got} over {executed} "
+                               f"steps, expected {want}")
+        for k in launches:
+            launches[k] += got[k]
+        return {k: got[k] for k in ("ghost_norm", "clip_reduce")}
+
+    # (a) the step repeat and the uninterrupted reference
+    reset_launch_counts()
+    ref_crcs, ref_losses, executed = step_repeat_and_reference(
+        torch, gpu, runtime, steps)
+    a_counts = count(executed, "uninterrupted")
+
+    # (b) crash after step 3's ledger append, resume to 4 steps
+    saves, loads = [], []
+    real_save, real_restore = service.save_checkpoint, service.restore_latest
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        path = real_save(*a, **kw)
+        saves.append({"step": a[1], "s": time.perf_counter() - t})
+        return path
+
+    def timed_restore(*a, **kw):
+        t = time.perf_counter()
+        found = real_restore(*a, **kw)
+        torch.cuda.synchronize()
+        if found is not None:
+            loads.append({"step": found[0], "s": time.perf_counter() - t})
+        return found
+
+    ledger_path = os.path.join(args.service_dir, "ledger.jsonl")
+    service.save_checkpoint = timed_save
+    service.restore_latest = timed_restore
+    try:
+        reset_launch_counts()
+        point, at = SERVICE_CRASH
+        svc = TrainService(args, runtime=runtime,
+                           fault=FaultInjector(point, at, mode="raise"))
+        try:
+            svc.run()
+            raise RuntimeError(f"fault {point}@{at} never fired")
+        except SimulatedCrash:
+            pass
+        crashed_committed = svc.committed
+        del svc  # the crashed incarnation's 26.5 GB of state
+        gc.collect()
+        torch.cuda.empty_cache()
+        records_at_crash = len(PrivacyLedger(ledger_path).replay())
+        svc = TrainService(args, runtime=runtime)
+        resumed_at = svc.committed
+        status = svc.run()
+        torch.cuda.synchronize()
+        del svc
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        service.save_checkpoint = real_save
+        service.restore_latest = real_restore
+    b_executed = crashed_committed + (steps - resumed_at)
+    b_counts = count(b_executed, "crash and resume")
+    ckpt = os.path.join(args.service_dir, "ckpt")
+    records = PrivacyLedger(ledger_path).replay()
+    final = store.manifest_crcs(ckpt, steps)
+    t0 = time.perf_counter()
+    verified = store.verify_checkpoint(ckpt, steps)
+    verify_s = time.perf_counter() - t0
+    step_dir = os.path.join(ckpt, f"step_{steps:08d}")
+    stored = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir))
+    manifest = store.load_manifest(ckpt, steps)
+    differ = [i for i, (x, y) in enumerate(zip(final, ref_crcs)) if x != y]
+    result = {
+        "phase": "service", "gpu": gpu, "arch": runtime.cfg.name,
+        "params": runtime.model.num_params, "mode":
+            runtime.plan.config.mode, "batch": runtime.batch,
+        "seq": args.seq, "steps": steps, "sigma": runtime.plan.sigma,
+        "build_s": build_s, "crash": f"{point}@{at}",
+        "committed_at_crash": crashed_committed, "resumed_at": resumed_at,
+        "status": status["status"], "epsilon": status["epsilon"],
+        "ledger_records_at_crash": records_at_crash,
+        "ledger_records": len(records),
+        "final_crcs_equal": final == ref_crcs, "differing_leaf_indices":
+            differ, "leaves": len(final), "verified": verified,
+        "reference_losses": ref_losses,
+        "codec": manifest["codec"], "threads": os.cpu_count(),
+        "free_disk_gb": free / 1e9, "raw_bytes": raw,
+        "stored_bytes": stored, "stored_fraction": stored / raw,
+        "num_shards": manifest["num_shards"],
+        "saves": [dict(x, gb_per_s=raw / x["s"] / 1e9) for x in saves],
+        "loads": [dict(x, gb_per_s=raw / x["s"] / 1e9) for x in loads],
+        "verify": {"s": verify_s, "gb_per_s": raw / verify_s / 1e9},
+        "codec_probe": codec_probe(torch, runtime),
+        "launches_uninterrupted": a_counts, "executed_uninterrupted":
+            executed, "launches_crash_resume": b_counts,
+        "executed_crash_resume": b_executed,
+        "launches_per_executed_step": {k: per_step[k] for k in
+                                       ("ghost_norm", "clip_reduce")}}
+    emit(result)
+    shutil.rmtree(args.service_dir)
+    if not (final == ref_crcs and verified and len(records) == steps
+            and records_at_crash == steps and status["status"] == "complete"
+            and [r["step"] for r in records] == list(range(steps))):
+        raise RuntimeError("phase 12: the resumed service differs from the "
+                           "uninterrupted run")
+    del runtime
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = phase_service_cli(work)
+    emit({"phase": "service_cli_summary", "gpu": gpu, **cli})
+    shutil.rmtree(work)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2057,12 +2463,14 @@ def main() -> int:
                              ("ghost_norm", "clip_reduce"))})
     del scale_caps
     clock("scale kernels")
+    service_launches = phase_service(torch, gpu)
+    clock("service")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's and the
     # T = 4096 path's times beside qwen3-4b's
     for k in train_kernels + [fused]:
         k["launches"] = sum(run[k["name"]] for run in (
-            train_launches, moe_launches, scale_launches))
+            train_launches, moe_launches, scale_launches, service_launches))
         for key, extra in (("moe", moe), ("naive_flat", naive),
                            ("long_context", long)):
             if k["name"] in extra:

@@ -15,14 +15,14 @@ Implements:
 
 Pure numpy: a copy of `repro.core.accounting`, so the port imports
 nothing of the JAX package; the parity tests hold the two to 1e-12. The
-incremental accountant and ledger replay of the training service come
-with it (ROADMAP A.12).
+incremental `RdpAccountant` and `replay_ledger` back the training
+service's persistent privacy ledger (`launch.service`).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -261,3 +261,70 @@ def sigma_b_for_fraction(sigma: float, num_groups: int, r: float) -> float:
     if not 0.0 < r < 1.0:
         raise ValueError("r must be in (0, 1)")
     return math.sqrt(num_groups * sigma * sigma / (4.0 * r))
+
+
+# ---------------------------------------------------------------------------
+# Incremental accountant (ledger replay).
+# ---------------------------------------------------------------------------
+
+
+class RdpAccountant:
+    """Incremental RDP composition over heterogeneous (q, sigma) steps.
+
+    Backs the training service's persistent ledger (launch.service): each
+    ledger record is one `spend(q, sigma)`; `epsilon(delta)` converts the
+    running RDP vector, and `peek(q, sigma, delta)` prices a step WITHOUT
+    committing it, so the budget gate can refuse it. A per-(q, sigma)
+    cache of the one-step RDP vector makes replaying a long ledger cost
+    one vector evaluation per distinct mechanism, not per record.
+    """
+
+    def __init__(self, orders: Sequence[float] = DEFAULT_ORDERS):
+        if len(orders) == 0:
+            raise ValueError("order grid is empty")
+        self.orders = tuple(float(a) for a in orders)
+        self._rdp = np.zeros(len(self.orders))
+        self._steps = 0
+        self._cache: dict[tuple[float, float], np.ndarray] = {}
+
+    def _one_step(self, q: float, sigma: float) -> np.ndarray:
+        key = (float(q), float(sigma))
+        rdp = self._cache.get(key)
+        if rdp is None:
+            rdp = rdp_sampled_gaussian(q, sigma, 1, self.orders)
+            self._cache[key] = rdp
+        return rdp
+
+    @property
+    def steps(self) -> int:
+        return self._steps
+
+    def spend(self, q: float, sigma: float) -> None:
+        """Compose one sampled-Gaussian release into the running total."""
+        self._rdp = self._rdp + self._one_step(q, sigma)
+        self._steps += 1
+
+    def epsilon(self, delta: float) -> float:
+        """(eps, delta) spent so far."""
+        if self._steps == 0:
+            return 0.0
+        return rdp_to_eps(self._rdp, delta, self.orders)
+
+    def peek(self, q: float, sigma: float, delta: float) -> float:
+        """Projected epsilon if one more (q, sigma) step were spent."""
+        return rdp_to_eps(self._rdp + self._one_step(q, sigma), delta,
+                          self.orders)
+
+    def rdp(self) -> np.ndarray:
+        return self._rdp.copy()
+
+
+def replay_ledger(records: Iterable[dict], delta: float,
+                  orders: Sequence[float] = DEFAULT_ORDERS
+                  ) -> tuple[RdpAccountant, float]:
+    """Replay ledger records (dicts with 'q' and 'sigma') into an
+    accountant. Returns (accountant, epsilon spent)."""
+    acct = RdpAccountant(orders)
+    for rec in records:
+        acct.spend(float(rec["q"]), float(rec["sigma"]))
+    return acct, acct.epsilon(delta)

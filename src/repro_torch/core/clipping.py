@@ -65,6 +65,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core import bk
+from repro_torch.core.ghost import segment_sum
 from repro_torch.core.spec import P, GroupLayout, _walk, tree_leaves
 from repro_torch.optim.optimizers import slices
 
@@ -122,10 +123,9 @@ def flat_clip_factors(total_norms_sq: torch.Tensor,
 def supergroup_norms(norms_sq: torch.Tensor, assignment: torch.Tensor,
                      num_supergroups: int) -> torch.Tensor:
     """(G, B) f32 norms² per supergroup: the (K, B) group norms² summed
-    by `assignment` (K,) (the reference's `jax.ops.segment_sum`)."""
-    out = torch.zeros((num_supergroups, norms_sq.shape[-1]),
-                      dtype=torch.float32, device=norms_sq.device)
-    return out.index_add_(0, assignment.long(), norms_sq.float())
+    by `assignment` (K,) (the reference's `jax.ops.segment_sum`), in a
+    fixed order (`ghost.segment_sum`)."""
+    return segment_sum(norms_sq, assignment, num_supergroups)
 
 
 def _grads_only(loss_fn, params, batch, thresholds_tree):

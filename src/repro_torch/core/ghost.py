@@ -22,6 +22,8 @@ engine (`repro_torch.kernels.backend`) carries them per scope.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 ACC_DTYPE = torch.float32
@@ -255,14 +257,41 @@ def clipped_sum_bias(g: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bto,b->o", g3, factors.to(ACC_DTYPE))
 
 
+def segment_sum(values: torch.Tensor, ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """(num_segments, ...) f32 sums of the rows of `values` (N, ...) by
+    `ids` (N,): the reference's `jax.ops.segment_sum` and `.at[ids].add`,
+    in an order that the data alone fixes, so a CUDA run repeats its bits
+    (`index_add_` adds with float atomics there). The rows are sorted
+    stably by id; a segmented scan of log2(N) elementwise passes sums each
+    id's run into its last row (pass k adds the row 2^k back where it has
+    the same id); those rows are written to their ids, each once."""
+    flat = ids.reshape(-1).long()
+    n = flat.shape[0]
+    x = values.reshape((n, math.prod(values.shape[1:]))).to(ACC_DTYPE)
+    out = torch.zeros((num_segments, x.shape[1]), dtype=ACC_DTYPE,
+                      device=x.device)
+    if n == 0:
+        return out.reshape((num_segments,) + values.shape[1:])
+    order = torch.sort(flat, stable=True).indices
+    seg, x = flat[order], x[order]
+    k = 1
+    while k < n:
+        same = (seg[k:] == seg[:-k])[:, None]
+        x = torch.cat([x[:k], torch.where(same, x[k:] + x[:-k], x[k:])])
+        k *= 2
+    last = torch.ones(n, dtype=torch.bool, device=x.device)
+    last[:-1] = seg[1:] != seg[:-1]
+    out[seg[last]] = x[last]
+    return out.reshape((num_segments,) + values.shape[1:])
+
+
 def clipped_sum_embed(ids: torch.Tensor, g: torch.Tensor,
                       factors: torch.Tensor, vocab: int) -> torch.Tensor:
     ids2 = ids.reshape(ids.shape[0], -1)
     g3 = _as3d(g).to(ACC_DTYPE)
     gs = (g3 * factors[:, None, None].to(ACC_DTYPE)).reshape(-1, g3.shape[-1])
-    out = torch.zeros((vocab, g3.shape[-1]), dtype=ACC_DTYPE,
-                      device=g3.device)
-    return out.index_add_(0, ids2.reshape(-1).long(), gs)
+    return segment_sum(gs, ids2, vocab)
 
 
 def clipped_sum_scale(xhat: torch.Tensor, g: torch.Tensor,

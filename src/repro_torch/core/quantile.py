@@ -15,11 +15,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
 class QuantileState(NamedTuple):
-    """State of K independent quantile trackers (one per clipping group)."""
+    """State of K independent quantile trackers (one per clipping group).
+    The scalars are Python floats holding float32 values, as the
+    reference's float32 scalars: a checkpoint stores them as float32 and
+    reads back the same values (the tensor ops round a Python scalar to
+    float32 anyway)."""
 
     thresholds: torch.Tensor  # (K,) float32 current thresholds C_k (> 0)
     target_quantile: float  # q in [0, 1]
@@ -35,8 +40,36 @@ def init_quantile_state(init_thresholds, *, target_quantile: float = 0.5,
     if thresholds.dim() == 0:
         thresholds = thresholds[None]
     return QuantileState(thresholds=thresholds,
-                         target_quantile=float(target_quantile),
-                         lr=float(lr), sigma_b=float(sigma_b))
+                         target_quantile=_f32(target_quantile),
+                         lr=_f32(lr), sigma_b=_f32(sigma_b))
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32, as the reference holds its scalars."""
+    return float(np.float32(x))
+
+
+def export_state(state: QuantileState) -> dict:
+    """Plain-python snapshot of the tracker (JSON / msgpack safe), equal
+    to the reference's for the same state. It rides in a checkpoint
+    manifest's `meta`; the authoritative thresholds are the checkpointed
+    DPState's."""
+    return {
+        "thresholds": [float(t) for t in
+                       state.thresholds.detach().cpu().numpy()],
+        "target_quantile": float(state.target_quantile),
+        "lr": float(state.lr),
+        "sigma_b": float(state.sigma_b),
+    }
+
+
+def restore_state(snapshot: dict) -> QuantileState:
+    """Inverse of `export_state` (the float32 round trip is exact), with
+    the thresholds on the CPU."""
+    return QuantileState(
+        thresholds=torch.tensor(snapshot["thresholds"], dtype=torch.float32),
+        target_quantile=_f32(snapshot["target_quantile"]),
+        lr=_f32(snapshot["lr"]), sigma_b=_f32(snapshot["sigma_b"]))
 
 
 def clip_counts(norms_sq: torch.Tensor,

@@ -100,6 +100,18 @@ def init_params(spec: SpecTree, generator: torch.Generator) -> Any:
     return out
 
 
+def meta_params(spec: SpecTree) -> Any:
+    """The parameter tree's shapes and dtypes on the meta device (no
+    memory): a template to restore a checkpoint into."""
+    out: dict = {}
+    for path, p in _walk(spec):
+        node = out
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = torch.empty(p.shape, dtype=p.dtype, device="meta")
+    return out
+
+
 def _init_leaf(p: P, gen: torch.Generator) -> torch.Tensor:
     dev = gen.device
     if p.init == "zeros":

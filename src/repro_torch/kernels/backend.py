@@ -31,8 +31,8 @@ Backend selection matrix (op x backend):
   clipped_sum_linear_blocked                       clip_reduce with (B, M)
                             f32 fold + einsum      factors (clip_reduce_ref:
                                                    the fold + einsum)
-  bias/embed/scale/vector   einsum/index_add       = plain (no kernel)
-  clipped_sum_bias/embed/.. einsum/index_add       = plain (no kernel)
+  bias/embed/scale/vector   einsum/segment_sum     = plain (no kernel)
+  clipped_sum_bias/embed/.. einsum/segment_sum     = plain (no kernel)
   scale_contract (BK)       einsum per slice       scale_contract
                                                    (scale_contract_ref)
 

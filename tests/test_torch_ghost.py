@@ -178,6 +178,55 @@ def test_embed_norms_and_sum_are_collision_exact(chunk):
                                jnp.asarray(f), 6))
 
 
+# ids, rows, segments: a single id, every id distinct, a padding-heavy
+# batch (id 0 repeated, as the padded rows of a Poisson batch), runs longer
+# than a power of two, empty segments, an empty input
+SEGMENT_CASES = [(1, 1, 3), (64, 64, 64), (2048, 40, 3000),
+                 (333, 5, 300), (17, 257, 16), (0, 4, 2)]
+
+
+@pytest.mark.parametrize("n,num,d", SEGMENT_CASES)
+def test_segment_sum_matches_reference(n, num, d):
+    """The port's fixed-order segment sum (sort, segmented scan) against
+    `jax.ops.segment_sum` and `.at[].add`, with repeated ids; equal in f32
+    up to the order of summation."""
+    rng = np.random.default_rng(n + num)
+    ids = rng.integers(0, num, n).astype(np.int32)
+    if n > 100:
+        ids[: n // 2] = 0
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    got = G.segment_sum(T(v), T(ids), num)
+    want = jax.ops.segment_sum(jnp.asarray(v), jnp.asarray(ids), num)
+    assert got.shape == (num, d) and got.dtype == torch.float32
+    if n:
+        close(got, want)
+        close(got, jnp.zeros((num, d)).at[jnp.asarray(ids)].add(v))
+    else:
+        assert not got.any()
+    # a stable sort and fixed passes: two calls give the same bits
+    assert torch.equal(got, G.segment_sum(T(v), T(ids), num))
+
+
+def test_supergroup_norms_and_embed_sum_match_reference():
+    """Both former `index_add_` sites against the reference's forms:
+    per_group's supergroup norms² (`jax.ops.segment_sum` of the (K, B)
+    group norms²) and the embedding's clipped sum, with repeated ids."""
+    from repro_torch.core.clipping import supergroup_norms
+    rng = np.random.default_rng(11)
+    norms = rng.uniform(0, 3, (15, 6)).astype(np.float32)
+    assign = rng.integers(0, 4, 15).astype(np.int32)
+    assign[:3] = 3
+    close(supergroup_norms(T(norms), T(assign), 5),
+          jax.ops.segment_sum(jnp.asarray(norms), jnp.asarray(assign), 5))
+    ids = np.zeros((4, 64), np.int32)  # padding rows: one id throughout
+    ids[:2] = rng.integers(0, 9, (2, 64))
+    g = rng.standard_normal((4, 64, 16)).astype(np.float32)
+    f = FACTORS[:4]
+    close(G.clipped_sum_embed(T(ids), T(g), T(f), 9),
+          JG.clipped_sum_embed(jnp.asarray(ids), jnp.asarray(g),
+                               jnp.asarray(f), 9))
+
+
 # ---------------------------------------------------------------------------
 # DP primitives against jax.vjp of the reference.
 # ---------------------------------------------------------------------------

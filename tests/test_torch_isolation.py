@@ -1,8 +1,8 @@
 """The port stands alone: no file of `src/repro_torch/`, not
-`chip_smoke.py` and not `examples/torch_quickstart.py` imports `jax` or
-anything of the `repro` package, and its entry points default to `cuda`
-and raise, rather than fall back to the CPU, where there is no CUDA
-device."""
+`chip_smoke.py` and not the port's examples (`examples/torch_*.py`)
+imports `jax` or anything of the `repro` package, and its entry points
+default to `cuda` and raise, rather than fall back to the CPU, where there
+is no CUDA device."""
 import ast
 import os
 import pathlib
@@ -16,7 +16,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        "chip_smoke.py", "examples/torch_quickstart.py"]
+        "chip_smoke.py", "examples/torch_quickstart.py",
+        "examples/torch_train_e2e.py", "examples/torch_train_service.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -43,7 +44,9 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 def test_port_package_is_scanned():
     for name in ("kernels/paged_attn.py", "kernels/ghost_norm.py",
                  "kernels/clip_reduce.py", "kernels/bk.py", "core/bk.py",
-                 "launch/sharding.py", "launch/train.py"):
+                 "launch/sharding.py", "launch/train.py",
+                 "launch/service.py", "checkpoint/store.py",
+                 "checkpoint/packer.py"):
         assert f"src/repro_torch/{name}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
@@ -76,6 +79,18 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it():
                     "--docs", "2"])
 
 
+def test_service_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
+    from repro_torch.launch import service
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    argv = ["--service-dir", str(tmp_path), "--arch", "tiny", "--steps",
+            "1", "--batch", "1", "--docs", "2"]
+    assert service.build_service_parser().parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        service.main(argv)
+    assert not (tmp_path / "ledger.jsonl").exists()
+
+
 def test_torch_quickstart_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -86,6 +101,24 @@ def test_torch_quickstart_defaults_to_cuda_and_raises_without_it():
         timeout=300)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     assert "step" not in out.stdout
+
+
+@pytest.mark.parametrize("example,argv", [
+    ("torch_train_e2e.py", ["--steps", "1", "--batch", "1", "--docs", "2",
+                            "--checkpoint-dir"]),
+    ("torch_train_service.py", ["--service-dir"]),
+])
+def test_torch_train_examples_default_to_cuda_and_raise_without_it(
+        example, argv, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / example), *argv,
+         str(tmp_path / "out")],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "step " not in out.stdout
 
 
 def test_importing_the_port_builds_nothing():
