@@ -11,13 +11,15 @@ exits non-zero:
               -Xptxas -v each kernel's name, registers and spills,
               ptxas's notes on the wgmma pipeline and the bytes of spill
               stores per library).
-  3 serve     qwen3-4b at full width and depth, bf16, random parameters
-              from a seeded torch.Generator, served through the serve
-              CLI's own `serve_requests`: 8 slots, page_len 16, 16
-              synthetic requests of 64-192 tokens behind a 32-token
-              shared prefix, 32 generated tokens each (cache_len 272, 136
-              pages). Every launch counter is set to 0 just before and
-              read just after; paged_attn must have launched 36 times per
+  3 serve     qwen3-4b at full width, its depth cut to QWEN_CUT_DEPTH = 12
+              of 36 layers (a serve_step is host-bound, its time a
+              layer's times the depth), bf16, random parameters from a
+              seeded torch.Generator, served through the serve CLI's own
+              `serve_requests`: 8 slots, page_len 16, 16 synthetic
+              requests of 64-192 tokens behind a 32-token shared prefix,
+              32 generated tokens each (cache_len 272, 136 pages). Every
+              launch counter is set to 0 just before and read just
+              after; paged_attn must have launched 12 times per
               serve_step.
   2 kernels   (run after phase 3, so its launches stay out of phase 3's
               count) paged_attn against its plain PyTorch version on the
@@ -196,8 +198,9 @@ exits non-zero:
               the verify's seconds and GB/s, the raw and stored bytes, the
               codec, threads and free disk, and one host thread's zlib
               rates on bf16 weights (level 6, Huffman only, stored);
-              ghost_norm / clip_reduce launches 145 each per executed
-              step, re-executions included (5 executed steps in (a), 5 in
+              ghost_norm / clip_reduce launches 49 each per executed
+              step (4 linears x 12 blocks + the head), re-executions
+              included (5 executed steps in (a), 5 in
               (b)); (c) the service CLI in subprocesses at --reduced width:
               `--fault-at post-ledger-append:3` exits 86, the resume exits
               0 with the crcs of an uninterrupted CLI run, a flipped byte
@@ -205,10 +208,33 @@ exits non-zero:
               same crcs, and `--calib-steps 2` stops cleanly with
               status=budget_exhausted at step 2, epsilon within budget.
 
+  13 moe/mla  serving of the MoE and MLA families through phase 3's
+              `serve_model`, random parameters from seed 0, page_len 16,
+              a 16-token shared prefix, 16 generated tokens a request:
+              granite-moe-3b-a800m at full width and depth (32 layers of
+              40 experts top-8, GQA KV = 8, G = 3, head dim 64, bf16,
+              3.37 B parameters; 16 requests of 32-96 tokens, 8 slots),
+              then deepseek-v3-671b at full width with its depth cut to
+              5 layers (`dataclasses.replace(cfg, num_layers=5)`: the 3
+              first_k_dense layers, 2 MoE layers of 256 experts, mtp
+              kept; 27.3 B bf16 parameters, 54.6 GB; the whole model's
+              1.34 TB fit no card; 8 requests of 32-64 tokens, 4 slots),
+              its absorbed-form MLA decode calling paged_attn with KV =
+              1, G = 128, dq = 576, dv = 512, an f32 query over the bf16
+              latent pool passed as both pools. Gates as phase 3's:
+              paged_attn launched 32 / 5 times a serve_step. Each
+              path's line (tok/s, ms per dispatch and serve_step, peak
+              GB, the depth cut), its profile of 3 decode steps, and
+              paged_attn at its captured inputs with the most valid rows
+              against the plain version (TOL, a bitwise repeat) with
+              eager, graph, plain, library and bound times, kept in the
+              kernels line under "moe_serve" and "mla_serve"; then phase
+              4's card/CPU check on both reduced configs.
+
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8, 11 and 12.
+the sum over phases 5, 8, 11 and 12 (paged_attn's: phases 3 and 13).
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -240,6 +266,11 @@ SUM_RTOL, SUM_ATOL_FRAC = 1e-4, 1e-4
 TRAIN_RTOL, TRAIN_ATOL_FRAC = 1e-3, 1e-4
 TIE_GAP = 1e-4
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+# qwen3-4b's layers in phase 3's serving, of 36: a serve_step is bound by
+# the host (its small ops, a layer at a time), so a third of the depth
+# keeps the whole run inside its time limit on a slow host; the width and
+# every leaf stay
+QWEN_CUT_DEPTH = 12
 
 # data-sheet memory bandwidth (bytes/s) by card name
 BANDWIDTH = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
@@ -433,33 +464,42 @@ def phase_build(torch, gpu):
           "build_s": build_s, "ptxas": ptxas, "spill_store_bytes": spills})
 
 
-def phase_main_path(torch, gpu):
-    from repro_torch.configs import get_config
+def serve_model(torch, gpu, phase, cfg, *, n_req, min_len, max_len, prefix,
+                gen, slots, page_len, **extra):
+    """Serve `n_req` synthetic requests (`min_len`-`max_len` tokens behind
+    a `prefix`-token shared prefix, `gen` generated each) through the serve
+    CLI's own `serve_requests` on random parameters from seed 0, with
+    every launch counter set to 0 just before and read just after. Layer
+    0's paged_attn inputs are captured every 16th serve_step (the pools
+    are updated in place, so they are cloned; an aliased pool stays one
+    tensor). Gates: every request complete with in-vocabulary tokens, a
+    prefix hit, and paged_attn launched once a layer a serve_step. Emits
+    the phase's line (with `extra`) and returns (paged_attn launches, the
+    capture with the most valid cache rows, model, params, engine, ms
+    per serve_step)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels import paged_attn as K
     from repro_torch.launch import serve
     from repro_torch.models.transformer import build_model
 
-    n_req, slots, page_len, gen, prefix = 16, 8, 16, 32, 32
-    cfg = get_config("qwen3-4b")
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    reqs = serve.build_requests(cfg.vocab_size, n_req, min_len=64,
-                                max_len=192, shared_prefix=prefix, seed=0)
-    cache_len = -(-(prefix + 192 + gen + 8) // page_len) * page_len
+    reqs = serve.build_requests(cfg.vocab_size, n_req, min_len=min_len,
+                                max_len=max_len, shared_prefix=prefix,
+                                seed=0)
+    cache_len = -(-(prefix + max_len + gen + 8) // page_len) * page_len
 
-    # capture layer 0's inputs every 16th serve_step (layer 0 is every
-    # 36th call); the pools are updated in place, so they are cloned
     real = K.paged_attn
     calls, snaps = [0], []
 
     def recording(q, kpool, vpool, pt, pos, **kw):
         if calls[0] % (16 * cfg.num_layers) == 0:
-            snaps.append((q.clone(), kpool.clone(), vpool.clone(),
-                          pt.clone(), pos.clone(), kw))
+            kp = kpool.clone()
+            vp = kp if K._is_alias(kpool, vpool) else vpool.clone()
+            snaps.append((q.clone(), kp, vp, pt.clone(), pos.clone(), kw))
         calls[0] += 1
         return real(q, kpool, vpool, pt, pos, **kw)
 
@@ -479,22 +519,26 @@ def phase_main_path(torch, gpu):
         K.paged_attn = real
     s = eng.stats
     if sorted(done) != list(range(n_req)):
-        raise RuntimeError(f"completed {sorted(done)} of {n_req} requests")
+        raise RuntimeError(f"{cfg.name}: completed {sorted(done)} of "
+                           f"{n_req} requests")
     for rid, c in done.items():
         if len(c.tokens) != gen or not all(0 <= t < cfg.vocab_size
                                            for t in c.tokens):
-            raise RuntimeError(f"request {rid}: bad tokens {c.tokens}")
+            raise RuntimeError(f"{cfg.name}: request {rid}: bad tokens "
+                               f"{c.tokens}")
     if s["prefix_hits"] < 1:
-        raise RuntimeError("prefix sharing never hit")
+        raise RuntimeError(f"{cfg.name}: prefix sharing never hit")
     if counts["paged_attn"] != cfg.num_layers * s["serve_steps"]:
         raise RuntimeError(
-            f"paged_attn launched {counts['paged_attn']} times for "
-            f"{s['serve_steps']} serve_steps of {cfg.num_layers} layers")
+            f"{cfg.name}: paged_attn launched {counts['paged_attn']} times "
+            f"for {s['serve_steps']} serve_steps of {cfg.num_layers} layers")
     prompt_toks = sum(len(r) for r in reqs)
-    emit({"phase": "main_path", "gpu": gpu, "arch": cfg.name,
+    step_ms = 1e3 * wall / s["serve_steps"]
+    emit({"phase": phase, "gpu": gpu, "arch": cfg.name, **extra,
           "num_params": model.num_params, "dtype": str(cfg.dtype),
           "requests": n_req, "slots": slots, "page_len": page_len,
           "cache_len": cache_len, "num_pages": eng.num_pages,
+          "cache_mb": eng.cache_bytes() / 2**20,
           "prompt_tokens": prompt_toks, "generated_tokens": n_req * gen,
           "init_params_s": init_s, "wall_s": wall,
           "generated_tok_per_s": n_req * gen / wall,
@@ -503,20 +547,31 @@ def phase_main_path(torch, gpu):
               1e3 * eng.seconds["decode"] / s["decode_dispatches"],
           "ms_per_prefill_dispatch":
               1e3 * eng.seconds["prefill"] / s["prefill_dispatches"],
-          "ms_per_serve_step": 1e3 * wall / s["serve_steps"],
+          "ms_per_serve_step": step_ms,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches": counts, "stats": s,
           "first_tokens": done[0].tokens[:8]})
-    profile_decode(torch, gpu, model, params, eng, 1e3 * wall
-                   / s["serve_steps"])
-    # the capture with the most valid cache rows stands for the main path
     best = max(snaps, key=lambda sn: int(
         np.minimum(sn[4].cpu().numpy() + 1, sn[3].shape[1] * page_len)
         .sum()))
-    return counts["paged_attn"], best
+    return counts["paged_attn"], best, model, params, eng, step_ms
 
 
-def profile_decode(torch, gpu, model, params, eng, step_ms, steps=3):
+def phase_main_path(torch, gpu):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              num_layers=QWEN_CUT_DEPTH)
+    launches, best, model, params, eng, step_ms = serve_model(
+        torch, gpu, "main_path", cfg, n_req=16, min_len=64, max_len=192,
+        prefix=32, gen=32, slots=8, page_len=16,
+        depth_cut={"num_layers": QWEN_CUT_DEPTH, "of": 36})
+    profile_decode(torch, gpu, model, params, eng, step_ms)
+    return launches, best
+
+
+def profile_decode(torch, gpu, model, params, eng, step_ms, steps=3,
+                   **extra):
     """Device time per serve_step by kernel, from torch.profiler over a
     few full-pool decode steps on the engine's cache after the run (its
     requests are done, so the writes land on dead pages). The idle share
@@ -540,7 +595,7 @@ def profile_decode(torch, gpu, model, params, eng, step_ms, steps=3):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    emit({"phase": "profile", "gpu": gpu, "serve_steps": steps,
+    emit({"phase": "profile", "gpu": gpu, **extra, "serve_steps": steps,
           "device_ms_per_serve_step": device_ms,
           "unprofiled_ms_per_serve_step": step_ms,
           "device_idle_share": 1.0 - device_ms / step_ms,
@@ -549,7 +604,7 @@ def profile_decode(torch, gpu, model, params, eng, step_ms, steps=3):
           "paged_attn_ms_per_step": sum(ms for k, ms, _ in rows
                                         if "paged_attn" in k),
           "top": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": n}
-                  for k, ms, n in rows[:8]]})
+                  for k, ms, n in rows[:12]]})
 
 
 def phase_kernels(torch, gpu, main_snap):
@@ -648,7 +703,7 @@ def paged_attn_times(torch, gpu, K, label, q, kp, vp, pt, pos, scale, dv,
     times["bound_ms"], bound_by = paged_attn_bound(q, kp, vp, pt, pos, dv,
                                                    bw)
     # the host's time to enqueue a call (the wrapper's checks, plan,
-    # allocation and two launches), which a serving step pays 36 times
+    # allocation and two launches), which a serving step pays once a layer
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(HOST_CALLS):
@@ -672,14 +727,14 @@ def paged_attn_times(torch, gpu, K, label, q, kp, vp, pt, pos, scale, dv,
     return row
 
 
-def phase_cuda_vs_cpu(torch, gpu):
+def phase_cuda_vs_cpu(torch, gpu, arch="qwen3-4b"):
     from repro_torch import bridge
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.models.transformer import build_model
 
-    cfg = get_config("qwen3-4b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     n_req, gen, page_len, prefix = 6, 16, 8, 16
     tree = bridge.numpy_params(build_model(cfg, device="cpu").spec, seed=0)
     reqs = serve.build_requests(cfg.vocab_size, n_req, min_len=8,
@@ -2392,6 +2447,64 @@ def phase_service(torch, gpu):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: MoE and MLA serving.
+# ---------------------------------------------------------------------------
+
+MLA_DEPTH = 5  # deepseek-v3's layers on one card: first_k_dense 3 + 2 MoE
+# (label, arch, layers kept (None: all), requests, min and max prompt
+# tokens behind the shared prefix, slots)
+SERVE13 = [("moe_serve", "granite-moe-3b-a800m", None, 16, 32, 96, 8),
+           ("mla_serve", "deepseek-v3-671b", MLA_DEPTH, 8, 32, 64, 4)]
+SERVE13_PREFIX, SERVE13_GEN, SERVE13_PAGE = 16, 16, 16
+SERVE13_KEYS = ("point", "q", "kpool", "vpool_is_kpool", "dtype",
+                "pool_dtype", "ms", "graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs_err", "max_rel_err",
+                "host_us_per_call")
+
+
+def phase_moe_mla_serve(torch, gpu):
+    """Phase 13. Returns {label: the paged_attn entry's block}, each with
+    its path's launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attn as K
+    bw = bandwidth(gpu)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    blocks = {}
+    for label, arch, depth, n_req, lo, hi, slots in SERVE13:
+        cfg = get_config(arch)
+        extra = {"label": label}
+        if depth is not None:
+            extra["depth_cut"] = {
+                "num_layers": depth, "of": cfg.num_layers,
+                "why": "671 B bf16 parameters (1.34 TB) fit no single "
+                       "80 GB card; full width, first_k_dense dense "
+                       "layers then MoE ones, mtp kept"}
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        launches, snap, model, params, eng, step_ms = serve_model(
+            torch, gpu, "moe_mla_serve", cfg, n_req=n_req, min_len=lo,
+            max_len=hi, prefix=SERVE13_PREFIX, gen=SERVE13_GEN, slots=slots,
+            page_len=SERVE13_PAGE, **extra)
+        profile_decode(torch, gpu, model, params, eng, step_ms, label=label)
+        del model, params, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        q, kp, vp, pt, pos, kw = snap
+        row = paged_attn_times(torch, gpu, K, label, q, kp, vp, pt, pos,
+                               kw["scale"], kw.get("dv") or vp.shape[-1],
+                               bw, flush)
+        blocks[label] = {**{k: row[k] for k in SERVE13_KEYS},
+                         "launches": launches}
+        del snap, q, kp, vp
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ("granite-moe-3b-a800m", "deepseek-v3-671b"):
+        phase_cuda_vs_cpu(torch, gpu, arch)
+    return blocks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2465,6 +2578,13 @@ def main() -> int:
     clock("scale kernels")
     service_launches = phase_service(torch, gpu)
     clock("service")
+    # phase 13: paged_attn on granite's and deepseek-v3's serving paths
+    for label, block in phase_moe_mla_serve(torch, gpu).items():
+        kernel[label] = block
+        kernel["launches"] += block["launches"]
+        for err in ("max_abs_err", "max_rel_err"):
+            kernel[err] = max(kernel[err], block[err])
+    clock("moe and mla serving")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's and the
     # T = 4096 path's times beside qwen3-4b's

@@ -13,7 +13,10 @@ clipping groups, so its weights keep their (L, din, dout) shape, and its
 (K,) thresholds and (K, B) norms² follow `GroupLayout`'s order, which is
 the reference's. So does an MoE model: its expert leaves
 (`moe_blocks/moe/w_gu`, `w_down`) keep their (L, E, din, dout) shape, one
-clipping group per (layer, expert).
+clipping group per (layer, expert). An MLA model's attention leaves
+(`kv_a`, `kv_norm`, `kv_b`, `q_a`, `q_norm`, `q_b`, `o`) and the unstacked
+`mtp` subtree cross by path like any other; its decode cache holds one
+`<stack>_latpool` per layer stack in place of the k/v pools.
 """
 from __future__ import annotations
 
@@ -53,8 +56,9 @@ def train_params_from_numpy(tree: dict, device: str | torch.device) -> Any:
 
 
 def cache_from_numpy(cache: dict, device: str | torch.device) -> dict:
-    """Numpy paged decode cache (`pos`, `pt`, `*_kpool`, `*_vpool`, in the
-    reference's layout) -> the port's cache on `device`."""
+    """Numpy paged decode cache (`pos`, `pt`, and `*_kpool` / `*_vpool`
+    or `*_latpool` per layer stack, in the reference's layout) -> the
+    port's cache on `device`."""
     return _tree(cache, torch.device(device))
 
 

@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ["granite-moe-3b-a800m", "qwen3-4b", "tiny"]
+ARCH_IDS = ["deepseek-v3-671b", "granite-moe-3b-a800m", "qwen3-4b", "tiny"]
 
 # architectures the reference serves that the port does not yet, with the
 # ROADMAP.md Queue A item that brings each one
@@ -18,7 +18,6 @@ NOT_PORTED = {
     "deepseek-67b": "A.6 (remaining dense configs)",
     "qwen1.5-32b": "A.6 (remaining dense configs)",
     "minicpm-2b": "A.6 (remaining dense configs)",
-    "deepseek-v3-671b": "A.7 (MLA attention)",
     "zamba2-7b": "A.8 (recurrent and hybrid families)",
     "rwkv6-7b": "A.8 (recurrent and hybrid families)",
     "whisper-medium": "A.9 (encoder-decoder and M-RoPE families)",

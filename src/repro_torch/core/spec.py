@@ -112,6 +112,12 @@ def meta_params(spec: SpecTree) -> Any:
     return out
 
 
+# largest piece of a leaf drawn in one f32 randn: torch's draws depend only
+# on the element count, so a leaf of one piece gets the bits of a single
+# draw of its shape
+_DRAW_MAX = 2**31
+
+
 def _init_leaf(p: P, gen: torch.Generator) -> torch.Tensor:
     dev = gen.device
     if p.init == "zeros":
@@ -125,9 +131,17 @@ def _init_leaf(p: P, gen: torch.Generator) -> torch.Tensor:
             fan_in = (p.shape[p.fan_in_axis] if len(p.shape) >= 2
                       else max(p.shape[-1], 1))
             std = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in)
-        x = torch.randn(p.shape, generator=gen, device=dev,
-                        dtype=torch.float32)
-        return x.mul_(std).to(p.dtype)
+        # drawn in pieces into its own dtype, so a leaf past one f32 draw
+        # (deepseek-v3's stacked experts, 60 GB of f32 for two layers)
+        # never needs its f32 copy whole
+        n = math.prod(p.shape)
+        out = torch.empty(p.shape, dtype=p.dtype, device=dev)
+        flat = out.view(-1)
+        for i in range(0, n, _DRAW_MAX):
+            m = min(_DRAW_MAX, n - i)
+            flat[i:i + m] = torch.randn(m, generator=gen, device=dev,
+                                        dtype=torch.float32).mul_(std)
+        return out
     raise ValueError(f"unknown init {p.init!r}")
 
 

@@ -166,7 +166,8 @@ class DecodeEngine:
     # ------------------------------------------------------------------
 
     def cache_bytes(self) -> int:
-        """Device bytes held by the decode cache (pools, tables, pos)."""
+        """Device bytes held by the decode cache: every stack's pools (k/v
+        or MLA's latent), the tables and pos."""
         return int(sum(v.numel() * v.element_size()
                        for v in self.cache.values()))
 

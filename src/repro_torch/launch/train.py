@@ -64,7 +64,7 @@ from repro_torch.core.spec import meta_params, tree_leaves
 from repro_torch.data import (PoissonSampler, SyntheticLM, make_lm_batch,
                               pack_documents)
 from repro_torch.launch.sharding import group_shard_assignment
-from repro_torch.models.transformer import build_model
+from repro_torch.models.transformer import build_model, check_trainable
 
 CLIPPING = ["per_layer", "ghost_flat", "per_group", "naive_flat",
             "non_private", "ghost_flat_twopass", "per_group_twopass",
@@ -133,6 +133,7 @@ def build_everything(args: argparse.Namespace):
     `per_shard` resolves to per_layer over `--group-count` column blocks
     (`cfg.dp_blocks`). Shared with the service."""
     cfg = get_config(args.arch, reduced=args.reduced)
+    check_trainable(cfg)
     mode = args.clipping
     if mode == "per_shard":
         # per-device clipping: blocked groups aligned with M virtual

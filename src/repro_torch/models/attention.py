@@ -1,5 +1,4 @@
-"""GQA attention: the counterpart of `repro.models.attention` for the
-dense family.
+"""Attention: GQA and MLA, the counterpart of `repro.models.attention`.
 
 * Training: `attend` (f32 scores; a masked softmax in one shot up to
   T * S = 2048², above it the reference's double-blocked online softmax)
@@ -7,10 +6,16 @@ dense family.
   the projections are clipped per column block when `cfg.dp_blocks > 1`.
   The reference's attention is plain XLA, so plain torch (einsum,
   softmax, autograd) is its port.
-* Paged decode: `gqa_decode_paged` through the `paged_attn` kernel. The
-  pools are updated IN PLACE (`index_put_`): the reference returns new
-  pools from a functional scatter, the port writes one row per slot into
-  the existing tensor and saves a copy of the whole pool on every step.
+* Paged decode: `gqa_decode_paged` and MLA's absorbed-form
+  `mla_decode_paged`, both through the `paged_attn` kernel. The pools are
+  updated IN PLACE (`index_put_`): the reference returns new pools from a
+  functional scatter, the port writes one row per slot into the existing
+  tensor and saves a copy of the whole pool on every step.
+* MLA (DeepSeek-V3): `mla_spec`, and `mla_attention`, the full-sequence
+  plain forward that materializes per-head K/V from the latent; it is
+  the oracle of the decode (MLA training, with thresholds, is ROADMAP
+  A.7). The reference's DP-LoRA branches (`lora`, `tenant`) are A.10,
+  its contiguous `mla_decode` the contiguous plane, A.5.
 """
 from __future__ import annotations
 
@@ -183,8 +188,9 @@ def gqa_attention(cfg: ModelConfig, params, x, th, positions, *,
 
 def _paged_write(pool, new, pt, pos, active):
     """One-token scatter through a page table, in place. pool: (N+1, L,
-    ...) with the LAST page reserved as the trash page; new: (B, 1, ...);
-    pt: (B, P) int32; pos: (B,) write index.
+    ...) with the LAST page reserved as the trash page (GQA's (N+1, L,
+    KV, hd) pools, MLA's (N+1, L, lr + rope) latent pool); new: (B, 1,
+    ...); pt: (B, P) int32; pos: (B,) write index.
 
     Row b lands at physical page pt[b, pos // L], offset pos % L. JAX
     clamps an out-of-range gather index and torch.gather raises, so the
@@ -225,3 +231,111 @@ def gqa_decode_paged(cfg: ModelConfig, params, x, kpool, vpool, pt, pos, *,
     out = K.paged_attn(qr, kpool, vpool, pt, pos, scale=1.0 / math.sqrt(hd))
     out = out.reshape(b, 1, h * hd).to(q.dtype)
     return L.linear(params["o"], out)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3).
+# ---------------------------------------------------------------------------
+
+
+def mla_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = ()) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    lr, qlr = cfg.kv_lora_rank, cfg.q_lora_rank
+    out = {
+        "kv_a": L.linear_spec(d, lr + rope, stack=stack, dtype=cfg.dtype),
+        "kv_norm": L.rmsnorm_spec(lr, stack=stack, dtype=cfg.dtype),
+        "kv_b": L.linear_spec(lr, h * (nope + vd), stack=stack,
+                              dtype=cfg.dtype),
+        "o": L.linear_spec(h * vd, d, stack=stack, dtype=cfg.dtype),
+    }
+    if qlr:
+        out["q_a"] = L.linear_spec(d, qlr, stack=stack, dtype=cfg.dtype)
+        out["q_norm"] = L.rmsnorm_spec(qlr, stack=stack, dtype=cfg.dtype)
+        out["q_b"] = L.linear_spec(qlr, h * (nope + rope), stack=stack,
+                                   dtype=cfg.dtype)
+    else:
+        out["q"] = L.linear_spec(d, h * (nope + rope), stack=stack,
+                                 dtype=cfg.dtype)
+    return out
+
+
+def _mla_q(cfg: ModelConfig, params, x):
+    """(q_nope (B, T, H, nope), q_rope (B, T, H, rope)), before RoPE."""
+    b, t = x.shape[0], x.shape[1]
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        qa = L.rmsnorm(params["q_norm"], L.linear(params["q_a"], x),
+                       eps=cfg.norm_eps)
+        q = L.linear(params["q_b"], qa)
+    else:
+        q = L.linear(params["q"], x)
+    q = q.reshape(b, t, cfg.num_heads, nope + rope)
+    return q[..., :nope], q[..., nope:]
+
+
+def _mla_latent(cfg: ModelConfig, params, x, positions):
+    """(ckv (B, T, lr), k_rope (B, T, 1, rope)): the normalised latent
+    and the decoupled RoPE key, both in the model dtype."""
+    b, t = x.shape[0], x.shape[1]
+    lr, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    kv_a = L.linear(params["kv_a"], x)  # (B, T, lr + rope)
+    ckv = L.rmsnorm(params["kv_norm"], kv_a[..., :lr], eps=cfg.norm_eps)
+    k_rope = L.apply_rope(kv_a[..., lr:].reshape(b, t, 1, rope), positions,
+                          cfg.rope_theta)
+    return ckv, k_rope
+
+
+def mla_attention(cfg: ModelConfig, params, x, positions, *, causal=True):
+    """Full-sequence MLA with per-head K/V materialized from the latent,
+    the plain forward. x: (B, T, D); positions: (B, T)."""
+    b, t = x.shape[0], x.shape[1]
+    h = cfg.num_heads
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(cfg, params, x)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv, k_rope = _mla_latent(cfg, params, x, positions)
+    kv = L.linear(params["kv_b"], ckv).reshape(b, t, h, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope.expand(b, t, h, rope)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attend(q, k, v, positions, positions, causal=causal,
+                 scale=1.0 / math.sqrt(nope + rope))
+    return L.linear(params["o"], out.reshape(b, t, h * vd))
+
+
+def mla_decode_paged(cfg: ModelConfig, params, x, latpool, pt, pos, *,
+                     active=None):
+    """Absorbed-form one-token MLA decode through a paged latent cache.
+
+    x: (B, 1, D); latpool: one layer's (N+1, L, lr + rope) pool of the
+    concatenated normalised latent and RoPE key per token (last page =
+    trash), written in place; pt: (B, P) int32; pos: (B,) int32; active:
+    optional (B,) bool row mask. W_UK is folded into the query in f32
+    (q_lat = q_nope W_UK per head), so `paged_attn` runs KV = 1, G = H,
+    dq = lr + rope against the pool passed as both K and V (the aliased
+    plan) with the value read cut to dv = lr; W_UV expands the attended
+    latent after it. Returns the attention output (B, 1, D)."""
+    b = x.shape[0]
+    h = cfg.num_heads
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    lr = cfg.kv_lora_rank
+    posb = pos[:, None]
+    q_nope, q_rope = _mla_q(cfg, params, x)  # (B, 1, H, *)
+    q_rope = L.apply_rope(q_rope, posb, cfg.rope_theta)
+    ckv, k_rope = _mla_latent(cfg, params, x, posb)
+    _paged_write(latpool, torch.cat([ckv, k_rope[:, :, 0]], dim=-1), pt,
+                 pos, active)
+
+    w_kv_b = params["kv_b"]["w"].reshape(lr, h, nope + vd)
+    q_lat = torch.einsum("bohn,lhn->bohl", q_nope.float(),
+                         w_kv_b[..., :nope].float())  # (B, 1, H, lr)
+    q_cat = torch.cat([q_lat, q_rope.float()], dim=-1)  # KV = 1, G = H
+    pool = latpool.unsqueeze(2)  # (N+1, L, 1, lr + rope)
+    lat = K.paged_attn(q_cat, pool, pool, pt, pos,
+                       scale=1.0 / math.sqrt(nope + rope), dv=lr)
+    out = torch.einsum("bohl,lhv->bohv", lat, w_kv_b[..., nope:].float())
+    return L.linear(params["o"], out.reshape(b, 1, h * vd).to(x.dtype))

@@ -1,9 +1,9 @@
 """Model configuration for the dense and MoE decoder families.
 
 The counterpart of `repro.models.config.ModelConfig`, cut to the fields
-the dense and MoE (GQA attention, flat dispatch) families read; the MLA,
-recurrent, encoder-decoder and M-RoPE fields arrive with their families.
-`dtype` is a torch dtype.
+the dense and MoE families read (GQA or MLA attention, flat dispatch,
+DeepSeek-V3's MTP depth); the recurrent, encoder-decoder and M-RoPE
+fields arrive with their families. `dtype` is a torch dtype.
 """
 from __future__ import annotations
 
@@ -25,7 +25,13 @@ class ModelConfig:
     head_dim: int | None = None  # default d_model // num_heads
     qk_norm: bool = False  # per-head RMSNorm on q, k (Qwen3)
     rope_theta: float = 10_000.0
-    attention_kind: str = "gqa"  # gqa (mla: ROADMAP A.7)
+    attention_kind: str = "gqa"  # gqa | mla
+    # MLA (DeepSeek-V3): compressed-latent attention
+    q_lora_rank: int = 0  # 0 => direct q projection
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
     # MoE: token-choice top-k routing with capacity dispatch
     num_experts: int = 0  # 0 => dense MLP
     num_experts_per_tok: int = 0
@@ -35,6 +41,9 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
     moe_dispatch: str = "flat"  # flat: global capacity, masked-gram norms
+    # DeepSeek-V3 multi-token prediction: the `mtp` parameters (serving
+    # carries them and does not read them)
+    mtp_depth: int = 0
     dtype: torch.dtype = torch.float32
     norm_eps: float = 1e-5
     # per-shard clipping layout: the qkv and o projections split into M
@@ -56,10 +65,10 @@ class ModelConfig:
             raise NotImplementedError(
                 f"{self.name}: only the dense and MoE decoder families are "
                 f"ported")
-        if self.attention_kind != "gqa":
+        if self.attention_kind not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"{self.name}: attention {self.attention_kind!r} is not "
-                f"ported yet (MLA: ROADMAP.md item A.7)")
+                f"ported (the port has gqa and mla)")
         if self.num_experts:
             if self.moe_dispatch != "flat":
                 raise NotImplementedError(

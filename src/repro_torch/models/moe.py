@@ -8,8 +8,11 @@ tokens dropped. Every expert is its own clipping group, with exact per-example
 norms through the token mixing (`core.dp_layers.dp_expert_linear`); the
 router is a plain `dp_linear`. The Switch-style load-balance auxiliary
 loss is returned per example, since DP needs per-example attribution end
-to end. `moe_block_grouped` (per-(example, expert) buffers) is not ported
-yet (ROADMAP A.7).
+to end. The same block serves a decode step: without thresholds the
+expert products are plain `torch.bmm` (the reference computes them in
+XLA too) and every row of the step is routed, inactive ones included, as
+the reference routes them. `moe_block_grouped` (per-(example, expert)
+buffers) is not ported yet (ROADMAP A.7).
 
 Two places where torch differs from JAX and the port keeps the
 reference's result: `jax.lax.top_k` puts the lower expert index first on
@@ -70,17 +73,29 @@ def _slot_sources(flat_slot: torch.Tensor, keep: torch.Tensor,
     return src.scatter_(0, idx, j)[:rows]
 
 
-def moe_block(cfg: ModelConfig, params, x, th):
+def _expert_linear(w, x, exids, c):
+    """(E, C, dout): a DP primitive with thresholds, else the plain
+    product (serving)."""
+    if c is None:
+        return torch.bmm(x, w)
+    return dpl.dp_expert_linear(w, x, exids, c)
+
+
+def moe_block(cfg: ModelConfig, params, x, th=None):
     """x: (B, T, D) -> (y (B, T, D), aux_loss (B,)).
 
     th keys: 'router' (B,), 'w_gu' and 'w_down' ((E, B) per expert), and
-    'shared/*' when shared experts are configured."""
+    'shared/*' when shared experts are configured; None serves (the plain
+    forward, as under +inf thresholds)."""
     b, t, d = x.shape
     e, k, f = cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_d_ff
     n = b * t
     cap = capacity(cfg, n)
 
-    logits = L.linear(params["router"], x, th["router"])  # (B, T, E)
+    def th_of(name):
+        return None if th is None else th[name]
+
+    logits = L.linear(params["router"], x, th_of("router"))  # (B, T, E)
     probs = torch.softmax(logits.reshape(n, e).float(), dim=-1)
     # top-k, the lower index first on a tie (as jax.lax.top_k)
     gate_idx = torch.sort(probs, dim=-1, descending=True,
@@ -108,11 +123,11 @@ def moe_block(cfg: ModelConfig, params, x, th):
         e, cap)
 
     # ---- expert computation (each expert its own DP group) ----
-    h = dpl.dp_expert_linear(params["w_gu"], buf, exid_buf, th["w_gu"])
+    h = _expert_linear(params["w_gu"], buf, exid_buf, th_of("w_gu"))
     gate_h, up_h = h[..., :f], h[..., f:]
     act = F.silu(gate_h.float()).to(h.dtype) * up_h
-    out_buf = dpl.dp_expert_linear(params["w_down"], act, exid_buf,
-                                   th["w_down"])  # (E, cap, d)
+    out_buf = _expert_linear(params["w_down"], act, exid_buf,
+                             th_of("w_down"))  # (E, cap, d)
 
     # ---- combine: gather back and weight by the gates (a dropped choice
     # reads slot 0 of its expert, times 0) ----
@@ -124,7 +139,8 @@ def moe_block(cfg: ModelConfig, params, x, th):
     y = y.reshape(b, t, d).to(x.dtype)
 
     if cfg.num_shared_experts:
-        y = y + L.swiglu(params["shared"], x, subth(th, "shared"),
+        sh = None if th is None else subth(th, "shared")
+        y = y + L.swiglu(params["shared"], x, sh,
                          f=f * cfg.num_shared_experts)
 
     # ---- Switch-style load-balance aux loss, per example ----

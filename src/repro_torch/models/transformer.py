@@ -1,6 +1,7 @@
 """Model assembly for the dense and MoE decoder families: the counterpart
 of `repro.models.transformer`, cut to what paged serving and DP training
-run (MoE: training only; its serving waits for ROADMAP A.7).
+run. Dense and MoE models with GQA attention serve and train; an MLA
+model (deepseek-v3-671b) serves, and its training waits for ROADMAP A.7.
 
     m = build_model(cfg)
     # serving
@@ -15,7 +16,9 @@ run (MoE: training only; its serving waits for ROADMAP A.7).
 Parameters are plain dicts keyed by the reference's spec paths. Training
 keeps the reference's stacked layout, leaves (n_layers, ...) under
 `dense_blocks` and, for an MoE config, `moe_blocks` (its first
-`first_k_dense` layers dense, the rest MoE, in the reference's order), so
+`first_k_dense` layers dense, the rest MoE, in the reference's order;
+an MTP config adds the unstacked `mtp` subtree, which serving carries
+and does not read), so
 gradients, noise and optimizer updates land leaf for leaf where the
 reference puts them; `loss_fn` splits each stack into per-layer views
 that a Python loop walks. Serving splits them once, at init
@@ -46,10 +49,12 @@ STACKED = tuple(name for name, _ in STACKS)
 
 
 def _attn_block_spec(cfg: ModelConfig, n: int, *, moe_layer: bool) -> dict:
-    stack = (n,)
+    """A block's spec, stacked n deep (n = 0: one unstacked block)."""
+    stack = (n,) if n else ()
     spec = {
         "attn_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
-        "attn": A.gqa_spec(cfg, stack=stack),
+        "attn": (A.mla_spec(cfg, stack=stack) if cfg.attention_kind == "mla"
+                 else A.gqa_spec(cfg, stack=stack)),
         "mlp_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
     }
     if moe_layer:
@@ -72,6 +77,10 @@ def decoder_spec(cfg: ModelConfig) -> dict:
                                                 moe_layer=False)
     if n_moe:
         spec["moe_blocks"] = _attn_block_spec(cfg, n_moe, moe_layer=True)
+    if cfg.mtp_depth:
+        spec["mtp"] = {"proj": L.linear_spec(2 * d, d, dtype=cfg.dtype),
+                       "block": _attn_block_spec(cfg, 0, moe_layer=False),
+                       "norm": L.rmsnorm_spec(d, dtype=cfg.dtype)}
     return spec
 
 
@@ -127,19 +136,16 @@ class Model:
 
 def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
                 ) -> Model:
-    """The dense or MoE decoder. `device` is where `init_paged_cache`
-    allocates; `cuda` unless the caller asks for the CPU. An MoE model
-    trains; its `serve_step` and `init_paged_cache` raise."""
+    """The dense or MoE decoder, GQA or MLA. `device` is where
+    `init_paged_cache` allocates; `cuda` unless the caller asks for the
+    CPU. The `loss_fn` of an MLA model raises (ROADMAP A.7)."""
     cfg.validate()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available; pass device='cpu' to run on the CPU")
     spec = decoder_spec(cfg)
-    if cfg.num_experts:
-        serve_step = init_paged_cache = _moe_serving_not_ported(cfg)
-    else:
-        serve_step, init_paged_cache = _make_decoder_serve(cfg, device)
+    serve_step, init_paged_cache = _make_decoder_serve(cfg, spec, device)
     return Model(cfg=cfg, spec=spec, layout=S.GroupLayout(spec),
                  loss_fn=_make_decoder_loss(cfg),
                  serve_step=serve_step, init_paged_cache=init_paged_cache,
@@ -178,7 +184,22 @@ def _per_example_ce(logits, targets):
     return torch.sum(ce, dim=-1) / torch.clamp(valid.sum(dim=-1), min=1)
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raises NotImplementedError, naming the ROADMAP.md item, for a
+    config the port serves but cannot train yet."""
+    if cfg.attention_kind == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: training is not ported yet for MLA: ROADMAP.md "
+            f"item A.7")
+
+
 def _make_decoder_loss(cfg: ModelConfig):
+    if cfg.attention_kind == "mla":
+        def refuse(*args, **kwargs):
+            check_trainable(cfg)
+
+        return refuse
+
     def loss_fn(params, batch, th):
         """Per-example losses (B,): the cross-entropy plus the MoE layers'
         load-balance losses. params: the stacked (reference-layout) tree;
@@ -238,7 +259,7 @@ def cache_slot_axes(cache) -> dict:
     for k in cache:
         if k in _SLOT_AXIS_BY_KEY:
             out[k] = _SLOT_AXIS_BY_KEY[k]
-        elif k.endswith(("_kpool", "_vpool")):
+        elif k.endswith(("_kpool", "_vpool", "_latpool")):
             out[k] = None
         else:
             raise KeyError(
@@ -247,36 +268,38 @@ def cache_slot_axes(cache) -> dict:
     return out
 
 
-def _moe_serving_not_ported(cfg: ModelConfig):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"{cfg.name}: serving an MoE model is not ported yet: "
-            f"ROADMAP.md item A.7")
-
-    return refuse
-
-
-def _make_decoder_serve(cfg: ModelConfig, device: torch.device):
-    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
+    mla = cfg.attention_kind == "mla"
+    # (stack name, layers, whether MoE) in the order the layers run
+    stacks = [(name, spec[name]["attn_norm"]["s"].shape[0], moe_layer)
+              for name, moe_layer in STACKS if name in spec]
+    if mla:
+        row = (cfg.kv_lora_rank + cfg.qk_rope_head_dim,)
+    else:
+        row = (cfg.num_kv_heads, cfg.resolved_head_dim)
 
     def init_paged_cache(batch_size: int, cache_len: int, *, num_pages: int,
                          page_len: int):
         """Per-slot int32 page tables plus physical page pools shared by
-        every slot. Pools carry `num_pages + 1` pages: the extra LAST page
-        is the trash page that absorbs writes from inactive rows. Tables
-        start fully trash-mapped; the engine overwrites them at
-        admission. Pools are (n_layers, num_pages + 1, page_len, KV, hd),
-        so each layer's slice `cache[key][l]` is a contiguous view."""
+        every slot, one set per layer stack in the reference's order and
+        names: `<stack>_kpool` / `<stack>_vpool` (n, num_pages + 1,
+        page_len, KV, hd) for GQA, `<stack>_latpool` (n, num_pages + 1,
+        page_len, kv_lora_rank + qk_rope_head_dim) for MLA. The extra
+        LAST page is the trash page that absorbs writes from inactive
+        rows. Tables start fully trash-mapped; the engine overwrites them
+        at admission. Each layer's slice `cache[key][l]` is a contiguous
+        view."""
         b = batch_size
         p_tab = -(-cache_len // page_len)
-        shape = (cfg.num_layers, num_pages + 1, page_len, kvh, hd)
-        return {"pos": torch.zeros((b,), dtype=torch.int32, device=device),
-                "pt": torch.full((b, p_tab), num_pages, dtype=torch.int32,
-                                 device=device),
-                "dense_blocks_kpool": torch.zeros(shape, dtype=cfg.dtype,
-                                                  device=device),
-                "dense_blocks_vpool": torch.zeros(shape, dtype=cfg.dtype,
-                                                  device=device)}
+        cache = {"pos": torch.zeros((b,), dtype=torch.int32, device=device),
+                 "pt": torch.full((b, p_tab), num_pages, dtype=torch.int32,
+                                  device=device)}
+        for name, n, _ in stacks:
+            shape = (n, num_pages + 1, page_len) + row
+            for kind in (("latpool",) if mla else ("kpool", "vpool")):
+                cache[f"{name}_{kind}"] = torch.zeros(
+                    shape, dtype=cfg.dtype, device=device)
+        return cache
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
@@ -285,22 +308,34 @@ def _make_decoder_serve(cfg: ModelConfig, device: torch.device):
 
         Rows with `active=False` leave every live page untouched (their
         write goes to the trash page) and keep their position; their
-        logits are garbage and must be ignored. The pools in `cache` are
-        updated in place; the returned dict holds the same pool tensors
-        and a new `pos`."""
+        logits are garbage and must be ignored. They are still routed
+        through the MoE layers with the rest, as in the reference, so they
+        take expert slots. The pools in `cache` are updated in place; the
+        returned dict holds the same pool tensors and a new `pos`."""
         token = batch["token"]
         active = batch.get("active")
         pos = cache["pos"]
         pt = cache["pt"]
         x = params["embed"]["w"][token.long()]  # (B, 1, D)
-        kpools = cache["dense_blocks_kpool"]
-        vpools = cache["dense_blocks_vpool"]
-        for layer, bp in enumerate(params["dense_blocks"]):
-            hn = L.rmsnorm(bp["attn_norm"], x, eps=cfg.norm_eps)
-            x = x + A.gqa_decode_paged(cfg, bp["attn"], hn, kpools[layer],
-                                       vpools[layer], pt, pos, active=active)
-            hn = L.rmsnorm(bp["mlp_norm"], x, eps=cfg.norm_eps)
-            x = x + L.swiglu(bp["mlp"], hn, f=cfg.d_ff)
+        for name, _, moe_layer in stacks:
+            for layer, bp in enumerate(params[name]):
+                hn = L.rmsnorm(bp["attn_norm"], x, eps=cfg.norm_eps)
+                if mla:
+                    att = A.mla_decode_paged(
+                        cfg, bp["attn"], hn, cache[f"{name}_latpool"][layer],
+                        pt, pos, active=active)
+                else:
+                    att = A.gqa_decode_paged(
+                        cfg, bp["attn"], hn, cache[f"{name}_kpool"][layer],
+                        cache[f"{name}_vpool"][layer], pt, pos,
+                        active=active)
+                x = x + att
+                hn = L.rmsnorm(bp["mlp_norm"], x, eps=cfg.norm_eps)
+                if moe_layer:
+                    y, _ = MOE.moe_block(cfg, bp["moe"], hn)
+                else:
+                    y = L.swiglu(bp["mlp"], hn, f=cfg.d_ff)
+                x = x + y
         x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
         logits = L.linear(params["head"], x)
         new_cache = dict(cache)

@@ -1,11 +1,17 @@
 """The port's serving slice against the JAX package, on the CPU in f32.
 
+Dense GQA (tiny, qwen3-4b), MoE GQA (granite-moe-3b-a800m) and MLA + MoE
+(deepseek-v3-671b) models, reduced.
+
 Parameters and pool states cross through the numpy bridge; the same
 numpy-seeded inputs go through both packages:
 
 * the bridge round trip and the spec (paths, shapes, inits);
 * the layers (rmsnorm, swiglu, RoPE) and one `serve_step` from an
-  identical pool state, comparing logits and written pool rows;
+  identical pool state, comparing logits and written pool rows (k/v
+  pools, or MLA's latent pool, of every layer stack), and an MoE step
+  whose expert choices overflow their capacity with inactive rows in the
+  batch;
 * `DecodeEngine` token for token against the reference engine, with
   ragged prompts, mid-flight admission, a shared prefix and a starved
   pool that forces evict -> spill -> readmit, under the tie rule below;
@@ -16,6 +22,8 @@ Tie rule: where the two engines' tokens first differ, the port's f32
 logits at that step must have a top-2 gap under 1e-4 (an argmax tie
 decided by summation order); otherwise the test fails.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,23 +44,31 @@ from repro_torch.launch import pages as torch_pages
 from repro_torch.launch import serve
 from repro_torch.launch.engine import DecodeEngine
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import build_model
+from repro_torch.models import moe as MOE
+from repro_torch.models.transformer import STACKED, build_model
 
-ARCHS = ["tiny", "qwen3-4b-reduced"]
+ARCHS = ["tiny", "qwen3-4b-reduced", "granite-moe-3b-a800m-reduced",
+         "deepseek-v3-671b-reduced"]
+MOE_ARCHS = ARCHS[2:]
 TIE_GAP = 1e-4
+REDUCED = "-reduced"
 
 
 def _arch(name):
-    return ("qwen3-4b", True) if name.endswith("-reduced") else (name, False)
+    if name.endswith(REDUCED):
+        return name[:-len(REDUCED)], True
+    return name, False
 
 
-def _both(name, seed=0):
+def _both(name, seed=0, **overrides):
     """(port cfg, port model, port params, jax model, jax params) with the
-    reference's parameters bridged into the port."""
+    reference's parameters bridged into the port; `overrides` replace
+    config fields in both packages."""
     arch, reduced = _arch(name)
-    jm = jax_build_model(jax_get_config(arch, reduced=reduced))
+    jm = jax_build_model(dataclasses.replace(
+        jax_get_config(arch, reduced=reduced), **overrides))
     jp = jax_init_params(jm.spec, jax.random.PRNGKey(seed))
-    cfg = get_config(arch, reduced=reduced)
+    cfg = dataclasses.replace(get_config(arch, reduced=reduced), **overrides)
     model = build_model(cfg, device="cpu")
     params = bridge.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                                       "cpu")
@@ -64,10 +80,14 @@ def _both(name, seed=0):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ARCHS + ["qwen3-4b"])
+FULL = {"qwen3-4b": 4_411_424_256, "granite-moe-3b-a800m": 3_374_295_552,
+        "deepseek-v3-671b": 671_712_655_360}  # the reference's counts
+
+
+@pytest.mark.parametrize("name", ARCHS + sorted(FULL))
 def test_spec_matches_reference(name):
     """Same paths, shapes, inits and stack dims as the reference spec (the
-    full qwen3-4b spec is built without allocating anything)."""
+    full specs are built without allocating anything)."""
     arch, reduced = _arch(name)
     jm_spec = jax_build_model(jax_get_config(arch, reduced=reduced)).spec
     model = build_model(get_config(arch, reduced=reduced), device="cpu")
@@ -76,23 +96,41 @@ def test_spec_matches_reference(name):
     got = {"/".join(p): (v.shape, v.init, v.stack)
            for p, v in S._walk(model.spec)}
     assert got == want
-    if name == "qwen3-4b":
-        assert model.num_params == 4_411_424_256  # 4.41 B
+    if name in FULL:
+        assert model.num_params == FULL[name]
         assert model.cfg.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ARCHS + sorted(FULL))
+def test_group_layout_matches_reference(name):
+    """The clipping groups of every spec (MLA's attention groups and the
+    unstacked `mtp` ones included) in the reference's order, with its
+    stack shapes, sizes and offsets."""
+    arch, reduced = _arch(name)
+    jlayout = jax_build_model(jax_get_config(arch, reduced=reduced)).layout
+    layout = build_model(get_config(arch, reduced=reduced),
+                         device="cpu").layout
+    assert ([(g.name, g.stack_shape, g.dim, g.offset) for g in layout.groups]
+            == [(g.name, tuple(g.stack_shape), g.dim, g.offset)
+                for g in jlayout.groups])
+    assert layout.num_groups == jlayout.num_groups
 
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_bridge_round_trip(name):
     cfg, model, params, jm, jp = _both(name)
-    assert len(params["dense_blocks"]) == cfg.num_layers
+    assert sum(len(params[k]) for k in STACKED if k in params) == \
+        cfg.num_layers
     for path, _ in jax_walk(jm.spec):
         arr = np.asarray(_get(jp, path))
-        if path[0] == "dense_blocks":
-            for layer in range(cfg.num_layers):
-                got = _get(params["dense_blocks"][layer], path[1:])
+        if path[0] in STACKED:
+            assert len(params[path[0]]) == arr.shape[0]
+            for layer, block in enumerate(params[path[0]]):
+                got = _get(block, path[1:])
                 np.testing.assert_array_equal(got.numpy(), arr[layer])
         else:
             np.testing.assert_array_equal(_get(params, path).numpy(), arr)
+    assert ("mtp" in params) == bool(cfg.mtp_depth)
 
 
 def _get(tree, path):
@@ -163,6 +201,10 @@ def test_layers_match_reference(dtype):
         JL.swiglu(mlp_j, j(x), {"gate_up": inf, "down": inf}, f=12))
 
 
+def _pool_keys(cache):
+    return [k for k in cache if k.endswith("pool")]
+
+
 def _pool_state(jm, cfg, slots, cache_len, num_pages, page_len, seed):
     """A numpy paged cache with random pool contents, ragged positions, a
     ragged table with trash-mapped tails, and one retired slot whose pos
@@ -172,7 +214,7 @@ def _pool_state(jm, cfg, slots, cache_len, num_pages, page_len, seed):
         np.asarray, jm.init_paged_cache(slots, cache_len,
                                         num_pages=num_pages,
                                         page_len=page_len))
-    for k in ("dense_blocks_kpool", "dense_blocks_vpool"):
+    for k in _pool_keys(cache):
         cache[k] = rng.standard_normal(cache[k].shape).astype(np.float32)
     p_tab = cache["pt"].shape[1]
     pos = rng.integers(0, cache_len - 1, size=slots).astype(np.int32)
@@ -186,23 +228,25 @@ def _pool_state(jm, cfg, slots, cache_len, num_pages, page_len, seed):
     return cache
 
 
-@pytest.mark.parametrize("name", ARCHS)
-def test_serve_step_matches_reference(name):
-    """One decode step from an identical pool state: logits and every
-    pool row atol 1e-4 (f32; XLA and torch sum in other orders)."""
-    cfg, model, params, jm, jp = _both(name)
-    slots, cache_len, page_len = 4, 32, 8
+def _check_serve_step(model, params, jm, jp, active):
+    """One decode step of both packages from an identical pool state:
+    logits and every pool row atol 1e-4 (f32; XLA and torch sum in other
+    orders); the pools hold the same keys."""
+    cfg = model.cfg
+    slots, cache_len, page_len = active.size, 32, 8
     num_pages = slots * cache_len // page_len
     cache_np = _pool_state(jm, cfg, slots, cache_len, num_pages, page_len, 5)
     rng = np.random.default_rng(9)
     token = rng.integers(0, cfg.vocab_size, size=(slots, 1)).astype(np.int32)
-    active = np.array([True, True, False, False])
 
     jcache = jax.tree_util.tree_map(jnp.asarray, cache_np)
     want_logits, want_cache = jm.serve_step(
         jp, jcache, {"token": jnp.asarray(token),
                      "active": jnp.asarray(active)})
     cache = bridge.cache_from_numpy(cache_np, "cpu")
+    assert sorted(model.init_paged_cache(
+        slots, cache_len, num_pages=num_pages, page_len=page_len)) == \
+        sorted(cache_np)
     logits, new_cache = model.serve_step(
         params, cache, {"token": torch.from_numpy(token),
                         "active": torch.from_numpy(active)})
@@ -210,12 +254,51 @@ def test_serve_step_matches_reference(name):
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(new_cache["pos"].numpy(),
                                   np.asarray(want_cache["pos"]))
-    for k in ("dense_blocks_kpool", "dense_blocks_vpool"):
+    for k in _pool_keys(cache_np):
         got, want = new_cache[k].numpy(), np.asarray(want_cache[k])
         # only the active rows' live pages and the trash page changed
         np.testing.assert_allclose(got[:, :-1], want[:, :-1], rtol=1e-4,
                                    atol=1e-4)
         assert not np.array_equal(got[:, :-1], cache_np[k][:, :-1])
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_serve_step_matches_reference(name):
+    cfg, model, params, jm, jp = _both(name)
+    _check_serve_step(model, params, jm, jp,
+                      np.array([True, True, False, False]))
+
+
+# test-local capacity factor: 16 rows choose k = 2 of E = 4 experts, 32
+# choices for the capacity floor of 8 slots an expert
+OVERFLOW_CAPACITY_FACTOR = 0.25
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_moe_serve_step_capacity_overflow(name, monkeypatch):
+    """A decode step whose expert choices overflow their capacity, with 7
+    of its 16 rows inactive: the inactive rows are routed with the rest
+    and take expert slots, as in the reference, so both packages drop the
+    same choices and agree in logits and pools."""
+    cfg, model, params, jm, jp = _both(
+        name, capacity_factor=OVERFLOW_CAPACITY_FACTOR)
+    real, loads = MOE.moe_block, []
+
+    def recording(cfg_, p, x, th=None):
+        n = x.shape[0] * x.shape[1]
+        probs = torch.softmax((x.reshape(n, -1) @ p["router"]["w"]).float(),
+                              dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True
+                         ).indices[:, :cfg_.num_experts_per_tok]
+        loads.append((int(torch.bincount(top.reshape(-1)).max()),
+                       MOE.capacity(cfg_, n)))
+        return real(cfg_, p, x, th)
+
+    monkeypatch.setattr(MOE, "moe_block", recording)
+    active = np.ones(16, bool)
+    active[[1, 4, 5, 8, 11, 12, 15]] = False
+    _check_serve_step(model, params, jm, jp, active)
+    assert loads and any(most > cap for most, cap in loads), loads
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +374,24 @@ def test_engine_matches_reference_engine(name):
     assert eng.stats["readmitted_pages"] >= 2
     assert eng.stats["serve_steps"] == (
         eng.stats["prefill_dispatches"] * 8 + eng.stats["decode_dispatches"])
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_engine_cache_bytes_counts_every_pool(name):
+    """`cache_bytes` counts every layer stack's pools (GQA's k and v, or
+    MLA's latent pool of kv_lora_rank + rope per token), the table and
+    pos: the bytes of the reference's paged cache for the same engine."""
+    cfg, model, params, jm, _ = _both(name)
+    eng = DecodeEngine(model, params, num_slots=2, cache_len=32, page_len=8,
+                       num_pages=6)
+    jcache = jm.init_paged_cache(2, 32, num_pages=6, page_len=8)
+    assert eng.cache_bytes() == sum(v.nbytes for v in jcache.values())
+    if cfg.attention_kind == "mla":
+        row = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    else:
+        row = 2 * cfg.num_kv_heads * cfg.resolved_head_dim
+    assert eng.cache_bytes() == 4 * (cfg.num_layers * 7 * 8 * row + 2 * 4
+                                     + 2)
 
 
 @pytest.mark.parametrize("kw", [
@@ -482,5 +583,5 @@ def test_serve_cli_refuses_unported_flags(argv):
 
 
 def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A.7"):
-        get_config("deepseek-v3-671b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A.8"):
+        get_config("zamba2-7b")
