@@ -231,10 +231,53 @@ exits non-zero:
               kernels line under "moe_serve" and "mla_serve"; then phase
               4's card/CPU check on both reduced configs.
 
+  14 moe/mla  the training half of the MoE and MLA families through the
+     train    same `Trainer` (train_variant, phase 5's settings: B = 8, T =
+              256, adam, epsilon 8, rate 1/16, remat on, 1 warm-up + 3
+              timed steps a variant):
+              (a) granite-moe-3b-a800m at full width and depth, flat
+              dispatch, ghost_flat_bk and per_group_bk (2 supergroups):
+              one backward and the BK epilogue (scale_contract over qkv,
+              o, the router and the head; the experts' clipped sums in
+              f32 a layer at a time), no fallback warning, ratios against
+              phase 8's non_private, peak memory; per_group_bk's last
+              epilogue's scale_contract inputs are kept;
+              (b) granite by grouped dispatch (`moe_dispatch="grouped"`,
+              `Trainer(cfg=...)`: 64 slots an (example, expert)),
+              per_layer and non_private;
+              (c) deepseek-v3-671b at full width, its depth cut to its
+              MLA_TRAIN_DEPTH = 3 first_k_dense layers, mtp kept (4.29 B
+              parameters: MLA training, the MTP loss, the head twice a
+              step), per_layer and non_private, each step's mean
+              threshold and clip fraction; per_layer's first step's
+              clip_reduce inputs at its nine linear shapes are kept;
+              launches per step of ghost_norm / clip_reduce /
+              scale_contract / fused_norm_clip (`expected_launches`):
+                granite ghost_flat_bk, per_group_bk  97 / 0 / 4 / 0
+                granite grouped per_layer            65 / 65 / 0 / 32
+                granite grouped non_private           0 / 97 / 0 / 0
+                deepseek-v3 per_layer                31 / 31 / 0 / 0
+                deepseek-v3 non_private               0 / 31 / 0 / 0
+              (deepseek-v3: 7 linears x 3 layers, 8 in MTP, the head
+              twice); granite BK and deepseek-v3 per_layer are profiled;
+              (d) ghost_norm and clip_reduce at deepseek-v3's captured
+              inputs (q_a, q_b, kv_a, kv_b, o, gate_up, down, the MTP
+              projection 14336 -> 7168, the 129,280-wide head) and
+              scale_contract at granite's BK epilogue's, with phase 6's
+              tolerances, bitwise repeats, float64 errors (the ghost
+              norms), eager, graph (ghost_norm), plain, library and bound
+              times, under the "mla_train" and "moe_bk" keys of the
+              kernels line;
+              (e) phase 7's card/CPU check on deepseek-v3 reduced (MLA, a
+              dense and a MoE layer with a shared expert, MTP) per_layer,
+              granite reduced by grouped dispatch per_layer and granite
+              reduced ghost_flat by BK (and against its twopass).
+
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8, 11 and 12 (paged_attn's: phases 3 and 13).
+the sum over phases 5, 8, 11, 12 and 14 (paged_attn's: phases 3 and
+13). A clock line follows each phase.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -837,8 +880,21 @@ BLOCKED_SWEEP = [(3, 37, 20, 48, 4, "out"), (2, 1, 64, 24, 4, "in"),
 
 def linear_shapes(cfg) -> dict:
     """(din, dout) -> name of the linear shapes of a step (five on a dense
-    config)."""
-    return {(din, dout): leaf for leaf, din, dout, _ in linear_leaves(cfg)}
+    config; the first linear of a shape names it)."""
+    out = {}
+    for name, din, dout, _, _ in linear_leaves(cfg):
+        out.setdefault((din, dout), name)
+    return out
+
+
+def linear_calls(cfg) -> dict:
+    """Name of each linear shape (`linear_shapes`) -> its calls a step."""
+    shapes = linear_shapes(cfg)
+    out = {}
+    for _, din, dout, _, _ in linear_leaves(cfg):
+        name = shapes[(din, dout)]
+        out[name] = out.get(name, 0) + 1
+    return out
 
 
 def train_args(mode: str, execution: str = "bk", group_count: int = 2,
@@ -854,21 +910,55 @@ def train_args(mode: str, execution: str = "bk", group_count: int = 2,
 
 
 def linear_leaves(cfg) -> list:
-    """(leaf, din, dout, blocked) of every linear a training step clips:
-    qkv and o of each layer (blocked when cfg.dp_blocks > 1), gate_up and
-    down of each dense layer, the router of each MoE layer, the head. The
-    experts run no kernel."""
+    """(name, din, dout, blocked, leaf) of every linear call a training
+    step clips, `leaf` its parameter's path: each layer's attention
+    projections (GQA: qkv and o, blocked when cfg.dp_blocks > 1; MLA: q_a
+    and q_b or q, kv_a, kv_b, o), gate_up and down of each dense layer,
+    the router (and a shared expert's gate_up and down) of each MoE layer,
+    MTP's projection and block, the head (twice with MTP). The experts run
+    no kernel."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
     n_dense = cfg.num_layers - n_moe
     blocked = cfg.dp_blocks > 1
-    return ([("qkv", d, (h + 2 * kv) * hd, blocked),
-             ("o", h * hd, d, blocked)] * cfg.num_layers
-            + [("gate_up", d, 2 * cfg.d_ff, False),
-               ("down", cfg.d_ff, d, False)] * n_dense
-            + [("router", d, cfg.num_experts, False)] * n_moe
-            + [("head", d, cfg.vocab_size, False)])
+    if cfg.attention_kind == "mla":
+        nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                          cfg.v_head_dim)
+        lr, qlr = cfg.kv_lora_rank, cfg.q_lora_rank
+        attn = ([("q_a", d, qlr), ("q_b", qlr, h * (nope + rope))] if qlr
+                else [("q", d, h * (nope + rope))])
+        attn = [a + (False,) for a in attn + [
+            ("kv_a", d, lr + rope), ("kv_b", lr, h * (nope + vd)),
+            ("o", h * vd, d)]]
+    else:
+        attn = [("qkv", d, (h + 2 * kv) * hd, blocked),
+                ("o", h * hd, d, blocked)]
+    mlp = [("gate_up", d, 2 * cfg.d_ff, False),
+           ("down", cfg.d_ff, d, False)]
+    fs = cfg.moe_d_ff * cfg.num_shared_experts
+    moe = [("router", d, cfg.num_experts, False)] + (
+        [("gate_up", d, 2 * fs, False), ("down", fs, d, False)] if fs
+        else [])
+
+    def at(stack, items, sub):
+        return [(n, di, do, bl, f"{stack}/{sub[n]}/{n}")
+                for n, di, do, bl in items]
+
+    attn_sub = {n: "attn" for n, *_ in attn}
+    out = []
+    for stack, n, block in (("dense_blocks", n_dense, attn + mlp),
+                            ("moe_blocks", n_moe, attn + moe)):
+        sub = {**attn_sub, "gate_up": "mlp", "down": "mlp", "router": "moe"}
+        if stack == "moe_blocks":
+            sub.update(gate_up="moe/shared", down="moe/shared")
+        out += at(stack, block, sub) * n
+    if cfg.mtp_depth:
+        out += [("mtp_proj", 2 * d, d, False, "mtp/proj")]
+        out += at("mtp/block", attn + mlp,
+                  {**attn_sub, "gate_up": "mlp", "down": "mlp"})
+    return out + [("head", d, cfg.vocab_size, False, "head")] * (
+        2 if cfg.mtp_depth else 1)
 
 
 def expected_launches(label: str, cfg, fused_route: bool = True, *,
@@ -889,7 +979,7 @@ def expected_launches(label: str, cfg, fused_route: bool = True, *,
             counts[name] += 1
 
     leaves = linear_leaves(cfg)
-    for _, din, dout, blocked in leaves:
+    for _, din, dout, blocked, _ in leaves:
         if label.endswith("_bk"):
             add("ghost_norm")
         elif label == "non_private":
@@ -904,7 +994,8 @@ def expected_launches(label: str, cfg, fused_route: bool = True, *,
         else:
             add("ghost_norm", "clip_reduce")
     if label.endswith("_bk"):
-        counts["scale_contract"] = len({leaf for leaf, *_ in leaves})
+        # one call per stacked linear leaf
+        counts["scale_contract"] = len({leaf[-1] for leaf in leaves})
     return {k: v * microbatches for k, v in counts.items()}
 
 
@@ -935,21 +1026,22 @@ def profile_step(torch, trainer, step_ms) -> dict:
 
 
 def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
-                  kind=None, profile=True):
-    """Train one variant through the CLI's `Trainer`: TRAIN_WARMUP +
-    TRAIN_TIMED steps with every launch counter set to 0 before and read
-    after, then (with `profile`) one profiled step. `patches` are (step,
-    module, attribute, replacement) swapped in for that step only (the
-    input recorders). Checks finite losses, no BK fallback and the
-    launches per step of `kind` (default: the label) at the run's batch
-    and microbatches; emits the train (and train_profile) lines; records
-    ms per step in `step_ms`, whose non_private and per_layer entries (B
-    = 8) give the ratios. Returns the launch counts."""
+                  kind=None, profile=True, cfg=None, extra=None):
+    """Train one variant through the CLI's `Trainer` (on `cfg` in place of
+    the `--arch` config when given): TRAIN_WARMUP + TRAIN_TIMED steps with
+    every launch counter set to 0 before and read after, then (with
+    `profile`) one profiled step. `patches` are (step, module, attribute,
+    replacement) swapped in for that step only (the input recorders).
+    Checks finite losses, no BK fallback and the launches per step of
+    `kind` (default: the label) at the run's batch and microbatches; emits
+    the train (and train_profile) lines, with `extra` in the train line;
+    records ms per step in `step_ms`, whose non_private and per_layer
+    entries (B = 8) give the ratios. Returns the launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     steps = TRAIN_WARMUP + TRAIN_TIMED
     t0 = time.perf_counter()
-    trainer = train.Trainer(args)
+    trainer = train.Trainer(args, cfg=cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rec = []
@@ -995,6 +1087,8 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
     step_ms[label] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / TRAIN_TIMED
     base, per_layer = step_ms.get("non_private"), step_ms["per_layer"]
     emit({"phase": "train", "gpu": gpu, "arch": trainer.cfg.name,
+          "num_layers": trainer.cfg.num_layers,
+          "moe_dispatch": trainer.cfg.moe_dispatch,
           "variant": label, "mode": trainer.plan.config.mode,
           "dp_blocks": trainer.cfg.dp_blocks,
           "execution": trainer.execution,
@@ -1016,7 +1110,7 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
           "tokens_per_s": batch * trainer.args.seq
           / (step_ms[label] / 1e3),
           "steps": rec, "peak_memory_gb": peak, "launches": counts,
-          "launches_per_step": per_step})
+          "launches_per_step": per_step, **(extra or {})})
     if profile:
         emit({"phase": "train_profile", "gpu": gpu,
               "arch": trainer.cfg.name, "variant": label,
@@ -1508,10 +1602,6 @@ def phase_train_cuda_vs_cpu(torch, gpu):
 
     from repro_torch import bridge
     from repro_torch.configs import get_config
-    from repro_torch.core.clipping import dp_clipped_gradients
-    from repro_torch.core.dp_sgd import clipped_microbatches
-    from repro_torch.kernels import backend, launch_counts, reset_launch_counts
-    from repro_torch.kernels import fused_clip as FC
     from repro_torch.launch.sharding import group_shard_assignment
     from repro_torch.models.transformer import build_model
 
@@ -1560,6 +1650,26 @@ def phase_train_cuda_vs_cpu(torch, gpu):
               {"thresholds": shard_thr}),
              ("moe_per_layer", "per_layer", "bk", moe_cfg, True, 1,
               {"thresholds": moe_thr})]
+    train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees)
+
+
+def train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees):
+    """One `dp_clipped_gradients` (in `nmb` microbatches) of each case
+    (label, mode, execution, config, fused route, microbatches, kwargs of
+    numpy arrays) on the card (kernels) and on the CPU (plain versions),
+    from the numpy parameter tree `trees[config.name]` and one numpy
+    batch: loss, (K, B) norms and every clipped gradient leaf must agree
+    (TRAIN_RTOL / TRAIN_ATOL_FRAC), a BK case with its twopass on the
+    card too; the card must launch exactly the kernels of the route
+    (`expected_launches`), the CPU none, and BK must not fall back."""
+    from repro_torch import bridge
+    from repro_torch.core.clipping import dp_clipped_gradients
+    from repro_torch.core.dp_sgd import clipped_microbatches
+    from repro_torch.kernels import backend, launch_counts, reset_launch_counts
+    from repro_torch.kernels import fused_clip as FC
+    from repro_torch.models.transformer import build_model
+
+    b, t = tokens.shape
     counted = TRAIN_KERNELS
 
     def run(mode, execution, cfg, fused, nmb, dev, kw):
@@ -1744,22 +1854,25 @@ def phase_moe_train(torch, gpu, step_ms):
 
 
 def captured_rows(torch, gpu, caps, num_layers, variants, repeats=1,
-                  **tags):
-    """ghost_norm and clip_reduce against their plain versions at inputs a
-    training path gave them (phase 6's tolerances and timing): `caps`
-    maps a linear to its captured (a, g, factors), on the card or the
-    host; `variants` maps a variant to (its linears, the kernels they
-    ran); each linear runs once a layer (the head once) times `repeats`
-    a step (naive_flat: one backward per example). Returns name -> a
-    kernels-line entry: the worst error, the kernel, plain, bound and
-    library ms summed over each variant's step, and the per-call rows."""
+                  calls_per_step=None, **tags):
+    """Training kernels against their plain versions at inputs a training
+    path gave them (phase 6's tolerances and timing): `caps` maps a
+    linear to its captured (a, g, factors), on the card or the host;
+    `variants` maps a variant to (its linears, the kernels they ran);
+    each linear runs once a layer (the head once), or
+    `calls_per_step[linear]` times, times `repeats` a step (naive_flat:
+    one backward per example). Returns name -> a kernels-line entry: the
+    worst error, the kernel, plain, bound and library ms summed over each
+    variant's step, and the per-call rows."""
     bw = bandwidth(gpu)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     out = {}
     for variant, (lnames, kernels) in variants.items():
         for lname in lnames:
             a, g, f = (x.cuda() for x in caps[lname])
-            calls = repeats * (1 if lname == "head" else num_layers)
+            calls = repeats * (
+                calls_per_step[lname] if calls_per_step is not None
+                else 1 if lname == "head" else num_layers)
             for name in kernels:
                 row = main_shape_row(torch, gpu, name, lname, a, g, f, calls,
                                      bw, flush, variant=variant, **tags)
@@ -2505,6 +2618,160 @@ def phase_moe_mla_serve(torch, gpu):
     return blocks
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: MoE and MLA training.
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v3-671b"
+# deepseek-v3's layers in training on one card: its 3 first_k_dense
+# layers (4.29 B parameters with embed, head and mtp). One MoE layer of
+# 256 experts is 11.3 B parameters more, which no 80 GB card trains with
+# Adam; the experts' training path runs on granite and in (e)
+MLA_TRAIN_DEPTH = 3
+# (label, --clipping, --execution, --group-count): granite's BK variants
+MOE_BK = [("ghost_flat_bk", "ghost_flat", "bk", 2),
+          ("per_group_bk", "per_group", "bk", 2)]
+# granite's grouped dispatch and deepseek-v3's variants, per_layer first
+# (the ratios divide by it)
+PAIR = ("per_layer", "non_private")
+# the variants phase 14 profiles (a profile costs 11-24 s of the limit)
+PROFILED14 = ("ghost_flat_bk", "mla_per_layer")
+
+
+def phase_moe_mla_train(torch, gpu, moe_ms):
+    """Phase 14. Returns (launches by kernel over every variant's counted
+    steps, the kernels-line blocks of ghost_norm and clip_reduce at
+    deepseek-v3's captured shapes ("mla_train") and of scale_contract at
+    granite's BK epilogue ("moe_bk"))."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bk as SC
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.models.transformer import build_model
+
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+
+    def count(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # (a) BK on granite (flat dispatch); per_group_bk's last epilogue's
+    # inputs kept by reference (nothing writes the sinks after it)
+    cfg = get_config(MOE_ARCH)
+    shapes = linear_shapes(cfg)
+    sc_caps = {}
+    real_sc, real_cr = SC.scale_contract, CR.clip_reduce
+
+    def recording_sc(a, g, factors):
+        sc_caps[shapes[(a.shape[-1], g.shape[-1])]] = (a, g, factors)
+        return real_sc(a, g, factors)
+
+    last = TRAIN_WARMUP + TRAIN_TIMED - 1
+    for label, mode, execution, group_count in MOE_BK:
+        patches = ([(last, SC, "scale_contract", recording_sc)]
+                   if label == "per_group_bk" else [])
+        count(train_variant(torch, gpu, label,
+                            train_args(mode, execution, group_count,
+                                       arch=MOE_ARCH), moe_ms, patches,
+                            profile=label in PROFILED14))
+    bk_leaves = sorted({shapes[(din, dout)]
+                        for _, din, dout, _, _ in linear_leaves(cfg)})
+    if sorted(sc_caps) != bk_leaves:
+        raise RuntimeError(f"scale_contract: captured {sorted(sc_caps)} of "
+                           f"the {MOE_ARCH} linears {bk_leaves}")
+    moe_bk = captured_rows(torch, gpu, sc_caps, cfg.num_layers,
+                           {"per_group_bk": (tuple(bk_leaves),
+                                             ("scale_contract",))},
+                           calls_per_step=dict.fromkeys(bk_leaves, 1),
+                           arch=MOE_ARCH)
+    del sc_caps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) granite by grouped dispatch
+    grouped = dataclasses.replace(cfg, moe_dispatch="grouped")
+    grouped_ms = {}
+    for label in PAIR:
+        count(train_variant(torch, gpu, label, train_args(
+            label, arch=MOE_ARCH), grouped_ms, cfg=grouped, profile=False))
+
+    # (c) deepseek-v3 at full width, its depth cut; per_layer's first
+    # step's clip_reduce inputs at each linear shape, on the host
+    mla_cfg = dataclasses.replace(get_config(MLA_ARCH),
+                                  num_layers=MLA_TRAIN_DEPTH)
+    mla_shapes = linear_shapes(mla_cfg)
+    mla_caps, mla_ms = {}, {}
+
+    def recording_cr(a, g, factors, block_axis="out"):
+        name = mla_shapes.get((a.shape[-1], g.shape[-1]))
+        if name is not None and name not in mla_caps:
+            mla_caps[name] = (a.cpu(), g.cpu(), factors.cpu())
+        return real_cr(a, g, factors, block_axis)
+
+    cut = {"depth_cut": {
+        "num_layers": MLA_TRAIN_DEPTH, "of": get_config(MLA_ARCH).num_layers,
+        "why": "full width, its first_k_dense dense layers and mtp; a MoE "
+               "layer of 256 experts (11.3 B parameters) does not train "
+               "with Adam on one 80 GB card"}}
+    for label in PAIR:
+        patches = ([(0, CR, "clip_reduce", recording_cr)]
+                   if label == "per_layer" else [])
+        count(train_variant(torch, gpu, label, train_args(
+            label, arch=MLA_ARCH), mla_ms, patches, cfg=mla_cfg,
+            profile=f"mla_{label}" in PROFILED14, extra=cut))
+    if sorted(mla_caps) != sorted(mla_shapes.values()):
+        raise RuntimeError(f"clip_reduce: captured {sorted(mla_caps)} of "
+                           f"{sorted(mla_shapes.values())}")
+    emit({"phase": "moe_mla_train_ratio", "gpu": gpu,
+          "granite_bk_vs_nonprivate": {
+              k: moe_ms[k] / moe_ms["non_private"] for k, *_ in MOE_BK},
+          "granite_bk_vs_per_layer": {
+              k: moe_ms[k] / moe_ms["per_layer"] for k, *_ in MOE_BK},
+          "grouped_ms_per_step": grouped_ms,
+          "grouped_ratio_vs_nonprivate":
+              grouped_ms["per_layer"] / grouped_ms["non_private"],
+          "grouped_vs_flat": {k: grouped_ms[k] / moe_ms[k] for k in PAIR},
+          "mla_ms_per_step": mla_ms,
+          "mla_ratio_vs_nonprivate":
+              mla_ms["per_layer"] / mla_ms["non_private"]})
+
+    # (d) ghost_norm and clip_reduce at deepseek-v3's captured shapes
+    mla = captured_rows(torch, gpu, mla_caps, MLA_TRAIN_DEPTH,
+                        {"per_layer": (tuple(mla_caps),
+                                       ("ghost_norm", "clip_reduce"))},
+                        calls_per_step=linear_calls(mla_cfg), arch=MLA_ARCH)
+    del mla_caps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) card vs CPU on the reduced configs
+    small = {"mla": get_config(MLA_ARCH, reduced=True),
+             "moe": get_config(MOE_ARCH, reduced=True)}
+    small["grouped"] = dataclasses.replace(small["moe"],
+                                           moe_dispatch="grouped")
+    b, t = 4, 64
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, min(c.vocab_size for c in small.values()),
+                          (b, t)).astype(np.int32)
+    targets = np.roll(tokens, -1, 1)
+    targets[:, -1] = -1
+    trees, thr = {}, {}
+    for key, c in small.items():
+        m = build_model(c, device="cpu")
+        trees[c.name] = bridge.numpy_params(m.spec, seed=0)
+        thr[key] = rng.uniform(0.05, 2.0, m.layout.num_groups).astype(
+            np.float32)
+    train_cuda_vs_cpu(torch, gpu, [
+        ("mla_per_layer", "per_layer", "bk", small["mla"], True, 1,
+         {"thresholds": thr["mla"]}),
+        ("grouped_per_layer", "per_layer", "bk", small["grouped"], True, 1,
+         {"thresholds": thr["grouped"]}),
+        ("moe_ghost_flat", "ghost_flat", "bk", small["moe"], True, 1,
+         {"flat_threshold": np.float32(0.5)})], tokens, targets, trees)
+    return launches, mla, moe_bk
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2585,14 +2852,19 @@ def main() -> int:
         for err in ("max_abs_err", "max_rel_err"):
             kernel[err] = max(kernel[err], block[err])
     clock("moe and mla serving")
+    mm_launches, mla, moe_bk = phase_moe_mla_train(torch, gpu, moe_ms)
+    clock("moe and mla training")
     # the training kernels' launches over every training path; the worst
-    # error over every path's inputs, granite's, naive_flat's and the
-    # T = 4096 path's times beside qwen3-4b's
+    # error over every path's inputs, granite's, naive_flat's, the
+    # T = 4096 path's, deepseek-v3's and granite's BK epilogue's times
+    # beside qwen3-4b's
     for k in train_kernels + [fused]:
         k["launches"] = sum(run[k["name"]] for run in (
-            train_launches, moe_launches, scale_launches, service_launches))
+            train_launches, moe_launches, scale_launches, service_launches,
+            mm_launches))
         for key, extra in (("moe", moe), ("naive_flat", naive),
-                           ("long_context", long)):
+                           ("long_context", long), ("mla_train", mla),
+                           ("moe_bk", moe_bk)):
             if k["name"] in extra:
                 k[key] = extra[k["name"]]
                 for err in ("max_abs_err", "max_rel_err"):

@@ -51,12 +51,13 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.ghost import expert_clipped_sum, grouped_clipped_sum
 from repro_torch.core.spec import GroupLayout, P, tree_leaves
 from repro_torch.kernels import backend
 
 # recipe kinds of the reference that no ported primitive records yet
 _NOT_PORTED = {"linear_blocked": "A.16", "shift": "A.8", "broadcast": "A.8",
-               "lora": "A.10", "expert": "A.7", "expert_grouped": "A.7"}
+               "lora": "A.10"}
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +128,7 @@ def stash(channel: BkChannel, **values: torch.Tensor) -> None:
 class Recipe:
     """What one DP-primitive call site stashes for one clipping group."""
 
-    kind: str  # linear | embed | scale
+    kind: str  # linear | embed | scale | expert | expert_grouped
     c_ndim: int  # rank of the PER-CALL threshold (after unbinding)
     sinks: dict  # sink name -> (per-call shape, dtype)
     extras: dict  # kind-specific statics (vocab)
@@ -189,6 +190,23 @@ def record_embed(c: BkChannel, table, ids) -> None:
 def record_scale(c: BkChannel, s, xhat) -> None:
     _record(c, "scale",
             {"pg": ((xhat.shape[0], xhat.shape[-1]), torch.float32)})
+
+
+def record_expert(c: BkChannel, w, x) -> None:
+    e, cap, din = x.shape
+    gdt = torch.result_type(x, w)
+    # the slots' example ids stay integers (the reference carries them as
+    # floats, a JAX cotangent must be one)
+    _record(c, "expert", {"x": ((e, cap, din), x.dtype),
+                          "g": ((e, cap, w.shape[-1]), gdt),
+                          "seg": ((e, cap), torch.long)})
+
+
+def record_expert_grouped(c: BkChannel, w, x) -> None:
+    bsz, e, cap, din = x.shape
+    gdt = torch.result_type(x, w)
+    _record(c, "expert_grouped", {"x": ((bsz, e, cap, din), x.dtype),
+                                  "g": ((bsz, e, cap, w.shape[-1]), gdt)})
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +330,30 @@ def _leaf_grad(layout: GroupLayout, recipes, residuals, f_rows, node: P,
         out = torch.einsum("sbr,sb->sr", pg.reshape(s_, bsz, -1).float(),
                            f.reshape(s_, bsz))
         return out.reshape(node.shape).to(node.dtype)
+
+    if r.kind in ("expert", "expert_grouped"):
+        # one layer's slice at a time in f32, cast into the leaf as it
+        # goes: the whole stack's f32 products (8 GB for granite's w_gu)
+        # and f32 copies of every sink never coexist. The sinks carry
+        # prefix + (E, C, d) (grouped: (B, E, C, d)) and the group's stack
+        # shape ends in (E,), so the factors fold to (S, E, B)
+        grouped = r.kind == "expert_grouped"
+        x4 = _fold(sink["x"], 4 if grouped else 3)
+        g4 = _fold(sink["g"], 4 if grouped else 3)
+        seg = None if grouped else _fold(sink["seg"], 2)
+        f3 = f.reshape(x4.shape[0], -1, bsz)
+        out = torch.empty((x4.shape[0],) + tuple(node.shape[-3:]),
+                          dtype=node.dtype, device=f_rows.device)
+        for s_ in range(x4.shape[0]):
+            if grouped:
+                dw = grouped_clipped_sum(x4[s_].float(), g4[s_].float(),
+                                         f3[s_])
+            else:
+                dw = expert_clipped_sum(x4[s_].float(), g4[s_].float(),
+                                        seg[s_], f3[s_])
+            out[s_].copy_(dw)
+            del dw  # before the next slice's product is allocated
+        return out.reshape(node.shape)
 
     raise ValueError(f"unknown BK recipe kind {r.kind!r}")
 

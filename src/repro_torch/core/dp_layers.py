@@ -45,19 +45,22 @@ so the norms and residuals arrive once.
 
 `dp_linear_blocked` clips each of M column ('out') or row ('in') blocks
 of one weight to its own threshold (per-shard clipping); it takes no BK
-channel (ROADMAP A.16). `dp_expert_linear` clips each expert of an MoE
-layer's stacked weight to its own threshold, with exact per-example norms
-through the token dispatch; it takes no BK channel either (the expert
-recipes, ROADMAP A.7). `dp_shift` and `dp_broadcast` (with the recurrent
-families, ROADMAP A.8) and `dp_expert_linear_grouped` (A.7) are not
-ported yet.
+channel (ROADMAP A.16). `dp_expert_linear` (flat dispatch) and
+`dp_expert_linear_grouped` (per-example buffers) clip each expert of an
+MoE layer's stacked weight to its own threshold, with exact per-example
+norms through the token dispatch; their BK capture stashes the slots'
+activations and cotangents (and the flat one the slots' example ids).
+`dp_shift` and `dp_broadcast` (with the recurrent families, ROADMAP A.8)
+are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import bk
-from repro_torch.core.ghost import clip_factor, factor_without_norms
+from repro_torch.core.ghost import (clip_factor, expert_clipped_sum,
+                                    factor_without_norms,
+                                    grouped_clipped_sum)
 from repro_torch.kernels import backend
 
 
@@ -273,10 +276,13 @@ class DPExpertLinear(torch.autograd.Function):
     plain f32 torch matmuls, as the reference leaves them to XLA; the
     clipped sum accumulates in f32 with an f32 factor (the reference's is a
     bf16 einsum with a bf16 factor on a bf16 model; the two agree in f32).
+    Under a BK channel the backward stashes x, g and the slots' example
+    ids (empty slots B) and returns the norms² only.
     """
 
     @staticmethod
-    def forward(ctx, w, x, exids, c):
+    def forward(ctx, w, x, exids, c, channel):
+        _forward_context(ctx, channel)
         ctx.save_for_backward(w, x, exids, c)
         return torch.einsum("ecd,edf->ecf", x, w)
 
@@ -295,22 +301,87 @@ class DPExpertLinear(torch.autograd.Function):
             gram = (torch.bmm(x32, x32.transpose(1, 2))
                     * torch.bmm(g32, g32.transpose(1, 2)))  # (E, C, C)
             n = torch.sum(onehot * torch.bmm(gram, onehot), dim=1)[:, :bsz]
-        if not ctx.needs_input_grad[0]:  # a norms-only pass
-            return None, dx, None, n
+        ch = _capturing(ctx)
+        if ch is not None:
+            bk.stash(ch, x=x, g=gy, seg=seg)
+        if ch is not None or not ctx.needs_input_grad[0]:
+            return None, dx, None, n, None
         f = clip_factor(c, n) if need_n else factor_without_norms(c)
-        fpad = torch.cat([f, torch.zeros_like(f[:, :1])], dim=1)
-        fslot = torch.gather(fpad, 1, seg)[..., None]  # (E, C, 1)
-        dw = torch.bmm((x32 * fslot).transpose(1, 2), g32)
-        return dw.to(w.dtype), dx, None, n
+        dw = expert_clipped_sum(x32, g32, seg, f)
+        return dw.to(w.dtype), dx, None, n, None
 
 
 def dp_expert_linear(w, x, exids, c):
     """y (E, C, dout) = x @ w per expert, with the gradient of each expert
     clipped per example: w (E, din, dout); x (E, C, din) dispatched slots;
     exids (E, C) the example id of each slot, -1 for an empty one; c (E, B)
-    encoded thresholds, whose gradient is the (E, B) norms²."""
-    if bk.channel_of(c) is not None:
-        raise NotImplementedError(
-            "book-keeping capture of expert linears (the reference's expert "
-            "recipe) is not ported yet: ROADMAP.md item A.7")
-    return DPExpertLinear.apply(w, x, exids, c)
+    encoded thresholds, whose gradient is the (E, B) norms², or a BK
+    channel."""
+    ch = bk.channel_of(c)
+    if ch is not None:
+        bk.record_expert(ch, w, x)
+    return DPExpertLinear.apply(w, x, exids, bk.thresholds_of(c), ch)
+
+
+class DPExpertLinearGrouped(torch.autograd.Function):
+    """y[b, e] = x[b, e] @ w[e] over per-example dispatch buffers; one
+    group per expert, thresholds c (E, B).
+
+    Every example owns its slots, so the gradient of example b for expert
+    e is the plain block sum_s x_s g_sᵀ over its own slots, and its norm
+    is a linear layer's ghost norm at per-example slot counts: the gram
+    form <X Xᵀ, G Gᵀ> or the outer form ||Xᵀ G||², whichever the
+    reference picks (outer where C din dout < C² (din + dout) and din dout
+    <= 2^22), so both packages take the same branch. Plain f32 torch
+    matmuls, as the reference leaves them to XLA; the clipped sum in f32
+    with f32 factors. Under a BK channel the backward stashes x and g and
+    returns the norms² (the gram form) only."""
+
+    @staticmethod
+    def forward(ctx, w, x, c, channel):
+        _forward_context(ctx, channel)
+        ctx.save_for_backward(w, x, c)
+        return torch.einsum("becd,edf->becf", x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        w, x, c = ctx.saved_tensors
+        need_n = ctx.needs_input_grad[2]
+        _, _, cap, din = x.shape
+        dout = gy.shape[-1]
+        dx = (torch.einsum("becf,edf->becd", gy, w)
+              if ctx.needs_input_grad[1] else None)
+        x32, g32 = x.float(), gy.float()
+        ch = _capturing(ctx)
+        use_outer = (cap * din * dout < cap * cap * (din + dout)
+                     and din * dout <= (1 << 22)) and ch is None
+        n = dw_be = None
+        if use_outer and (need_n or ctx.needs_input_grad[0]):
+            dw_be = torch.einsum("becd,becf->bedf", x32, g32)
+            if need_n:
+                n = torch.sum(dw_be * dw_be, dim=(2, 3)).T  # (E, B)
+        elif need_n:
+            gram_x = torch.einsum("becd,beCd->becC", x32, x32)
+            gram_g = torch.einsum("becf,beCf->becC", g32, g32)
+            n = torch.sum(gram_x * gram_g, dim=(2, 3)).T  # (E, B)
+        if ch is not None:
+            bk.stash(ch, x=x, g=gy)
+        if ch is not None or not ctx.needs_input_grad[0]:
+            return None, dx, n, None
+        f = clip_factor(c, n) if need_n else factor_without_norms(c)
+        if use_outer:
+            dw = torch.einsum("bedf,be->edf", dw_be, f.T)
+        else:
+            dw = grouped_clipped_sum(x32, g32, f)
+        return dw.to(w.dtype), dx, n, None
+
+
+def dp_expert_linear_grouped(w, x, c):
+    """y (B, E, C, dout) = x[b, e] @ w[e], with the gradient of each
+    expert clipped per example: w (E, din, dout); x (B, E, C, din) the
+    per-example dispatch buffers (empty slots zero); c (E, B) encoded
+    thresholds, whose gradient is the (E, B) norms², or a BK channel."""
+    ch = bk.channel_of(c)
+    if ch is not None:
+        bk.record_expert_grouped(ch, w, x)
+    return DPExpertLinearGrouped.apply(w, x, bk.thresholds_of(c), ch)

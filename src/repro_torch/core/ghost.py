@@ -298,3 +298,21 @@ def clipped_sum_scale(xhat: torch.Tensor, g: torch.Tensor,
                       factors: torch.Tensor) -> torch.Tensor:
     gx = _as3d(g * xhat).to(ACC_DTYPE)
     return torch.einsum("btd,b->d", gx, factors.to(ACC_DTYPE))
+
+
+def expert_clipped_sum(x32: torch.Tensor, g32: torch.Tensor,
+                       seg: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """(E, din, dout) f32: sum over slots of f[e, ex(s)] x_s g_sᵀ, an empty
+    slot (seg = B) weighing 0. x32 (E, C, din), g32 (E, C, dout), seg (E,
+    C), f (E, B). The BK epilogue calls it one layer at a time."""
+    fpad = torch.cat([f, torch.zeros_like(f[:, :1])], dim=1)
+    fslot = torch.gather(fpad, 1, seg)[..., None]  # (E, C, 1)
+    return torch.bmm((x32 * fslot).transpose(1, 2), g32)
+
+
+def grouped_clipped_sum(x32: torch.Tensor, g32: torch.Tensor,
+                        f: torch.Tensor) -> torch.Tensor:
+    """(E, din, dout) f32: sum over examples and their slots of f[e, b]
+    x_s g_sᵀ. x32 (B, E, C, din), g32 (B, E, C, dout), f (E, B). The BK
+    epilogue calls it one layer at a time."""
+    return torch.einsum("becd,becf->edf", x32, g32 * f.T[:, :, None, None])

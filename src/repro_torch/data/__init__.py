@@ -1,5 +1,6 @@
-from repro_torch.data.pipeline import (PoissonSampler, SyntheticLM,
+from repro_torch.data.pipeline import (ByteCorpus, PoissonSampler,
+                                      SyntheticClassification, SyntheticLM,
                                       make_lm_batch, pack_documents)
 
-__all__ = ["PoissonSampler", "SyntheticLM", "make_lm_batch",
-           "pack_documents"]
+__all__ = ["ByteCorpus", "PoissonSampler", "SyntheticClassification",
+           "SyntheticLM", "make_lm_batch", "pack_documents"]

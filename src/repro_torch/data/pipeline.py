@@ -1,8 +1,9 @@
-"""Data pipeline: the synthetic LM source, packing and the DP Poisson
-sampler.
+"""Data pipeline: the synthetic LM source, the byte corpus, the synthetic
+classification set of the utility experiments, packing and the DP
+Poisson sampler.
 
-A numpy-only copy of the parts of `repro.data.pipeline` that the training
-slice runs, so the port imports nothing of the JAX package. The streams
+A numpy-only copy of `repro.data.pipeline`, so the port imports nothing
+of the JAX package. The streams
 are bit for bit the reference's for the same seeds (the parity tests check
 it).
 
@@ -50,6 +51,43 @@ class SyntheticLM:
                 toks[t] = self._succ[toks[t - 1]] if follow[t] else rand[t]
             docs.append(toks)
         return docs
+
+
+@dataclasses.dataclass
+class ByteCorpus:
+    """Byte-level 'tokenizer' over a text blob (vocab 256 + BOS=256)."""
+
+    text: str
+    doc_sep: str = "\n\n"
+
+    @property
+    def vocab_size(self) -> int:
+        return 257
+
+    def documents(self) -> list[np.ndarray]:
+        return [np.frombuffer(d.encode("utf-8", "ignore"), dtype=np.uint8)
+                .astype(np.int32)
+                for d in self.text.split(self.doc_sep) if d]
+
+
+@dataclasses.dataclass
+class SyntheticClassification:
+    """Gaussian clusters with margin; per-example DP utility experiments."""
+
+    num_classes: int = 10
+    dim: int = 32
+    num_examples: int = 2048
+    noise: float = 0.8
+    seed: int = 0
+
+    def arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        centers = rng.normal(size=(self.num_classes, self.dim))
+        centers /= np.linalg.norm(centers, axis=-1, keepdims=True)
+        y = rng.integers(0, self.num_classes, size=self.num_examples)
+        x = centers[y] + self.noise * rng.normal(
+            size=(self.num_examples, self.dim))
+        return x.astype(np.float32), y.astype(np.int32)
 
 
 def pack_documents(docs: list[np.ndarray], seq_len: int, *,

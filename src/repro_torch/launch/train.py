@@ -42,10 +42,13 @@ schedule are horizons of `--steps`: resume with the same flags. For the
 crash-safe service with a persistent privacy ledger, see
 `repro_torch.launch.service`.
 
-`--arch granite-moe-3b-a800m` trains the MoE family (flat dispatch, one
-clipping group per expert and layer). Its flat and group modes run by two
-passes only: `--execution bk` raises in the first step, since the
-book-keeping of the expert layers is ROADMAP A.7.
+`--arch granite-moe-3b-a800m` trains the MoE family (one clipping group
+per expert and layer), its flat and group modes by either execution.
+`--arch deepseek-v3-671b` trains MLA with DeepSeek's MTP loss; MTP runs
+`embed` and `head` twice a step, so BK falls back to two passes (with a
+warning, and the header says so). Grouped dispatch (`moe_dispatch =
+"grouped"`) has no flag, as in the reference: `build_everything` and
+`Trainer` take a `cfg` to run in place of the `--arch` one.
 """
 from __future__ import annotations
 
@@ -64,8 +67,10 @@ from repro_torch.core.spec import meta_params, tree_leaves
 from repro_torch.data import (PoissonSampler, SyntheticLM, make_lm_batch,
                               pack_documents)
 from repro_torch.launch.sharding import group_shard_assignment
-from repro_torch.models.transformer import build_model, check_trainable
+from repro_torch.models.transformer import build_model
 
+# the modes BK executes (the others have no flat factor to wait for)
+BK_MODES = ("ghost_flat", "per_group")
 CLIPPING = ["per_layer", "ghost_flat", "per_group", "naive_flat",
             "non_private", "ghost_flat_twopass", "per_group_twopass",
             "per_shard"]
@@ -126,14 +131,15 @@ def build_train_parser(**kwargs) -> argparse.ArgumentParser:
     return ap
 
 
-def build_everything(args: argparse.Namespace):
+def build_everything(args: argparse.Namespace, *, cfg=None):
     """The config, model, packed corpus, Poisson sampler and private step
     of the CLI's arguments: (cfg, model, rows, sampler, init_fn, step_fn,
-    plan), as the reference's `build_everything` without its mesh.
-    `per_shard` resolves to per_layer over `--group-count` column blocks
-    (`cfg.dp_blocks`). Shared with the service."""
-    cfg = get_config(args.arch, reduced=args.reduced)
-    check_trainable(cfg)
+    plan), as the reference's `build_everything` without its mesh. `cfg`
+    replaces the config of `--arch` / `--reduced` (a depth cut, grouped
+    dispatch). `per_shard` resolves to per_layer over `--group-count`
+    column blocks (`cfg.dp_blocks`). Shared with the service."""
+    if cfg is None:
+        cfg = get_config(args.arch, reduced=args.reduced)
     mode = args.clipping
     if mode == "per_shard":
         # per-device clipping: blocked groups aligned with M virtual
@@ -206,12 +212,12 @@ class Trainer:
     parameters (random, from --seed, on --device, or with --resume the
     newest verified checkpoint's), the data stream, the DP plan and the
     step. `step()` runs one optimizer step; `start_step` is the first step
-    to run."""
+    to run. `cfg` replaces the config of `--arch` (`build_everything`)."""
 
-    def __init__(self, args: argparse.Namespace):
+    def __init__(self, args: argparse.Namespace, *, cfg=None):
         self.args = args
         (self.cfg, self.model, self.rows, self.sampler, init_fn,
-         self.step_fn, self.plan) = build_everything(args)
+         self.step_fn, self.plan) = build_everything(args, cfg=cfg)
         self.device = torch.device(args.device)
         self.start_step = 0
         found = None
@@ -260,6 +266,12 @@ class Trainer:
 
     def header(self) -> str:
         p = self.plan
+        tail = (f" moe_dispatch={self.cfg.moe_dispatch}"
+                if self.cfg.num_experts else "")
+        if (self.execution == "bk" and p.config.mode in BK_MODES
+                and self.model.reused_groups):
+            tail += (f" bk_falls_back=twopass(groups "
+                     f"{','.join(self.model.reused_groups)} run twice)")
         return (f"# arch={self.cfg.name} params={self.model.num_params:,} "
                 f"groups={self.model.layout.num_groups} "
                 f"mode={p.config.mode} backend={p.config.backend} "
@@ -267,7 +279,7 @@ class Trainer:
                 f"microbatches={p.config.microbatches} "
                 f"sigma={p.sigma:.3f} "
                 f"sigma_new={p.sigma_new:.3f} sigma_b={p.sigma_b:.3f} "
-                f"dp_blocks={self.cfg.dp_blocks}")
+                f"dp_blocks={self.cfg.dp_blocks}{tail}")
 
 
 def step_line(i: int, met) -> str:

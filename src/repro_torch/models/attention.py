@@ -12,10 +12,11 @@
   functional scatter, the port writes one row per slot into the existing
   tensor and saves a copy of the whole pool on every step.
 * MLA (DeepSeek-V3): `mla_spec`, and `mla_attention`, the full-sequence
-  plain forward that materializes per-head K/V from the latent; it is
-  the oracle of the decode (MLA training, with thresholds, is ROADMAP
-  A.7). The reference's DP-LoRA branches (`lora`, `tenant`) are A.10,
-  its contiguous `mla_decode` the contiguous plane, A.5.
+  form that materializes per-head K/V from the latent: with thresholds
+  it trains (q_a, q_b, kv_a, kv_b, o as `dp_linear`, q_norm and kv_norm
+  as `dp_scale`), without it is the plain forward, the decode's oracle.
+  The reference's DP-LoRA branches (`lora`, `tenant`) are A.10, its
+  contiguous `mla_decode` the contiguous plane, A.5.
 """
 from __future__ import annotations
 
@@ -261,49 +262,64 @@ def mla_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = ()) -> dict:
     return out
 
 
-def _mla_q(cfg: ModelConfig, params, x):
-    """(q_nope (B, T, H, nope), q_rope (B, T, H, rope)), before RoPE."""
+def _th(th, name):
+    """One group's thresholds of a block's dict; None serves."""
+    return None if th is None else th[name]
+
+
+def _mla_q(cfg: ModelConfig, params, x, th=None):
+    """(q_nope (B, T, H, nope), q_rope (B, T, H, rope)), before RoPE; th:
+    the attention thresholds (q_a, q_norm, q_b or q), None serves."""
     b, t = x.shape[0], x.shape[1]
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
-        qa = L.rmsnorm(params["q_norm"], L.linear(params["q_a"], x),
+        qa = L.linear(params["q_a"], x, _th(th, "q_a"))
+        qa = L.rmsnorm(params["q_norm"], qa, _th(th, "q_norm"),
                        eps=cfg.norm_eps)
-        q = L.linear(params["q_b"], qa)
+        q = L.linear(params["q_b"], qa, _th(th, "q_b"))
     else:
-        q = L.linear(params["q"], x)
+        q = L.linear(params["q"], x, _th(th, "q"))
     q = q.reshape(b, t, cfg.num_heads, nope + rope)
     return q[..., :nope], q[..., nope:]
 
 
-def _mla_latent(cfg: ModelConfig, params, x, positions):
+def _mla_latent(cfg: ModelConfig, params, x, positions, th=None):
     """(ckv (B, T, lr), k_rope (B, T, 1, rope)): the normalised latent
-    and the decoupled RoPE key, both in the model dtype."""
+    and the decoupled RoPE key, both in the model dtype; th: the
+    attention thresholds (kv_a, kv_norm), None serves."""
     b, t = x.shape[0], x.shape[1]
     lr, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
-    kv_a = L.linear(params["kv_a"], x)  # (B, T, lr + rope)
-    ckv = L.rmsnorm(params["kv_norm"], kv_a[..., :lr], eps=cfg.norm_eps)
+    kv_a = L.linear(params["kv_a"], x, _th(th, "kv_a"))  # (B, T, lr + rope)
+    ckv = L.rmsnorm(params["kv_norm"], kv_a[..., :lr], _th(th, "kv_norm"),
+                    eps=cfg.norm_eps)
     k_rope = L.apply_rope(kv_a[..., lr:].reshape(b, t, 1, rope), positions,
                           cfg.rope_theta)
     return ckv, k_rope
 
 
-def mla_attention(cfg: ModelConfig, params, x, positions, *, causal=True):
-    """Full-sequence MLA with per-head K/V materialized from the latent,
-    the plain forward. x: (B, T, D); positions: (B, T)."""
+def mla_attention(cfg: ModelConfig, params, x, positions, th=None, *,
+                  causal=True):
+    """Full-sequence MLA with per-head K/V materialized from the latent.
+    x: (B, T, D); positions: (B, T); th: this block's attention
+    thresholds ({'q_a', 'q_norm', 'q_b' (or 'q'), 'kv_a', 'kv_norm',
+    'kv_b', 'o'}: (B,) each) for training, every projection a
+    `dp_linear` and each norm a `dp_scale`; None is the plain forward
+    (serving's oracle)."""
     b, t = x.shape[0], x.shape[1]
     h = cfg.num_heads
     nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                       cfg.v_head_dim)
-    q_nope, q_rope = _mla_q(cfg, params, x)
+    q_nope, q_rope = _mla_q(cfg, params, x, th)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
-    ckv, k_rope = _mla_latent(cfg, params, x, positions)
-    kv = L.linear(params["kv_b"], ckv).reshape(b, t, h, nope + vd)
+    ckv, k_rope = _mla_latent(cfg, params, x, positions, th)
+    kv = L.linear(params["kv_b"], ckv, _th(th, "kv_b")).reshape(
+        b, t, h, nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_rope.expand(b, t, h, rope)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = attend(q, k, v, positions, positions, causal=causal,
                  scale=1.0 / math.sqrt(nope + rope))
-    return L.linear(params["o"], out.reshape(b, t, h * vd))
+    return L.linear(params["o"], out.reshape(b, t, h * vd), _th(th, "o"))
 
 
 def mla_decode_paged(cfg: ModelConfig, params, x, latpool, pt, pos, *,

@@ -1,8 +1,8 @@
 """Model configuration for the dense and MoE decoder families.
 
 The counterpart of `repro.models.config.ModelConfig`, cut to the fields
-the dense and MoE families read (GQA or MLA attention, flat dispatch,
-DeepSeek-V3's MTP depth); the recurrent, encoder-decoder and M-RoPE
+the dense and MoE families read (GQA or MLA attention, flat or grouped
+dispatch, DeepSeek-V3's MTP depth); the recurrent, encoder-decoder and M-RoPE
 fields arrive with their families. `dtype` is a torch dtype.
 """
 from __future__ import annotations
@@ -40,9 +40,12 @@ class ModelConfig:
     first_k_dense: int = 0  # leading dense layers
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
-    moe_dispatch: str = "flat"  # flat: global capacity, masked-gram norms
-    # DeepSeek-V3 multi-token prediction: the `mtp` parameters (serving
-    # carries them and does not read them)
+    # flat: global capacity, masked-gram norms; grouped: per-(example,
+    # expert) buffers, block-diagonal norms (~B x cheaper)
+    moe_dispatch: str = "flat"
+    # DeepSeek-V3 multi-token prediction: one extra block predicting token
+    # t+2 (its loss weighs 0.3; serving carries the `mtp` parameters and
+    # does not read them)
     mtp_depth: int = 0
     dtype: torch.dtype = torch.float32
     norm_eps: float = 1e-5
@@ -70,10 +73,10 @@ class ModelConfig:
                 f"{self.name}: attention {self.attention_kind!r} is not "
                 f"ported (the port has gqa and mla)")
         if self.num_experts:
-            if self.moe_dispatch != "flat":
-                raise NotImplementedError(
-                    f"{self.name}: moe_dispatch {self.moe_dispatch!r} is not "
-                    f"ported yet (moe_block_grouped: ROADMAP.md item A.7)")
+            if self.moe_dispatch not in ("flat", "grouped"):
+                raise ValueError(f"{self.name}: moe_dispatch "
+                                 f"{self.moe_dispatch!r} is not flat or "
+                                 f"grouped")
             if self.num_experts_per_tok < 1 or self.moe_d_ff < 1:
                 raise ValueError(f"{self.name}: an MoE config needs "
                                  f"num_experts_per_tok and moe_d_ff")

@@ -1,18 +1,27 @@
 """Mixture-of-Experts: token-choice top-k routing with capacity dispatch.
 
-The counterpart of `repro.models.moe`, flat dispatch (`moe_dispatch =
-"flat"`): one global capacity per expert over all B·T tokens, tokens
-dispatched into stacked (E, C, d) expert buffers by slots from a cumsum
-over the routing one-hot (no (tokens, E, C) dispatch tensors), overflow
-tokens dropped. Every expert is its own clipping group, with exact per-example
-norms through the token mixing (`core.dp_layers.dp_expert_linear`); the
-router is a plain `dp_linear`. The Switch-style load-balance auxiliary
-loss is returned per example, since DP needs per-example attribution end
-to end. The same block serves a decode step: without thresholds the
-expert products are plain `torch.bmm` (the reference computes them in
-XLA too) and every row of the step is routed, inactive ones included, as
-the reference routes them. `moe_block_grouped` (per-(example, expert)
-buffers) is not ported yet (ROADMAP A.7).
+The counterpart of `repro.models.moe`, both dispatches:
+
+* flat (`moe_block`, `moe_dispatch = "flat"`): one global capacity per
+  expert over all B·T tokens, tokens dispatched into stacked (E, C, d)
+  expert buffers by slots from a cumsum over the routing one-hot (no
+  (tokens, E, C) dispatch tensors), overflow tokens dropped. Slots mix
+  examples, so the exact per-example norms need example-masked grams
+  (`core.dp_layers.dp_expert_linear`).
+* grouped (`moe_block_grouped`, `moe_dispatch = "grouped"`): the same
+  routing, with a capacity per (example, expert) (`capacity_per_example`)
+  and (B, E, C, d) buffers. Every example owns its slots, so the norms
+  are block-diagonal (`core.dp_layers.dp_expert_linear_grouped`), about B
+  times cheaper. The two drop different tokens on overflow, as in the
+  reference.
+
+Every expert is its own clipping group; the router is a plain
+`dp_linear`. The Switch-style load-balance auxiliary loss is returned
+per example, since DP needs per-example attribution end to end. The same
+blocks serve a decode step: without thresholds the expert products are
+plain `torch.bmm` / `torch.einsum` (the reference computes them in XLA
+too) and every row of the step is routed, inactive ones included, as the
+reference routes them.
 
 Two places where torch differs from JAX and the port keeps the
 reference's result: `jax.lax.top_k` puts the lower expert index first on
@@ -23,8 +32,9 @@ becomes a gather: each slot reads the (token, choice) row routed to it,
 or a zero row, through an index built with one scatter whose every index
 is distinct (a dropped choice writes to a discarded position of its own).
 Every gradient then flows through `index_select`, whose backward adds
-into distinct rows (the shared zero row aside), and a sum over the k
-choices, never through an accumulating `index_put` over duplicates.
+into distinct rows (the shared zero row aside, and a dropped choice's
+read of slot 0, times a zero gate), and a sum over the k choices in a
+fixed order, never through an accumulating `index_put` over duplicates.
 """
 from __future__ import annotations
 
@@ -81,6 +91,37 @@ def _expert_linear(w, x, exids, c):
     return dpl.dp_expert_linear(w, x, exids, c)
 
 
+def _route(cfg: ModelConfig, params, x, th):
+    """(probs (..., E) f32, top-k experts (..., k), renormalised gates):
+    the router over x (B, T, D), the lower index first on a tie."""
+    k = cfg.num_experts_per_tok
+    logits = L.linear(params["router"], x, None if th is None
+                      else th["router"])  # (B, T, E)
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_idx = torch.sort(probs, dim=-1, descending=True,
+                          stable=True).indices[..., :k]
+    gate_vals = torch.gather(probs, -1, gate_idx)
+    gate_vals = gate_vals / torch.clamp(
+        torch.sum(gate_vals, -1, keepdim=True), min=1e-9)  # renormalize
+    return probs, gate_idx, gate_vals
+
+
+def _aux_loss(cfg: ModelConfig, probs, gate_idx):
+    """Switch-style load-balance loss per example, (B,): probs (B, T, E),
+    gate_idx (B, T, k)."""
+    e = cfg.num_experts
+    frac_prob = torch.mean(probs, dim=1)  # (B, E)
+    top1 = F.one_hot(gate_idx[..., 0], e).float()
+    frac_tok = torch.mean(top1, dim=1)  # (B, E)
+    return cfg.router_aux_coef * e * torch.sum(frac_prob * frac_tok, dim=-1)
+
+
+def _shared(cfg: ModelConfig, params, x, th):
+    sh = None if th is None else subth(th, "shared")
+    return L.swiglu(params["shared"], x, sh,
+                    f=cfg.moe_d_ff * cfg.num_shared_experts)
+
+
 def moe_block(cfg: ModelConfig, params, x, th=None):
     """x: (B, T, D) -> (y (B, T, D), aux_loss (B,)).
 
@@ -95,14 +136,8 @@ def moe_block(cfg: ModelConfig, params, x, th=None):
     def th_of(name):
         return None if th is None else th[name]
 
-    logits = L.linear(params["router"], x, th_of("router"))  # (B, T, E)
-    probs = torch.softmax(logits.reshape(n, e).float(), dim=-1)
-    # top-k, the lower index first on a tie (as jax.lax.top_k)
-    gate_idx = torch.sort(probs, dim=-1, descending=True,
-                          stable=True).indices[:, :k]  # (n, k)
-    gate_vals = torch.gather(probs, 1, gate_idx)
-    gate_vals = gate_vals / torch.clamp(
-        torch.sum(gate_vals, -1, keepdim=True), min=1e-9)  # renormalize
+    probs, gate_idx, gate_vals = _route(cfg, params, x, th)
+    gate_idx, gate_vals = gate_idx.reshape(n, k), gate_vals.reshape(n, k)
 
     # ---- slot of each (token, choice) within its expert's buffer: the
     # count of earlier choices of the same expert (a scan along the nk
@@ -139,13 +174,75 @@ def moe_block(cfg: ModelConfig, params, x, th=None):
     y = y.reshape(b, t, d).to(x.dtype)
 
     if cfg.num_shared_experts:
-        sh = None if th is None else subth(th, "shared")
-        y = y + L.swiglu(params["shared"], x, sh,
-                         f=f * cfg.num_shared_experts)
+        y = y + _shared(cfg, params, x, th)
+    return y, _aux_loss(cfg, probs, gate_idx.reshape(b, t, k))
 
-    # ---- Switch-style load-balance aux loss, per example ----
-    frac_prob = torch.mean(probs.reshape(b, t, e), dim=1)  # (B, E)
-    top1 = F.one_hot(gate_idx[:, 0].reshape(b, t), e).float()
-    frac_tok = torch.mean(top1, dim=1)  # (B, E)
-    aux = cfg.router_aux_coef * e * torch.sum(frac_prob * frac_tok, dim=-1)
-    return y, aux
+
+def capacity_per_example(cfg: ModelConfig, tokens_per_example: int) -> int:
+    """Slots per (example, expert) of the grouped dispatch: T · k ·
+    capacity_factor / E, rounded up to 4, at least 4."""
+    c = int(tokens_per_example * cfg.num_experts_per_tok
+            * cfg.capacity_factor / cfg.num_experts)
+    return max(4, -(-c // 4) * 4)
+
+
+def _expert_linear_grouped(w, x, c):
+    """(B, E, C, dout): a DP primitive with thresholds, else the plain
+    product (serving)."""
+    if c is None:
+        return torch.einsum("becd,edf->becf", x, w)
+    return dpl.dp_expert_linear_grouped(w, x, c)
+
+
+def moe_block_grouped(cfg: ModelConfig, params, x, th=None):
+    """Grouped dispatch: x (B, T, D) -> (y (B, T, D), aux_loss (B,)).
+
+    The routing of `moe_block`, with the capacity enforced per (example,
+    expert) and buffers (B, E, cap, D); th as `moe_block`'s (the experts'
+    (E, B) thresholds), None serves."""
+    b, t, d = x.shape
+    e, k, f = cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_d_ff
+    cap = capacity_per_example(cfg, t)
+
+    def th_of(name):
+        return None if th is None else th[name]
+
+    probs, gate_idx, gate_vals = _route(cfg, params, x, th)  # (B, T, *)
+
+    # ---- slot of each (token, choice) within its (example, expert)
+    # bucket: the count of the example's earlier choices of that expert ----
+    exp_flat = gate_idx.reshape(b, t * k)
+    onehot = F.one_hot(exp_flat, e).transpose(1, 2)  # (B, E, T k)
+    pos_in_expert = torch.cumsum(onehot, dim=2) - onehot
+    slot = torch.gather(pos_in_expert, 1, exp_flat[:, None])[:, 0]
+    keep = slot < cap  # (B, T k)
+
+    # ---- dispatch into (B, E, cap, d) through one flat index over the
+    # examples' buffers ----
+    base = (torch.arange(b, device=x.device) * (e * cap))[:, None]
+    src = _slot_sources((base + exp_flat * cap + slot).reshape(-1),
+                        keep.reshape(-1), b * e * cap)
+    x_rep = x.reshape(b * t, 1, d).expand(b * t, k, d).reshape(b * t * k, d)
+    buf = torch.cat([x_rep, x_rep.new_zeros((1, d))]).index_select(
+        0, src).reshape(b, e, cap, d)
+
+    h = _expert_linear_grouped(params["w_gu"], buf, th_of("w_gu"))
+    act = F.silu(h[..., :f].float()).to(h.dtype) * h[..., f:]
+    out_buf = _expert_linear_grouped(params["w_down"], act,
+                                     th_of("w_down"))  # (B, E, cap, d)
+
+    # ---- combine (a dropped choice reads slot 0 of its bucket, times 0) --
+    gathered = out_buf.reshape(b * e * cap, d).index_select(
+        0, (base + exp_flat * cap + torch.where(keep, slot, 0)).reshape(-1))
+    gathered = gathered * (keep.reshape(-1, 1) * gate_vals.reshape(-1, 1)
+                           ).to(gathered.dtype)
+    y = torch.sum(gathered.reshape(b, t, k, d), dim=2).to(x.dtype)
+
+    if cfg.num_shared_experts:
+        y = y + _shared(cfg, params, x, th)
+    return y, _aux_loss(cfg, probs, gate_idx)
+
+
+def moe_fn(cfg: ModelConfig):
+    """The block of the config's dispatch, as the reference picks it."""
+    return moe_block_grouped if cfg.moe_dispatch == "grouped" else moe_block

@@ -1,7 +1,8 @@
 """Model assembly for the dense and MoE decoder families: the counterpart
 of `repro.models.transformer`, cut to what paged serving and DP training
-run. Dense and MoE models with GQA attention serve and train; an MLA
-model (deepseek-v3-671b) serves, and its training waits for ROADMAP A.7.
+run. Dense and MoE models (flat or grouped dispatch) with GQA or MLA
+attention serve and train; an MTP config (deepseek-v3-671b) adds
+DeepSeek's multi-token-prediction loss to training.
 
     m = build_model(cfg)
     # serving
@@ -17,8 +18,8 @@ Parameters are plain dicts keyed by the reference's spec paths. Training
 keeps the reference's stacked layout, leaves (n_layers, ...) under
 `dense_blocks` and, for an MoE config, `moe_blocks` (its first
 `first_k_dense` layers dense, the rest MoE, in the reference's order;
-an MTP config adds the unstacked `mtp` subtree, which serving carries
-and does not read), so
+an MTP config adds the unstacked `mtp` subtree, which training runs
+and serving carries without reading), so
 gradients, noise and optimizer updates land leaf for leaf where the
 reference puts them; `loss_fn` splits each stack into per-layer views
 that a Python loop walks. Serving splits them once, at init
@@ -119,6 +120,9 @@ class Model:
     serve_step: Callable  # (params, cache, batch) -> (logits, cache)
     init_paged_cache: Callable  # (slots, cache_len, *, num_pages, page_len)
     num_params: int
+    # groups the loss consumes twice a step (MTP's second `embed` and
+    # `head`): BK falls back to two passes on such a layout
+    reused_groups: tuple[str, ...] = ()
 
     def init_params(self, generator: torch.Generator) -> Any:
         """Random serving parameters from `generator`, on its device."""
@@ -138,7 +142,7 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
                 ) -> Model:
     """The dense or MoE decoder, GQA or MLA. `device` is where
     `init_paged_cache` allocates; `cuda` unless the caller asks for the
-    CPU. The `loss_fn` of an MLA model raises (ROADMAP A.7)."""
+    CPU."""
     cfg.validate()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -149,7 +153,8 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
     return Model(cfg=cfg, spec=spec, layout=S.GroupLayout(spec),
                  loss_fn=_make_decoder_loss(cfg),
                  serve_step=serve_step, init_paged_cache=init_paged_cache,
-                 num_params=_count(spec))
+                 num_params=_count(spec),
+                 reused_groups=("embed", "head") if cfg.mtp_depth else ())
 
 
 # ---------------------------------------------------------------------------
@@ -162,15 +167,29 @@ def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False):
     loss, None for a dense block; th: this block's thresholds, (B,) per
     group ((E, B) per expert group)."""
     h = L.rmsnorm(params["attn_norm"], x, th["attn_norm"], eps=cfg.norm_eps)
-    x = x + A.gqa_attention(cfg, params["attn"], h, S.subth(th, "attn"),
-                            positions)
+    if cfg.attention_kind == "mla":
+        att = A.mla_attention(cfg, params["attn"], h, positions,
+                              S.subth(th, "attn"))
+    else:
+        att = A.gqa_attention(cfg, params["attn"], h, S.subth(th, "attn"),
+                              positions)
+    x = x + att
     h = L.rmsnorm(params["mlp_norm"], x, th["mlp_norm"], eps=cfg.norm_eps)
     if moe_layer:
-        y, aux = MOE.moe_block(cfg, params["moe"], h, S.subth(th, "moe"))
+        y, aux = MOE.moe_fn(cfg)(cfg, params["moe"], h, S.subth(th, "moe"))
     else:
         y = L.swiglu(params["mlp"], h, S.subth(th, "mlp"), f=cfg.d_ff)
         aux = None
     return x + y, aux
+
+
+def _block(cfg, params, x, th, positions, moe_layer=False):
+    """`_apply_attn_block`, rematerialized in backward when `cfg.remat`."""
+    if not cfg.remat:
+        return _apply_attn_block(cfg, params, x, th, positions, moe_layer)
+    return torch.utils.checkpoint.checkpoint(
+        _apply_attn_block, cfg, params, x, th, positions, moe_layer,
+        use_reentrant=False, preserve_rng_state=False)
 
 
 def _per_example_ce(logits, targets):
@@ -184,33 +203,43 @@ def _per_example_ce(logits, targets):
     return torch.sum(ce, dim=-1) / torch.clamp(valid.sum(dim=-1), min=1)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raises NotImplementedError, naming the ROADMAP.md item, for a
-    config the port serves but cannot train yet."""
-    if cfg.attention_kind == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: training is not ported yet for MLA: ROADMAP.md "
-            f"item A.7")
-
-
 def _make_decoder_loss(cfg: ModelConfig):
-    if cfg.attention_kind == "mla":
-        def refuse(*args, **kwargs):
-            check_trainable(cfg)
+    def embed(params, tokens, th):
+        return dpl.dp_embed(params["embed"]["w"], tokens, th["embed"])
 
-        return refuse
+    def head(params, x, th):
+        return dpl.dp_linear(params["head"]["w"], None, x, th["head"])
+
+    def mtp_loss(params, x, th, batch, positions):
+        """DeepSeek-V3's MTP (depth 1): h_t (after the final norm) with
+        embed(token_{t+1}) predicts token_{t+2} through one more block and
+        the main head. `embed` and `head` run a second time under their
+        own thresholds, as in the reference."""
+        tokens = batch["tokens"]
+        bsz = tokens.shape[0]
+        nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        e = embed(params, nxt, th)
+        mtp = params["mtp"]
+        h = L.linear(mtp["proj"], torch.cat([x, e], dim=-1), th["mtp/proj"])
+        h, _ = _block(cfg, mtp["block"], h, S.subth(th, "mtp/block"),
+                      positions)
+        h = L.rmsnorm(mtp["norm"], h, th["mtp/norm"], eps=cfg.norm_eps)
+        tgt = batch["targets"]
+        tgt2 = torch.cat([tgt[:, 2:], tgt.new_full((bsz, 2), -1)], dim=1)
+        return _per_example_ce(head(params, h, th), tgt2)
 
     def loss_fn(params, batch, th):
         """Per-example losses (B,): the cross-entropy plus the MoE layers'
-        load-balance losses. params: the stacked (reference-layout) tree;
-        batch: {'tokens', 'targets' (-1 = ignore), optional 'positions'},
-        (B, T) each; th: {group name: stack + (B,)} encoded thresholds
+        load-balance losses, plus 0.3 times the MTP loss of an MTP
+        config. params: the stacked (reference-layout) tree; batch:
+        {'tokens', 'targets' (-1 = ignore), optional 'positions'}, (B, T)
+        each; th: {group name: stack + (B,)} encoded thresholds
         (`GroupLayout.pack*`), or the BK capture's channels
         (`core.bk.build_channels`), which unbind per layer the same way.
         Each block is rematerialized in backward when `cfg.remat`."""
         tokens = batch["tokens"]
         bsz, t = tokens.shape
-        x = dpl.dp_embed(params["embed"]["w"], tokens, th["embed"])
+        x = embed(params, tokens, th)
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(t, device=tokens.device)[None].expand(
@@ -223,20 +252,14 @@ def _make_decoder_loss(cfg: ModelConfig):
             rows = {k: v.unbind(0) for k, v in S.subth(th, name).items()}
             for layer, bp in enumerate(stacks[name]):
                 bth = {k: r[layer] for k, r in rows.items()}
-                if cfg.remat:
-                    x, aux_l = torch.utils.checkpoint.checkpoint(
-                        _apply_attn_block, cfg, bp, x, bth, positions,
-                        moe_layer, use_reentrant=False,
-                        preserve_rng_state=False)
-                else:
-                    x, aux_l = _apply_attn_block(cfg, bp, x, bth, positions,
-                                                 moe_layer)
+                x, aux_l = _block(cfg, bp, x, bth, positions, moe_layer)
                 if aux_l is not None:
                     aux = aux_l if aux is None else aux + aux_l
         x = L.rmsnorm(params["final_norm"], x, th["final_norm"],
                       eps=cfg.norm_eps)
-        logits = dpl.dp_linear(params["head"]["w"], None, x, th["head"])
-        ce = _per_example_ce(logits, batch["targets"])
+        ce = _per_example_ce(head(params, x, th), batch["targets"])
+        if cfg.mtp_depth:
+            ce = ce + 0.3 * mtp_loss(params, x, th, batch, positions)
         return ce if aux is None else ce + aux
 
     return loss_fn
@@ -332,7 +355,7 @@ def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
                 x = x + att
                 hn = L.rmsnorm(bp["mlp_norm"], x, eps=cfg.norm_eps)
                 if moe_layer:
-                    y, _ = MOE.moe_block(cfg, bp["moe"], hn)
+                    y, _ = MOE.moe_fn(cfg)(cfg, bp["moe"], hn)
                 else:
                     y = L.swiglu(bp["mlp"], hn, f=cfg.d_ff)
                 x = x + y

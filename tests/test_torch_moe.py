@@ -5,7 +5,7 @@ against the JAX package, on the CPU in f32.
   and the (E, B) norms² against `jax.vjp` of the reference primitive
   (`tests/test_dp_layers.py`'s case, with empty slots and an empty
   expert), under the four threshold encodings; the norms-only and
-  no-norms branches; the BK refusal;
+  no-norms branches;
 * `moe_block`'s output and per-example aux loss, and their gradients,
   on granite-moe-3b-a800m-reduced, with a tied router (every expert
   equally likely: the lower index first, as `jax.lax.top_k`) and a
@@ -16,9 +16,10 @@ against the JAX package, on the CPU in f32.
   non_private) and ghost_flat by two passes;
 * two full noised `per_layer` steps with the reference's draws
   substituted, against the reference's step;
-* the train CLI on the CPU, its kernel calls per step under both routes,
-  and the refusals: BK on an MoE config (ROADMAP A.7), grouped dispatch
-  (serving and training), MLA training (the model and the train CLI).
+* the train CLI on the CPU, its kernel calls per step under both routes;
+  BK on the MoE config against twopass; grouped dispatch and MLA build,
+  serve and train (their parity tests: `tests/test_torch_moe_grouped.py`,
+  `tests/test_torch_mla_train.py`).
 
 Tolerances: f32, the same math summed in another order: rtol 1e-5 and an
 atol of 1e-5 of the largest magnitude (1e-4 after a full step, as
@@ -26,6 +27,7 @@ atol of 1e-5 of the largest magnitude (1e-4 after a full step, as
 """
 import dataclasses
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -146,29 +148,43 @@ def test_dp_expert_linear_norms_only_and_no_norms_branches():
     assert torch.isnan(dw_nan[:2]).all()
 
 
-def test_bk_on_moe_raises_naming_a7():
+def test_bk_on_moe_matches_twopass():
+    """The expert layers take a BK channel: on the MoE config ghost_flat
+    and per_group by BK equal their twopass, with no fallback warning, and
+    a train CLI step by BK runs (the reference's BK and twopass:
+    `tests/test_torch_moe_grouped.py`)."""
     from repro_torch.core import bk
     w, x, exids, _ = _expert_inputs()
     ch = bk.BkChannel(torch.full((E, BSZ), INF), "moe_blocks/moe/w_gu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A.7"):
+    with bk._recording() as rec:
         DP.dp_expert_linear(T(w), T(x), T(exids), ch)
+    assert rec["moe_blocks/moe/w_gu"].kind == "expert"
     m, _ = _models()
     params = bridge.train_params_from_numpy(
         bridge.numpy_params(m.spec, seed=0), "cpu")
-    for mode in ("ghost_flat", "per_group"):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            dp_clipped_gradients(
-                m.loss_fn, params, _t(_batch(m.cfg.vocab_size)), m.layout,
-                mode=mode, batch_size=3, execution="bk",
-                group_assignment=torch.zeros(m.layout.num_groups,
-                                             dtype=torch.long),
-                group_thresholds=torch.ones(1))
+    batch = _t(_batch(m.cfg.vocab_size))
+    for mode, kw in (("ghost_flat", {"flat_threshold": torch.tensor(0.5)}),
+                     ("per_group", {"group_assignment": torch.zeros(
+                         m.layout.num_groups, dtype=torch.long),
+                         "group_thresholds": torch.ones(1)})):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = dp_clipped_gradients(m.loss_fn, params, batch, m.layout,
+                                       mode=mode, batch_size=3,
+                                       execution="bk", **kw)
+        want = dp_clipped_gradients(m.loss_fn, params, batch, m.layout,
+                                    mode=mode, batch_size=3,
+                                    execution="twopass", **kw)
+        assert_trees_close(got.grads, jax.tree_util.tree_map(
+            lambda t: t.detach().numpy(), want.grads))
     trainer = train.Trainer(train.build_train_parser().parse_args(
         ["--arch", ARCH, "--reduced", "--clipping", "ghost_flat",
          "--execution", "bk", "--batch", "2", "--seq", "8", "--docs", "4",
          "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        trainer.step()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        met = trainer.step()
+    assert np.isfinite(float(met.loss))
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +447,7 @@ def test_two_per_layer_steps_match_reference_with_its_draws(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The train CLI, its kernel calls, the refusals.
+# The train CLI, its kernel calls, the grouped and MLA variants.
 # ---------------------------------------------------------------------------
 
 
@@ -492,29 +508,40 @@ def test_moe_serve_cli_runs_on_the_cpu():
                        "1", "--device", "cpu"]) == 0
 
 
-def test_moe_serving_raises_naming_its_item():
-    """What of the MoE and MLA families still refuses names ROADMAP A.7:
-    a grouped-dispatch MoE model cannot be built to serve, and an MLA
-    model refuses to train, by the model's loss and by the train CLI."""
+def test_grouped_and_mla_models_serve_and_train():
+    """A grouped-dispatch MoE model builds and serves; an MLA model's loss
+    runs and the train CLI trains deepseek-v3 (the reference's numbers:
+    `tests/test_torch_moe_grouped.py`, `tests/test_torch_mla_train.py`)."""
     grouped = dataclasses.replace(get_config(ARCH, reduced=True),
                                   moe_dispatch="grouped")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A.7"):
-        build_model(grouped, device="cpu")
+    gm = build_model(grouped, device="cpu")
+    params = gm.init_params(torch.Generator().manual_seed(0))
+    cache = gm.init_paged_cache(2, 16, num_pages=4, page_len=8)
+    logits, _ = gm.serve_step(params, cache, {
+        "token": torch.zeros((2, 1), dtype=torch.int32)})
+    assert logits.shape == (2, grouped.vocab_size)
+    assert torch.isfinite(logits).all()
     mla = build_model(get_config("deepseek-v3-671b", reduced=True),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A.7"):
-        mla.loss_fn({}, {}, {})
-    with pytest.raises(NotImplementedError, match="A.7"):
-        train.main(["--arch", "deepseek-v3-671b", "--reduced", "--device",
-                    "cpu"])
+    tparams = mla.init_train_params(torch.Generator().manual_seed(0))
+    losses = mla.loss_fn(tparams, _t(_batch(mla.cfg.vocab_size)),
+                         mla.layout.pack_value(INF, 3))
+    assert losses.shape == (3,) and torch.isfinite(losses).all()
+    assert train.main(["--arch", "deepseek-v3-671b", "--reduced", "--steps",
+                       "1", "--batch", "2", "--seq", "8", "--docs", "4",
+                       "--device", "cpu"]) == 0
 
 
-@pytest.mark.parametrize("change,item", [
-    ({"attention_kind": "mla"}, "MLA: ROADMAP.md item A.7"),
-    ({"moe_dispatch": "grouped"}, "moe_block_grouped: ROADMAP.md item A.7")])
-def test_unported_moe_variants_name_their_items(change, item):
-    """Grouped dispatch refuses to build; an MLA model builds and serves,
-    and refuses to train."""
-    cfg = dataclasses.replace(get_config(ARCH, reduced=True), **change)
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(cfg, device="cpu").loss_fn({}, {}, {})
+@pytest.mark.parametrize("change", [{"attention_kind": "mla"},
+                                    {"moe_dispatch": "grouped"}],
+                         ids=["mla", "grouped"])
+def test_moe_variants_train_as_the_reference(change):
+    """Granite with MLA attention, or with grouped dispatch: the loss of
+    one numpy parameter tree equals the reference's."""
+    m, jm = _models(**change)
+    tree = bridge.numpy_params(m.spec, seed=0)
+    batch = _batch(m.cfg.vocab_size)
+    want = jm.loss_fn(_j(tree), _j(batch), jm.layout.pack_value(jnp.inf, 3))
+    got = m.loss_fn(bridge.train_params_from_numpy(tree, "cpu"), _t(batch),
+                    m.layout.pack_value(INF, 3))
+    close(got, want)
