@@ -11,7 +11,7 @@ exits non-zero:
               -Xptxas -v each kernel's name, registers and spills,
               ptxas's notes on the wgmma pipeline and the bytes of spill
               stores per library).
-  3 serve     qwen3-4b at full width, its depth cut to QWEN_CUT_DEPTH = 12
+  3 serve     qwen3-4b at full width, its depth cut to QWEN_CUT_DEPTH = 6
               of 36 layers (a serve_step is host-bound, its time a
               layer's times the depth), bf16, random parameters from a
               seeded torch.Generator, served through the serve CLI's own
@@ -19,8 +19,10 @@ exits non-zero:
               requests of 64-192 tokens behind a 32-token shared prefix,
               32 generated tokens each (cache_len 272, 136 pages). Every
               launch counter is set to 0 just before and read just
-              after; paged_attn must have launched 12 times per
-              serve_step.
+              after; paged_attn must have launched 6 times per
+              serve_step. The engine's `on_token` callback keeps each
+              token's top-2 logits (for phase 15); its host seconds
+              are in the line beside the ms per serve_step without them.
   2 kernels   (run after phase 3, so its launches stay out of phase 3's
               count) paged_attn against its plain PyTorch version on the
               card: a sweep of ragged tables, partial last pages, trash
@@ -30,7 +32,9 @@ exits non-zero:
               512 on an aliased pool, B = 2 and 8, an f32 query over bf16
               and over f32 pools, 4,096 tokens) and long GQA contexts
               (4,096 tokens at qwen3-4b's head layout, 32 splits at B =
-              1), two calls bitwise equal at every point; then at the
+              1; 4,096 tokens at B = 8 at the dense configs' layouts:
+              KV = 36, G = 1, hd 64; KV = 40, G = 1; KV = 8, G = 8), two
+              calls bitwise equal at every point; then at the
               main path's own shapes, on q/pools/pt/pos captured from
               layer 0 during phase 3, and at MLA's (B = 8, 4,096 tokens,
               f32 q over a bf16 pool), with kernel (eager and CUDA-graph
@@ -273,11 +277,58 @@ exits non-zero:
               granite reduced by grouped dispatch per_layer and granite
               reduced ghost_flat by BK (and against its twopass).
 
+  15 dense/  the contiguous plane, batch mode and the remaining dense
+     contig.  configs (qwen3-4b cut to QWEN_CUT_DEPTH = 6 layers in
+              (a)-(c)):
+              (a) phase 3's request set on the contiguous plane
+              (`paging="off"`, cache_len 272, 8 slots): no paged_attn
+              launch; its tokens equal phase 3's paged tokens up to ties;
+              ms per serve_step and the cache bytes of both planes, and a
+              profile of 3 decode steps;
+              (b) `greedy_decode` on 4 ragged prompts of 16-48 tokens, 16
+              generated: prefill "fused" bitwise equal to "loop", both
+              equal to the contiguous engine's tokens up to ties;
+              (c) qwen3-4b `variant="swa"` (a 4,096-token window) with
+              cache_len 64 below prompt + gen (4 requests of 48-96
+              tokens): `auto` keeps the contiguous plane, a ring of 64
+              slots that wraps;
+              (d) minicpm-2b at full width and depth (40 layers, MHA
+              36 x 64, 3.01 B parameters, bf16) served paged (paged_attn
+              at G = 1, 40 launches a serve_step) and contiguous, tokens
+              equal up to ties; (e) qwen1.5-32b (KV = 40, G = 1, hd 128,
+              QKV bias) and deepseek-67b (KV = 8, G = 8) at full width,
+              their depth cut to DENSE_DEPTH = 4 layers (3.66 B and
+              4.45 B parameters; 8 layers took the script to 1,052 s of
+              its 1,200 on a slow host), served paged (4 launches a
+              serve_step); 6 requests of 16-32
+              tokens behind a 16-token prefix, 4 slots, 8 generated; at
+              each path's captured input paged_attn is held against its
+              plain version (TOL, a bitwise repeat) with eager, graph,
+              plain, library and bound times, and so it is at B = 8 rows
+              of 4,096 tokens (each row its own 256 pages, bf16) at each
+              served head layout, qwen3-4b's G = 4 beside G = 1 (hd 64
+              and 128) and G = 8 ("dense_serve" in the kernels line);
+              (f) training through `Trainer` on phase 5's settings (1
+              warm-up + 2 timed steps): minicpm-2b per_layer and
+              non_private at full width and depth (ghost_norm /
+              clip_reduce 161 / 161 and 0 / 161 a step: 4 linears x 40
+              blocks + the 122,753-wide head), qwen1.5-32b per_layer at 4
+              of its 64 layers (17 / 17); ghost_norm and clip_reduce at
+              both models' captured linear shapes against their plain
+              versions with phase 6's tolerances ("dense_train");
+              (g) card against CPU: a per_layer clip of qwen1.5-32b
+              reduced with a non-zero QKV bias (rtol 1e-3), and the
+              tokens of qwen3-4b reduced swa on a wrapping 16-slot ring.
+              A token divergence between two runs is a tie when one of
+              the runs' top-2 logit gap at that token is within TIE_GAP:
+              that run's choice was an argmax tie. Each part's line has
+              its seconds.
+
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8, 11, 12 and 14 (paged_attn's: phases 3 and
-13). A clock line follows each phase.
+the sum over phases 5, 8, 11, 12, 14 and 15 (paged_attn's: phases 3, 13
+and 15). A clock line follows each phase.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -309,11 +360,12 @@ SUM_RTOL, SUM_ATOL_FRAC = 1e-4, 1e-4
 TRAIN_RTOL, TRAIN_ATOL_FRAC = 1e-3, 1e-4
 TIE_GAP = 1e-4
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
-# qwen3-4b's layers in phase 3's serving, of 36: a serve_step is bound by
-# the host (its small ops, a layer at a time), so a third of the depth
-# keeps the whole run inside its time limit on a slow host; the width and
+# qwen3-4b's layers in phase 3's serving (and phase 15's (a)-(c)), of 36:
+# a serve_step is bound by the host (its small ops, a layer at a time),
+# so a sixth of the depth keeps the whole run well inside its time limit
+# on a slow host (12 layers took it to 1,067 s of 1,200); the width and
 # every leaf stay
-QWEN_CUT_DEPTH = 12
+QWEN_CUT_DEPTH = 6
 
 # data-sheet memory bandwidth (bytes/s) by card name
 BANDWIDTH = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
@@ -436,6 +488,11 @@ SWEEP = [  # b, kv, g, dq, dv (None: separate value pool), n, L, P; dtypes
     # splits of 832 rows), and B = 1 (32 splits of 128)
     ((8, 8, 4, 128, None, 2100, 16, 256), SAME),
     ((1, 8, 4, 128, None, 300, 16, 256), SAME + (("float32", "bfloat16"),)),
+    # 4,096 tokens at the dense configs' head layouts: minicpm-2b (KV = 36,
+    # G = 1, hd 64), qwen1.5-32b (KV = 40, G = 1), deepseek-67b (G = 8)
+    ((8, 36, 1, 64, None, 300, 16, 256), SAME),
+    ((8, 40, 1, 128, None, 300, 16, 256), SAME),
+    ((8, 8, 8, 128, None, 300, 16, 256), SAME),
 ]
 # the MLA point timed beside the main path: B = 8, 4,096 tokens each, an
 # f32 query over a bf16 latent pool
@@ -508,18 +565,20 @@ def phase_build(torch, gpu):
 
 
 def serve_model(torch, gpu, phase, cfg, *, n_req, min_len, max_len, prefix,
-                gen, slots, page_len, **extra):
+                gen, slots, page_len, on_token=None, **extra):
     """Serve `n_req` synthetic requests (`min_len`-`max_len` tokens behind
     a `prefix`-token shared prefix, `gen` generated each) through the serve
     CLI's own `serve_requests` on random parameters from seed 0, with
     every launch counter set to 0 just before and read just after. Layer
     0's paged_attn inputs are captured every 16th serve_step (the pools
     are updated in place, so they are cloned; an aliased pool stays one
-    tensor). Gates: every request complete with in-vocabulary tokens, a
-    prefix hit, and paged_attn launched once a layer a serve_step. Emits
-    the phase's line (with `extra`) and returns (paged_attn launches, the
-    capture with the most valid cache rows, model, params, engine, ms
-    per serve_step)."""
+    tensor). `on_token` (a `Top2`) is the engine's per-token callback;
+    the host seconds it took are in the line, beside the ms per
+    serve_step without them. Gates: every request complete with
+    in-vocabulary tokens, a prefix hit, and paged_attn launched once a
+    layer a serve_step. Emits the phase's line (with `extra`) and returns
+    (paged_attn launches, the capture with the most valid cache rows,
+    model, params, engine, ms per serve_step)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels import paged_attn as K
     from repro_torch.launch import serve
@@ -554,7 +613,7 @@ def serve_model(torch, gpu, phase, cfg, *, n_req, min_len, max_len, prefix,
         t0 = time.perf_counter()
         eng, done = serve.serve_requests(
             model, params, reqs, gen=gen, num_slots=slots,
-            cache_len=cache_len, page_len=page_len)
+            cache_len=cache_len, page_len=page_len, on_token=on_token)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
@@ -577,6 +636,12 @@ def serve_model(torch, gpu, phase, cfg, *, n_req, min_len, max_len, prefix,
             f"for {s['serve_steps']} serve_steps of {cfg.num_layers} layers")
     prompt_toks = sum(len(r) for r in reqs)
     step_ms = 1e3 * wall / s["serve_steps"]
+    if on_token is not None:
+        if on_token.tokens != {rid: c.tokens for rid, c in done.items()}:
+            raise RuntimeError(f"{cfg.name}: on_token saw other tokens")
+        extra["top2_capture_s"] = on_token.seconds
+        extra["ms_per_serve_step_less_capture"] = (
+            1e3 * (wall - on_token.seconds) / s["serve_steps"])
     emit({"phase": phase, "gpu": gpu, "arch": cfg.name, **extra,
           "num_params": model.num_params, "dtype": str(cfg.dtype),
           "requests": n_req, "slots": slots, "page_len": page_len,
@@ -600,17 +665,96 @@ def serve_model(torch, gpu, phase, cfg, *, n_req, min_len, max_len, prefix,
     return counts["paged_attn"], best, model, params, eng, step_ms
 
 
+class Top2:
+    """An engine's `on_token` callback: for every token emitted, the token
+    and the top-2 values and indices of the logits row it was taken from
+    (device tensors, read after the run), and the host seconds the
+    capture took. A divergence between two runs is judged on them."""
+
+    def __init__(self):
+        self.tokens, self.rows, self.seconds = {}, {}, 0.0
+
+    def __call__(self, rid, tok, row):
+        import torch
+        t0 = time.perf_counter()
+        self.tokens.setdefault(rid, []).append(tok)
+        self.rows.setdefault(rid, []).append(torch.topk(row.float(), 2))
+        self.seconds += time.perf_counter() - t0
+
+    def run(self) -> dict:
+        """{"tokens": {rid: tokens}, "top2" / "top2_idx": {rid: (n, 2)
+        array}}."""
+        import torch
+        return {"tokens": dict(self.tokens),
+                **{key: {rid: torch.stack([getattr(t, f) for t in v])
+                         .cpu().numpy() for rid, v in self.rows.items()}
+                   for key, f in (("top2", "values"),
+                                  ("top2_idx", "indices"))}}
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def compare_runs(label, a, b, bf16):
+    """Two runs' tokens ({rid: tokens}, and {rid: (n, 2)} top-2 logits and
+    their indices of each), equal up to ties: where a request's tokens
+    first differ, that token must be an argmax tie. It is one when one
+    run's top two logits are within TIE_GAP there (that run's choice was
+    a tie), or, on bf16 logits (`bf16`), when the two runs' top two are
+    the same two tokens in swapped order, each run's pair one bf16 step
+    apart at most (a one-step rounding difference flipped them). Returns
+    the summary with both gaps; raises on a divergence that is no tie."""
+    identical, ties = 0, []
+    for rid, ta in sorted(a["tokens"].items()):
+        tb = b["tokens"][rid]
+        if ta == tb:
+            identical += 1
+            continue
+        i = next(k for k, (x, y) in enumerate(zip(ta, tb)) if x != y)
+        va, vb = a["top2"][rid][i], b["top2"][rid][i]
+        ia, ib = a["top2_idx"][rid][i], b["top2_idx"][rid][i]
+        ga, gb = float(va[0] - va[1]), float(vb[0] - vb[1])
+        step = bf16_step(float(max(va[0], vb[0])))
+        swapped = (int(ia[0]) == ta[i] == int(ib[1])
+                   and int(ib[0]) == tb[i] == int(ia[1]))
+        one_step = bf16 and swapped and max(ga, gb) <= step
+        ties.append({"rid": rid, "at": i, "gap_a": ga, "gap_b": gb,
+                     "tokens": [ta[i], tb[i]], "swapped": swapped,
+                     "bf16_step": step})
+        if min(ga, gb) > TIE_GAP and not one_step:
+            raise RuntimeError(
+                f"{label}: request {rid} diverges at token {i} with top-2 "
+                f"gaps {ga} / {gb} (tie gap {TIE_GAP}; top-2 tokens "
+                f"{ia.tolist()} / {ib.tolist()}, bf16 step {step}): {ta} "
+                f"vs {tb}")
+    return {"requests": len(a["tokens"]), "identical": identical,
+            "ties": ties}
+
+
+# phase 3's request set and engine (phase 15 (a) serves it again on the
+# contiguous plane)
+MAIN_REQ = dict(n_req=16, min_len=64, max_len=192, prefix=32, gen=32,
+                slots=8, page_len=16)
+
+
 def phase_main_path(torch, gpu):
+    """Phase 3. Returns (paged_attn launches, the capture with the most
+    valid rows, the run's tokens and top-2 logits per request, cache bytes
+    and ms per serve_step, for phase 15)."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config("qwen3-4b"),
                               num_layers=QWEN_CUT_DEPTH)
+    top2 = Top2()
     launches, best, model, params, eng, step_ms = serve_model(
-        torch, gpu, "main_path", cfg, n_req=16, min_len=64, max_len=192,
-        prefix=32, gen=32, slots=8, page_len=16,
+        torch, gpu, "main_path", cfg, **MAIN_REQ, on_token=top2,
         depth_cut={"num_layers": QWEN_CUT_DEPTH, "of": 36})
     profile_decode(torch, gpu, model, params, eng, step_ms)
-    return launches, best
+    run = {**top2.run(), "cache_bytes": eng.cache_bytes(),
+           "ms_per_serve_step": step_ms}
+    return launches, best, run
 
 
 def profile_decode(torch, gpu, model, params, eng, step_ms, steps=3,
@@ -1026,9 +1170,10 @@ def profile_step(torch, trainer, step_ms) -> dict:
 
 
 def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
-                  kind=None, profile=True, cfg=None, extra=None):
+                  kind=None, profile=True, cfg=None, extra=None,
+                  timed=TRAIN_TIMED):
     """Train one variant through the CLI's `Trainer` (on `cfg` in place of
-    the `--arch` config when given): TRAIN_WARMUP + TRAIN_TIMED steps with
+    the `--arch` config when given): TRAIN_WARMUP + `timed` steps with
     every launch counter set to 0 before and read after, then (with
     `profile`) one profiled step. `patches` are (step, module, attribute,
     replacement) swapped in for that step only (the input recorders).
@@ -1039,7 +1184,7 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
     entries (B = 8) give the ratios. Returns the launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
-    steps = TRAIN_WARMUP + TRAIN_TIMED
+    steps = TRAIN_WARMUP + timed
     t0 = time.perf_counter()
     trainer = train.Trainer(args, cfg=cfg)
     torch.cuda.synchronize()
@@ -1084,7 +1229,7 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
     if {k: counts[k] for k in want} != want:
         raise RuntimeError(f"{label}: launches {counts} over {steps} "
                            f"steps, expected {want}")
-    step_ms[label] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / TRAIN_TIMED
+    step_ms[label] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / timed
     base, per_layer = step_ms.get("non_private"), step_ms["per_layer"]
     emit({"phase": "train", "gpu": gpu, "arch": trainer.cfg.name,
           "num_layers": trainer.cfg.num_layers,
@@ -1101,7 +1246,7 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
           "sigma": trainer.plan.sigma,
           "sigma_new": trainer.plan.sigma_new,
           "init_s": init_s, "warmup_steps": TRAIN_WARMUP,
-          "timed_steps": TRAIN_TIMED, "ms_per_step": step_ms[label],
+          "timed_steps": timed, "ms_per_step": step_ms[label],
           "ratio_vs_nonprivate": (step_ms[label] / base if base else None),
           "ratio_vs_per_layer": step_ms[label] / per_layer,
           "ms_per_example": step_ms[label] / batch,
@@ -2772,6 +2917,398 @@ def phase_moe_mla_train(torch, gpu, moe_ms):
     return launches, mla, moe_bk
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the contiguous plane, batch mode and the remaining dense configs.
+# ---------------------------------------------------------------------------
+
+# (b) batch mode: ragged prompts (seed 1), generated tokens each
+BATCH_REQ = dict(n=4, min_len=16, max_len=48, gen=16)
+# (c) the sliding-window variant: prompt + gen runs past the ring's slots
+# (4 requests, one admission: cut from 8 to fit the time limit)
+SWA_REQ = dict(n=4, min_len=48, max_len=96, gen=16, slots=4, cache_len=64)
+# (d), (e): (label, arch, layers kept (None: all)); one request set. (e)'s
+# depth: 8 layers took the whole script to 1,052 s of its 1,200 (a slow
+# host; phase 15 132 s), so it keeps 4
+DENSE_DEPTH = 4
+DENSE_SERVE = [("minicpm_serve", "minicpm-2b", None),
+               ("qwen1_5_serve", "qwen1.5-32b", DENSE_DEPTH),
+               ("deepseek_67b_serve", "deepseek-67b", DENSE_DEPTH)]
+DENSE_REQ = dict(n_req=6, min_len=16, max_len=32, prefix=16, gen=8, slots=4,
+                 page_len=16)
+# (e) paged_attn at long contexts, at each served head layout: (label,
+# KV, G, head_dim); B = 8 rows of LONG_PAGES pages of 16 (4,096 tokens),
+# each row its own pages, every position full, bf16 q and pools
+LONG_LAYOUTS = [("qwen3_4b_long", 8, 4, 128), ("minicpm_long", 36, 1, 64),
+                ("qwen1_5_long", 40, 1, 128),
+                ("deepseek_67b_long", 8, 8, 128)]
+LONG_B, LONG_PAGES, LONG_PAGE_LEN = 8, 256, 16
+# (f) qwen1.5-32b's layers in training on one card (35.2 B parameters in
+# all: 70.4 GB of bf16 weights before gradients and moments)
+QWEN15_TRAIN_DEPTH = 4
+# (f)'s timed steps a variant, after one warm-up
+DENSE_TRAIN_TIMED = 2
+
+
+def long_inputs(torch, kv, g, hd, seed):
+    """A long-context paged_attn input drawn on the card: q (LONG_B, kv,
+    g, hd) and two pools of LONG_B x LONG_PAGES pages (+ the trash page),
+    a table giving each row its own pages in a random order, every
+    position full."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = LONG_B * LONG_PAGES
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q = draw(LONG_B, kv, g, hd)
+    kp = draw(n + 1, LONG_PAGE_LEN, kv, hd)
+    vp = draw(n + 1, LONG_PAGE_LEN, kv, hd)
+    pt = torch.randperm(n, generator=gen, device="cuda").to(
+        torch.int32).reshape(LONG_B, LONG_PAGES)
+    pos = torch.full((LONG_B,), LONG_PAGES * LONG_PAGE_LEN - 1,
+                     dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, pos
+
+
+def serve_cache_len(req) -> int:
+    """serve_model's cache_len for a request set (whole pages)."""
+    return -(-(req["prefix"] + req["max_len"] + req["gen"] + 8)
+             // req["page_len"]) * req["page_len"]
+
+
+def engine_run(torch, model, params, reqs, *, gen, slots, cache_len,
+               paging="off"):
+    """Serve `reqs` through a DecodeEngine with a `Top2` callback and
+    every launch counter at 0 before; every request must complete with
+    `gen` in-vocabulary tokens. Returns (engine, {"tokens", "top2"},
+    launches, ms per serve_step)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.engine import DecodeEngine
+    top2 = Top2()
+    eng = DecodeEngine(model, params, num_slots=slots, cache_len=cache_len,
+                       paging=paging, on_token=top2)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r, max_new_tokens=gen)
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    vocab = model.cfg.vocab_size
+    if sorted(done) != list(range(len(reqs))) or not all(
+            len(c.tokens) == gen and all(0 <= t < vocab for t in c.tokens)
+            for c in done.values()) or top2.tokens != {
+                rid: c.tokens for rid, c in done.items()}:
+        raise RuntimeError(f"{model.cfg.name}: incomplete or bad tokens")
+    return eng, top2.run(), counts, 1e3 * wall / eng.stats["serve_steps"]
+
+
+def greedy_top2(torch, model, params, prompts, lengths, gen, cache_len,
+                prefill):
+    """greedy_decode with the top-2 logits (and their indices) of the row
+    each token came from: the first from the row's last prompt position,
+    the others from the decode steps. Returns ((B, gen) tokens,
+    {"tokens", "top2", "top2_idx"})."""
+    import dataclasses
+    from repro_torch.launch import serve
+    calls = []
+
+    def step(p, cache, batch):
+        logits, cache = model.serve_step(p, cache, batch)
+        calls.append(torch.topk(logits.float(), 2))
+        return logits, cache
+
+    toks = serve.greedy_decode(dataclasses.replace(model, serve_step=step),
+                               params, prompts, gen, cache_len,
+                               prefill=prefill, lengths=lengths)
+    p = prompts.shape[1]
+    run = {"tokens": {i: row for i, row in enumerate(toks.tolist())}}
+    for key, f in (("top2", "values"), ("top2_idx", "indices")):
+        got = torch.stack([getattr(c, f) for c in calls]).cpu().numpy()
+        run[key] = {i: np.stack([got[int(n) - 1, i]]
+                                + [got[p + j - 1, i] for j in range(1, gen)])
+                    for i, n in enumerate(lengths.tolist())}
+    return toks, run
+
+
+def phase_dense(torch, gpu, main_run):
+    """Phase 15. `main_run`: phase 3's tokens, top-2 logits, cache bytes
+    and ms per serve_step. Returns (paged_attn launches of (d) and (e),
+    its kernels-line block per path, the training kernels' launches of
+    (f), their kernels-line blocks at (f)'s captured shapes)."""
+    import dataclasses
+
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import paged_attn as K
+    from repro_torch.launch import serve
+    from repro_torch.launch.inputs import pad_ragged_prompts
+    from repro_torch.models.transformer import build_model
+
+    t_phase = t_part = time.perf_counter()
+    # (a) phase 3's requests on the contiguous plane
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              num_layers=QWEN_CUT_DEPTH)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    req = MAIN_REQ
+    reqs = serve.build_requests(cfg.vocab_size, req["n_req"],
+                                min_len=req["min_len"],
+                                max_len=req["max_len"],
+                                shared_prefix=req["prefix"], seed=0)
+    eng, run, counts, step_ms = engine_run(
+        torch, model, params, reqs, gen=req["gen"], slots=req["slots"],
+        cache_len=serve_cache_len(req))
+    if eng.paged or counts["paged_attn"]:
+        raise RuntimeError(f"contiguous plane: paged={eng.paged}, "
+                           f"{counts['paged_attn']} paged_attn launches")
+    emit({"phase": "dense_contiguous", "gpu": gpu, "part": "a",
+          "arch": cfg.name, "num_layers": cfg.num_layers,
+          "requests": len(reqs), "slots": req["slots"],
+          "cache_len": serve_cache_len(req),
+          "ms_per_serve_step": {"contiguous": step_ms,
+                                "paged": main_run["ms_per_serve_step"]},
+          "cache_bytes": {"contiguous": eng.cache_bytes(),
+                          "paged": main_run["cache_bytes"]},
+          "stats": eng.stats, "launches": counts,
+          "vs_paged": compare_runs("contiguous vs paged", main_run, run,
+                                   True),
+          "seconds": time.perf_counter() - t_part})
+    profile_decode(torch, gpu, model, params, eng, step_ms,
+                   label="contiguous")
+    del eng
+
+    # (b) batch mode, fused and loop, against the engine
+    t_part = time.perf_counter()
+    b = BATCH_REQ
+    breqs = serve.build_requests(cfg.vocab_size, b["n"], min_len=b["min_len"],
+                                 max_len=b["max_len"], shared_prefix=0,
+                                 seed=1)
+    prompts, lengths = pad_ragged_prompts(breqs)
+    prompts = torch.from_numpy(prompts).cuda()
+    lengths = torch.from_numpy(lengths).cuda()
+    cache_len = b["max_len"] + b["gen"] + 8
+    times = {}
+    reset_launch_counts()
+    for prefill in ("fused", "loop"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, grun = greedy_top2(torch, model, params, prompts, lengths,
+                                 b["gen"], cache_len, prefill)
+        torch.cuda.synchronize()
+        times[prefill] = time.perf_counter() - t0
+        if prefill == "fused":
+            fused, fused_run = toks, grun
+    if not torch.equal(fused, toks):
+        raise RuntimeError(f"batch mode: fused {fused.tolist()} != loop "
+                           f"{toks.tolist()}")
+    batch_launches = launch_counts()["paged_attn"]
+    _, erun, counts, _ = engine_run(torch, model, params, breqs,
+                                    gen=b["gen"], slots=b["n"],
+                                    cache_len=cache_len)
+    if batch_launches or counts["paged_attn"]:
+        raise RuntimeError("batch mode launched paged_attn")
+    emit({"phase": "dense_contiguous", "gpu": gpu, "part": "b",
+          "arch": cfg.name, "prompt_lens": lengths.tolist(),
+          "gen": b["gen"], "fused_s": times["fused"],
+          "loop_s": times["loop"], "fused_equals_loop": True,
+          "vs_engine": compare_runs("batch vs engine", fused_run, erun,
+                                    True),
+          "seconds": time.perf_counter() - t_part})
+
+    # (c) the sliding-window variant: auto keeps it on the ring
+    t_part = time.perf_counter()
+    swa = dataclasses.replace(get_config("qwen3-4b", variant="swa"),
+                              num_layers=QWEN_CUT_DEPTH)
+    c = SWA_REQ
+    creqs = serve.build_requests(cfg.vocab_size, c["n"], min_len=c["min_len"],
+                                 max_len=c["max_len"], shared_prefix=0,
+                                 seed=2)
+    eng, _, counts, step_ms = engine_run(
+        torch, build_model(swa), params, creqs, gen=c["gen"],
+        slots=c["slots"], cache_len=c["cache_len"], paging="auto")
+    ring = eng.cache["dense_blocks_k"].shape[2]
+    wraps = sum(len(r) + c["gen"] > ring for r in creqs)
+    if eng.paged or counts["paged_attn"] or ring != c["cache_len"] \
+            or not wraps:
+        raise RuntimeError(f"swa: paged={eng.paged}, ring {ring}, {wraps} "
+                           f"requests past it, {counts['paged_attn']} "
+                           f"paged_attn launches")
+    emit({"phase": "dense_contiguous", "gpu": gpu, "part": "c",
+          "arch": swa.name, "sliding_window": swa.sliding_window,
+          "ring_slots": ring, "requests": len(creqs),
+          "requests_past_the_ring": wraps, "ms_per_serve_step": step_ms,
+          "cache_bytes": eng.cache_bytes(), "paged": eng.paged,
+          "seconds": time.perf_counter() - t_part})
+    del eng, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d), (e) the dense configs on the paged plane; minicpm-2b on the
+    # contiguous one too
+    bw = bandwidth(gpu)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    blocks, paged_launches = {}, 0
+    for label, arch, depth in DENSE_SERVE:
+        t_part = time.perf_counter()
+        dcfg = get_config(arch)
+        extra = {"label": label}
+        if depth is not None:
+            extra["depth_cut"] = {
+                "num_layers": depth, "of": dcfg.num_layers,
+                "why": "full width; the whole model's bf16 weights (70.4 / "
+                       "134.8 GB) fit no card, and 8 layers took the "
+                       "script past 1,050 s of its 1,200 s limit"}
+            dcfg = dataclasses.replace(dcfg, num_layers=depth)
+        top2 = Top2()
+        launches, snap, model, params, eng, step_ms = serve_model(
+            torch, gpu, "dense_serve", dcfg, **DENSE_REQ, on_token=top2,
+            **extra)
+        paged_launches += launches
+        if depth is None:
+            reqs = serve.build_requests(
+                dcfg.vocab_size, DENSE_REQ["n_req"],
+                min_len=DENSE_REQ["min_len"], max_len=DENSE_REQ["max_len"],
+                shared_prefix=DENSE_REQ["prefix"], seed=0)
+            paged = top2.run()
+            ceng, crun, counts, cms = engine_run(
+                torch, model, params, reqs, gen=DENSE_REQ["gen"],
+                slots=DENSE_REQ["slots"], cache_len=serve_cache_len(DENSE_REQ))
+            if ceng.paged or counts["paged_attn"]:
+                raise RuntimeError(f"{arch}: the contiguous plane launched "
+                                   f"paged_attn")
+            emit({"phase": "dense_contiguous", "gpu": gpu, "part": "d",
+                  "arch": dcfg.name,
+                  "ms_per_serve_step": {"contiguous": cms, "paged": step_ms},
+                  "cache_bytes": {"contiguous": ceng.cache_bytes(),
+                                  "paged": eng.cache_bytes()},
+                  "vs_paged": compare_runs(f"{arch} contiguous vs paged",
+                                           paged, crun, True),
+                  "seconds": time.perf_counter() - t_part})
+            del ceng
+        del model, params, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        q, kp, vp, pt, pos, kw = snap
+        row = paged_attn_times(torch, gpu, K, label, q, kp, vp, pt, pos,
+                               kw["scale"], vp.shape[-1], bw, flush)
+        blocks[label] = {**{k: row[k] for k in SERVE13_KEYS},
+                         "launches": launches}
+        del snap, q, kp, vp
+    # paged_attn at long contexts at each served head layout (qwen3-4b's
+    # G = 4 beside G = 1 and G = 8): the split over pages and the ordered
+    # combine at the bytes a long context reads
+    t_part = time.perf_counter()
+    for i, (label, kv, g, hd) in enumerate(LONG_LAYOUTS):
+        q, kp, vp, pt, pos = long_inputs(torch, kv, g, hd, seed=i)
+        row = paged_attn_times(torch, gpu, K, label, q, kp, vp, pt, pos,
+                               1.0 / math.sqrt(hd), hd, bw, flush)
+        blocks[label] = {**{k: row[k] for k in SERVE13_KEYS},
+                         "plan": row["plan"], "tokens_per_row": int(
+                             pt.shape[1] * kp.shape[1])}
+        del q, kp, vp, pt, pos
+    emit({"phase": "dense_serve_long_s", "gpu": gpu,
+          "seconds": time.perf_counter() - t_part})
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) training: minicpm-2b at full width and depth, qwen1.5-32b cut
+    t_part = time.perf_counter()
+    train_launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    dense = {}
+    real_cr = CR.clip_reduce
+    for arch, depth, labels in (("minicpm-2b", None, PAIR),
+                                ("qwen1.5-32b", QWEN15_TRAIN_DEPTH,
+                                 ("per_layer",))):
+        tcfg = get_config(arch)
+        extra = None
+        if depth is not None:
+            extra = {"depth_cut": {
+                "num_layers": depth, "of": tcfg.num_layers,
+                "why": "35.2 B parameters do not train with Adam on one "
+                       "80 GB card (ROADMAP A.13)"}}
+            tcfg = dataclasses.replace(tcfg, num_layers=depth)
+        shapes, caps, ms = linear_shapes(tcfg), {}, {}
+
+        def recording_cr(a, g, factors, block_axis="out", shapes=shapes,
+                         caps=caps):
+            name = shapes.get((a.shape[-1], g.shape[-1]))
+            if name is not None and name not in caps:
+                caps[name] = (a.cpu(), g.cpu(), factors.cpu())
+            return real_cr(a, g, factors, block_axis)
+
+        for label in labels:
+            patches = ([(0, CR, "clip_reduce", recording_cr)]
+                       if label == "per_layer" else [])
+            counts = train_variant(torch, gpu, label, train_args(
+                label, arch=arch), ms, patches, cfg=tcfg, profile=False,
+                extra=extra, timed=DENSE_TRAIN_TIMED)
+            for k in train_launches:
+                train_launches[k] += counts[k]
+        if sorted(caps) != sorted(shapes.values()):
+            raise RuntimeError(f"{arch}: clip_reduce captured {sorted(caps)}"
+                               f" of {sorted(shapes.values())}")
+        rows = captured_rows(torch, gpu, caps, tcfg.num_layers,
+                             {"per_layer": (tuple(caps),
+                                            ("ghost_norm", "clip_reduce"))},
+                             calls_per_step=linear_calls(tcfg), arch=arch)
+        for name, entry in rows.items():
+            o = dense.setdefault(name, {"max_abs_err": 0.0,
+                                        "max_rel_err": 0.0})
+            o[arch] = entry
+            for err in ("max_abs_err", "max_rel_err"):
+                o[err] = max(o[err], entry[err])
+        del caps
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    emit({"phase": "dense_train_s", "gpu": gpu,
+          "seconds": time.perf_counter() - t_part})
+    # (g) card against CPU: a training step of qwen1.5-32b reduced with a
+    # non-zero QKV bias, and the ring of qwen3-4b reduced swa
+    t_part = time.perf_counter()
+    qcfg = get_config("qwen1.5-32b", reduced=True)
+    qmodel = build_model(qcfg, device="cpu")
+    tree = bridge.numpy_params(qmodel.spec, seed=0)
+    rng = np.random.default_rng(0)
+    qkv = tree["dense_blocks"]["attn"]["qkv"]
+    qkv["b"] = (0.5 * rng.standard_normal(qkv["b"].shape)).astype(np.float32)
+    tokens = rng.integers(0, qcfg.vocab_size, (4, 64)).astype(np.int32)
+    targets = np.roll(tokens, -1, 1)
+    targets[:, -1] = -1
+    thr = rng.uniform(0.05, 2.0, qmodel.layout.num_groups).astype(np.float32)
+    train_cuda_vs_cpu(torch, gpu, [
+        ("qwen1_5_per_layer", "per_layer", "bk", qcfg, True, 1,
+         {"thresholds": thr})], tokens, targets, {qcfg.name: tree})
+    scfg = get_config("qwen3-4b", reduced=True, variant="swa")
+    stree = bridge.numpy_params(build_model(scfg, device="cpu").spec, seed=0)
+    sreqs = serve.build_requests(scfg.vocab_size, 6, min_len=8, max_len=24,
+                                 shared_prefix=0, seed=0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        smodel = build_model(scfg, device=dev)
+        _, runs[dev], counts, _ = engine_run(
+            torch, smodel, bridge.params_from_numpy(stree, dev), sreqs,
+            gen=16, slots=3, cache_len=16, paging="auto")
+        if counts["paged_attn"]:
+            raise RuntimeError(f"swa ring on {dev} launched paged_attn")
+    emit({"phase": "cuda_vs_cpu", "gpu": gpu, "arch": scfg.name,
+          "ring_slots": 16, "requests": len(sreqs),
+          "requests_past_the_ring": sum(len(r) + 16 > 16 for r in sreqs),
+          **compare_runs("swa ring cuda vs cpu", runs["cpu"], runs["cuda"],
+                         False),
+          "seconds": time.perf_counter() - t_part})
+    emit({"phase": "dense_contiguous_s", "gpu": gpu,
+          "seconds": time.perf_counter() - t_phase})
+    return paged_launches, blocks, train_launches, dense
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2790,7 +3327,7 @@ def main() -> int:
     gpu = gpu_name_and_power()
     phase_build(torch, gpu)
     clock("build")
-    launches, snap = phase_main_path(torch, gpu)
+    launches, snap, main_run = phase_main_path(torch, gpu)
     clock("serve")
     kernel = phase_kernels(torch, gpu, snap)
     kernel["launches"] = launches
@@ -2854,6 +3391,15 @@ def main() -> int:
     clock("moe and mla serving")
     mm_launches, mla, moe_bk = phase_moe_mla_train(torch, gpu, moe_ms)
     clock("moe and mla training")
+    # phase 15: the contiguous plane, batch mode, the dense configs
+    d_launches, d_serve, d_train_launches, dense = phase_dense(torch, gpu,
+                                                               main_run)
+    kernel["dense_serve"] = d_serve
+    kernel["launches"] += d_launches
+    for block in d_serve.values():
+        for err in ("max_abs_err", "max_rel_err"):
+            kernel[err] = max(kernel[err], block[err])
+    clock("dense and contiguous")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's, the
     # T = 4096 path's, deepseek-v3's and granite's BK epilogue's times
@@ -2861,10 +3407,10 @@ def main() -> int:
     for k in train_kernels + [fused]:
         k["launches"] = sum(run[k["name"]] for run in (
             train_launches, moe_launches, scale_launches, service_launches,
-            mm_launches))
+            mm_launches, d_train_launches))
         for key, extra in (("moe", moe), ("naive_flat", naive),
                            ("long_context", long), ("mla_train", mla),
-                           ("moe_bk", moe_bk)):
+                           ("moe_bk", moe_bk), ("dense_train", dense)):
             if k["name"] in extra:
                 k[key] = extra[k["name"]]
                 for err in ("max_abs_err", "max_rel_err"):

@@ -16,7 +16,10 @@ the reference's. So does an MoE model: its expert leaves
 clipping group per (layer, expert). An MLA model's attention leaves
 (`kv_a`, `kv_norm`, `kv_b`, `q_a`, `q_norm`, `q_b`, `o`) and the unstacked
 `mtp` subtree cross by path like any other; its decode cache holds one
-`<stack>_latpool` per layer stack in place of the k/v pools.
+`<stack>_latpool` per layer stack in place of the k/v pools. A QKV bias
+(qwen1.5-32b) crosses as `.../attn/qkv/b`, and a contiguous decode cache
+(`<stack>_k` / `_v`, or MLA's `_ckv` / `_krope`, and `pos`) crosses as a
+paged one does.
 """
 from __future__ import annotations
 
@@ -56,9 +59,10 @@ def train_params_from_numpy(tree: dict, device: str | torch.device) -> Any:
 
 
 def cache_from_numpy(cache: dict, device: str | torch.device) -> dict:
-    """Numpy paged decode cache (`pos`, `pt`, and `*_kpool` / `*_vpool`
-    or `*_latpool` per layer stack, in the reference's layout) -> the
-    port's cache on `device`."""
+    """Numpy decode cache in the reference's layout (paged: `pos`, `pt`,
+    and `*_kpool` / `*_vpool` or `*_latpool` per layer stack; contiguous:
+    `pos` and `*_k` / `*_v` or `*_ckv` / `*_krope`) -> the port's cache on
+    `device`."""
     return _tree(cache, torch.device(device))
 
 

@@ -1,30 +1,43 @@
-"""Continuous-batching decode engine over a fixed slot pool, paged plane.
+"""Continuous-batching decode engine over a fixed slot pool.
 
 The counterpart of `repro.launch.engine.DecodeEngine` without the
-multi-tenant plane and without the contiguous plane (ROADMAP.md A.5).
-Three device operations, none of whose shapes depend on the traffic:
+multi-tenant plane (ROADMAP.md A.10). Three device operations, none of
+whose shapes depend on the traffic:
 
   admission  chunked prefill: a Python loop over `prefill_chunk` prompt
       positions per dispatch, calling `serve_step` once per position.
       Only the slots being admitted are active; every other slot is
-      frozen (its writes go to the trash page, its position stays). Each
-      admitted slot's true-last-token logits land in an (S, V) f32
-      buffer whose argmax is its first output token. Co-admission is
-      skew-capped as in the reference.
+      frozen (its writes go to the trash page, or rewrite its own bits on
+      the contiguous plane; its position stays). Each admitted slot's
+      true-last-token logits land in an (S, V) f32 buffer whose argmax
+      is its first output token. Co-admission is skew-capped as in the
+      reference.
   decode     one `serve_step` advances every live slot by one greedy
       token; retired and free slots ride along masked.
-  recycle    resets `pos` of the recycled slots to their start offset
-      (past any shared prefix); pools pass through untouched and the
+  recycle    resets the recycled slots: `pos` to their start offset
+      (past any shared prefix), a contiguous cache's slot rows to zero
+      along `cache_slot_axes`; page pools pass through untouched and the
       host page table is written to `pt` afterwards.
 
-Paging: a fixed physical pool of `(num_pages, page_len, ...)` KV pages
-plus per-slot int32 page tables (launch.pages). Admission reserves every
-page a request will touch, retirement returns pages to the free list,
-full pages of completed prompts register in a prefix store that later
-requests map physically, and cold prefixes spill to host memory under
-pressure and come back bit for bit on a later hit.
+Two cache data planes:
 
-The pools are updated in place (models.attention). Retirement and the
+  contiguous (`paging="off"`; the ring of a sliding-window config): every
+      slot owns `cache_len` rows (the window's, for a ring) up front.
+  paged: a fixed physical pool of `(num_pages, page_len, ...)` KV pages
+      plus per-slot int32 page tables (launch.pages). Admission reserves
+      every page a request will touch, retirement returns pages to the
+      free list, full pages of completed prompts register in a prefix
+      store that later requests map physically, and cold prefixes spill
+      to host memory under pressure and come back bit for bit on a later
+      hit.
+
+`paging="auto"` (the default) pages where the model can (full attention,
+no ring window) and `cache_len` is a multiple of `page_len`, and keeps the
+contiguous plane otherwise; `"on"` raises where it cannot page; `"off"`
+keeps the contiguous plane. A full-attention request must fit
+`cache_len`; a ring-window one may run past it.
+
+The caches are updated in place (models.attention). Retirement and the
 queue are host-side numpy bookkeeping. Output is token for token that of
 the reference engine on the same parameters, up to argmax ties.
 
@@ -71,7 +84,7 @@ class DecodeEngine:
                                     "admission skew cap",
         "live_slot_steps": "sum over steps of live slots advanced",
         "peak_live_slots": "max live slots in any one decode dispatch",
-        "pages_in_use": "pool pages currently held",
+        "pages_in_use": "pool pages currently held (paged plane)",
         "peak_pages_in_use": "high-water mark of pages_in_use",
         "prefix_hits": "admissions that mapped a registered shared prefix "
                        "instead of recomputing it",
@@ -90,58 +103,71 @@ class DecodeEngine:
                  prefill_chunk: int = 8, eos_id: int | None = None,
                  paging: str = "auto", page_len: int = 16,
                  num_pages: int | None = None, host_spill: bool = True,
-                 prefill_skew_chunks: int = 1):
+                 prefill_skew_chunks: int = 1, on_token=None):
         """num_slots: pool width S, the batch of every dispatch.
         cache_len: per-slot logical context horizon in tokens, a multiple
-        of page_len. prefill_chunk: prompt positions per admission
-        dispatch. eos_id: retire-on-token (None: length only). paging:
-        'auto' or 'on' (the paged plane; 'off', the contiguous plane, is
-        not ported yet). page_len / num_pages / host_spill: the page pool
-        (default num_pages: slots x cache pages). prefill_skew_chunks:
-        co-admission skew cap in chunks. The engine runs on the device of
-        `params`."""
+        of page_len for the paged plane. prefill_chunk: prompt positions
+        per admission dispatch. eos_id: retire-on-token (None: length
+        only). paging: 'auto', 'on' or 'off' (module doc). page_len /
+        num_pages / host_spill: the page pool (default num_pages: slots x
+        cache pages). prefill_skew_chunks: co-admission skew cap in
+        chunks. on_token: None, or a callable (rid, token, logits) called
+        as each token is emitted, with the (V,) device row of logits the
+        token is the argmax of (a view, valid until the next dispatch).
+        The engine runs on the device of `params`."""
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
-        if paging == "off":
-            raise NotImplementedError(
-                "paging='off' (the contiguous plane) is not ported yet: "
-                "ROADMAP.md item A.5")
-        if paging not in ("auto", "on"):
-            raise ValueError("paging must be 'auto' or 'on'")
+        if paging not in ("auto", "on", "off"):
+            raise ValueError("paging must be 'auto', 'on' or 'off'")
         if page_len < 1:
             raise ValueError("page_len must be >= 1")
-        if cache_len % page_len:
-            raise ValueError(
-                f"paging needs cache_len ({cache_len}) divisible by "
-                f"page_len ({page_len})")
         if prefill_skew_chunks < 0:
             raise ValueError("prefill_skew_chunks must be >= 0")
         self.model, self.params = model, params
         self.device = params["embed"]["w"].device
         self.num_slots, self.cache_len = num_slots, cache_len
         self.eos_id = eos_id
+        self._on_token = on_token
         self._chunk = prefill_chunk
         self._skew = prefill_skew_chunks
+        cfg = model.cfg
+        # a full (non-ring) attention cache bounds the horizon; a ring
+        # window carries only the window
+        self._bounded = (cfg.attention_kind == "mla"
+                         or cfg.sliding_window is None)
+        can_page = self._bounded and cache_len % page_len == 0
+        if paging == "on" and not can_page:
+            raise ValueError(
+                "paging='on' needs a full-attention model family and "
+                "cache_len divisible by page_len (ring-window caches "
+                "bypass paging)")
+        self.paged = can_page if paging == "auto" else paging == "on"
         self.page_len = page_len
 
-        ptab = cache_len // page_len
-        self.num_pages = (num_slots * ptab if num_pages is None
-                          else int(num_pages))
-        if self.num_pages < 1:
-            raise ValueError("num_pages must be >= 1")
-        self.cache = model.init_paged_cache(
-            num_slots, cache_len, num_pages=self.num_pages, page_len=page_len)
-        axes = model.cache_slot_axes(self.cache)
-        self._pool_keys = [k for k, ax in axes.items() if ax is None]
-        self._pool = PagePool(self.num_pages, page_len)
-        self._prefix = PrefixStore(self._pool)
-        self._host_spill = host_spill
-        # host mirror of cache["pt"]; trash page index = num_pages
-        self._table = np.full((num_slots, ptab), self.num_pages, np.int32)
-        self._row_pages: list[list[int]] = [[] for _ in range(num_slots)]
-        self._last = torch.zeros((num_slots, model.cfg.vocab_size),
+        if self.paged:
+            ptab = cache_len // page_len
+            self.num_pages = (num_slots * ptab if num_pages is None
+                              else int(num_pages))
+            if self.num_pages < 1:
+                raise ValueError("num_pages must be >= 1")
+            self.cache = model.init_paged_cache(
+                num_slots, cache_len, num_pages=self.num_pages,
+                page_len=page_len)
+            self._pool = PagePool(self.num_pages, page_len)
+            self._prefix = PrefixStore(self._pool)
+            self._host_spill = host_spill
+            # host mirror of cache["pt"]; trash page index = num_pages
+            self._table = np.full((num_slots, ptab), self.num_pages,
+                                  np.int32)
+            self._row_pages: list[list[int]] = [[] for _ in range(num_slots)]
+        else:
+            self.num_pages = None
+            self.cache = model.init_cache(num_slots, cache_len)
+        self._axes = model.cache_slot_axes(self.cache)
+        self._pool_keys = [k for k, ax in self._axes.items() if ax is None]
+        self._last = torch.zeros((num_slots, cfg.vocab_size),
                                  dtype=torch.float32, device=self.device)
 
         # ---- host-side slot table ----
@@ -166,8 +192,9 @@ class DecodeEngine:
     # ------------------------------------------------------------------
 
     def cache_bytes(self) -> int:
-        """Device bytes held by the decode cache: every stack's pools (k/v
-        or MLA's latent), the tables and pos."""
+        """Device bytes held by the decode cache: on the paged plane every
+        stack's pools (k/v or MLA's latent), the tables and pos; on the
+        contiguous one every stack's per-slot caches and pos."""
         return int(sum(v.numel() * v.element_size()
                        for v in self.cache.values()))
 
@@ -180,15 +207,16 @@ class DecodeEngine:
                 "empty prompt: seed requests with at least one (BOS) token")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if prompt.size + max_new_tokens > self.cache_len:
+        if self._bounded and prompt.size + max_new_tokens > self.cache_len:
             raise ValueError(
                 f"request needs {prompt.size}+{max_new_tokens} cache slots "
                 f"but the pool was sized with cache_len={self.cache_len}")
-        need = pages_needed(prompt.size + max_new_tokens, self.page_len)
-        if need > self.num_pages:
-            raise ValueError(
-                f"request needs {need} pages but the page pool holds "
-                f"only num_pages={self.num_pages}")
+        if self.paged:
+            need = pages_needed(prompt.size + max_new_tokens, self.page_len)
+            if need > self.num_pages:
+                raise ValueError(
+                    f"request needs {need} pages but the page pool holds "
+                    f"only num_pages={self.num_pages}")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append((rid, prompt, int(max_new_tokens)))
@@ -216,7 +244,7 @@ class DecodeEngine:
         self.stats["peak_live_slots"] = max(self.stats["peak_live_slots"],
                                             int(live_idx.size))
         for slot in live_idx:
-            self._emit(int(slot), int(nxt[slot]))
+            self._emit(int(slot), int(nxt[slot]), logits)
         return int(live_idx.size)
 
     def run(self, max_steps: int | None = None) -> dict[int, Completion]:
@@ -312,13 +340,14 @@ class DecodeEngine:
         """Move queued requests into free slots (FIFO, a blocked request
         blocks everything behind it): recycle the slots, then
         length-masked chunked prefill of all admitted slots together.
-        Gates: the skew cap and the page reservation."""
+        Gates: the skew cap and, on the paged plane, the page
+        reservation."""
         free = [s for s in range(self.num_slots) if not self._live[s]]
         batch = []  # (slot, rid, prompt, tail, max_new)
         ch_lo = ch_hi = 0
         while free and self._queue:
             rid, prompt, max_new = self._queue[0]
-            hit = self._prefix.probe(prompt)
+            hit = self._prefix.probe(prompt) if self.paged else None
             j = hit[1] if hit is not None else 0
             ch = -(-(prompt.size - j * self.page_len) // self._chunk)
             if batch:
@@ -328,18 +357,20 @@ class DecodeEngine:
                         len(batch) * max(0, ch - ch_hi)
                         + max(0, ch_lo - ch))
                     break
-            plan = self._plan_pages(prompt, max_new, hit)
-            if plan is None:
-                self.stats["admission_deferrals"] += 1
-                break
-            j, row = plan
+            if self.paged:
+                plan = self._plan_pages(prompt, max_new, hit)
+                if plan is None:
+                    self.stats["admission_deferrals"] += 1
+                    break
+                j, row = plan
             self._queue.popleft()
             slot = free.pop(0)
             ch_lo, ch_hi = (ch, ch) if not batch else (min(ch_lo, ch),
                                                        max(ch_hi, ch))
-            self._table[slot, :] = self.num_pages
-            self._table[slot, : len(row)] = row
-            self._row_pages[slot] = row
+            if self.paged:
+                self._table[slot, :] = self.num_pages
+                self._table[slot, : len(row)] = row
+                self._row_pages[slot] = row
             self._start[slot] = j * self.page_len
             batch.append((slot, rid, prompt, prompt[j * self.page_len:],
                           max_new))
@@ -350,12 +381,9 @@ class DecodeEngine:
         for slot, _, _, _, _ in batch:
             mask[slot] = True
         dev = self.device
-        # recycle: pools and pt pass through, pos restarts past the shared
-        # prefix; the host table is authoritative for pt
-        self.cache["pos"] = torch.where(
-            torch.as_tensor(mask, device=dev),
-            torch.as_tensor(self._start, device=dev), self.cache["pos"])
-        self.cache["pt"] = torch.as_tensor(self._table, device=dev)
+        self._reset(mask)
+        if self.paged:  # the host table is authoritative for pt
+            self.cache["pt"] = torch.as_tensor(self._table, device=dev)
 
         c = self._chunk
         pmax = max(t.size for _, _, _, t, _ in batch)
@@ -387,20 +415,43 @@ class DecodeEngine:
             self._max[slot] = max_new
             self._out[rid] = []
             self._plen[rid] = int(prompt.size)
-            # every full page of the (now fully cached) prompt becomes
-            # shareable, so requests admitted mid-flight can hit it
-            j_reg = prompt.size // self.page_len
-            if j_reg:
-                self._prefix.register(prompt, self._row_pages[slot][:j_reg])
+            if self.paged:
+                # every full page of the (now fully cached) prompt becomes
+                # shareable, so requests admitted mid-flight can hit it
+                j_reg = prompt.size // self.page_len
+                if j_reg:
+                    self._prefix.register(prompt,
+                                          self._row_pages[slot][:j_reg])
             # the first output token falls out of the prefill itself
-            self._emit(slot, int(first[slot]))
-        used = self._pool.num_used
-        self.stats["pages_in_use"] = used
-        self.stats["peak_pages_in_use"] = max(
-            self.stats["peak_pages_in_use"], used)
+            self._emit(slot, int(first[slot]), last)
+        if self.paged:
+            used = self._pool.num_used
+            self.stats["pages_in_use"] = used
+            self.stats["peak_pages_in_use"] = max(
+                self.stats["peak_pages_in_use"], used)
 
-    def _emit(self, slot: int, tok: int):
+    def _reset(self, mask):
+        """Recycle the slots of the host mask: `pos` restarts at the
+        slot's start (past a shared prefix), a per-slot cache's rows are
+        zeroed in place along their slot axis; page pools pass through
+        (`pt` is written by the caller)."""
+        dev = self.device
+        self.cache["pos"] = torch.where(
+            torch.as_tensor(mask, device=dev),
+            torch.as_tensor(self._start, device=dev), self.cache["pos"])
+        if self.paged:
+            return
+        idx = torch.as_tensor(np.nonzero(mask)[0], device=dev)
+        for k, ax in self._axes.items():
+            if ax is not None and k != "pos":
+                self.cache[k].index_fill_(ax, idx, 0)
+
+    def _emit(self, slot: int, tok: int, logits):
+        """Append `tok`, the argmax of row `slot` of `logits`, to the
+        slot's request; retire it on eos or at its length."""
         rid = int(self._rid[slot])
+        if self._on_token is not None:
+            self._on_token(rid, tok, logits[slot])
         self._out[rid].append(tok)
         self._gen[slot] += 1
         self._tok[slot] = tok
@@ -418,10 +469,11 @@ class DecodeEngine:
         self._live[slot] = False
         self._rid[slot] = -1
         self.stats["requests_done"] += 1
-        # O(table) recycle: pages go back to the free list (or stay alive
-        # under their prefix-registry / co-sharing references); nothing on
-        # the device is touched
-        self._pool.decref(self._row_pages[slot])
-        self._row_pages[slot] = []
-        self._table[slot, :] = self.num_pages
-        self.stats["pages_in_use"] = self._pool.num_used
+        if self.paged:
+            # O(table) recycle: pages go back to the free list (or stay
+            # alive under their prefix-registry / co-sharing references);
+            # nothing on the device is touched
+            self._pool.decref(self._row_pages[slot])
+            self._row_pages[slot] = []
+            self._table[slot, :] = self.num_pages
+            self.stats["pages_in_use"] = self._pool.num_used

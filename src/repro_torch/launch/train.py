@@ -42,6 +42,9 @@ schedule are horizons of `--steps`: resume with the same flags. For the
 crash-safe service with a persistent privacy ledger, see
 `repro_torch.launch.service`.
 
+`--arch qwen1.5-32b` trains QKV biases (one group with the qkv weight),
+`--arch minicpm-2b` and `--arch deepseek-67b` the other dense configs;
+`--variant swa` gives every GQA layer a 4,096-token sliding window.
 `--arch granite-moe-3b-a800m` trains the MoE family (one clipping group
 per expert and layer), its flat and group modes by either execution.
 `--arch deepseek-v3-671b` trains MLA with DeepSeek's MTP loss; MTP runs
@@ -82,6 +85,9 @@ def build_train_parser(**kwargs) -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(**kwargs)
     ap.add_argument("--arch", default="tiny", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--variant", default=None, choices=["base", "swa"],
+                    help="swa: the config's sliding-window flavour (a "
+                         "4,096-token window in every GQA layer)")
     ap.add_argument("--clipping", default="per_layer", choices=CLIPPING)
     ap.add_argument("--execution", default="bk", choices=["bk", "twopass"],
                     help="flat/group clipping execution: bk runs ONE "
@@ -135,11 +141,12 @@ def build_everything(args: argparse.Namespace, *, cfg=None):
     """The config, model, packed corpus, Poisson sampler and private step
     of the CLI's arguments: (cfg, model, rows, sampler, init_fn, step_fn,
     plan), as the reference's `build_everything` without its mesh. `cfg`
-    replaces the config of `--arch` / `--reduced` (a depth cut, grouped
-    dispatch). `per_shard` resolves to per_layer over `--group-count`
+    replaces the config of `--arch` / `--reduced` / `--variant` (a depth
+    cut, grouped dispatch). `per_shard` resolves to per_layer over `--group-count`
     column blocks (`cfg.dp_blocks`). Shared with the service."""
     if cfg is None:
-        cfg = get_config(args.arch, reduced=args.reduced)
+        cfg = get_config(args.arch, reduced=args.reduced,
+                         variant=args.variant)
     mode = args.clipping
     if mode == "per_shard":
         # per-device clipping: blocked groups aligned with M virtual

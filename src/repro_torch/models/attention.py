@@ -1,4 +1,5 @@
-"""Attention: GQA and MLA, the counterpart of `repro.models.attention`.
+"""Attention: GQA (qk-norm, QKV bias, sliding window) and MLA, the
+counterpart of `repro.models.attention`.
 
 * Training: `attend` (f32 scores; a masked softmax in one shot up to
   T * S = 2048², above it the reference's double-blocked online softmax)
@@ -6,6 +7,12 @@
   the projections are clipped per column block when `cfg.dp_blocks > 1`.
   The reference's attention is plain XLA, so plain torch (einsum,
   softmax, autograd) is its port.
+* Contiguous decode: `gqa_decode` over per-slot (B, cap, KV, hd) caches,
+  full (cap = the context) or a ring of the sliding window, and MLA's
+  absorbed-form `mla_decode` over (B, S, lr) / (B, S, rope) latent
+  caches. Both are the reference's plain XLA math, so plain torch is
+  their port; the caches are written IN PLACE (`_masked_cache_write`),
+  an inactive row's entry rewritten with its own bits.
 * Paged decode: `gqa_decode_paged` and MLA's absorbed-form
   `mla_decode_paged`, both through the `paged_attn` kernel. The pools are
   updated IN PLACE (`index_put_`): the reference returns new pools from a
@@ -15,8 +22,13 @@
   form that materializes per-head K/V from the latent: with thresholds
   it trains (q_a, q_b, kv_a, kv_b, o as `dp_linear`, q_norm and kv_norm
   as `dp_scale`), without it is the plain forward, the decode's oracle.
-  The reference's DP-LoRA branches (`lora`, `tenant`) are A.10, its
-  contiguous `mla_decode` the contiguous plane, A.5.
+  The reference's DP-LoRA branches (`lora`, `tenant`) are A.10.
+
+Serving hooks: every decode entry point takes an optional `active` (B,)
+row mask, the engine's per-slot write/retire hook: rows with
+`active=False` leave their cache entries bit-identical (the caller keeps
+their `pos`). `masked_state` is the matching hook for a state tensor that
+turns over whole every step.
 """
 from __future__ import annotations
 
@@ -35,6 +47,34 @@ _SINGLE_SHOT_MAX = 2048 * 2048  # T*S above this -> the blocked branch
 _QB, _KB = 512, 1024  # query / kv block sizes of the blocked branch
 NEG_INF = -1e30
 INVALID_POS = 2**31 - 1 - 8  # kpos >= this => masked out
+# the contiguous decode's two key-position sentinels, both >= INVALID_POS:
+# a full cache's future slots, and a ring's slots not written yet
+_FUTURE_POS = 2**31 - 1
+_UNWRITTEN_POS = 2**31 - 2
+
+
+def masked_state(active, new, old):
+    """Row-freeze hook for a decode state that turns over whole every
+    step: `old` on rows where `active` is False; `active=None` advances
+    every row (and selects nothing)."""
+    if active is None:
+        return new
+    m = active.reshape((active.shape[0],) + (1,) * (new.dim() - 1))
+    return torch.where(m, new, old)
+
+
+def _masked_cache_write(cache, new, slot, active):
+    """Write row b of `new` (B, 1, ...) into `cache` (B, S, ...) at
+    `slot[b]`, in place; a row with `active` False rewrites the entry it
+    reads, so its bits stay. An index past the end is clamped to S - 1,
+    as JAX clamps a dynamic slice."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    idx = torch.clamp(slot, max=cache.shape[1] - 1).long()
+    val = new[:, 0].to(cache.dtype)
+    if active is not None:
+        m = active.reshape((active.shape[0],) + (1,) * (val.dim() - 1))
+        val = torch.where(m, val, cache[rows, idx])
+    cache[rows, idx] = val
 
 
 def _mask(qpos, kpos, *, causal, window):
@@ -122,8 +162,9 @@ def gqa_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = ()) -> dict:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     out = {
-        "qkv": L.linear_spec(d, (h + 2 * kv) * hd, stack=stack,
-                             dtype=cfg.dtype, blocks=cfg.dp_blocks),
+        "qkv": L.linear_spec(d, (h + 2 * kv) * hd, bias=cfg.qkv_bias,
+                             stack=stack, dtype=cfg.dtype,
+                             blocks=cfg.dp_blocks),
         "o": L.linear_spec(h * hd, d, stack=stack, dtype=cfg.dtype,
                            blocks=cfg.dp_blocks),
     }
@@ -164,27 +205,28 @@ def _qk_norm(cfg, params, q, k, th=None):
 
 def _proj(cfg: ModelConfig, params, x, th):
     """A projection: clipped per column block (per-shard clipping) when
-    `cfg.dp_blocks > 1`, else as one group. The reference's DP-LoRA
-    branch is ROADMAP A.10."""
-    if cfg.dp_blocks > 1:
+    `cfg.dp_blocks > 1`, else as one group; th None is the plain forward.
+    The reference's DP-LoRA branch is ROADMAP A.10."""
+    if cfg.dp_blocks > 1 and th is not None:
         return L.linear_blocked(params, x, th)
     return L.linear(params, x, th)
 
 
 def gqa_attention(cfg: ModelConfig, params, x, th, positions, *,
                   causal=True, window=None):
-    """Self-attention, training. x: (B, T, D); th: this block's
-    attention thresholds ({'qkv', 'o', 'q_norm', 'k_norm'}: (B,) each,
-    (M, B) for the projections when `cfg.dp_blocks = M > 1`);
-    positions: (B, T)."""
-    qkv = _proj(cfg, params["qkv"], x, th["qkv"])
+    """Self-attention, training (and prefill). x: (B, T, D); th: this
+    block's attention thresholds ({'qkv', 'o', 'q_norm', 'k_norm'}: (B,)
+    each, (M, B) for the projections when `cfg.dp_blocks = M > 1`), or
+    None for the plain forward; positions: (B, T); window: the sliding
+    window, None for full attention."""
+    qkv = _proj(cfg, params["qkv"], x, None if th is None else th["qkv"])
     q, k, v = _split_qkv(cfg, qkv)
     q, k = _qk_norm(cfg, params, q, k, th)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     out = attend(q, k, v, positions, positions, causal=causal, window=window)
     out = out.reshape(x.shape[0], x.shape[1], -1)
-    return _proj(cfg, params["o"], out, th["o"])
+    return _proj(cfg, params["o"], out, None if th is None else th["o"])
 
 
 def _paged_write(pool, new, pt, pos, active):
@@ -232,6 +274,39 @@ def gqa_decode_paged(cfg: ModelConfig, params, x, kpool, vpool, pt, pos, *,
     out = K.paged_attn(qr, kpool, vpool, pt, pos, scale=1.0 / math.sqrt(hd))
     out = out.reshape(b, 1, h * hd).to(q.dtype)
     return L.linear(params["o"], out)
+
+
+def gqa_decode(cfg: ModelConfig, params, x, cache_k, cache_v, pos, *,
+               window=None, active=None):
+    """One-token GQA decode against a contiguous per-slot cache.
+
+    x: (B, 1, D); cache_k / cache_v: one layer's (B, cap, KV, hd) caches,
+    written in place, keys post-RoPE; pos: (B,) int32 new token index;
+    active: optional (B,) bool row mask (inactive rows keep their entries
+    bit for bit; the caller keeps their pos). A full cache (window None)
+    has cap = the context, and slot = pos; a sliding-window cache is a
+    ring of cap = min(window, context) slots, slot = pos % cap, where
+    slot s holds position pos - ((slot - s) mod cap), negative for a slot
+    not written yet. Returns the attention output (B, 1, D)."""
+    qkv = L.linear(params["qkv"], x)
+    q, k, v = _split_qkv(cfg, qkv)
+    q, k = _qk_norm(cfg, params, q, k)
+    posb = pos[:, None]
+    q = L.apply_rope(q, posb, cfg.rope_theta)
+    k = L.apply_rope(k, posb, cfg.rope_theta)
+    cap = cache_k.shape[1]
+    slot = pos % cap if window is not None else pos
+    _masked_cache_write(cache_k, k, slot, active)
+    _masked_cache_write(cache_v, v, slot, active)
+    ar = torch.arange(cap, device=x.device)[None, :]
+    if window is None:
+        kpos = torch.where(ar <= posb, ar, _FUTURE_POS)
+    else:
+        # torch's % on tensors is floor modulo, as jnp's: in [0, cap)
+        kpos = posb - ((slot[:, None] - ar) % cap)
+        kpos = torch.where(kpos >= 0, kpos, _UNWRITTEN_POS)
+    out = attend(q, cache_k, cache_v, posb, kpos, causal=True, window=window)
+    return L.linear(params["o"], out.reshape(x.shape[0], 1, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +395,46 @@ def mla_attention(cfg: ModelConfig, params, x, positions, th=None, *,
     out = attend(q, k, v, positions, positions, causal=causal,
                  scale=1.0 / math.sqrt(nope + rope))
     return L.linear(params["o"], out.reshape(b, t, h * vd), _th(th, "o"))
+
+
+def mla_decode(cfg: ModelConfig, params, x, cache_ckv, cache_krope, pos, *,
+               active=None):
+    """Absorbed-form one-token MLA decode against contiguous latent caches,
+    the reference's f32 math line for line.
+
+    x: (B, 1, D); cache_ckv: one layer's (B, S, kv_lora_rank) normalised
+    latents, cache_krope: (B, S, rope) RoPE keys, both written in place at
+    `pos`; pos: (B,) int32; active: optional (B,) bool row mask. W_UK is
+    folded into the query (q_lat = q_nope W_UK per head), the scores are
+    the latent and RoPE parts' f32 einsums summed, then scaled, masked to
+    `index <= pos` and softmaxed over the S slots; W_UV expands the
+    attended latent. Returns the attention output (B, 1, D)."""
+    b = x.shape[0]
+    h = cfg.num_heads
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    lr = cfg.kv_lora_rank
+    posb = pos[:, None]
+    q_nope, q_rope = _mla_q(cfg, params, x)  # (B, 1, H, *)
+    q_rope = L.apply_rope(q_rope, posb, cfg.rope_theta)
+    ckv, k_rope = _mla_latent(cfg, params, x, posb)
+    _masked_cache_write(cache_ckv, ckv, pos, active)
+    _masked_cache_write(cache_krope, k_rope[:, :, 0], pos, active)
+
+    w_kv_b = params["kv_b"]["w"].reshape(lr, h, nope + vd)
+    q_lat = torch.einsum("bohn,lhn->bohl", q_nope.float(),
+                         w_kv_b[..., :nope].float())  # (B, 1, H, lr)
+    scores = (torch.einsum("bohl,bsl->bhos", q_lat, cache_ckv.float())
+              + torch.einsum("bohr,bsr->bhos", q_rope.float(),
+                             cache_krope.float()))
+    scores = scores / math.sqrt(nope + rope)
+    s = cache_ckv.shape[1]
+    valid = torch.arange(s, device=x.device)[None, :] <= posb
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)  # (B, H, 1, S)
+    lat = torch.einsum("bhos,bsl->bohl", w, cache_ckv.float())
+    out = torch.einsum("bohl,lhv->bohv", lat, w_kv_b[..., nope:].float())
+    return L.linear(params["o"], out.reshape(b, 1, h * vd).to(x.dtype))
 
 
 def mla_decode_paged(cfg: ModelConfig, params, x, latpool, pt, pos, *,

@@ -1,9 +1,10 @@
 """Model configuration for the dense and MoE decoder families.
 
 The counterpart of `repro.models.config.ModelConfig`, cut to the fields
-the dense and MoE families read (GQA or MLA attention, flat or grouped
-dispatch, DeepSeek-V3's MTP depth); the recurrent, encoder-decoder and M-RoPE
-fields arrive with their families. `dtype` is a torch dtype.
+the dense and MoE families read (GQA with its QKV bias and sliding window,
+or MLA attention; flat or grouped dispatch; DeepSeek-V3's MTP depth); the
+recurrent, encoder-decoder and M-RoPE fields arrive with their families.
+`dtype` is a torch dtype.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ class ModelConfig:
     num_kv_heads: int
     head_dim: int | None = None  # default d_model // num_heads
     qk_norm: bool = False  # per-head RMSNorm on q, k (Qwen3)
+    qkv_bias: bool = False  # Qwen1.5
+    sliding_window: int | None = None  # window size; None = full attention
     rope_theta: float = 10_000.0
     attention_kind: str = "gqa"  # gqa | mla
     # MLA (DeepSeek-V3): compressed-latent attention

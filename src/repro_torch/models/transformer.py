@@ -1,15 +1,17 @@
 """Model assembly for the dense and MoE decoder families: the counterpart
-of `repro.models.transformer`, cut to what paged serving and DP training
-run. Dense and MoE models (flat or grouped dispatch) with GQA or MLA
-attention serve and train; an MTP config (deepseek-v3-671b) adds
-DeepSeek's multi-token-prediction loss to training.
+of `repro.models.transformer`, cut to what serving and DP training run.
+Dense and MoE models (flat or grouped dispatch) with GQA (QKV bias,
+sliding window) or MLA attention serve and train; an MTP config
+(deepseek-v3-671b) adds DeepSeek's multi-token-prediction loss to
+training.
 
     m = build_model(cfg)
-    # serving
+    # serving, on the paged plane or the contiguous one
     params = m.init_params(torch.Generator(device="cuda").manual_seed(0))
     cache = m.init_paged_cache(num_slots, cache_len, num_pages=..,
-                               page_len=..)
+                               page_len=..)     # or m.init_cache(B, S)
     logits, cache = m.serve_step(params, cache, batch)   # one-token decode
+    logits = m.prefill_step(params, {"tokens": ...})     # last position's
     # training
     tparams = m.init_train_params(torch.Generator(device="cuda"))
     losses = m.loss_fn(tparams, batch, th)                # (B,) per example
@@ -118,7 +120,11 @@ class Model:
     layout: S.GroupLayout  # clipping groups of `spec`
     loss_fn: Callable  # (stacked params, batch, th) -> (B,) losses
     serve_step: Callable  # (params, cache, batch) -> (logits, cache)
-    init_paged_cache: Callable  # (slots, cache_len, *, num_pages, page_len)
+    init_cache: Callable  # (batch_size, cache_len): the contiguous plane
+    # (slots, cache_len, *, num_pages, page_len): the paged plane; raises
+    # on a sliding-window GQA config, whose ring keeps the contiguous one
+    init_paged_cache: Callable
+    prefill_step: Callable  # (params, {'tokens'}) -> last logits (B, V)
     num_params: int
     # groups the loss consumes twice a step (MTP's second `embed` and
     # `head`): BK falls back to two passes on such a layout
@@ -149,10 +155,13 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available; pass device='cpu' to run on the CPU")
     spec = decoder_spec(cfg)
-    serve_step, init_paged_cache = _make_decoder_serve(cfg, spec, device)
+    serve_step, init_cache, init_paged_cache = _make_decoder_serve(
+        cfg, spec, device)
     return Model(cfg=cfg, spec=spec, layout=S.GroupLayout(spec),
                  loss_fn=_make_decoder_loss(cfg),
-                 serve_step=serve_step, init_paged_cache=init_paged_cache,
+                 serve_step=serve_step, init_cache=init_cache,
+                 init_paged_cache=init_paged_cache,
+                 prefill_step=_make_prefill(cfg),
                  num_params=_count(spec),
                  reused_groups=("embed", "head") if cfg.mtp_depth else ())
 
@@ -162,33 +171,42 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
 # ---------------------------------------------------------------------------
 
 
-def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False):
+def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False,
+                      window=None):
     """One block -> (x, aux): aux is the MoE block's (B,) f32 load-balance
     loss, None for a dense block; th: this block's thresholds, (B,) per
-    group ((E, B) per expert group)."""
-    h = L.rmsnorm(params["attn_norm"], x, th["attn_norm"], eps=cfg.norm_eps)
+    group ((E, B) per expert group), or None for the plain forward
+    (prefill); window: GQA's sliding window (MLA has none, as in the
+    reference)."""
+    def sub(name):
+        return None if th is None else S.subth(th, name)
+
+    def one(name):
+        return None if th is None else th[name]
+
+    h = L.rmsnorm(params["attn_norm"], x, one("attn_norm"), eps=cfg.norm_eps)
     if cfg.attention_kind == "mla":
-        att = A.mla_attention(cfg, params["attn"], h, positions,
-                              S.subth(th, "attn"))
+        att = A.mla_attention(cfg, params["attn"], h, positions, sub("attn"))
     else:
-        att = A.gqa_attention(cfg, params["attn"], h, S.subth(th, "attn"),
-                              positions)
+        att = A.gqa_attention(cfg, params["attn"], h, sub("attn"), positions,
+                              window=window)
     x = x + att
-    h = L.rmsnorm(params["mlp_norm"], x, th["mlp_norm"], eps=cfg.norm_eps)
+    h = L.rmsnorm(params["mlp_norm"], x, one("mlp_norm"), eps=cfg.norm_eps)
     if moe_layer:
-        y, aux = MOE.moe_fn(cfg)(cfg, params["moe"], h, S.subth(th, "moe"))
+        y, aux = MOE.moe_fn(cfg)(cfg, params["moe"], h, sub("moe"))
     else:
-        y = L.swiglu(params["mlp"], h, S.subth(th, "mlp"), f=cfg.d_ff)
+        y = L.swiglu(params["mlp"], h, sub("mlp"), f=cfg.d_ff)
         aux = None
     return x + y, aux
 
 
-def _block(cfg, params, x, th, positions, moe_layer=False):
+def _block(cfg, params, x, th, positions, moe_layer=False, window=None):
     """`_apply_attn_block`, rematerialized in backward when `cfg.remat`."""
     if not cfg.remat:
-        return _apply_attn_block(cfg, params, x, th, positions, moe_layer)
+        return _apply_attn_block(cfg, params, x, th, positions, moe_layer,
+                                 window)
     return torch.utils.checkpoint.checkpoint(
-        _apply_attn_block, cfg, params, x, th, positions, moe_layer,
+        _apply_attn_block, cfg, params, x, th, positions, moe_layer, window,
         use_reentrant=False, preserve_rng_state=False)
 
 
@@ -252,7 +270,8 @@ def _make_decoder_loss(cfg: ModelConfig):
             rows = {k: v.unbind(0) for k, v in S.subth(th, name).items()}
             for layer, bp in enumerate(stacks[name]):
                 bth = {k: r[layer] for k, r in rows.items()}
-                x, aux_l = _block(cfg, bp, x, bth, positions, moe_layer)
+                x, aux_l = _block(cfg, bp, x, bth, positions, moe_layer,
+                                  cfg.sliding_window)
                 if aux_l is not None:
                     aux = aux_l if aux is None else aux + aux_l
         x = L.rmsnorm(params["final_norm"], x, th["final_norm"],
@@ -284,6 +303,8 @@ def cache_slot_axes(cache) -> dict:
             out[k] = _SLOT_AXIS_BY_KEY[k]
         elif k.endswith(("_kpool", "_vpool", "_latpool")):
             out[k] = None
+        elif k.endswith(("_k", "_v", "_ckv", "_krope")):
+            out[k] = 1  # per-stack contiguous caches: (n, B, S, ...)
         else:
             raise KeyError(
                 f"decode-cache key {k!r} has no slot-axis entry; add it to "
@@ -293,6 +314,7 @@ def cache_slot_axes(cache) -> dict:
 
 def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
     mla = cfg.attention_kind == "mla"
+    window = cfg.sliding_window
     # (stack name, layers, whether MoE) in the order the layers run
     stacks = [(name, spec[name]["attn_norm"]["s"].shape[0], moe_layer)
               for name, moe_layer in STACKS if name in spec]
@@ -300,6 +322,30 @@ def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
         row = (cfg.kv_lora_rank + cfg.qk_rope_head_dim,)
     else:
         row = (cfg.num_kv_heads, cfg.resolved_head_dim)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=cfg.dtype, device=device)
+
+    def init_cache(batch_size: int, cache_len: int):
+        """The contiguous plane: per-slot caches, one set per layer stack
+        in the reference's order and names: `<stack>_k` / `<stack>_v`
+        (n, B, cap, KV, hd) for GQA, cap = min(window, cache_len) for a
+        sliding-window config (a ring) and cache_len otherwise;
+        `<stack>_ckv` (n, B, cache_len, kv_lora_rank) and `<stack>_krope`
+        (n, B, cache_len, rope) for MLA; and `pos` (B,) int32."""
+        b = batch_size
+        cap = min(window, cache_len) if window else cache_len
+        cache = {"pos": torch.zeros((b,), dtype=torch.int32, device=device)}
+        for name, n, _ in stacks:
+            if mla:
+                cache[f"{name}_ckv"] = zeros(
+                    (n, b, cache_len, cfg.kv_lora_rank))
+                cache[f"{name}_krope"] = zeros(
+                    (n, b, cache_len, cfg.qk_rope_head_dim))
+            else:
+                cache[f"{name}_k"] = zeros((n, b, cap) + row)
+                cache[f"{name}_v"] = zeros((n, b, cap) + row)
+        return cache
 
     def init_paged_cache(batch_size: int, cache_len: int, *, num_pages: int,
                          page_len: int):
@@ -311,7 +357,12 @@ def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
         LAST page is the trash page that absorbs writes from inactive
         rows. Tables start fully trash-mapped; the engine overwrites them
         at admission. Each layer's slice `cache[key][l]` is a contiguous
-        view."""
+        view. A sliding-window GQA config is refused, as the reference's
+        `paged_ok` refuses it: its ring keeps the contiguous plane."""
+        if window is not None and not mla:
+            raise ValueError(
+                "paged cache is only supported for full-attention decoder "
+                "stacks (ring-window families bypass paging)")
         b = batch_size
         p_tab = -(-cache_len // page_len)
         cache = {"pos": torch.zeros((b,), dtype=torch.int32, device=device),
@@ -320,39 +371,52 @@ def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
         for name, n, _ in stacks:
             shape = (n, num_pages + 1, page_len) + row
             for kind in (("latpool",) if mla else ("kpool", "vpool")):
-                cache[f"{name}_{kind}"] = torch.zeros(
-                    shape, dtype=cfg.dtype, device=device)
+                cache[f"{name}_{kind}"] = zeros(shape)
         return cache
+
+    def attention(name, layer, bp, hn, cache, pos, active):
+        """One layer's decode attention on the cache's plane: paged when
+        `pt` is in the cache, as the reference chooses, else contiguous."""
+        if "pt" in cache:
+            if mla:
+                return A.mla_decode_paged(
+                    cfg, bp, hn, cache[f"{name}_latpool"][layer],
+                    cache["pt"], pos, active=active)
+            return A.gqa_decode_paged(
+                cfg, bp, hn, cache[f"{name}_kpool"][layer],
+                cache[f"{name}_vpool"][layer], cache["pt"], pos,
+                active=active)
+        if mla:
+            return A.mla_decode(cfg, bp, hn, cache[f"{name}_ckv"][layer],
+                                cache[f"{name}_krope"][layer], pos,
+                                active=active)
+        return A.gqa_decode(cfg, bp, hn, cache[f"{name}_k"][layer],
+                            cache[f"{name}_v"][layer], pos, window=window,
+                            active=active)
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
         """batch: {'token': (B, 1) int32, optional 'active': (B,) bool};
-        returns (logits (B, V) in the model dtype, cache).
+        returns (logits (B, V) in the model dtype, cache). `cache` is a
+        paged cache (`init_paged_cache`) or a contiguous one
+        (`init_cache`).
 
-        Rows with `active=False` leave every live page untouched (their
-        write goes to the trash page) and keep their position; their
-        logits are garbage and must be ignored. They are still routed
-        through the MoE layers with the rest, as in the reference, so they
-        take expert slots. The pools in `cache` are updated in place; the
-        returned dict holds the same pool tensors and a new `pos`."""
+        Rows with `active=False` leave every live entry untouched (a paged
+        write goes to the trash page, a contiguous one rewrites its own
+        bits) and keep their position; their logits are garbage and must
+        be ignored. They are still routed through the MoE layers with the
+        rest, as in the reference, so they take expert slots. The caches
+        are updated in place; the returned dict holds the same cache
+        tensors and a new `pos`."""
         token = batch["token"]
         active = batch.get("active")
         pos = cache["pos"]
-        pt = cache["pt"]
         x = params["embed"]["w"][token.long()]  # (B, 1, D)
         for name, _, moe_layer in stacks:
             for layer, bp in enumerate(params[name]):
                 hn = L.rmsnorm(bp["attn_norm"], x, eps=cfg.norm_eps)
-                if mla:
-                    att = A.mla_decode_paged(
-                        cfg, bp["attn"], hn, cache[f"{name}_latpool"][layer],
-                        pt, pos, active=active)
-                else:
-                    att = A.gqa_decode_paged(
-                        cfg, bp["attn"], hn, cache[f"{name}_kpool"][layer],
-                        cache[f"{name}_vpool"][layer], pt, pos,
-                        active=active)
-                x = x + att
+                x = x + attention(name, layer, bp["attn"], hn, cache, pos,
+                                  active)
                 hn = L.rmsnorm(bp["mlp_norm"], x, eps=cfg.norm_eps)
                 if moe_layer:
                     y, _ = MOE.moe_fn(cfg)(cfg, bp["moe"], hn)
@@ -366,4 +430,29 @@ def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
                             else pos + active.to(torch.int32))
         return logits[:, 0], new_cache
 
-    return serve_step, init_paged_cache
+    return serve_step, init_cache, init_paged_cache
+
+
+def _make_prefill(cfg: ModelConfig):
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        """The full-sequence forward to the last position's logits (B, V),
+        in the model dtype: the inference-prefill workload. params: the
+        serving parameters (per-layer blocks, as `serve_step` takes);
+        batch: {'tokens': (B, T), optional 'positions': (B, T)}. The
+        reference's vision and M-RoPE branches are ROADMAP A.9."""
+        tokens = batch["tokens"]
+        bsz, t = tokens.shape
+        x = params["embed"]["w"][tokens.long()]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(t, device=tokens.device)[None].expand(
+                bsz, t)
+        for name, moe_layer in STACKS:
+            for bp in params.get(name, ()):
+                x, _ = _apply_attn_block(cfg, bp, x, None, positions,
+                                         moe_layer, cfg.sliding_window)
+        x = L.rmsnorm(params["final_norm"], x[:, -1:], eps=cfg.norm_eps)
+        return L.linear(params["head"], x)[:, 0]
+
+    return prefill_step

@@ -1,7 +1,8 @@
 """First-order optimizers with an (init, update) interface.
 
 The counterpart of `repro.optim.optimizers`: SGD (+momentum, nesterov),
-Adam and AdamW. Unlike the reference, `update(grads, state, params)`
+Adam and AdamW, and `chain_clip_by_global_norm` (non-private global-norm
+clipping in front of any of them). Unlike the reference, `update(grads, state, params)`
 applies the step IN PLACE: it writes the new parameters into `params`
 (and the new moments into the state's tensors) under `torch.no_grad()`
 and returns the new state. A (36, 2560, 19456) leaf would otherwise need a
@@ -132,3 +133,25 @@ def adam(lr: float | Schedule, b1: float = 0.9, b2: float = 0.999,
 def adamw(lr: float | Schedule, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 0.01) -> Optimizer:
     return adam(lr, b1, b2, eps, weight_decay, decoupled=True)
+
+
+def chain_clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
+    """Non-private global-norm clipping in front of `opt` (for the
+    non_private baselines): the gradients scaled by min(1, max_norm /
+    (||g|| + 1e-12)), the norm over every leaf in f32, each leaf cast
+    back to its dtype; `grads` itself is left as it was."""
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        gn = torch.sqrt(sum(g.float().square().sum()
+                            for (g,) in leaves(grads)))
+        scale = torch.clamp(max_norm / (gn + 1e-12), max=1.0)
+
+        def scaled(tree):
+            return {k: scaled(v) if isinstance(v, dict)
+                    else (v.float() * scale).to(v.dtype)
+                    for k, v in tree.items()}
+
+        return opt.update(scaled(grads), state, params)
+
+    return Optimizer(opt.init, update)

@@ -17,7 +17,8 @@ PORT_FILES = sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + [
         "chip_smoke.py", "examples/torch_quickstart.py",
-        "examples/torch_train_e2e.py", "examples/torch_train_service.py"]
+        "examples/torch_serve_batched.py", "examples/torch_train_e2e.py",
+        "examples/torch_train_service.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -119,6 +120,31 @@ def test_torch_train_examples_default_to_cuda_and_raise_without_it(
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     assert "step " not in out.stdout
+
+
+def test_torch_serve_example_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_serve_batched.py")],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "tokens over" not in out.stdout
+
+
+def test_torch_serve_example_on_cpu():
+    # one intra-op thread: beside the other test workers, a process that
+    # spins up a thread per core runs its many small ops ~100x slower
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_serve_batched.py"),
+         "--device", "cpu"], capture_output=True, text=True, env=env,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    rows = [ln for ln in out.stdout.splitlines() if "tokens over" in ln]
+    assert len(rows) == 4 and all("4/4 as alone" in ln for ln in rows)
+    assert sum("contiguous" in ln for ln in rows) == 2
 
 
 def test_importing_the_port_builds_nothing():

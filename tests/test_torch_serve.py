@@ -441,11 +441,20 @@ def test_engine_options_match_reference_engine(kw):
 
 
 def test_engine_refuses_unported_planes():
+    """What the reference refuses: paging='on' on a sliding-window config
+    (its ring keeps the contiguous plane), and a cache_len that is not a
+    multiple of page_len under 'on'; 'auto' falls back to contiguous in
+    both cases."""
+    cfg, model, params, _, _ = _both("tiny", sliding_window=8)
+    with pytest.raises(ValueError, match="ring-window"):
+        DecodeEngine(model, params, num_slots=2, cache_len=64, paging="on")
+    assert not DecodeEngine(model, params, num_slots=2, cache_len=64).paged
     cfg, model, params, _, _ = _both("tiny")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        DecodeEngine(model, params, num_slots=2, cache_len=64, paging="off")
     with pytest.raises(ValueError, match="divisible"):
-        DecodeEngine(model, params, num_slots=2, cache_len=60, page_len=16)
+        DecodeEngine(model, params, num_slots=2, cache_len=60, page_len=16,
+                     paging="on")
+    assert not DecodeEngine(model, params, num_slots=2, cache_len=60,
+                            page_len=16).paged
 
 
 # ---------------------------------------------------------------------------
@@ -574,7 +583,7 @@ def test_serve_cli_requests_match_reference():
         np.testing.assert_array_equal(r[:16], reqs[0][:16])
 
 
-@pytest.mark.parametrize("argv", [["--paging", "off"], ["--mode", "batch"],
+@pytest.mark.parametrize("argv", [["--lora-rank", "4"], ["--watch"],
                                   ["--backend", "xla"], ["--tenants", "2"],
                                   ["--arch", "rwkv6-7b"]])
 def test_serve_cli_refuses_unported_flags(argv):
