@@ -187,7 +187,9 @@ exits non-zero:
               naive_flat).
 
  12 service   the crash-safe training service (`launch.service`) on phase
-              5's settings (qwen3-4b at full width and depth, per_layer,
+              5's settings (qwen3-4b at full width, its depth cut to
+              SERVICE_DEPTH = 12 of 36 layers for the time limit (the
+              full depth took 307-370 s), per_layer,
               B = 8, T = 256, adam, epsilon 8, rate 1/16; 4 steps, a
               checkpoint every 2), on one shared `ServiceRuntime`:
               (a) the first step from the seeded state twice, each state's
@@ -324,11 +326,38 @@ exits non-zero:
               that run's choice was an argmax tie. Each part's line has
               its seconds.
 
+ 16 sharded   sharded training (`--mesh 2x2`: data 2, model 2) of
+              qwen3-4b at full width, its depth cut to SHARDED_DEPTH = 4
+              of 36 layers (four replicas and a one-process oracle share
+              the card), B = 8 global, T = 256, per_layer, ghost_flat
+              and per_group by BK, SHARDED_STEPS = 2 each: (a) the
+              one-process oracle of each variant (microbatches = the data
+              shards' batches), its memory freed; (b) four ranks spawned
+              through the train CLI's `Trainer` (`launch.mesh.spawn`,
+              worker `sharded_rank` of this script) over NCCL when the
+              machine has a card per rank, else gloo with every rank on
+              cuda:0 (the backend and the rank -> device map printed).
+              Gates: rank 0's first-step grads, norms² and counts
+              against the oracle's (SHARDED_GRAD_RTOL / _ATOL_FRAC, the
+              reference's sharded tolerance on the norms², counts
+              equal); every rank's thresholds and parameter digest equal
+              after the steps; the collective log of every rank and step:
+              no model-axis collective before per_group's factors,
+              ghost_flat's one (4,) f32 flat_norm_psum, one grad_psum a
+              leaf, the BK epilogue's waited after the next leaf's
+              contraction; 17 ghost_norm and 17 clip_reduce (per_layer)
+              or 17 ghost_norm and 5 scale_contract (BK) launches per
+              rank and step; each kernel against its plain version at
+              rank 0's recorded inputs (phase 6's tolerances), and
+              scale_contract exactly zero on the stack slices whose
+              factor rows are all zero (groups another model shard
+              owns). ms per step by rank, beside the oracle's.
+
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8, 11, 12, 14 and 15 (paged_attn's: phases 3, 13
-and 15). A clock line follows each phase.
+the sum over phases 5, 8, 11, 12, 14, 15 and 16 (paged_attn's: phases 3,
+13 and 15). A clock line follows each phase.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -2336,6 +2365,10 @@ SERVICE_ARGV = ["--arch", "qwen3-4b", "--clipping", "per_layer",
                 "--seq", "256", "--docs", "64", "--optimizer", "adam",
                 "--seed", "0", "--checkpoint-every", "2", "--log-every", "1"]
 SERVICE_CRASH = ("post-ledger-append", 3)
+# qwen3-4b's layers in the service, of 36: the full width, the crash and
+# the bitwise resume stay, a third of the depth keeps the whole script
+# inside its time limit beside phase 16 (the full depth took 307-370 s)
+SERVICE_DEPTH = 12
 # (c)'s CLI runs at --reduced width (a few seconds a run)
 SERVICE_CLI_ARGV = ["--arch", "qwen3-4b", "--reduced", "--clipping",
                     "per_layer", "--epsilon", "8", "--steps", "4",
@@ -2564,7 +2597,9 @@ def phase_service_cli(work) -> dict:
 
 def phase_service(torch, gpu):
     """Phase 12. Returns the launches by kernel over (a) and (b)."""
+    import dataclasses
     import shutil
+    from repro_torch.configs import get_config
     from repro_torch.checkpoint import store
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import service
@@ -2575,7 +2610,12 @@ def phase_service(torch, gpu):
     os.makedirs(work)
     args = service_args(os.path.join(work, "svc"))
     t0 = time.perf_counter()
-    runtime = service.build_runtime(args)
+    full = get_config("qwen3-4b")
+    runtime = service.build_runtime(args, cfg=dataclasses.replace(
+        full, num_layers=SERVICE_DEPTH))
+    depth_cut = {"num_layers": SERVICE_DEPTH, "of": full.num_layers,
+                 "why": "the script's time limit: phase 12 at full depth "
+                        "took 307-370 s, and phase 16 needs its share"}
     build_s = time.perf_counter() - t0
     raw = state_bytes(torch, runtime)
     free = shutil.disk_usage(work).free
@@ -2665,6 +2705,7 @@ def phase_service(torch, gpu):
     differ = [i for i, (x, y) in enumerate(zip(final, ref_crcs)) if x != y]
     result = {
         "phase": "service", "gpu": gpu, "arch": runtime.cfg.name,
+        "depth_cut": depth_cut,
         "params": runtime.model.num_params, "mode":
             runtime.plan.config.mode, "batch": runtime.batch,
         "seq": args.seq, "steps": steps, "sigma": runtime.plan.sigma,
@@ -3231,8 +3272,10 @@ def phase_dense(torch, gpu, main_run):
         if depth is not None:
             extra = {"depth_cut": {
                 "num_layers": depth, "of": tcfg.num_layers,
-                "why": "35.2 B parameters do not train with Adam on one "
-                       "80 GB card (ROADMAP A.13)"}}
+                "why": "35.2 B parameters and their Adam state do not fit "
+                       "one 80 GB card, and no mesh shards them: the "
+                       "sharded engine replicates the parameters at "
+                       "compute time, as the reference's"}}
             tcfg = dataclasses.replace(tcfg, num_layers=depth)
         shapes, caps, ms = linear_shapes(tcfg), {}, {}
 
@@ -3307,6 +3350,457 @@ def phase_dense(torch, gpu, main_run):
     emit({"phase": "dense_contiguous_s", "gpu": gpu,
           "seconds": time.perf_counter() - t_phase})
     return paged_launches, blocks, train_launches, dense
+
+
+# phase 16: sharded training on a 2x2 mesh of ranks (data 2, model 2)
+SHARDED_MESH = (2, 2)
+# qwen3-4b's layers there, of 36: four replicas of the model and its Adam
+# state (the reference's sharded engine replicates the parameters at
+# compute time) and a one-process oracle share one 80 GB card
+SHARDED_DEPTH = 4
+SHARDED_STEPS = 2
+# label, mode, the kernels whose inputs rank 0 records
+SHARDED_VARIANTS = [("per_layer", "per_layer", ("ghost_norm", "clip_reduce")),
+                    ("ghost_flat_bk", "ghost_flat", ("scale_contract",)),
+                    ("per_group_bk", "per_group", ("scale_contract",))]
+# rank 0's first-step grads against the one-process step's: both sides sum
+# the same bf16 per-shard clipped sums (the oracle's microbatches are the
+# data shards' batches), so they differ where f32 sums in another order
+# move a factor or a partial by an f32 step and the bf16 cast by one bf16
+# step: rtol one bf16 step (2^-7), atol 1e-3 of the leaf's largest
+# magnitude (an element that cancels); the norms² and counts hold to the
+# reference's sharded tolerance (tests/sharded_checks.py:56) and exactly
+SHARDED_GRAD_RTOL, SHARDED_GRAD_ATOL_FRAC = 2.0 ** -7, 1e-3
+SHARDED_NORM_RTOL, SHARDED_NORM_ATOL = 2e-4, 2e-6
+SHARDED_TIMEOUT_S = 600
+
+
+def sharded_argv(mode, *, microbatches=1, mesh=None, backend=None):
+    argv = ["--arch", "qwen3-4b", "--clipping", mode, "--execution", "bk",
+            "--group-count", str(SHARDED_MESH[1]), "--epsilon", "8",
+            "--steps", str(SHARDED_STEPS), "--batch", "8", "--seq", "256",
+            "--docs", "64", "--microbatches", str(microbatches),
+            "--optimizer", "adam", "--seed", "0"]
+    if mesh:
+        argv += ["--mesh", mesh, "--dist-backend", backend]
+    return argv
+
+
+def first_clip(keep: dict):
+    """An `on_clip` hook (`make_dp_train_step`) that keeps the first
+    step's clip result in `keep`, on the device until the step is timed:
+    grads by path, norms², counts (before the noise, which is added to
+    the grads in place)."""
+    from repro_torch.core.spec import tree_leaves
+    keep["armed"] = True
+
+    def hook(res, counts):
+        if keep.pop("armed", False):
+            keep.update(grads={"/".join(p): g.detach().clone()
+                               for p, g in tree_leaves(res.grads)},
+                        norms=res.norms_sq.detach().clone(),
+                        counts=counts.detach().clone())
+    return hook
+
+
+def on_host(keep: dict) -> dict:
+    return {"grads": {k: g.cpu() for k, g in keep["grads"].items()},
+            "norms": keep["norms"].cpu(), "counts": keep["counts"].cpu()}
+
+
+def sharded_oracle(torch, label, mode, cfg):
+    """The one-process run of a variant (microbatches = the data shards'
+    batches): its first step's clip result (grads on the host, norms²,
+    counts) and ms per step."""
+    from repro_torch.launch import train
+    args = train.build_train_parser().parse_args(sharded_argv(
+        mode, microbatches=SHARDED_MESH[0]))
+    keep: dict = {}
+    trainer = train.Trainer(args, cfg=cfg, on_clip=first_clip(keep))
+    ms = []
+    for i in range(SHARDED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            rec = on_host(keep)
+            keep.clear()
+    rec["ms"] = ms
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_contract(entries: list, trace: list, num_leaves: int) -> dict:
+    """The Sec. 4 contract read off one step's collective log and trace:
+    the clip drivers' model-axis collectives before each microbatch's
+    factors (the step entry's `weight_gather`s are weight traffic, as the
+    reference classifies them, and are counted apart in `by_site`), the
+    `flat_norm_psum`s, the `grad_psum`s and whether each BK one was
+    waited after the next leaf's contraction."""
+    marks = [i for i, e in enumerate(trace) if e == "factors"]
+    ends = [i for i, e in enumerate(trace) if e.startswith("issue loss_psum")]
+    before = 0
+    for lo, hi in zip([0] + [i + 1 for i in ends[:-1]], marks):
+        for e in trace[lo:hi]:
+            if e.startswith("issue "):
+                c = entries[int(e.split("#")[1])]
+                before += "model" in c[1] and c[0] != "weight_gather"
+    flat = [c for c in entries if c[0] == "flat_norm_psum"]
+    grad = [i for i, c in enumerate(entries) if c[0] == "grad_psum"]
+    contracts = [i for i, e in enumerate(trace) if e.startswith("contract ")]
+    interleaved = None
+    if contracts:
+        interleaved = True
+        for n, i in enumerate(grad):
+            issue = trace.index(f"issue grad_psum#{i}")
+            wait = trace.index(f"wait grad_psum#{i}")
+            nxt = contracts[n + 1] if n + 1 < len(grad) else None
+            if not (contracts[n] < issue and (nxt is None
+                                              or issue < nxt < wait)):
+                interleaved = False
+    by_site: dict = {}
+    for c in entries:
+        k = f"{c[0]}@{','.join(c[1])}"
+        by_site[k] = by_site.get(k, 0) + 1
+    return {"by_site": by_site, "factor_marks": len(marks),
+            "model_axis_before_factors": before,
+            "flat_norm_psum": [list(c[2:4]) for c in flat],
+            "grad_psum": len(grad), "leaves": num_leaves,
+            "contractions": len(contracts),
+            "interleaved_after_next_contraction": interleaved}
+
+
+def params_digest(torch, tree, chunk: int = 1 << 24) -> str:
+    """A digest of a tree's bits: per leaf the int64 sum and sum of
+    squares of its 16- or 32-bit words, computed where the leaf lives,
+    `chunk` words at a time."""
+    import hashlib
+    from repro_torch.core.spec import tree_leaves
+    h = hashlib.sha256()
+    for path, t in tree_leaves(tree):
+        w = t.detach().contiguous().reshape(-1)
+        w = w.view(torch.int16 if w.element_size() == 2 else torch.int32)
+        total = sq = 0
+        for lo in range(0, w.numel(), chunk):
+            part = w[lo: lo + chunk].long()
+            total += int(part.sum())
+            sq += int((part * part).sum())
+        h.update("/".join(path).encode())
+        h.update(repr((total, sq)).encode())
+    return h.hexdigest()
+
+
+def input_recorder(name, real, caps):
+    """`real` (a kernel's wrapper) that first keeps, on the host, the
+    inputs of its first call at each (din, dout)."""
+    def rec(a, g, *rest, **kw):  # ghost_norm takes no factors
+        key = (name, a.shape[-1], g.shape[-1])
+        if key not in caps:
+            caps[key] = (a.detach().cpu(), g.detach().cpu(),
+                         rest[0].detach().cpu() if rest else None)
+        return real(a, g, *rest, **kw)
+    return rec
+
+
+def sharded_rank(runs: list, num_layers: int, out_dir: str) -> dict:
+    """Phase 16 on one rank, in a child process of `launch.mesh.spawn`:
+    each run (label, train CLI argv with --mesh, the kernels whose inputs
+    rank 0 records) through `train.Trainer` on qwen3-4b cut to
+    `num_layers`, its steps timed, with every launch counter set to 0
+    before each step and read after. Rank 0 writes the first step's clip
+    result (global grads, its norms², the counts; the Trainer's `on_clip`
+    hook) and, of the runs that ask for it, the kernels' first inputs
+    (their wrappers swapped for `input_recorder`s during that step, as
+    `train_variant` records them) to `out_dir`. Returns per run: ms,
+    launches and the collective contract per step, the thresholds and a
+    params digest at the end, and this rank's device."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.spec import tree_leaves
+    from repro_torch.kernels import bk as KB
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import ghost_norm as GN
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    wrappers = {"ghost_norm": GN, "clip_reduce": CR, "scale_contract": KB}
+    mesh = None
+    out = {}
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    for label, argv, capture in runs:
+        args = train.build_train_parser().parse_args(argv)
+        if mesh is None:
+            mesh = train.setup_mesh(args)
+        main = mesh.rank == 0
+        cfg = dataclasses.replace(get_config(args.arch), num_layers=num_layers)
+        keep: dict = {}
+        caps: dict = {}
+        patches = [(wrappers[n], n, input_recorder(
+            n, getattr(wrappers[n], n), caps)) for n in capture if main]
+        trainer = train.Trainer(args, cfg=cfg, mesh=mesh,
+                                on_clip=first_clip(keep) if main else None)
+        num_leaves = len(list(tree_leaves(trainer.params)))
+        steps = []
+        for i in range(args.steps):
+            now = patches if i == 0 else []  # only the first step's
+            swapped = [(m, a, getattr(m, a)) for m, a, _ in now]
+            for m, a, fn in now:
+                setattr(m, a, fn)
+            try:
+                mesh.reset_log()
+                reset_launch_counts()
+                sync()
+                mesh.barrier()
+                t0 = time.perf_counter()
+                met = trainer.step()
+                sync()
+                ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                for m, a, fn in swapped:
+                    setattr(m, a, fn)
+            steps.append({
+                "ms": ms, "launches": launch_counts(),
+                "metrics": [float(x) for x in met],
+                "contract": sharded_contract(
+                    [tuple(c) for c in mesh.log], list(mesh.trace),
+                    num_leaves)})
+            if i == 0 and main:
+                torch.save(on_host(keep),
+                           os.path.join(out_dir, f"{label}_clip.pt"))
+                keep.clear()
+                if caps:
+                    torch.save(caps, os.path.join(out_dir,
+                                                  f"{label}_caps.pt"))
+                    caps.clear()
+        out[label] = {
+            "steps": steps, "device": str(mesh.device),
+            "thresholds": trainer.dp_state.qstate.thresholds.cpu().tolist(),
+            "digest": params_digest(torch, trainer.global_params()),
+            "coords": dict(mesh.coords)}
+        del trainer
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sharded_parity(torch, label, want, got_path, b_local):
+    """Rank 0's first-step clip result against the one-process step's:
+    (line, within tolerance)."""
+    got = torch.load(got_path, weights_only=False)
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0, "unequal": 0,
+             "elements": 0, "violations": 0}
+    for name, w in want["grads"].items():
+        g = got["grads"][name].cuda().float()
+        w = w.cuda().float()
+        err = (g - w).abs()
+        top = float(w.abs().max())
+        tol = SHARDED_GRAD_RTOL * w.abs() + SHARDED_GRAD_ATOL_FRAC * top
+        worst["violations"] += int((err > tol).sum())
+        worst["unequal"] += int((err > 0).sum())
+        worst["elements"] += w.numel()
+        worst["max_abs_err"] = max(worst["max_abs_err"], float(err.max()))
+        worst["max_rel_err"] = max(worst["max_rel_err"],
+                                   float(err.max()) / max(top, 1e-30))
+        del g, w, err, tol
+    n_got, n_want = got["norms"].float(), want["norms"][:, :b_local].float()
+    norm_rel = float(((n_got - n_want).abs() / n_want.abs().clamp_min(
+        1e-30)).max())
+    norms_ok = bool(torch.allclose(n_got, n_want, rtol=SHARDED_NORM_RTOL,
+                                   atol=SHARDED_NORM_ATOL))
+    counts = got["counts"].tolist()
+    want_counts = (None if want["counts"] is None
+                   else want["counts"].tolist())
+    counts_ok = want_counts is None or counts == want_counts
+    ok = worst["violations"] == 0 and norms_ok and counts_ok
+    return {"variant": label, "grads": worst, "norms_max_rel_err": norm_rel,
+            "norms_bitwise": bool(torch.equal(n_got, n_want)),
+            "counts": counts, "oracle_counts": want_counts,
+            "tol": {"grads_rtol": SHARDED_GRAD_RTOL,
+                    "grads_atol_of_max": SHARDED_GRAD_ATOL_FRAC,
+                    "norms_rtol": SHARDED_NORM_RTOL,
+                    "norms_atol": SHARDED_NORM_ATOL}}, ok
+
+
+def sharded_kernel_checks(torch, gpu, caps_path, label):
+    """Each recorded kernel input of rank 0 against the kernel's plain
+    version (phase 6's tolerances); scale_contract's stack slices whose
+    factor row is all zero (groups another model shard owns) must come
+    back exactly zero. Returns rows."""
+    caps = torch.load(caps_path, weights_only=False)
+    impls = train_impls()
+    rows = []
+    for (name, din, dout), (a, g, f) in sorted(caps.items()):
+        a, g = a.cuda(), g.cuda()
+        f = None if f is None else f.cuda()
+        kern, plain = impls[name]
+        got, want = kern(a, g, f), plain(a, g, f)
+        torch.cuda.synchronize()
+        err, rel, ok = sum_check(torch, got, want)
+        row = {"variant": label, "kernel": name, "a": list(a.shape),
+               "g": list(g.shape), "dtype": str(a.dtype),
+               "max_abs_err": err, "max_rel_err": rel, "ok": ok}
+        if name == "scale_contract":
+            zero = (f == 0).all(dim=-1)  # (S,) slices of unowned groups
+            row["zero_factor_slices"] = int(zero.sum())
+            row["zero_slices_exact"] = bool(
+                int(torch.count_nonzero(got[zero])) == 0)
+            ok = ok and row["zero_slices_exact"]
+            row["ok"] = ok
+        rows.append(row)
+        if not ok:
+            raise RuntimeError(f"phase 16: {name} disagrees with its plain "
+                               f"version at rank 0's inputs: {row}")
+        del a, g, f, got, want
+    return rows
+
+
+def phase_sharded(torch, gpu):
+    """Phase 16. Returns the launches by kernel over every rank and step,
+    and the kernels' worst errors at rank 0's inputs."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    full = get_config("qwen3-4b")
+    cfg = dataclasses.replace(full, num_layers=SHARDED_DEPTH)
+    depth_cut = {"num_layers": SHARDED_DEPTH, "of": full.num_layers,
+                 "why": "four replicas of the model and its Adam state (the "
+                        "sharded engine replicates parameters at compute "
+                        "time, as the reference's) and a one-process oracle "
+                        "share one 80 GB card"}
+    d, m = SHARDED_MESH
+    world = d * m
+    # (a) the one-process oracle of each variant, then its memory freed
+    t_part = time.perf_counter()
+    oracle = {label: sharded_oracle(torch, label, mode, cfg)
+              for label, mode, _ in SHARDED_VARIANTS}
+    oracle_s = time.perf_counter() - t_part
+    # (b) the mesh through the train CLI's Trainer: NCCL with a card per
+    # rank, else gloo with every rank on cuda:0
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    work = tempfile.mkdtemp(prefix="smoke_sharded_")
+    runs = [(label, sharded_argv(mode, mesh=f"{d}x{m}", backend=backend),
+             capture) for label, mode, capture in SHARDED_VARIANTS]
+    t_part = time.perf_counter()
+    try:
+        ranks = mesh_lib.spawn(
+            "chip_smoke:sharded_rank", world, backend=backend,
+            device="cuda", timeout_s=SHARDED_TIMEOUT_S, store_dir=work,
+            args=(runs, SHARDED_DEPTH, work), pg_timeout_s=300,
+            extra_paths=(ROOT,))
+        spawn_s = time.perf_counter() - t_part
+        emit({"phase": "sharded_backend", "gpu": gpu, "backend": backend,
+              "cards": cards, "world": world, "mesh": f"{d}x{m}",
+              "devices": {r: res[runs[0][0]]["device"]
+                          for r, res in enumerate(ranks)},
+              "coords": {r: res[runs[0][0]]["coords"]
+                         for r, res in enumerate(ranks)}})
+        launches = dict.fromkeys(TRAIN_KERNELS, 0)
+        kernels: dict = {}
+        for label, mode, capture in SHARDED_VARIANTS:
+            # clip-level parity at the first step
+            line, ok = sharded_parity(torch, label, oracle[label],
+                                      os.path.join(work, f"{label}_clip.pt"),
+                                      8 // d)
+            emit({"phase": "sharded_parity", "gpu": gpu, **line})
+            if not ok:
+                raise RuntimeError(f"phase 16: {label} misses the "
+                                   f"one-process step: {line}")
+            # every rank ends with the same thresholds and parameters
+            thr = {tuple(res[label]["thresholds"]) for res in ranks}
+            dig = {res[label]["digest"] for res in ranks}
+            emit({"phase": "sharded_ranks_agree", "gpu": gpu,
+                  "variant": label, "steps": SHARDED_STEPS,
+                  "thresholds": ranks[0][label]["thresholds"][:4],
+                  "num_thresholds": len(ranks[0][label]["thresholds"]),
+                  "thresholds_equal": len(thr) == 1,
+                  "params_digest": ranks[0][label]["digest"][:16],
+                  "digests_equal": len(dig) == 1})
+            if len(thr) != 1 or len(dig) != 1:
+                raise RuntimeError(f"phase 16: {label}: ranks disagree "
+                                   f"after {SHARDED_STEPS} steps")
+            # the collective log: the Sec. 4 contract on every rank, step
+            per_step = expected_launches(label, cfg, batch=8 // d)
+            for r, res in enumerate(ranks):
+                for s, step in enumerate(res[label]["steps"]):
+                    c = step["contract"]
+                    bad = []
+                    # ghost_flat's one is its flat_norm_psum
+                    if c["model_axis_before_factors"] != (
+                            1 if mode == "ghost_flat" else 0):
+                        bad.append("model-axis collectives before the "
+                                   "factors")
+                    if mode == "ghost_flat" and c["flat_norm_psum"] != [
+                            ["float32", 8 // d]]:
+                        bad.append("not one (B_local,) f32 flat_norm_psum")
+                    if mode != "ghost_flat" and c["flat_norm_psum"]:
+                        bad.append("a flat_norm_psum")
+                    if c["grad_psum"] != c["leaves"]:
+                        bad.append("not one grad_psum per leaf")
+                    if mode != "per_layer" and not (
+                            c["contractions"] == c["leaves"]
+                            and c["interleaved_after_next_contraction"]):
+                        bad.append("the epilogue's all-reduces not waited "
+                                   "after the next contraction")
+                    got = {k: step["launches"][k] for k in per_step}
+                    if got != per_step:
+                        bad.append(f"launches {got}, expected {per_step}")
+                    if bad:
+                        raise RuntimeError(f"phase 16: {label} rank {r} "
+                                           f"step {s}: {bad}: {c}")
+                    for k in launches:
+                        launches[k] += step["launches"][k]
+            c0 = ranks[0][label]["steps"][0]["contract"]
+            emit({"phase": "sharded_collectives", "gpu": gpu,
+                  "variant": label, "rank": 0, **c0,
+                  "launches_per_rank_step": per_step,
+                  "checked": f"{world} ranks x {SHARDED_STEPS} steps"})
+            ms = [[step["ms"] for step in res[label]["steps"]]
+                  for res in ranks]
+            emit({"phase": "sharded_train", "gpu": gpu, "variant": label,
+                  "arch": cfg.name, "depth_cut": depth_cut,
+                  "backend": backend, "batch": 8, "seq": 256,
+                  "ms_per_step_by_rank": ms,
+                  "ms_per_step": [max(col) for col in zip(*ms)],
+                  "oracle_ms_per_step": oracle[label]["ms"],
+                  "losses": [step["metrics"][0]
+                             for step in ranks[0][label]["steps"]]})
+            if capture:
+                for row in sharded_kernel_checks(
+                        torch, gpu, os.path.join(work, f"{label}_caps.pt"),
+                        label):
+                    emit({"phase": "sharded_kernel_vs_plain", "gpu": gpu,
+                          **row})
+                    o = kernels.setdefault(row["kernel"], {
+                        "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": 0})
+                    o["max_abs_err"] = max(o["max_abs_err"],
+                                           row["max_abs_err"])
+                    o["max_rel_err"] = max(o["max_rel_err"],
+                                           row["max_rel_err"])
+                    o["shapes"] += 1
+        for name in ("ghost_norm", "clip_reduce", "scale_contract"):
+            if name not in kernels or not launches[name]:
+                raise RuntimeError(f"phase 16: {name} was not launched and "
+                                   f"checked on the sharded path")
+            kernels[name]["launches"] = launches[name]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "sharded_s", "gpu": gpu, "backend": backend,
+          "oracle_s": oracle_s, "spawn_s": spawn_s,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, kernels
 
 
 def main() -> int:
@@ -3400,6 +3894,11 @@ def main() -> int:
         for err in ("max_abs_err", "max_rel_err"):
             kernel[err] = max(kernel[err], block[err])
     clock("dense and contiguous")
+    # phase 16: sharded training on a 2x2 mesh of ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    s_launches, sharded = phase_sharded(torch, gpu)
+    clock("sharded training")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's, the
     # T = 4096 path's, deepseek-v3's and granite's BK epilogue's times
@@ -3407,10 +3906,11 @@ def main() -> int:
     for k in train_kernels + [fused]:
         k["launches"] = sum(run[k["name"]] for run in (
             train_launches, moe_launches, scale_launches, service_launches,
-            mm_launches, d_train_launches))
+            mm_launches, d_train_launches, s_launches))
         for key, extra in (("moe", moe), ("naive_flat", naive),
                            ("long_context", long), ("mla_train", mla),
-                           ("moe_bk", moe_bk), ("dense_train", dense)):
+                           ("moe_bk", moe_bk), ("dense_train", dense),
+                           ("sharded", sharded)):
             if k["name"] in extra:
                 k[key] = extra[k["name"]]
                 for err in ("max_abs_err", "max_rel_err"):

@@ -510,24 +510,49 @@ def _restore_leaf(tmpl, m: dict, raw: np.ndarray, device):
     return raw.view(arr.dtype).reshape(shape).copy()
 
 
+def _flat_shardings(template, shardings) -> list:
+    """One target placement (or None) per leaf of `template`, in
+    `tree_flatten` order: `shardings` mirrors the template, a None or a
+    placement standing for every leaf of the subtree where it sits."""
+    if shardings is None or not isinstance(shardings, (dict, tuple, list)):
+        return [shardings] * len(tree_flatten(template))
+    if isinstance(template, dict):
+        return [x for k in sorted(template)
+                for x in _flat_shardings(template[k], shardings.get(k))]
+    return [x for t, sh in zip(template, shardings)
+            for x in _flat_shardings(t, sh)]
+
+
 def load_checkpoint(directory: str, step: int, template, *,
-                    verify: bool = False, device=None):
+                    verify: bool = False, device=None, shardings=None):
     """Restore into the structure of `template`, each leaf in the type,
     dtype and shape of the template's (a mismatch raises ValueError), a
     tensor on `device` or, by default, the template leaf's device (a
     template on the meta device takes no memory). `verify` checks every
     leaf's crc32 before it is used: a torn shard or bit rot raises
-    `CheckpointCorrupt`."""
+    `CheckpointCorrupt`.
+
+    shardings: target placements (`launch.sharding.Placement`) mirroring
+    `template`, None for a leaf or subtree kept whole. The files hold
+    global leaves (rank 0 writes the gathered ones); a leaf with a
+    placement is restored and then cut to this rank's slice, as the
+    reference's `load_checkpoint(shardings=)` puts each leaf with its
+    target sharding (the resume path of `launch.train --mesh`)."""
     path = os.path.join(directory, f"step_{step:08d}")
     manifest = load_manifest(directory, step)
     tmpl = tree_flatten(template)
     if len(tmpl) != len(manifest["leaves"]):
         raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, "
                          f"template expects {len(tmpl)}")
+    places = _flat_shardings(template, shardings)
     out = [None] * len(tmpl)
     with cf.ThreadPoolExecutor(_workers()) as pool:
         for li, m, raw in _leaf_views(path, manifest, pool, verify):
-            out[li] = _restore_leaf(tmpl[li], m, raw, device)
+            leaf = _restore_leaf(tmpl[li], m, raw, device)
+            if places[li] is not None:
+                leaf = places[li].shard(leaf).requires_grad_(
+                    tmpl[li].requires_grad)
+            out[li] = leaf
     return tree_unflatten(template, out)
 
 
@@ -561,16 +586,18 @@ def latest_verified_step(directory: str) -> int | None:
     return None
 
 
-def load_latest_checkpoint(directory: str, template, *, device=None):
+def load_latest_checkpoint(directory: str, template, *, device=None,
+                           shardings=None):
     """Load the newest checkpoint that verifies; skip corrupt steps.
 
     Returns (step, tree, manifest) or None when no step verifies. Each
     step is read once, its crcs checked as it loads: a torn or bit-rotted
-    step falls back to the next older one. `device` as `load_checkpoint`."""
+    step falls back to the next older one. `device` and `shardings` as
+    `load_checkpoint`."""
     for step in all_steps(directory):
         try:
             tree = load_checkpoint(directory, step, template, verify=True,
-                                   device=device)
+                                   device=device, shardings=shardings)
         except (CheckpointCorrupt, OSError, KeyError, IndexError):
             continue
         return step, tree, load_manifest(directory, step)

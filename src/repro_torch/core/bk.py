@@ -37,8 +37,14 @@ Pipeline (driven by `core.clipping.dp_clipped_gradients`):
 Two layouts fall back to the two-pass execution, with a warning, as in
 the reference: shared-site parameters (`sensitivity_mult > 1`) and a group
 consumed at more than one call site, whose one threshold would sum the
-residuals of several sites. Sharded execution (the epilogue's interleaved
-reductions, `psum_axes`) waits for ROADMAP A.13.
+residuals of several sites.
+
+Sharded execution (`core.clipping.sharded_clipped_gradients`) runs the
+epilogue on every rank with its masked factor rows and passes
+`psum_axes`: each stacked leaf's clipped sum is then all-reduced over
+those mesh axes asynchronously, and waited on after the NEXT leaf's
+contraction, so each layer's reduction overlaps the next layer's
+`scale_contract`, as the reference interleaves its psums.
 """
 from __future__ import annotations
 
@@ -359,10 +365,16 @@ def _leaf_grad(layout: GroupLayout, recipes, residuals, f_rows, node: P,
 
 
 def contract_clipped(layout: GroupLayout, recipes: dict, residuals: dict,
-                     f_rows: torch.Tensor, *, eng=None) -> Any:
+                     f_rows: torch.Tensor, *, eng=None, psum_axes=None,
+                     mesh=None) -> Any:
     """Clipped summed grads from cached residuals + (K, B) f32 clip
     factors: a tree matching the layout's spec (the trainable tree the
-    two-pass execution produces), in the spec leaf dtypes."""
+    two-pass execution produces), in the spec leaf dtypes.
+
+    psum_axes (sharded execution, with the rank's `mesh`): every leaf's
+    contraction is all-reduced over those mesh axes (site `grad_psum`),
+    issued asynchronously as soon as the leaf is contracted and waited on
+    after the next leaf's contraction."""
     eng = eng or backend.active()
 
     def build(node, path):
@@ -371,4 +383,32 @@ def contract_clipped(layout: GroupLayout, recipes: dict, residuals: dict,
                               path, eng)
         return {k: build(v, path + (k,)) for k, v in node.items()}
 
-    return build(layout._spec, ())
+    if psum_axes is None:
+        return build(layout._spec, ())
+    reduced: dict[tuple, torch.Tensor] = {}
+    pending = None  # (path, handle) of the previous leaf's all-reduce
+    for path, node in _spec_leaves(layout._spec):
+        cur = _leaf_grad(layout, recipes, residuals, f_rows, node, path, eng)
+        mesh.mark("contract " + "/".join(path))
+        handle = mesh.psum(cur, psum_axes, site="grad_psum", async_op=True)
+        if pending is not None:
+            reduced[pending[0]] = pending[1].wait()
+        pending = (path, handle)
+    if pending is not None:
+        reduced[pending[0]] = pending[1].wait()
+
+    def rebuild(node, path):
+        if isinstance(node, P):
+            return reduced[path]
+        return {k: rebuild(v, path + (k,)) for k, v in node.items()}
+
+    return rebuild(layout._spec, ())
+
+
+def _spec_leaves(node, path=()):
+    """(path, P) of every leaf of a spec tree, in its key order."""
+    if isinstance(node, P):
+        yield path, node
+        return
+    for k, v in node.items():
+        yield from _spec_leaves(v, path + (k,))

@@ -56,7 +56,12 @@ per_shard (per-device clipping) is expressed through the layout itself
 (blocked groups, `ModelConfig.dp_blocks`, `dp_linear_blocked`) and then
 driven as per_layer: each block is its own group with a local norm.
 
-DP-LoRA (`trainable_key`) is ROADMAP A.10; sharded execution is A.13.
+Sharded execution (`sharded_clipped_gradients`, below) runs the same
+drivers on every rank of a `launch.mesh.Mesh`: per-device clipping with
+shard-local norms, ghost_flat's one norm all-reduce, and the BK
+epilogue's interleaved gradient all-reduces.
+
+DP-LoRA (`trainable_key`) is ROADMAP A.10.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ import torch
 
 from repro_torch.core import bk
 from repro_torch.core.ghost import segment_sum
+from repro_torch.core.quantile import clip_counts
 from repro_torch.core.spec import P, GroupLayout, _walk, tree_leaves
 from repro_torch.optim.optimizers import slices
 
@@ -135,6 +141,22 @@ def _grads_only(loss_fn, params, batch, thresholds_tree):
     val = torch.sum(loss_fn(params, batch, thresholds_tree))
     grads = bk.grad_or_zeros(val, list(leaves))
     return val.detach(), _rebuild(paths, grads)
+
+
+def _grads_and_norms(loss_fn, params, batch, layout, thresholds,
+                     batch_size):
+    """per_layer's one backward pass: (sum loss, clipped grads, (K, B)
+    norms²), one `autograd.grad` over the parameter leaves AND the
+    threshold leaves."""
+    paths, leaves = zip(*tree_leaves(params))
+    th = {k: v.requires_grad_() for k, v in
+          layout.pack(thresholds.detach(), batch_size).items()}
+    names = list(th)
+    val = torch.sum(loss_fn(params, batch, th))
+    out = bk.grad_or_zeros(val, list(leaves) + [th[k] for k in names])
+    grads, norm_leaves = out[:len(leaves)], out[len(leaves):]
+    norms = layout.unpack(dict(zip(names, norm_leaves)))
+    return val.detach(), _rebuild(paths, grads), norms
 
 
 def _norms_only(loss_fn, params, batch, layout, batch_size):
@@ -284,15 +306,9 @@ def dp_clipped_gradients(loss_fn: LossFn, params: Any, batch: Any,
     if mode == "per_layer":
         if thresholds is None:
             raise ValueError("per_layer mode needs thresholds (K,)")
-        th = {k: v.requires_grad_() for k, v in
-              layout.pack(thresholds.detach(), batch_size).items()}
-        names = list(th)
-        val = torch.sum(loss_fn(params, batch, th))
-        out = bk.grad_or_zeros(val, list(leaves) + [th[k] for k in names])
-        grads, norm_leaves = out[:len(leaves)], out[len(leaves):]
-        norms = layout.unpack(dict(zip(names, norm_leaves)))
-        return ClipResult(_rebuild(paths, grads), norms,
-                          val.detach() / batch_size)
+        val, grads, norms = _grads_and_norms(loss_fn, params, batch, layout,
+                                             thresholds, batch_size)
+        return ClipResult(grads, norms, val / batch_size)
 
     if mode == "naive_flat":  # the materialising oracle
         loss, jac = _per_example_grads(loss_fn, params, batch, layout,
@@ -322,3 +338,156 @@ def dp_clipped_gradients(loss_fn: LossFn, params: Any, batch: Any,
         _, grads = _grads_only(loss_fn, params, batch,
                                layout.pack_rows(-f_rows))
     return ClipResult(grads, norms, val / batch_size)
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution: per-device clipping on a mesh of ranks.
+#
+# Every rank of a `launch.mesh.Mesh` runs this body on its LOCAL batch
+# shard (data axes) with its model-axis coordinate m, as the reference's
+# shard_map body does. `shard_assignment` maps every layout group to its
+# owning model shard (launch.sharding.group_shard_assignment), and the
+# driver keeps the paper's Sec. 4 communication contract, readable in the
+# mesh's collective log:
+#
+#   per_group (per-DEVICE clipping): shard m reduces norms² over ONLY the
+#       groups it owns and computes its clip factor locally: no
+#       model-axis collective before the factors exist;
+#   ghost_flat: the total per-example norm² needs every shard's partial:
+#       exactly one (B_local,) f32 all-reduce over the model axis, site
+#       `flat_norm_psum`;
+#   epilogue: each shard contracts every layer with its masked factor rows
+#       (unowned groups' rows are zero) and the clipped sums are joined
+#       by ONE all-reduce over data + model per stacked leaf, issued
+#       asynchronously and waited after the next leaf's contraction
+#       (bk.contract_clipped psum_axes).
+#
+# The loss backward runs data-parallel (parameters replicated at compute
+# time; the launcher may STORE them model-sharded between steps, see
+# launch.sharding). What this engine distributes over the model axis is
+# the clipping bookkeeping: norm reductions, clip factors and the
+# scale-and-contract epilogue.
+# ---------------------------------------------------------------------------
+
+
+class ShardedClipResult(NamedTuple):
+    grads: Any  # GLOBALLY summed clipped grads (replicated)
+    norms_sq: torch.Tensor  # (K, B_local) this data shard's examples
+    loss: torch.Tensor  # scalar GLOBAL mean per-example loss
+    counts: torch.Tensor  # (G,) global clip counts (replicated)
+
+
+def _psum_tree(tree, axes, mesh):
+    """One all-reduce per leaf (site `grad_psum`), all issued before the
+    first wait."""
+    paths, leaves = zip(*tree_leaves(tree))
+    pending = [mesh.psum(g, axes, site="grad_psum", async_op=True)
+               for g in leaves]
+    return _rebuild(paths, [p.wait() for p in pending])
+
+
+def sharded_clipped_gradients(
+        loss_fn: LossFn, params: Any, batch: Any, layout: GroupLayout, *,
+        mode: str, batch_size: int, data_size: int, mesh,
+        data_axes: tuple | None = None, model_axis: str = "model",
+        shard_assignment: torch.Tensor | None = None,
+        thresholds: torch.Tensor | None = None,
+        flat_threshold: float | torch.Tensor = 1.0,
+        group_thresholds: torch.Tensor | None = None,
+        trainable_key: str | None = None,
+        execution: str = "bk") -> ShardedClipResult:
+    """`dp_clipped_gradients` on one rank of `mesh` (see the comment
+    above). `batch` is this rank's LOCAL batch shard of `batch_size`
+    examples, `data_size` the number of data-plane shards (the global
+    batch is both); `data_axes` default to the mesh's."""
+    check_mode(mode)
+    if trainable_key is not None:
+        raise NotImplementedError(
+            "training a parameter subtree (trainable_key, DP-LoRA) is not "
+            "ported yet: ROADMAP.md item A.10")
+    if mode.endswith("_twopass"):
+        mode, execution = base_mode(mode), "twopass"
+    if data_axes is None:
+        data_axes = tuple(a for a in mesh.axis_names if a != model_axis)
+    data_axes = tuple(data_axes)
+    all_axes = data_axes + (model_axis,)
+    dev = next(t for _, t in tree_leaves(params)).device
+    global_b = batch_size * data_size
+
+    def mean_loss(val):
+        return mesh.psum(val.detach().float().reshape(1), data_axes,
+                         site="loss_psum")[0] / global_b
+
+    if mode == "non_private":
+        th = layout.pack_value(float("inf"), batch_size, device=dev)
+        val, grads = _grads_only(loss_fn, params, batch, th)
+        norms = torch.zeros((layout.num_groups, batch_size),
+                            dtype=torch.float32, device=dev)
+        return ShardedClipResult(_psum_tree(grads, data_axes, mesh), norms,
+                                 mean_loss(val),
+                                 torch.zeros((1,), device=dev))
+
+    if mode == "per_layer":
+        if thresholds is None:
+            raise ValueError("per_layer mode needs thresholds (K,)")
+        val, grads, norms = _grads_and_norms(loss_fn, params, batch, layout,
+                                             thresholds, batch_size)
+        counts = mesh.psum(clip_counts(norms, thresholds), data_axes,
+                           site="clip_count_psum")
+        return ShardedClipResult(_psum_tree(grads, data_axes, mesh), norms,
+                                 mean_loss(val), counts)
+
+    if mode not in ("ghost_flat", "per_group"):
+        raise ValueError(
+            f"sharded execution supports non_private/per_layer/ghost_flat/"
+            f"per_group, not {mode!r} (naive_flat is a single-device oracle)")
+    if shard_assignment is None:
+        raise ValueError("sharded flat/group modes need shard_assignment")
+    if mode == "per_group" and group_thresholds is None:
+        raise ValueError("per_group mode needs group_thresholds (M,)")
+
+    val, norms, cap = _norms_pass(loss_fn, params, batch, layout,
+                                  batch_size, execution)
+    midx = mesh.axis_index(model_axis)
+    assign = torch.as_tensor(shard_assignment, device=dev).long()
+    own = (assign == midx).float()  # (K,)
+    # this shard's contribution: norms² of the groups it owns only
+    partial = torch.sum(norms * own[:, None], dim=0)  # (B_local,)
+
+    if mode == "ghost_flat":
+        c = torch.as_tensor(flat_threshold, dtype=torch.float32, device=dev)
+        # THE flat-clipping model-axis collective: the total per-example
+        # norm² crosses every model shard before any factor exists
+        total = mesh.psum(partial, (model_axis,), site="flat_norm_psum")
+        f = flat_clip_factors(total, c)
+        mesh.mark("factors")
+        f_rows = f[None, :] * own[:, None]  # masked: the owner contracts
+        counts = mesh.psum(torch.sum((total <= c * c).float())[None],
+                           data_axes, site="clip_count_psum")
+        f_full = f[None].expand(layout.num_groups, batch_size)
+    else:  # per_group == per-DEVICE: factors close over shard-local norms
+        num_super = group_thresholds.shape[0]
+        c_m = group_thresholds[midx].float()
+        f_m = flat_clip_factors(partial, c_m)  # (B_local,)
+        mesh.mark("factors")
+        f_rows = f_m[None, :] * own[:, None]
+        slot = (torch.arange(num_super, device=dev) == midx).float()
+        counts = mesh.psum(slot * torch.sum((partial <= c_m * c_m).float()),
+                           all_axes, site="clip_count_psum")
+        f_full = None  # gathered below only if the twopass fallback runs
+
+    if cap is not None:  # BK: masked, collective-overlapped epilogue
+        residuals, recipes = cap
+        grads = bk.contract_clipped(layout, recipes, residuals, f_rows,
+                                    psum_axes=all_axes, mesh=mesh)
+        return ShardedClipResult(grads, norms, mean_loss(val), counts)
+
+    # twopass fallback: the second backward produces every group's grads
+    # on every shard, so it needs the FULL factor rows; gathering them is
+    # factor traffic AFTER the factors exist, not norm traffic
+    if f_full is None:
+        f_full = mesh.psum(f_rows.contiguous(), (model_axis,),
+                           site="factor_gather_psum")
+    _, grads = _grads_only(loss_fn, params, batch, layout.pack_rows(-f_full))
+    return ShardedClipResult(_psum_tree(grads, data_axes, mesh), norms,
+                             mean_loss(val), counts)

@@ -18,8 +18,15 @@ test substitutes the reference's draws there.
 Per-shard clipping is `per_layer` over a blocked layout (`ModelConfig
 .dp_blocks`). Microbatches (`DPConfig.microbatches`) accumulate the
 clipped sums exactly (per-example clipping commutes with the split); the
-noise is drawn once per step. The mesh (sharded execution, and with it
-`batch_axes`) and DP-LoRA are not ported yet (ROADMAP A.13, A.10).
+noise is drawn once per step.
+
+Sharded execution (`make_dp_train_step(mesh=...)`, `_make_sharded_step`)
+runs the step on every rank of a `launch.mesh.Mesh`: the batch split over
+the data plane, the clipping bookkeeping over the model axis
+(`core.clipping.sharded_clipped_gradients`), and the quantile update, the
+noise and the optimizer replicated: every rank draws from identically
+seeded generators, so every rank ends the step with the same bits.
+DP-LoRA is not ported yet (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -32,9 +39,11 @@ import torch
 
 from repro_torch.core import accounting
 from repro_torch.core import noise as noise_lib
-from repro_torch.core.clipping import (ClipResult, LossFn, _rebuild,
+from repro_torch.core.clipping import (ClipResult, LossFn,
+                                       ShardedClipResult, _rebuild,
                                        base_mode, check_mode,
                                        dp_clipped_gradients,
+                                       sharded_clipped_gradients,
                                        supergroup_norms)
 from repro_torch.core.quantile import (QuantileState, clip_counts,
                                        init_quantile_state,
@@ -42,6 +51,8 @@ from repro_torch.core.quantile import (QuantileState, clip_counts,
 from repro_torch.core.spec import (GroupLayout, SpecTree, _walk, stable_hash,
                                    tree_leaves)
 from repro_torch.kernels import backend as ghost_backend
+from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.sharding import group_shard_assignment
 from repro_torch.optim.optimizers import slices
 
 
@@ -73,6 +84,9 @@ class DPConfig:
       equal parts (Algorithm 2's structure); the clipped sums accumulate
       in f32 and the norms and loss are those of the whole batch, while
       the noise is added once per step.
+
+    The reference's `batch_axes` (its pjit batch layout) has no
+    counterpart: under a mesh each rank slices its own data shard.
     """
 
     mode: str = "per_layer"
@@ -341,7 +355,8 @@ def clipped_microbatches(clip_one: Callable, batch: dict, batch_size: int,
 
 
 def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
-                       optimizer: Any, cfg: DPConfig, *, batch_size: int
+                       optimizer: Any, cfg: DPConfig, *, batch_size: int,
+                       mesh: Any = None, on_clip: Callable | None = None
                        ) -> tuple[Callable, Callable, DPPlan]:
     """Build the private training step. Returns (init_fn, step_fn, plan).
 
@@ -352,10 +367,23 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
     params is the reference-layout tree of leaves with `requires_grad`;
     step_fn updates it IN PLACE and returns it. Accounting (sigma
     calibration, the Prop 3.1 split) happens here, once. Refuses a spec
-    whose leaf paths crc32-collide into one noise stream."""
+    whose leaf paths crc32-collide into one noise stream.
+
+    mesh: a `launch.mesh.Mesh`. The step is then this rank's part of the
+    sharded step (`_make_sharded_step`): `batch` is still the GLOBAL
+    batch of `batch_size` examples, of which the rank clips its data
+    shard, and params must be replicated (the launcher gathers them).
+    on_clip: called as `on_clip(result, counts)` with each step's clip
+    result (its clipped grads, global under a mesh; the norms², the
+    rank's columns under a mesh; the loss) and the clip counts, before
+    the noise is added."""
     if cfg.private:
         noise_lib.check_leaf_key_collisions(
             ["/".join(p) for p, _ in _walk(spec)])
+    if mesh is not None:
+        return _make_sharded_step(loss_fn, spec, layout, optimizer, cfg,
+                                  batch_size=batch_size, mesh=mesh,
+                                  on_clip=on_clip)
     plan = build_plan(cfg, layout)
 
     def init_fn(params):
@@ -390,7 +418,7 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
                       torch.as_tensor(assign_np, device=thresholds.device))
             res = clip(params, batch, thresholds, assign)
             if mode == "non_private":
-                noised, counts = res.grads, torch.zeros_like(thresholds)
+                counts = torch.zeros_like(thresholds)
             else:
                 if mode == "per_layer":
                     norms = res.norms_sq
@@ -400,10 +428,112 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
                     norms = supergroup_norms(res.norms_sq, assign,
                                              plan.num_noise_groups)
                 counts = clip_counts(norms, thresholds)
-                noised = add_noise_to_grads(
+            if on_clip is not None:
+                on_clip(res, counts)
+            noised = res.grads if mode == "non_private" else (
+                add_noise_to_grads(
                     spec, layout, res.grads,
                     _layout_stds(plan, layout, thresholds, assign), seed,
-                    dp_state.step)
+                    dp_state.step))
+            count_gen = generator(thresholds.device, seed, dp_state.step)
+            return _apply_update(cfg, optimizer, batch_size, params,
+                                 opt_state, dp_state, noised, counts,
+                                 thresholds, res.loss, count_gen)
+
+    return init_fn, step_fn, plan
+
+
+# ---------------------------------------------------------------------------
+# The sharded train-step factory.
+# ---------------------------------------------------------------------------
+
+
+def _make_sharded_step(loss_fn, spec, layout, optimizer, cfg: DPConfig, *,
+                       batch_size: int, mesh, on_clip=None):
+    """`make_dp_train_step` on one rank of a (data[, pod], model) mesh.
+
+    See `core.clipping.sharded_clipped_gradients` for the per-mode
+    communication contract. The quantile update, the noise draw and the
+    optimizer run replicated (every rank's generators are seeded alike),
+    so every rank ends the step with the same parameters and state."""
+    dax = data_axes(mesh)
+    d_size = mesh.axis_size(dax) if dax else 1
+    m_size = mesh.shape["model"]
+    if batch_size % d_size:
+        raise ValueError(f"global batch {batch_size} must divide across the "
+                         f"{d_size}-way data plane")
+    b_local = batch_size // d_size
+    nmb = cfg.microbatches
+    if b_local % nmb:
+        raise ValueError("per-shard batch must divide by microbatches")
+
+    mode = base_mode(cfg.mode)
+    execution = "twopass" if cfg.mode.endswith("_twopass") else cfg.execution
+    if mode not in ("non_private", "per_layer", "ghost_flat", "per_group"):
+        raise ValueError(
+            f"sharded execution supports non_private/per_layer/ghost_flat/"
+            f"per_group, not {mode!r} (naive_flat is a single-device oracle)")
+    own_assign = group_shard_assignment(layout, m_size)
+    if mode == "per_group":
+        if (cfg.group_assignment is not None
+                and tuple(cfg.group_assignment) != own_assign):
+            raise ValueError(
+                "sharded per_group IS per-device clipping: group_assignment "
+                "must equal the model-axis shard ownership (leave it unset "
+                "to derive it via launch.sharding.group_shard_assignment)")
+        cfg = dataclasses.replace(cfg, group_assignment=own_assign,
+                                  num_supergroups=m_size)
+    plan = build_plan(cfg, layout)
+    assign_np = np.asarray(own_assign, np.int64)
+    lo = mesh.data_index() * b_local
+
+    def init_fn(params):
+        dev = next(t for _, t in tree_leaves(params)).device
+        return optimizer.init(params), init_dp_state(plan, dev)
+
+    def one(params, batch_mb, thresholds, bsz, assign):
+        kw = dict(mode=mode, batch_size=bsz, data_size=d_size, mesh=mesh,
+                  data_axes=dax, model_axis="model")
+        if mode == "per_layer":
+            kw["thresholds"] = thresholds
+        elif mode == "ghost_flat":
+            kw.update(flat_threshold=thresholds[0], shard_assignment=assign,
+                      execution=execution)
+        elif mode == "per_group":
+            kw.update(group_thresholds=thresholds, shard_assignment=assign,
+                      execution=execution)
+        return sharded_clipped_gradients(loss_fn, params, batch_mb, layout,
+                                         **kw)
+
+    def clip(params, batch, thresholds, assign):
+        # the per-microbatch grads and counts come back already globally
+        # reduced, so plain f32 accumulation stays exact
+        counts = []
+
+        def clip_one(batch_mb, n):
+            res = one(params, batch_mb, thresholds, n, assign)
+            counts.append(res.counts)
+            return ClipResult(res.grads, res.norms_sq, res.loss)
+
+        res = clipped_microbatches(clip_one, batch, b_local, nmb)
+        return ShardedClipResult(*res, sum(counts))
+
+    def step_fn(params, opt_state, dp_state, batch, seed: int):
+        with ghost_backend.scoped(cfg.backend):
+            thresholds = _effective_thresholds(cfg, plan, dp_state)
+            assign = torch.as_tensor(assign_np, device=thresholds.device)
+            local = {k: v[lo: lo + b_local] for k, v in batch.items()}
+            res = clip(params, local, thresholds, assign)
+            # the counts come back globally reduced by the clip driver
+            counts = (torch.zeros_like(thresholds) if mode == "non_private"
+                      else res.counts)
+            if on_clip is not None:
+                on_clip(res, counts)
+            noised = res.grads if mode == "non_private" else (
+                add_noise_to_grads(
+                    spec, layout, res.grads,
+                    _layout_stds(plan, layout, thresholds, assign), seed,
+                    dp_state.step))
             count_gen = generator(thresholds.device, seed, dp_state.step)
             return _apply_update(cfg, optimizer, batch_size, params,
                                  opt_state, dp_state, noised, counts,

@@ -89,9 +89,20 @@ def count_noise(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def update_thresholds(state: QuantileState, counts: torch.Tensor,
-                      batch_size: int,
-                      generator: torch.Generator) -> QuantileState:
-    """One private geometric update of all K thresholds (Alg. 1 l.15-17)."""
+                      batch_size: int, generator: torch.Generator, *,
+                      counts_axes=None, mesh=None) -> QuantileState:
+    """One private geometric update of all K thresholds (Alg. 1 l.15-17).
+
+    Sharded contract, as the reference's: ONE geometric update per step,
+    fed by the GLOBAL clip counts and divided by the GLOBAL batch size. A
+    rank that holds shard-local counts passes the data-plane axes as
+    `counts_axes` (and its `mesh`): they are all-reduced here first
+    (site `clip_count_psum`), so every rank applies the same move (the
+    count noise agrees, every rank's generator being seeded alike). The
+    sharded clip drivers hand over counts already reduced."""
+    if counts_axes is not None:
+        counts = mesh.psum(counts.clone(), counts_axes,
+                           site="clip_count_psum")
     noise = state.sigma_b * count_noise(state.thresholds.shape, generator)
     frac = (counts + noise) / float(batch_size)
     new = state.thresholds * torch.exp(

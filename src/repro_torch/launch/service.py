@@ -265,13 +265,16 @@ class ServiceRuntime:
                               max_batch=self.batch, seed=1)
 
 
-def build_runtime(args) -> ServiceRuntime:
+def build_runtime(args, *, cfg=None) -> ServiceRuntime:
+    """The service's model, data and step from its arguments; `cfg`
+    replaces the config of `--arch` (a depth cut), as in
+    `launch.train.build_everything`."""
     # sigma is calibrated for the --calib-steps horizon (default --steps);
     # running past it is what the budget gate is for
     build_args = argparse.Namespace(**vars(args))
     build_args.steps = getattr(args, "calib_steps", None) or args.steps
     cfg, model, rows, _sampler, init_fn, step_fn, plan = build_everything(
-        build_args)
+        build_args, cfg=cfg)
     return ServiceRuntime(cfg=cfg, model=model, rows=rows, init_fn=init_fn,
                           step=step_fn, plan=plan, batch=args.batch,
                           seed=args.seed, device=torch.device(args.device))
@@ -466,7 +469,7 @@ class TrainService:
 
 def build_service_parser() -> argparse.ArgumentParser:
     ap = build_train_parser(
-        description="crash-safe online DP training service")
+        mesh=False, description="crash-safe online DP training service")
     ap.add_argument("--service-dir", required=True,
                     help="durable state root: ledger.jsonl + ckpt/")
     ap.add_argument("--budget-eps", type=float, default=None,

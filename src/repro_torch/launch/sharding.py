@@ -11,11 +11,19 @@ paths that name clipping groups):
   replicated: norms, small vectors, routers, embed-adjacent gains
 
 `group_shard_assignment` turns them into the supergroups of `per_group`
-clipping without a mesh (`--group-count` virtual shards), with the
-reference's assignment exactly. `_spec_for` returns a tuple of axis names
-(`"model"` or None per dim; () for replicated) where the reference returns
-a `PartitionSpec`. Parameter placement on a mesh (`params_shardings`) waits
-for ROADMAP A.13.
+clipping, on a mesh (its model axis) or without one (`--group-count`
+virtual shards), with the reference's assignment exactly. `_spec_for`
+returns a tuple of axis names (`"model"` or None per dim; () for
+replicated) where the reference returns a `PartitionSpec`.
+
+On a mesh (`launch.mesh`), `params_shardings` gives each parameter leaf a
+`Placement` (the reference's `NamedSharding`): the launcher STORES the
+weights model-sharded between steps (`shard_tree`, each rank its slice)
+and all-gathers them at step entry (`gather_tree`, site `weight_gather`),
+as the reference's `jit_step` does with its in/out shardings. The sharded
+step computes on replicated weights. The serving and batch placements
+(`serving=True`, `batch_shardings`, `cache_shardings`,
+`opt_state_shardings`) feed only the dry run: ROADMAP A.14.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import fnmatch
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.core.spec import P, _walk
 
@@ -140,3 +149,86 @@ def group_shard_assignment(layout, model_size: int) -> tuple[int, ...]:
             owners = (ids // max(g.count // first, 1)) * model_size // first
         assign[g.offset: g.offset + g.count] = owners % model_size
     return tuple(int(a) for a in assign)
+
+
+class Placement:
+    """Where a leaf lives between steps on `mesh`: `spec` is the
+    `_spec_for` tuple (() replicated; "model" on at most one dim)."""
+
+    def __init__(self, mesh, spec: tuple):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    @property
+    def dim(self) -> int | None:
+        """The dim sharded over the model axis, or None (replicated)."""
+        return self.spec.index("model") if "model" in self.spec else None
+
+    def __repr__(self) -> str:
+        return f"Placement({self.mesh.describe()}, {self.spec})"
+
+    def shard(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the global `t` (a copy; `t` itself when
+        replicated)."""
+        if self.dim is None:
+            return t
+        m = self.mesh.shape["model"]
+        size = t.shape[self.dim] // m
+        idx = self.mesh.axis_index("model")
+        with torch.no_grad():
+            return t.narrow(self.dim, idx * size, size).clone()
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The global leaf from every model shard's slice (an all-gather
+        over the model axis, site `weight_gather`)."""
+        if self.dim is None:
+            return t
+        with torch.no_grad():
+            return self.mesh.all_gather(t.detach(), ("model",), self.dim,
+                                        site="weight_gather")
+
+
+def params_shardings(spec, mesh) -> Any:
+    """A tree of `Placement`s parallel to the parameters: each leaf's
+    `_spec_for` placement on the mesh's model axis."""
+    model_size = mesh.shape["model"]
+
+    def walk(node, prefix):
+        if isinstance(node, P):
+            return Placement(mesh, _spec_for("/".join(prefix), node,
+                                             model_size))
+        return {k: walk(v, prefix + (k,)) for k, v in node.items()}
+
+    return walk(spec, ())
+
+
+def replicated(tree, mesh) -> Any:
+    """A replicated `Placement` for every leaf of `tree` (dicts, tuples
+    and NamedTuples)."""
+    if isinstance(tree, dict):
+        return {k: replicated(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [replicated(v, mesh) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
+            items)
+    return Placement(mesh, ())
+
+
+def _map2(fn, tree, placements):
+    if isinstance(tree, dict):
+        return {k: _map2(fn, tree[k], placements[k]) for k in tree}
+    return fn(tree, placements)
+
+
+def shard_tree(tree, placements) -> Any:
+    """Each rank's slices of a global tree of tensors, keeping each
+    leaf's `requires_grad`."""
+    return _map2(lambda t, pl: pl.shard(t).requires_grad_(t.requires_grad),
+                 tree, placements)
+
+
+def gather_tree(tree, placements) -> Any:
+    """The global tree from every rank's slices (one all-gather per
+    model-sharded leaf), keeping each leaf's `requires_grad`."""
+    return _map2(lambda t, pl: pl.gather(t).requires_grad_(t.requires_grad),
+                 tree, placements)

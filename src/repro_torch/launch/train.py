@@ -1,8 +1,8 @@
 """Training CLI: DP-SGD with adaptive group-wise clipping (Algorithm 1).
 
-The counterpart of `repro.launch.train` for one device. The parser has
-only the flags the port runs; a flag of the reference that is not ported
-yet (mesh, LoRA, the compile cache) fails in argparse.
+The counterpart of `repro.launch.train`. The parser has only the flags
+the port runs; a flag of the reference that is not ported yet (LoRA, the
+compile cache) fails in argparse.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --clipping per_layer --epsilon 8 --steps 4 --batch 8 --seq 256 \\
@@ -42,6 +42,28 @@ schedule are horizons of `--steps`: resume with the same flags. For the
 crash-safe service with a persistent privacy ledger, see
 `repro_torch.launch.service`.
 
+`--mesh DxM` runs the sharded step (`core.dp_sgd._make_sharded_step`)
+on a (data = D, model = M) mesh of D * M ranks, launched by torchrun or
+by `launch.mesh.spawn`:
+
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --mesh 2x2 --dist-backend gloo ...
+
+Each rank clips its data shard of the global `--batch`; the model axis
+distributes the clipping bookkeeping (shard-local norms, per-device
+factors, the BK epilogue's interleaved gradient all-reduces). Rank r
+computes on cuda:(local rank % cards), or the CPU with `--device cpu`.
+`--dist-backend nccl` (the default) takes one rank per card and refuses
+more ranks than cards; `gloo` lets ranks share a card (its collectives
+go through the host). per_group's supergroups are the mesh's model
+shards' ownership, per_shard's blocks its M shards (`dp_blocks = M`).
+The weights are STORED model-sharded between steps
+(`launch.sharding.params_shardings`) and gathered at each step's entry;
+a checkpoint holds the global leaves (rank 0 writes them) and a resume
+restores each rank's slice. Rank 0 alone prints; the header names the
+mesh and the backend. The step lines equal the single-device run's up to
+f32 summation order.
+
 `--arch qwen1.5-32b` trains QKV biases (one group with the qkv weight),
 `--arch minicpm-2b` and `--arch deepseek-67b` the other dense configs;
 `--variant swa` gives every GQA layer a 4,096-token sliding window.
@@ -69,7 +91,9 @@ from repro_torch.core.dp_sgd import DPConfig, make_dp_train_step
 from repro_torch.core.spec import meta_params, tree_leaves
 from repro_torch.data import (PoissonSampler, SyntheticLM, make_lm_batch,
                               pack_documents)
-from repro_torch.launch.sharding import group_shard_assignment
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.sharding import (gather_tree, group_shard_assignment,
+                                         params_shardings, shard_tree)
 from repro_torch.models.transformer import build_model
 
 # the modes BK executes (the others have no flat factor to wait for)
@@ -79,9 +103,12 @@ CLIPPING = ["per_layer", "ghost_flat", "per_group", "naive_flat",
             "per_shard"]
 
 
-def build_train_parser(**kwargs) -> argparse.ArgumentParser:
+def build_train_parser(*, mesh: bool = True,
+                       **kwargs) -> argparse.ArgumentParser:
     """The training CLI's flags, shared with the service
-    (`launch.service` adds its ledger, budget and fault flags)."""
+    (`launch.service` adds its ledger, budget and fault flags, and runs
+    on one device: `mesh=False` leaves out `--mesh` and
+    `--dist-backend`)."""
     ap = argparse.ArgumentParser(**kwargs)
     ap.add_argument("--arch", default="tiny", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
@@ -134,26 +161,55 @@ def build_train_parser(**kwargs) -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model trains (cuda unless asked)")
+    if mesh:
+        ap.add_argument("--mesh", default=None, metavar="DxM",
+                        help="run the sharded step on a (data=D, model=M) "
+                             "mesh of D*M ranks (torchrun or "
+                             "launch.mesh.spawn): batch over data, the "
+                             "clipping bookkeeping over model, weights "
+                             "STORED model-sharded between steps")
+        ap.add_argument("--dist-backend", default="nccl",
+                        choices=["nccl", "gloo"],
+                        help="torch.distributed backend under --mesh: nccl "
+                             "takes one rank per card; gloo lets ranks "
+                             "share a card or run on the CPU")
     return ap
 
 
-def build_everything(args: argparse.Namespace, *, cfg=None):
+def setup_mesh(args):
+    """The rank's mesh under `--mesh` (joining the process group of
+    torchrun's environment or of `launch.mesh.spawn`), else None."""
+    if not getattr(args, "mesh", None):
+        return None
+    return mesh_lib.init_distributed(
+        mesh_lib.parse_mesh(args.mesh), backend=args.dist_backend,
+        device=args.device)
+
+
+def build_everything(args: argparse.Namespace, *, cfg=None, mesh=None,
+                     on_clip=None):
     """The config, model, packed corpus, Poisson sampler and private step
     of the CLI's arguments: (cfg, model, rows, sampler, init_fn, step_fn,
-    plan), as the reference's `build_everything` without its mesh. `cfg`
-    replaces the config of `--arch` / `--reduced` / `--variant` (a depth
-    cut, grouped dispatch). `per_shard` resolves to per_layer over `--group-count`
-    column blocks (`cfg.dp_blocks`). Shared with the service."""
+    plan), as the reference's `build_everything`. `cfg` replaces the
+    config of `--arch` / `--reduced` / `--variant` (a depth cut, grouped
+    dispatch). `per_shard` resolves to per_layer over M column blocks
+    (`cfg.dp_blocks`): `--group-count`, or the mesh's model axis. With a
+    `mesh` the step is the rank's sharded step and per_group takes its
+    supergroups from the mesh, and `on_clip` sees each step's clip
+    result (`make_dp_train_step`). Shared with the service."""
     if cfg is None:
         cfg = get_config(args.arch, reduced=args.reduced,
                          variant=args.variant)
     mode = args.clipping
     if mode == "per_shard":
-        # per-device clipping: blocked groups aligned with M virtual
-        # column shards, run as per_layer over (layer x block) groups
-        cfg = dataclasses.replace(cfg, dp_blocks=args.group_count)
+        # per-device clipping: blocked groups aligned with M (virtual or
+        # mesh) column shards, run as per_layer over (layer x block) groups
+        blocks = (mesh.shape["model"] if mesh is not None
+                  else args.group_count)
+        cfg = dataclasses.replace(cfg, dp_blocks=blocks)
         mode = "per_layer"
-    model = build_model(cfg, device=args.device)
+    model = build_model(cfg, device=args.device if mesh is None
+                        else mesh.device)
     src = SyntheticLM(vocab_size=cfg.vocab_size, num_docs=args.docs,
                       doc_len=args.seq * 2, seed=0)
     rows = pack_documents(src.documents(), args.seq)
@@ -161,7 +217,8 @@ def build_everything(args: argparse.Namespace, *, cfg=None):
     sampler = PoissonSampler(num_examples=rows.shape[0], rate=rate,
                              max_batch=args.batch, seed=1)
     assign = nsuper = None
-    if mode.startswith("per_group"):
+    if mode.startswith("per_group") and mesh is None:
+        # with a mesh the sharded factory derives it from the mesh
         nsuper = args.group_count
         assign = group_shard_assignment(model.layout, nsuper)
     dpc = DPConfig(
@@ -185,7 +242,7 @@ def build_everything(args: argparse.Namespace, *, cfg=None):
         opt = optim.sgd(sched, momentum=0.9)
     init_fn, step_fn, plan = make_dp_train_step(
         model.loss_fn, model.spec, model.layout, opt, dpc,
-        batch_size=args.batch)
+        batch_size=args.batch, mesh=mesh, on_clip=on_clip)
     return cfg, model, rows, sampler, init_fn, step_fn, plan
 
 
@@ -200,18 +257,21 @@ def init_state(model, init_fn, seed: int, device) -> dict:
     return {"params": params, "opt_state": opt_state, "dp_state": dp_state}
 
 
-def restore_latest(directory: str, model, init_fn, device):
+def restore_latest(directory: str, model, init_fn, device, placements=None):
     """(step, state, manifest) of the newest checkpoint under `directory`
     that verifies, restored onto `device` (parameters requiring grad), or
     None. The template is the state's shapes on the meta device, so a
-    restore allocates the state once."""
+    restore allocates the state once. `placements` (a mesh's
+    `params_shardings`): each rank keeps its slices of the parameters."""
     params = meta_params(model.spec)
     for _, leaf in tree_leaves(params):
         leaf.requires_grad_()
     opt_state, dp_state = init_fn(params)
     template = {"params": params, "opt_state": opt_state,
                 "dp_state": dp_state}
-    return load_latest_checkpoint(directory, template, device=device)
+    return load_latest_checkpoint(
+        directory, template, device=device,
+        shardings=None if placements is None else {"params": placements})
 
 
 class Trainer:
@@ -219,22 +279,38 @@ class Trainer:
     parameters (random, from --seed, on --device, or with --resume the
     newest verified checkpoint's), the data stream, the DP plan and the
     step. `step()` runs one optimizer step; `start_step` is the first step
-    to run. `cfg` replaces the config of `--arch` (`build_everything`)."""
+    to run. `cfg` replaces the config of `--arch` (`build_everything`).
 
-    def __init__(self, args: argparse.Namespace, *, cfg=None):
+    With a `mesh` (`setup_mesh`) it is one rank's run: `params` holds the
+    rank's model-sharded slices between steps (`placements`), gathered
+    into the global leaves at each step's entry, and `state()` gathers
+    them for a checkpoint. `on_clip(result, counts)` sees each step's clip
+    result and counts (`make_dp_train_step`)."""
+
+    def __init__(self, args: argparse.Namespace, *, cfg=None, mesh=None,
+                 on_clip=None):
         self.args = args
+        self.mesh = mesh
         (self.cfg, self.model, self.rows, self.sampler, init_fn,
-         self.step_fn, self.plan) = build_everything(args, cfg=cfg)
-        self.device = torch.device(args.device)
+         self.step_fn, self.plan) = build_everything(args, cfg=cfg,
+                                                     mesh=mesh,
+                                                     on_clip=on_clip)
+        self.device = (torch.device(args.device) if mesh is None
+                       else mesh.device)
+        self.placements = (None if mesh is None
+                           else params_shardings(self.model.spec, mesh))
         self.start_step = 0
         found = None
         if args.resume:
             if not args.checkpoint_dir:
                 raise SystemExit("--resume requires --checkpoint-dir")
             found = restore_latest(args.checkpoint_dir, self.model, init_fn,
-                                   self.device)
+                                   self.device, self.placements)
         if found is None:
             state = init_state(self.model, init_fn, args.seed, self.device)
+            if mesh is not None:  # stored model-sharded between steps
+                state["params"] = shard_tree(state["params"],
+                                             self.placements)
         else:
             self.start_step, state, manifest = found
             meta = manifest.get("meta") or {}
@@ -245,9 +321,20 @@ class Trainer:
         self.step_seed = args.seed + 1
 
     def state(self) -> dict:
-        """The checkpointed tree (the reference's keys)."""
-        return {"params": self.params, "opt_state": self.opt_state,
+        """The checkpointed tree (the reference's keys), with the global
+        parameters (gathered from every rank under a mesh)."""
+        return {"params": self.global_params(), "opt_state": self.opt_state,
                 "dp_state": self.dp_state}
+
+    def global_params(self):
+        if self.mesh is None:
+            return self.params
+        return gather_tree(self.params, self.placements)
+
+    @property
+    def is_main(self) -> bool:
+        """The rank that prints and writes (every run without a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def next_batch(self) -> dict[str, torch.Tensor]:
         idx = self.sampler.next_indices()
@@ -258,9 +345,12 @@ class Trainer:
     def step(self):
         """One step on the next Poisson batch; returns its StepMetrics
         (device scalars)."""
-        (self.params, self.opt_state, self.dp_state, met) = self.step_fn(
-            self.params, self.opt_state, self.dp_state, self.next_batch(),
+        params = self.global_params()  # the entry all-gather under a mesh
+        (params, self.opt_state, self.dp_state, met) = self.step_fn(
+            params, self.opt_state, self.dp_state, self.next_batch(),
             self.step_seed)
+        self.params = (params if self.mesh is None
+                       else shard_tree(params, self.placements))
         return met
 
     @property
@@ -279,6 +369,9 @@ class Trainer:
                 and self.model.reused_groups):
             tail += (f" bk_falls_back=twopass(groups "
                      f"{','.join(self.model.reused_groups)} run twice)")
+        if self.mesh is not None:
+            tail += (f" mesh={self.args.mesh} ({self.mesh.describe()}) "
+                     f"dist_backend={self.mesh.backend}")
         return (f"# arch={self.cfg.name} params={self.model.num_params:,} "
                 f"groups={self.model.layout.num_groups} "
                 f"mode={p.config.mode} backend={p.config.backend} "
@@ -298,31 +391,46 @@ def step_line(i: int, met) -> str:
 
 def main(argv=None) -> int:
     args = build_train_parser().parse_args(argv)
-    trainer = Trainer(args)
+    mesh = setup_mesh(args)
+    try:
+        return run(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh_lib.shutdown()
+
+
+def run(args, mesh=None) -> int:
+    """The CLI's run on this rank (every line printed by the main one)."""
+    trainer = Trainer(args, mesh=mesh)
+    say = print if trainer.is_main else (lambda *a, **k: None)
     if args.resume and trainer.start_step:
-        print(f"# resumed from step {trainer.start_step}")
-    print(trainer.header(), flush=True)
+        say(f"# resumed from step {trainer.start_step}")
+    say(trainer.header(), flush=True)
     t_start = time.time()
     ran = 0
     for i in range(trainer.start_step, args.steps):
         met = trainer.step()
         ran += 1
         if i % args.log_every == 0 or i == args.steps - 1:
-            print(step_line(i, met), flush=True)
+            say(step_line(i, met), flush=True)
     wall = time.time() - t_start
     plan = trainer.plan
     if plan.config.private and ran:
         eps = compute_epsilon(sigma=plan.sigma,
                               sampling_rate=plan.config.sampling_rate,
                               steps=args.steps, delta=args.delta)
-        print(f"# spent epsilon={eps:.3f} (delta={args.delta}) "
-              f"in {args.steps} steps, {wall:.1f}s "
-              f"({wall / ran * 1e3:.1f} ms/step)")
+        say(f"# spent epsilon={eps:.3f} (delta={args.delta}) "
+            f"in {args.steps} steps, {wall:.1f}s "
+            f"({wall / ran * 1e3:.1f} ms/step)")
     if args.checkpoint_dir:
-        path = save_checkpoint(args.checkpoint_dir, args.steps,
-                               trainer.state(),
-                               meta={"sampler": trainer.sampler.state()})
-        print(f"# checkpoint: {path}")
+        state = trainer.state()  # collective under a mesh: every rank
+        if trainer.is_main:
+            path = save_checkpoint(args.checkpoint_dir, args.steps, state,
+                                   meta={"sampler": trainer.sampler.state()})
+            say(f"# checkpoint: {path}")
+        del state
+        if mesh is not None:
+            mesh.barrier()  # the checkpoint exists before any rank goes on
     return 0
 
 

@@ -18,7 +18,7 @@ PORT_FILES = sorted(
     for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + [
         "chip_smoke.py", "examples/torch_quickstart.py",
         "examples/torch_serve_batched.py", "examples/torch_train_e2e.py",
-        "examples/torch_train_service.py"]
+        "examples/torch_train_service.py", "examples/torch_train_mesh.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -47,7 +47,8 @@ def test_port_package_is_scanned():
                  "kernels/clip_reduce.py", "kernels/bk.py", "core/bk.py",
                  "launch/sharding.py", "launch/train.py",
                  "launch/service.py", "checkpoint/store.py",
-                 "checkpoint/packer.py"):
+                 "checkpoint/packer.py", "launch/mesh.py",
+                 "core/pipeline.py"):
         assert f"src/repro_torch/{name}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
@@ -80,6 +81,22 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it():
                     "--docs", "2"])
 
 
+def test_train_cli_mesh_defaults_to_cuda_and_nccl(monkeypatch):
+    """`--mesh` keeps the CLI's device default and NCCL; without a CUDA
+    device the rank's device raises before any process group exists."""
+    from repro_torch.launch import train
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    args = train.build_train_parser().parse_args(["--mesh", "2x2"])
+    assert (args.device, args.dist_backend) == ("cuda", "nccl")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "tiny", "--mesh", "2x2"])
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
 def test_service_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
     from repro_torch.launch import service
     if torch.cuda.is_available():
@@ -108,6 +125,7 @@ def test_torch_quickstart_defaults_to_cuda_and_raises_without_it():
     ("torch_train_e2e.py", ["--steps", "1", "--batch", "1", "--docs", "2",
                             "--checkpoint-dir"]),
     ("torch_train_service.py", ["--service-dir"]),
+    ("torch_train_mesh.py", ["--steps", "1", "--checkpoint-dir"]),
 ])
 def test_torch_train_examples_default_to_cuda_and_raise_without_it(
         example, argv, tmp_path):
