@@ -353,11 +353,48 @@ exits non-zero:
               factor rows are all zero (groups another model shard
               owns). ms per step by rank, beside the oracle's.
 
+ 17 DP-LoRA   (a) qwen3-4b at full width and depth with rank-8 adapters on
+              qkv and o (`--lora-rank 8`, the base frozen) through the
+              same `Trainer`, phase 5's settings, per_layer and
+              ghost_flat by BK, 1 warm-up + 2 timed steps each: launches
+              derived from the layout (`lora_pairs`: 2 ghost_norm and 2
+              clip_reduce a pair, 144 + 144 a per_layer step; 144
+              ghost_norm and 4 scale_contract a BK step; no
+              fused_norm_clip), no fallback, the frozen base's crc32s
+              unchanged, every adapter leaf moved; ms per step and peak
+              memory, the ratio to phase 5's non_private; (b)
+              ghost_norm and clip_reduce at the four adapter sides'
+              captured inputs (x with s g Bᵀ: (B, T, din) and (B, T, 8);
+              x A with s g: (B, T, 8) and (B, T, dout)) and
+              scale_contract at the BK epilogue's four stacked sinks (S
+              = 36), at r = 8 and cut to r = 4, against their plain
+              versions (rtol 1e-4, atol 1e-4 of the largest magnitude),
+              two calls bitwise, graph-replay and eager ms beside plain,
+              library and bound ms ("lora" in each kernel's record);
+              (c) card against CPU: one per_layer clip of qwen3-4b
+              reduced and deepseek-v3 reduced (kv_b and o, MTP) in f32
+              with adapters from one numpy tree (TRAIN_RTOL); (d) the
+              training service on qwen3-4b (LORA_DEPTH = 2 of 36 layers),
+              `--lora-rank 8`, 4 steps, a checkpoint and an adapter
+              publish every 2; a multi-tenant engine at
+              the same depth serves phase 3's 16 requests round-robin
+              over the base, the step-2 publish and a seeded adapter,
+              and an `AdapterWatcher` installs the step-4 publish
+              mid-decode: installed crcs equal the manifests', every
+              tenant's requests equal it served alone (in-flight ones
+              on step 2, later ones on step 4, the base tenant the
+              single-model engine), paged_attn once a layer a
+              serve_step, one serve_step input signature; (e)
+              deepseek-v3 at full width, its 3 dense layers, rank-8
+              adapters on kv_b and o: 8 requests on 4 slots over the
+              base and two seeded adapters, mixed equal to alone through
+              paged_attn's latent branch.
+
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8, 11, 12, 14, 15 and 16 (paged_attn's: phases 3,
-13 and 15). A clock line follows each phase.
+the sum over phases 5, 8, 11, 12, 14, 15, 16 and 17 (paged_attn's:
+phases 3, 13, 15 and 17). A clock line follows each phase.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1134,6 +1171,18 @@ def linear_leaves(cfg) -> list:
         2 if cfg.mtp_depth else 1)
 
 
+def lora_pairs(cfg) -> list:
+    """(stack, projection) of every adapter pair a DP-LoRA step clips, one
+    entry a layer: qkv and o of each GQA layer, kv_b and o of each MLA
+    one (`models.transformer.lora_tree`)."""
+    n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
+    projs = ("kv_b", "o") if cfg.attention_kind == "mla" else ("qkv", "o")
+    return [(stack, p) for stack, n in (("dense_blocks",
+                                         cfg.num_layers - n_moe),
+                                        ("moe_blocks", n_moe))
+            for _ in range(n) for p in projs]
+
+
 def expected_launches(label: str, cfg, fused_route: bool = True, *,
                       batch: int = 8, microbatches: int = 1) -> dict:
     """Kernel launches per step of a variant (the tables in the doc), per
@@ -1146,6 +1195,21 @@ def expected_launches(label: str, cfg, fused_route: bool = True, *,
     off), else ghost_norm and clip_reduce."""
     from repro_torch.kernels.fused_clip import fits
     counts = dict.fromkeys(TRAIN_KERNELS, 0)
+    if cfg.lora_rank:
+        # DP-LoRA: two ghost norms a pair (dA's and dB's), and two
+        # contractions (or one scale_contract per stacked adapter leaf);
+        # a frozen linear launches nothing
+        pairs = lora_pairs(cfg)
+        n = 2 * len(pairs)
+        if label.endswith("_bk"):
+            counts.update(ghost_norm=n, scale_contract=2 * len(set(pairs)))
+        elif label == "non_private":
+            counts["clip_reduce"] = n
+        elif label == "naive_flat":
+            counts["clip_reduce"] = n * (batch // microbatches)
+        else:
+            counts.update(ghost_norm=n, clip_reduce=n)
+        return {k: v * microbatches for k, v in counts.items()}
 
     def add(*names):
         for name in names:
@@ -1200,7 +1264,7 @@ def profile_step(torch, trainer, step_ms) -> dict:
 
 def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
                   kind=None, profile=True, cfg=None, extra=None,
-                  timed=TRAIN_TIMED):
+                  timed=TRAIN_TIMED, check=None):
     """Train one variant through the CLI's `Trainer` (on `cfg` in place of
     the `--arch` config when given): TRAIN_WARMUP + `timed` steps with
     every launch counter set to 0 before and read after, then (with
@@ -1210,7 +1274,9 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
     `kind` (default: the label) at the run's batch and microbatches; emits
     the train (and train_profile) lines, with `extra` in the train line;
     records ms per step in `step_ms`, whose non_private and per_layer
-    entries (B = 8) give the ratios. Returns the launch counts."""
+    entries (B = 8) give the ratios. `check(trainer)`, called before the
+    steps, returns a function called after them that raises on a failed
+    gate and returns more of the line. Returns the launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     steps = TRAIN_WARMUP + timed
@@ -1218,6 +1284,7 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
     trainer = train.Trainer(args, cfg=cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    after = check(trainer) if check is not None else None
     rec = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1258,6 +1325,8 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
     if {k: counts[k] for k in want} != want:
         raise RuntimeError(f"{label}: launches {counts} over {steps} "
                            f"steps, expected {want}")
+    if after is not None:
+        extra = {**(extra or {}), **after(trainer)}
     step_ms[label] = sum(r["ms"] for r in rec[TRAIN_WARMUP:]) / timed
     base, per_layer = step_ms.get("non_private"), step_ms["per_layer"]
     emit({"phase": "train", "gpu": gpu, "arch": trainer.cfg.name,
@@ -3803,6 +3872,624 @@ def phase_sharded(torch, gpu):
     return launches, kernels
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: DP-LoRA.
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 8
+# (label, --clipping, --execution, the variant whose launch table applies)
+LORA_VARIANTS = [("lora_per_layer", "per_layer", "bk", "per_layer"),
+                 ("lora_ghost_flat_bk", "ghost_flat", "bk", "ghost_flat_bk")]
+LORA_TIMED = 2
+# the adapters' kernels at the captured r, and at a narrower one (a bf16
+# row of r = 4 is 8 bytes: staged loads, not TMA)
+LORA_NARROW = 4
+LORA_KERNELS = ("ghost_norm", "clip_reduce", "scale_contract")
+# (d): qwen3-4b's layers in the service and its serving engine, of 36: at
+# phase 3's 6 layers phase 17 took 101 s of its 90 s (the serving and the
+# alone runs 44 s, host-bound a layer at a time); at 2 it took 59 s, and
+# at 1 a slice of a one-layer stack is all the card would check
+LORA_DEPTH = 2
+LORA_SERVICE_ARGV = SERVICE_ARGV + ["--lora-rank", str(LORA_RANK)]
+# (e): deepseek-v3's tenants at its 3 dense layers
+LORA_MLA_REQ = dict(n_req=8, min_len=16, max_len=48, prefix=16, gen=8,
+                    slots=4, page_len=16)
+
+
+def lora_adapter(torch, spec, seed, scale=0.02):
+    """A seeded adapter tree for a LoRA spec subtree, a and b both normal
+    (a fresh adapter's b is zero): a delta that changes the tokens."""
+    from repro_torch.core.spec import _walk
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out: dict = {}
+    for path, p in _walk(spec):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = (scale * torch.randn(
+            tuple(p.shape), generator=gen, device="cuda")).to(p.dtype)
+    return out
+
+
+def lora_train(torch, gpu, qwen_ms):
+    """(a): qwen3-4b at full width and depth with rank-8 adapters on qkv
+    and o, per_layer and ghost_flat by BK through the train CLI's
+    `Trainer` (phase 5's settings, 1 warm-up + LORA_TIMED steps). Gates:
+    finite losses, the layout's launches, no BK fallback, the frozen
+    base's crc32s unchanged after the steps, every adapter leaf moved.
+    Returns (launches, the per_layer last step's clip_reduce inputs by
+    adapter leaf, the BK last epilogue's scale_contract inputs)."""
+    from repro_torch.checkpoint.store import tree_crcs, tree_flatten
+    from repro_torch.kernels import bk as SC
+    from repro_torch.kernels import clip_reduce as CR
+
+    lms = {"per_layer": qwen_ms.get("per_layer", math.nan),
+           "non_private": qwen_ms.get("non_private")}
+    caps, sc_caps, base = {}, {}, {}
+    real_cr, real_sc = CR.clip_reduce, SC.scale_contract
+
+    def leaf_of(trainer):
+        # (din, dout) of each adapter side -> its leaf: a <- (x, s g Bᵀ)
+        # (din, r), b <- (x A, s g) (r, dout)
+        cfg, out = trainer.cfg, {}
+        d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.resolved_head_dim)
+        for proj, din, dout in (("qkv", d, (h + 2 * kv) * hd),
+                                ("o", h * hd, d)):
+            out[(din, LORA_RANK)] = f"{proj}/a"
+            out[(LORA_RANK, dout)] = f"{proj}/b"
+        return out
+
+    shapes = {}
+
+    def recording_cr(a, g, factors, block_axis="out"):
+        name = shapes.get((a.shape[-1], g.shape[-1]))
+        if name is not None and name not in caps:
+            caps[name] = (a.clone(), g.clone(), factors.clone())
+        return real_cr(a, g, factors, block_axis)
+
+    def recording_sc(a, g, factors):
+        name = shapes.get((a.shape[-1], g.shape[-1]))
+        if name is not None:
+            sc_caps[name] = (a, g, factors)  # the sinks: never rewritten
+        return real_sc(a, g, factors)
+
+    def check(trainer):
+        shapes.update(leaf_of(trainer))
+        params = trainer.params
+        frozen = {k: v for k, v in params.items() if k != "lora"}
+        t0 = time.perf_counter()
+        if not base:
+            base["crcs"] = tree_crcs(frozen)
+        before = tree_crcs(params["lora"])
+        crc_s = time.perf_counter() - t0
+
+        def after(trainer):
+            t0 = time.perf_counter()
+            now = tree_crcs({k: v for k, v in trainer.params.items()
+                             if k != "lora"})
+            moved = [x != y for x, y in zip(
+                before, tree_crcs(trainer.params["lora"]))]
+            if now != base["crcs"]:
+                raise RuntimeError("DP-LoRA changed the frozen base: "
+                                   f"{sum(x != y for x, y in zip(now, base['crcs']))} "
+                                   "leaves differ")
+            if not all(moved):
+                raise RuntimeError(f"adapters unmoved: {moved}")
+            n_lora = sum(t.numel() for t in tree_flatten(trainer.params
+                                                         ["lora"]))
+            return {"base_leaves": len(now), "base_crcs_unchanged": True,
+                    "adapter_leaves_moved": len(moved),
+                    "lora_params": n_lora, "lora_rank": LORA_RANK,
+                    "crc_s": crc_s + time.perf_counter() - t0}
+
+        return after
+
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    last = TRAIN_WARMUP + LORA_TIMED - 1
+    # the first step's adapters have b = 0 (so s g Bᵀ = 0): the inputs
+    # come from the last step
+    patches = {"lora_per_layer": [(last, CR, "clip_reduce", recording_cr)],
+               "lora_ghost_flat_bk": [(last, SC, "scale_contract",
+                                       recording_sc)]}
+    for label, mode, execution, kind in LORA_VARIANTS:
+        args = train_args(mode, execution)
+        args.lora_rank = LORA_RANK
+        args.steps = TRAIN_WARMUP + LORA_TIMED
+        counts = train_variant(torch, gpu, label, args, lms,
+                               patches[label], kind=kind, profile=False,
+                               timed=LORA_TIMED, check=check)
+        for k in launches:
+            launches[k] += counts[k]
+    want = sorted(shapes.values())
+    for what, got in (("clip_reduce", caps), ("scale_contract", sc_caps)):
+        if sorted(got) != want:
+            raise RuntimeError(f"LoRA {what}: captured {sorted(got)} of "
+                               f"the adapter leaves {want}")
+    emit({"phase": "lora_train_ratio", "gpu": gpu,
+          "ms_per_step": {k: lms[k] for k, *_ in LORA_VARIANTS},
+          "ratio_vs_nonprivate": {
+              k: (lms[k] / lms["non_private"] if lms["non_private"]
+                  else None) for k, *_ in LORA_VARIANTS},
+          "non_private_ms_phase5": lms["non_private"]})
+    return launches, caps, sc_caps
+
+
+def narrow(a, g, r):
+    """The adapter side's operands with its rank-wide one cut to r."""
+    if a.shape[-1] == LORA_RANK:
+        return a[..., :r].contiguous(), g
+    return a, g[..., :r].contiguous()
+
+
+def lora_kernels(torch, gpu, caps, sc_caps, num_layers):
+    """(b): ghost_norm and clip_reduce at each adapter side's captured
+    inputs and scale_contract at the BK epilogue's stacked sinks, at r = 8
+    and cut to r = LORA_NARROW: against the plain version (rtol 1e-4,
+    atol 1e-4 of the largest magnitude), two calls bitwise, the time by
+    CUDA graph replay (eager beside it), plain, library and bound ms.
+    Returns name -> the kernels line's LoRA block."""
+    bw = bandwidth(gpu)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    impl = train_impls()
+    out = {}
+    jobs = [(name, leaf, caps[leaf], num_layers)
+            for leaf in sorted(caps) for name in ("ghost_norm",
+                                                  "clip_reduce")]
+    jobs += [("scale_contract", leaf, sc_caps[leaf], 1)
+             for leaf in sorted(sc_caps)]
+    for name, leaf, (a0, g0, f), calls in jobs:
+        kern, plain = impl[name]
+        for r in (LORA_RANK, LORA_NARROW):
+            a, g = narrow(a0, g0, r)
+            got, want = kern(a, g, f), plain(a, g, f)
+            err, rel, ok = sum_check(torch, got, want)
+            if not ok:
+                raise RuntimeError(f"LoRA {name} disagrees at {leaf} r = "
+                                   f"{r}: max abs err {err}")
+            if not torch.equal(got, kern(a, g, f)):
+                raise RuntimeError(f"LoRA {name}: two calls at {leaf} r = "
+                                   f"{r} differ")
+            del got, want
+            iters = 3 if name == "scale_contract" else 10
+            times = {
+                "graph_ms": graph_ms(torch, lambda: kern(a, g, f), iters,
+                                     flush),
+                "ms": cuda_ms(torch, lambda: kern(a, g, f), iters, 1,
+                              flush),
+                "plain_ms": cuda_ms(torch, lambda: plain(a, g, f), 3, 1,
+                                    flush),
+                "library_ms": cuda_ms(torch, lambda: library_sum(
+                    torch, name, a, g, f), 3, 1, flush)}
+            times["bound_ms"], bound_by = sum_bound(name, a, g, bw)
+            row = {"phase": "lora_kernels", "gpu": gpu, "kernel": name,
+                   "leaf": leaf, "r": r, "a": list(a.shape),
+                   "g": list(g.shape), "dtype": str(a.dtype),
+                   "calls_per_step": calls, "max_abs_err": err,
+                   "max_rel_err": rel, "bitwise_repeat": True,
+                   "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC},
+                   **times, "bound_by": bound_by}
+            emit(row)
+            o = out.setdefault(name, {"max_abs_err": 0.0,
+                                      "max_rel_err": 0.0, "per_step": {},
+                                      "shapes": []})
+            o["max_abs_err"] = max(o["max_abs_err"], err)
+            o["max_rel_err"] = max(o["max_rel_err"], rel)
+            step = o["per_step"].setdefault(
+                f"r{r}", {**dict.fromkeys(times, 0.0), "calls": 0})
+            for k in times:
+                step[k] += calls * times[k]
+            step["calls"] += calls
+            o["shapes"].append({k: row[k] for k in (
+                "leaf", "r", "a", "g", "calls_per_step", "max_abs_err",
+                *times, "bound_by")})
+            del a, g
+    return out
+
+
+def lora_cuda_vs_cpu(torch, gpu):
+    """(c): qwen3-4b-reduced and deepseek-v3-reduced in f32 with rank-8
+    adapters (a and b drawn, b non-zero) from one numpy tree each: one
+    per_layer `dp_clipped_gradients(trainable_key="lora")` on the card
+    (kernels) and on the CPU (plain versions) must agree in loss, norms²
+    and every adapter gradient (TRAIN_RTOL, TRAIN_ATOL_FRAC); the card
+    launches the layout's kernels, the CPU none."""
+    import dataclasses
+
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.core.clipping import dp_clipped_gradients
+    from repro_torch.kernels import backend, launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import build_model
+
+    b, t = 4, 64
+    for arch in ("qwen3-4b", "deepseek-v3-671b"):
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  lora_rank=LORA_RANK)
+        rng = np.random.default_rng(0)
+        tree = bridge.numpy_params(build_model(cfg, device="cpu").spec,
+                                   seed=0)
+        for stack in tree["lora"].values():
+            for pair in stack.values():
+                pair["b"] = (0.05 * rng.standard_normal(pair["b"].shape)
+                             ).astype(np.float32)
+        tokens = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+        targets = np.roll(tokens, -1, 1)
+        targets[:, -1] = -1
+        res = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, device=dev)
+            thr = torch.from_numpy(np.random.default_rng(1).uniform(
+                0.05, 2.0, model.layout.num_groups).astype(np.float32)
+            ).to(dev)
+            params = bridge.train_params_from_numpy(tree, dev)
+            batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                     "targets": torch.from_numpy(targets).to(dev)}
+            reset_launch_counts()
+            with backend.scoped("kernels"):
+                out = dp_clipped_gradients(
+                    model.loss_fn, params, batch, model.layout,
+                    mode="per_layer", batch_size=b, thresholds=thr,
+                    trainable_key="lora")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            res[dev] = (out, {k: launch_counts()[k] for k in TRAIN_KERNELS})
+        want_counts = expected_launches("per_layer", cfg)
+        if res["cuda"][1] != want_counts or any(res["cpu"][1].values()):
+            raise RuntimeError(f"{cfg.name} LoRA: launches cuda="
+                               f"{res['cuda'][1]} cpu={res['cpu'][1]}, "
+                               f"expected cuda={want_counts}")
+        got, want = res["cuda"][0], res["cpu"][0]
+        checks = {"loss": (got.loss, want.loss),
+                  "norms_sq": (got.norms_sq, want.norms_sq)}
+        for (name, x), (_, y) in zip(leaf_items(got.grads),
+                                     leaf_items(want.grads)):
+            checks["grad:" + name] = (x, y)
+        errs, bad = {}, []
+        for k, (x, y) in checks.items():
+            x, y = x.detach().float().cpu(), y.detach().float().cpu()
+            atol = TRAIN_ATOL_FRAC * float(y.abs().max())
+            errs[k] = float((x - y).abs().max()
+                            / y.abs().max().clamp_min(1e-30))
+            if not torch.allclose(x, y, rtol=TRAIN_RTOL, atol=atol):
+                bad.append(k)
+        emit({"phase": "lora_cuda_vs_cpu", "gpu": gpu, "arch": cfg.name,
+              "lora_rank": LORA_RANK, "mode": "per_layer", "batch": b,
+              "seq": t, "groups": len(list(leaf_items(got.grads))) // 2,
+              "max_err_over_max": errs,
+              "tol": {"rtol": TRAIN_RTOL, "atol_of_max": TRAIN_ATOL_FRAC},
+              "cuda_launches": res["cuda"][1]})
+        if bad:
+            raise RuntimeError(f"{cfg.name} LoRA card vs CPU: {bad}")
+
+
+def leaf_items(tree, prefix=()):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from leaf_items(tree[k], prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), tree[k]
+
+
+def tenant_tokens(torch, model, base, reqs, owners, adapters, *, gen,
+                  slots, cache_len, page_len, single=None):
+    """Tokens of the requests `owners` maps to one tenant, served ALONE by
+    a fresh engine: multi-tenant with that one adapter tree, or (`single`)
+    the single-model engine."""
+    from repro_torch.launch.engine import DecodeEngine
+    kw = dict(num_slots=slots, cache_len=cache_len, page_len=page_len)
+    if single:
+        eng = DecodeEngine(model, base, **kw)
+        rids = {eng.submit(reqs[i], max_new_tokens=gen): i for i in owners}
+    else:
+        eng = DecodeEngine(model, base, max_tenants=1, **kw)
+        t = eng.add_tenant(adapters)
+        rids = {eng.submit(reqs[i], max_new_tokens=gen, tenant=t): i
+                for i in owners}
+    done = eng.run()
+    return {i: done[rid].tokens for rid, i in rids.items()}
+
+
+def lora_service_serve(torch, gpu):
+    """(d): the training service on qwen3-4b at full width, LORA_DEPTH of
+    36 layers, rank-8 adapters, per_layer, 4 steps, a checkpoint and an
+    adapter publish every 2 (steps 2 and 4). One multi-tenant engine at the
+    same depth serves phase 3's 16 requests round-robin over the base
+    tenant, the step-2 publish (loaded into the template, its installed
+    crcs equal to the manifest's) and a seeded adapter; after the first
+    pool step an `AdapterWatcher` installs the step-4 publish mid-decode
+    (crcs equal to the manifest's). Before it, the single-model engine
+    serves the same 16 requests at the same depth, timed beside it (the
+    tenant plane's wall less the swap's poll, `swap_s`).
+    Gates: the requests of each tenant equal that tenant served alone
+    (the in-flight ones on the step-2 adapter, the later ones on step
+    4's; the base tenant's the single-model engine's); paged_attn
+    launched once a layer a serve_step; one adapter storage. Returns
+    (training launches, the multi-tenant run's paged_attn launches)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint.store import (load_checkpoint,
+                                              manifest_crcs)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve, service
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.swap import AdapterWatcher
+    from repro_torch.models.transformer import unstack_blocks
+
+    work = os.path.join(ROOT, "build", "smoke_lora")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+
+    args = service.build_service_parser().parse_args(
+        ["--service-dir", work, *LORA_SERVICE_ARGV])
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=LORA_DEPTH)
+    reset_launch_counts()
+    svc = service.TrainService(args, runtime=service.build_runtime(
+        args, cfg=cfg))
+    svc.run()
+    runtime = svc.runtime
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    per_step = expected_launches("per_layer", runtime.cfg)
+    counts = launch_counts()
+    train_launches = {k: counts[k] for k in TRAIN_KERNELS}
+    if train_launches != {k: 4 * v for k, v in per_step.items()}:
+        raise RuntimeError(f"LoRA service launches {train_launches}, "
+                           f"expected 4 x {per_step}")
+    publish = svc.publish_dir
+    published = sorted(int(d.split("_")[1]) for d in os.listdir(publish)
+                       if d.startswith("step_"))
+    if published != [2, 4]:
+        raise RuntimeError(f"LoRA service published {published}")
+    eps = {s: service_meta_eps(publish, s) for s in published}
+
+    model = runtime.model
+    base = unstack_blocks({k: v for k, v in svc.params.items()
+                           if k != "lora"})
+    del svc
+    req = MAIN_REQ
+    reqs = serve.build_requests(cfg.vocab_size, req["n_req"],
+                                min_len=req["min_len"],
+                                max_len=req["max_len"],
+                                shared_prefix=req["prefix"], seed=0)
+    page_len, slots, gen = req["page_len"], req["slots"], req["gen"]
+    cache_len = -(-(req["prefix"] + req["max_len"] + gen + 8)
+                  // page_len) * page_len
+    eng = DecodeEngine(model, base, num_slots=slots, cache_len=cache_len,
+                       page_len=page_len, max_tenants=4)
+    v1 = load_checkpoint(publish, 2, {"lora": eng.adapter_template()},
+                         verify=True)["lora"]
+    other = lora_adapter(torch, model.spec["lora"], seed=5)
+    t_base = eng.add_tenant(name="base")
+    t_pub = eng.add_tenant(v1, name="published")
+    t_rand = eng.add_tenant(other, name="seeded")
+    if eng.adapter_crcs(t_pub) != manifest_crcs(publish, 2):
+        raise RuntimeError("the step-2 adapter's crcs differ from its "
+                           "manifest's")
+    tids = (t_base, t_pub, t_rand)
+    owner = {i: tids[i % 3] for i in range(len(reqs))}
+    # the single-model engine on the same requests: its ms a serve_step
+    # beside the tenant plane's, and the base tenant's tokens alone
+    single = DecodeEngine(model, base, num_slots=slots, cache_len=cache_len,
+                          page_len=page_len)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    srid = {single.submit(r, max_new_tokens=gen): i
+            for i, r in enumerate(reqs)}
+    sdone = single.run()
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    single_steps = single.stats["serve_steps"]
+    single_pa = launch_counts()["paged_attn"]
+    if single_pa != cfg.num_layers * single_steps:
+        raise RuntimeError(f"single-model serving: paged_attn launched "
+                           f"{single_pa} times for {single_steps} "
+                           f"serve_steps")
+    single_tokens = {i: sdone[rid].tokens for rid, i in srid.items()}
+    del single, sdone
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rid_of = {eng.submit(r, max_new_tokens=gen, tenant=owner[i]): i
+              for i, r in enumerate(reqs)}
+    pub = [i for i in range(len(reqs)) if owner[i] == t_pub]
+    for _ in range(64):  # until a request of the tenant decodes on step 2
+        eng.step()
+        if any(rid_of[rid] in pub for rid in eng.live_requests):
+            break
+    before = {rid_of[rid] for rid in eng.live_requests + list(
+        eng.completions())}
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    swap = AdapterWatcher(eng, t_pub, publish).poll()
+    swap_s = time.perf_counter() - ts
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - swap_s
+    pa = launch_counts()["paged_attn"]
+    st = eng.stats
+    if swap is None or swap.step != 4:
+        raise RuntimeError(f"the hot swap did not install step 4: {swap}")
+    if eng.adapter_crcs(t_pub) != manifest_crcs(publish, 4):
+        raise RuntimeError("the swapped adapter's crcs differ from step 4's "
+                           "manifest")
+    if pa != cfg.num_layers * st["serve_steps"]:
+        raise RuntimeError(f"LoRA serving: paged_attn launched {pa} times "
+                           f"for {st['serve_steps']} serve_steps of "
+                           f"{cfg.num_layers} layers")
+    if len(eng.adapter_storages) != 1:
+        raise RuntimeError(f"the adapter buffer moved: "
+                           f"{len(eng.adapter_storages)} storages")
+    mixed = {i: done[rid].tokens for rid, i in rid_of.items()}
+    v2 = load_checkpoint(publish, 4, {"lora": eng.adapter_template()},
+                         verify=True)["lora"]
+    base_idx = [i for i in mixed if owner[i] == t_base]
+    diff = [i for i in base_idx if single_tokens[i] != mixed[i]]
+    if diff:
+        raise RuntimeError(f"LoRA serving base: requests {diff} mixed != "
+                           f"the single-model engine's")
+    groups = {"step2_inflight": ([i for i in pub if i in before], v1),
+              "step4_after_swap": ([i for i in pub if i not in before], v2),
+              "seeded": ([i for i in mixed if owner[i] == t_rand], other)}
+    t1 = time.perf_counter()
+    alone_eq = {"base": len(base_idx)}
+    for label, (idx, ad) in groups.items():
+        if not idx:
+            raise RuntimeError(f"LoRA serving: no request in {label}")
+        alone = tenant_tokens(torch, model, base, reqs, idx, ad, gen=gen,
+                              slots=slots, cache_len=cache_len,
+                              page_len=page_len)
+        alone_eq[label] = len(idx)
+        diff = [i for i in idx if alone[i] != mixed[i]]
+        if diff:
+            raise RuntimeError(f"LoRA serving {label}: requests {diff} "
+                               f"mixed != alone")
+    alone_s = time.perf_counter() - t1
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "lora_service_serve", "gpu": gpu, "arch": cfg.name,
+          "depth_cut": {"num_layers": LORA_DEPTH, "of": 36},
+          "lora_rank": LORA_RANK, "published_steps": published,
+          "published_epsilon": eps, "train_s": train_s,
+          "train_launches": train_launches,
+          "tenants": {"base": len(base_idx),
+                      "published": len(pub),
+                      "seeded": len(groups["seeded"][0])},
+          "swap": {"step": swap.step, "version": swap.version,
+                   "inflight_requests": len(groups["step2_inflight"][0])},
+          "crcs_equal_manifest": True, "alone_equal_mixed": alone_eq,
+          "serve_wall_s": wall, "swap_s": swap_s, "alone_s": alone_s,
+          "ms_per_serve_step": 1e3 * wall / st["serve_steps"],
+          "serve_steps": st["serve_steps"], "paged_attn": pa,
+          "single_model": {"serve_wall_s": single_wall,
+                           "ms_per_serve_step":
+                               1e3 * single_wall / single_steps,
+                           "serve_steps": single_steps,
+                           "paged_attn": single_pa},
+          "adapter_bytes": eng.adapter_bytes(),
+          "adapter_storages": len(eng.adapter_storages),
+          "stats": st})
+    del eng, base, model, runtime
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train_launches, pa
+
+
+def service_meta_eps(directory, step):
+    from repro_torch.checkpoint.store import load_manifest
+    return load_manifest(directory, step)["meta"]["epsilon"]
+
+
+def lora_mla_tenants(torch, gpu):
+    """(e): deepseek-v3 at full width, its MLA_TRAIN_DEPTH dense layers,
+    rank-8 adapters on kv_b and o: LORA_MLA_REQ's requests round-robin
+    over the base and two seeded adapters, then each tenant alone. Gates:
+    mixed equals alone (the base tenant the single-model engine), through
+    paged_attn's latent branch once a layer a serve_step. Returns the
+    paged_attn launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH),
+                              num_layers=MLA_TRAIN_DEPTH,
+                              lora_rank=LORA_RANK)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    base = {k: v for k, v in params.items() if k != "lora"}
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    r = LORA_MLA_REQ
+    reqs = serve.build_requests(cfg.vocab_size, r["n_req"],
+                                min_len=r["min_len"], max_len=r["max_len"],
+                                shared_prefix=r["prefix"], seed=0)
+    cache_len = -(-(r["prefix"] + r["max_len"] + r["gen"] + 8)
+                  // r["page_len"]) * r["page_len"]
+    kw = dict(gen=r["gen"], slots=r["slots"], cache_len=cache_len,
+              page_len=r["page_len"])
+    ads = [lora_adapter(torch, model.spec["lora"], seed=s) for s in (7, 8)]
+    eng = DecodeEngine(model, base, num_slots=r["slots"],
+                       cache_len=cache_len, page_len=r["page_len"],
+                       max_tenants=3)
+    tids = (eng.add_tenant(), eng.add_tenant(ads[0]), eng.add_tenant(ads[1]))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rid_of = {eng.submit(q, max_new_tokens=r["gen"], tenant=tids[i % 3]): i
+              for i, q in enumerate(reqs)}
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pa = launch_counts()["paged_attn"]
+    st = eng.stats
+    if pa != cfg.num_layers * st["serve_steps"]:
+        raise RuntimeError(f"MLA tenants: paged_attn launched {pa} times for "
+                           f"{st['serve_steps']} serve_steps")
+    mixed = {i: done[rid].tokens for rid, i in rid_of.items()}
+    for k, ad in enumerate((None,) + tuple(ads)):
+        idx = [i for i in mixed if i % 3 == k]
+        alone = tenant_tokens(torch, model, base, reqs, idx, ad,
+                              single=ad is None, **kw)
+        diff = [i for i in idx if alone[i] != mixed[i]]
+        if diff:
+            raise RuntimeError(f"MLA tenant {k}: requests {diff} mixed != "
+                               f"alone")
+    emit({"phase": "lora_mla_tenants", "gpu": gpu, "arch": cfg.name,
+          "depth_cut": {"num_layers": MLA_TRAIN_DEPTH, "of": 61},
+          "lora_rank": LORA_RANK, "init_params_s": init_s,
+          "requests": r["n_req"], "slots": r["slots"], "tenants": 3,
+          "alone_equal_mixed": True, "serve_wall_s": wall,
+          "ms_per_serve_step": 1e3 * wall / st["serve_steps"],
+          "serve_steps": st["serve_steps"], "paged_attn": pa,
+          "adapter_bytes": eng.adapter_bytes(),
+          "adapter_storages": len(eng.adapter_storages),
+          "first_tokens": {str(k): mixed[k][:4] for k in range(3)}})
+    del eng, base, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pa
+
+
+def phase_lora(torch, gpu, qwen_ms):
+    """Phase 17. Returns (training kernels' launches over (a) and (d),
+    paged_attn's over (d) and (e), name -> the kernels line's LoRA
+    block)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    launches, caps, sc_caps = lora_train(torch, gpu, qwen_ms)
+    parts = {"train": time.perf_counter() - t0}
+    t = time.perf_counter()
+    blocks = lora_kernels(torch, gpu, caps, sc_caps,
+                          get_config("qwen3-4b").num_layers)
+    del caps, sc_caps
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lora_cuda_vs_cpu(torch, gpu)
+    parts["cuda_vs_cpu"] = time.perf_counter() - t
+    t = time.perf_counter()
+    svc_launches, pa = lora_service_serve(torch, gpu)
+    parts["service_serve"] = time.perf_counter() - t
+    for k in launches:
+        launches[k] += svc_launches[k]
+    t = time.perf_counter()
+    pa += lora_mla_tenants(torch, gpu)
+    parts["mla_tenants"] = time.perf_counter() - t
+    emit({"phase": "lora", "gpu": gpu, "seconds": parts,
+          "phase_s": time.perf_counter() - t0, "launches": launches,
+          "paged_attn": pa})
+    return launches, pa, blocks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3899,6 +4586,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     s_launches, sharded = phase_sharded(torch, gpu)
     clock("sharded training")
+    # phase 17: DP-LoRA training, the kernels at the adapters' shapes,
+    # the service's publish, multi-tenant serving with a hot swap
+    gc.collect()
+    torch.cuda.empty_cache()
+    l_launches, l_paged, lora = phase_lora(torch, gpu, qwen_ms)
+    kernel["launches"] += l_paged
+    clock("dp-lora")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's, the
     # T = 4096 path's, deepseek-v3's and granite's BK epilogue's times
@@ -3906,11 +4600,11 @@ def main() -> int:
     for k in train_kernels + [fused]:
         k["launches"] = sum(run[k["name"]] for run in (
             train_launches, moe_launches, scale_launches, service_launches,
-            mm_launches, d_train_launches, s_launches))
+            mm_launches, d_train_launches, s_launches, l_launches))
         for key, extra in (("moe", moe), ("naive_flat", naive),
                            ("long_context", long), ("mla_train", mla),
                            ("moe_bk", moe_bk), ("dense_train", dense),
-                           ("sharded", sharded)):
+                           ("sharded", sharded), ("lora", lora)):
             if k["name"] in extra:
                 k[key] = extra[k["name"]]
                 for err in ("max_abs_err", "max_rel_err"):

@@ -62,8 +62,7 @@ from repro_torch.core.spec import GroupLayout, P, tree_leaves
 from repro_torch.kernels import backend
 
 # recipe kinds of the reference that no ported primitive records yet
-_NOT_PORTED = {"linear_blocked": "A.16", "shift": "A.8", "broadcast": "A.8",
-               "lora": "A.10"}
+_NOT_PORTED = {"linear_blocked": "A.16", "shift": "A.8", "broadcast": "A.8"}
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +133,7 @@ def stash(channel: BkChannel, **values: torch.Tensor) -> None:
 class Recipe:
     """What one DP-primitive call site stashes for one clipping group."""
 
-    kind: str  # linear | embed | scale | expert | expert_grouped
+    kind: str  # linear | lora | embed | scale | expert | expert_grouped
     c_ndim: int  # rank of the PER-CALL threshold (after unbinding)
     sinks: dict  # sink name -> (per-call shape, dtype)
     extras: dict  # kind-specific statics (vocab)
@@ -181,6 +180,18 @@ def record_linear(c: BkChannel, w, x) -> None:
     gdt = torch.result_type(x, w)
     _record(c, "linear", {"a": ((bsz, tf, din), x.dtype),
                           "g": ((bsz, tf, dout), gdt)})
+
+
+def record_lora(c: BkChannel, a, b, x) -> None:
+    """An adapter pair (`core.lora.dp_lora_linear`): leaf `a` contracts
+    (x, s g Bᵀ), leaf `b` (x A, s g)."""
+    bsz, tf = x.shape[0], _tfold(x)
+    din, r, dout = a.shape[-2], a.shape[-1], b.shape[-1]
+    gdt = torch.result_type(x, b)
+    _record(c, "lora", {"a1": ((bsz, tf, din), x.dtype),
+                        "g1": ((bsz, tf, r), gdt),
+                        "a2": ((bsz, tf, r), x.dtype),
+                        "g2": ((bsz, tf, dout), gdt)})
 
 
 def record_embed(c: BkChannel, table, ids) -> None:
@@ -314,6 +325,13 @@ def _leaf_grad(layout: GroupLayout, recipes, residuals, f_rows, node: P,
     f = f_rows[grp.offset: grp.offset + grp.count].reshape(
         grp.stack_shape + (bsz,)).float()
     per_elem = len(node.shape) - node.stack  # leaf rank below the stack
+
+    if r.kind == "lora":
+        # the adapter pair: leaf 'a' <- (x, s g Bᵀ), leaf 'b' <- (x A, s g)
+        a_s, g_s = ("a1", "g1") if path[-1] == "a" else ("a2", "g2")
+        dw = eng.scale_contract(_fold(sink[a_s], 3), _fold(sink[g_s], 3),
+                                _fold(f, 1))
+        return dw.reshape(node.shape).to(node.dtype)
 
     if r.kind == "linear":
         g4, f2 = _fold(sink["g"], 3), _fold(f, 1)

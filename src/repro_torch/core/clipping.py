@@ -61,7 +61,13 @@ drivers on every rank of a `launch.mesh.Mesh`: per-device clipping with
 shard-local norms, ghost_flat's one norm all-reduce, and the BK
 epilogue's interleaved gradient all-reduces.
 
-DP-LoRA (`trainable_key`) is ROADMAP A.10.
+DP-LoRA (`trainable_key`): only `params[trainable_key]` trains (the
+adapters, `core.lora`), and the layout's spec is that subtree. Every
+mode then runs on the rest of the tree detached, so a frozen linear's
+backward passes dx only: no ghost norm, no weight gradient, and the
+clipped grads come back as `{trainable_key: ...}`. BK applies when the
+layout covers exactly the trainable subtree, as in the reference; the
+sharded driver does not take it yet (ROADMAP A.18).
 """
 from __future__ import annotations
 
@@ -134,21 +140,42 @@ def supergroup_norms(norms_sq: torch.Tensor, assignment: torch.Tensor,
     return segment_sum(norms_sq, assignment, num_supergroups)
 
 
-def _grads_only(loss_fn, params, batch, thresholds_tree):
+def _trainable_leaves(params, trainable_key):
+    """(path, leaf) of the leaves that train: every leaf, or those of
+    `params[trainable_key]` (paths from the root either way)."""
+    if trainable_key is None:
+        return list(tree_leaves(params))
+    return list(tree_leaves(params[trainable_key], (trainable_key,)))
+
+
+def _freeze_rest(params, trainable_key):
+    """`params` with every subtree but `trainable_key` detached: a frozen
+    primitive is asked for no parameter gradient (and so computes none)."""
+    if trainable_key is None:
+        return params
+    if trainable_key not in params:
+        raise KeyError(f"trainable_key {trainable_key!r} is not a subtree "
+                       f"of the parameters ({sorted(params)})")
+    return {k: v if k == trainable_key else bk.detached(v)
+            for k, v in params.items()}
+
+
+def _grads_only(loss_fn, params, batch, thresholds_tree,
+                trainable_key=None):
     """One backward pass for the parameter gradients under thresholds that
     request no norms (+inf or direct scales)."""
-    paths, leaves = zip(*tree_leaves(params))
+    paths, leaves = zip(*_trainable_leaves(params, trainable_key))
     val = torch.sum(loss_fn(params, batch, thresholds_tree))
     grads = bk.grad_or_zeros(val, list(leaves))
     return val.detach(), _rebuild(paths, grads)
 
 
 def _grads_and_norms(loss_fn, params, batch, layout, thresholds,
-                     batch_size):
+                     batch_size, trainable_key=None):
     """per_layer's one backward pass: (sum loss, clipped grads, (K, B)
     norms²), one `autograd.grad` over the parameter leaves AND the
     threshold leaves."""
-    paths, leaves = zip(*tree_leaves(params))
+    paths, leaves = zip(*_trainable_leaves(params, trainable_key))
     th = {k: v.requires_grad_() for k, v in
           layout.pack(thresholds.detach(), batch_size).items()}
     names = list(th)
@@ -171,14 +198,28 @@ def _norms_only(loss_fn, params, batch, layout, batch_size):
     return val.detach(), layout.unpack(dict(zip(names, norms)))
 
 
-def _norms_pass(loss_fn, params, batch, layout, batch_size, execution):
+def _bk_capture_ok(layout: GroupLayout, trainable_key) -> bool:
+    """BK's epilogue rebuilds the grads by walking the layout's spec, so
+    the spec must cover exactly the trainable tree: the whole parameter
+    tree, or the DP-LoRA `{trainable_key: ...}` sub-spec."""
+    return trainable_key is None or set(layout._spec) == {trainable_key}
+
+
+def _norms_pass(loss_fn, params, batch, layout, batch_size, execution,
+                trainable_key=None):
     """The shared first stage of ghost_flat / per_group: one backward pass
     for (sum loss, (K, B) norms²), capturing BK residuals when possible.
 
     Returns (val, norms, cap) with cap = (residuals, recipes) under BK, or
     None when running (or falling back to) the twopass execution."""
-    cap = (bk.capture_clipped(loss_fn, params, batch, layout, batch_size)
-           if execution == "bk" else None)
+    cap = None
+    if execution == "bk":
+        if _bk_capture_ok(layout, trainable_key):
+            cap = bk.capture_clipped(loss_fn, params, batch, layout,
+                                     batch_size)
+        else:
+            bk._fallback(f"the layout's spec {sorted(layout._spec)} is not "
+                         f"the trainable subtree {trainable_key!r}")
     if cap is not None:
         val, norms, residuals, recipes = cap
         return val, norms, (residuals, recipes)
@@ -228,11 +269,12 @@ def _leaf_norms_sq(g: torch.Tensor, node: P) -> torch.Tensor:
     return torch.cat(parts) if node.stack else sum(parts)
 
 
-def _per_example_grads(loss_fn, params, batch, layout, batch_size):
+def _per_example_grads(loss_fn, params, batch, layout, batch_size,
+                       trainable_key=None):
     """(mean loss, [example b's gradient tree for b < B]): the rows of
     the (B,) loss vector's Jacobian in the parameters' dtype, by one
     forward with +inf thresholds and one backward per example."""
-    paths, leaves = zip(*tree_leaves(params))
+    paths, leaves = zip(*_trainable_leaves(params, trainable_key))
     dev = leaves[0].device
     th = layout.pack_value(float("inf"), batch_size, device=dev)
     losses = loss_fn(params, batch, th)
@@ -283,22 +325,22 @@ def dp_clipped_gradients(loss_fn: LossFn, params: Any, batch: Any,
     of ghost_flat and naive_flat; group_assignment: (K,) ints and
     group_thresholds: (G,) for per_group; execution: bk | twopass for
     ghost_flat / per_group. The norms of non_private are zeros (it never
-    computes them). `trainable_key` (DP-LoRA) is not ported yet."""
+    computes them). trainable_key: train `params[trainable_key]` only
+    (DP-LoRA: the layout's spec is that subtree, the rest runs detached,
+    and the grads come back as `{trainable_key: ...}`)."""
     check_mode(mode)
-    if trainable_key is not None:
-        raise NotImplementedError(
-            "training a parameter subtree (trainable_key, DP-LoRA) is not "
-            "ported yet: ROADMAP.md item A.10")
     if execution not in EXECUTIONS:
         raise ValueError(f"execution {execution!r} not in {EXECUTIONS}")
     if mode.endswith("_twopass"):
         mode, execution = base_mode(mode), "twopass"
+    params = _freeze_rest(params, trainable_key)
+    tk = trainable_key
     paths, leaves = zip(*tree_leaves(params))
     dev = leaves[0].device
 
     if mode == "non_private":
         th = layout.pack_value(float("inf"), batch_size, device=dev)
-        val, grads = _grads_only(loss_fn, params, batch, th)
+        val, grads = _grads_only(loss_fn, params, batch, th, tk)
         norms = torch.zeros((layout.num_groups, batch_size),
                             dtype=torch.float32, device=dev)
         return ClipResult(grads, norms, val / batch_size)
@@ -307,12 +349,12 @@ def dp_clipped_gradients(loss_fn: LossFn, params: Any, batch: Any,
         if thresholds is None:
             raise ValueError("per_layer mode needs thresholds (K,)")
         val, grads, norms = _grads_and_norms(loss_fn, params, batch, layout,
-                                             thresholds, batch_size)
+                                             thresholds, batch_size, tk)
         return ClipResult(grads, norms, val / batch_size)
 
     if mode == "naive_flat":  # the materialising oracle
         loss, jac = _per_example_grads(loss_fn, params, batch, layout,
-                                       batch_size)
+                                       batch_size, tk)
         norms = _naive_group_norms(layout, jac)
         f = flat_clip_factors(torch.sum(norms, dim=0), flat_threshold)
         return ClipResult(_naive_contract(layout, jac, f), norms, loss)
@@ -322,7 +364,7 @@ def dp_clipped_gradients(loss_fn: LossFn, params: Any, batch: Any,
         raise ValueError("per_group mode needs group_assignment + "
                          "group_thresholds")
     val, norms, cap = _norms_pass(loss_fn, params, batch, layout, batch_size,
-                                  execution)
+                                  execution, tk)
     if mode == "ghost_flat":
         f = flat_clip_factors(torch.sum(norms, dim=0), flat_threshold)
         f_rows = f[None].expand(layout.num_groups, batch_size)
@@ -336,7 +378,7 @@ def dp_clipped_gradients(loss_fn: LossFn, params: Any, batch: Any,
         grads = bk.contract_clipped(layout, recipes, residuals, f_rows)
     else:  # twopass (or BK fallback): second backward, direct scales
         _, grads = _grads_only(loss_fn, params, batch,
-                               layout.pack_rows(-f_rows))
+                               layout.pack_rows(-f_rows), tk)
     return ClipResult(grads, norms, val / batch_size)
 
 
@@ -403,8 +445,8 @@ def sharded_clipped_gradients(
     check_mode(mode)
     if trainable_key is not None:
         raise NotImplementedError(
-            "training a parameter subtree (trainable_key, DP-LoRA) is not "
-            "ported yet: ROADMAP.md item A.10")
+            "training a parameter subtree (trainable_key, DP-LoRA) under "
+            "sharded execution is not ported yet: ROADMAP.md item A.18")
     if mode.endswith("_twopass"):
         mode, execution = base_mode(mode), "twopass"
     if data_axes is None:

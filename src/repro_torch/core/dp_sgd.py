@@ -26,7 +26,12 @@ the data plane, the clipping bookkeeping over the model axis
 (`core.clipping.sharded_clipped_gradients`), and the quantile update, the
 noise and the optimizer replicated: every rank draws from identically
 seeded generators, so every rank ends the step with the same bits.
-DP-LoRA is not ported yet (ROADMAP A.10).
+
+DP-LoRA (`trainable_key="lora"`): only `params["lora"]` trains. The
+noise, the clip counts, the quantile update and the optimizer (its state
+covers the adapters only) act on that subtree, and the base stays bit for
+bit as it was. Under a mesh the clipping driver refuses it (ROADMAP
+A.18).
 """
 from __future__ import annotations
 
@@ -297,14 +302,20 @@ def _grad_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _apply_update(cfg: DPConfig, optimizer, batch_size, params, opt_state,
-                  dp_state, noised, counts, thresholds, loss, count_gen):
+def _apply_update(cfg: DPConfig, optimizer, trainable_key, batch_size,
+                  params, opt_state, dp_state, noised, counts, thresholds,
+                  loss, count_gen):
     """Post-clipping tail: gradient averaging, the optimizer update (in
-    place on `params`), the private quantile update, metrics. `noised`
-    is the (noised) SUMMED clipped gradient, averaged here in place."""
+    place on `params`, or on `params[trainable_key]`), the private
+    quantile update, metrics. `noised` is the (noised) SUMMED clipped
+    gradient, averaged here in place."""
+    if trainable_key is not None:
+        noised = noised[trainable_key]
     for _, g in tree_leaves(noised):
         g.div_(batch_size)
-    new_opt_state = optimizer.update(noised, opt_state, params)
+    new_opt_state = optimizer.update(
+        noised, opt_state,
+        params if trainable_key is None else params[trainable_key])
     qstate = dp_state.qstate
     if cfg.private and cfg.adaptive:
         qstate = update_thresholds(qstate, counts, batch_size, count_gen)
@@ -356,7 +367,8 @@ def clipped_microbatches(clip_one: Callable, batch: dict, batch_size: int,
 
 def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
                        optimizer: Any, cfg: DPConfig, *, batch_size: int,
-                       mesh: Any = None, on_clip: Callable | None = None
+                       trainable_key: str | None = None, mesh: Any = None,
+                       on_clip: Callable | None = None
                        ) -> tuple[Callable, Callable, DPPlan]:
     """Build the private training step. Returns (init_fn, step_fn, plan).
 
@@ -368,6 +380,11 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
     step_fn updates it IN PLACE and returns it. Accounting (sigma
     calibration, the Prop 3.1 split) happens here, once. Refuses a spec
     whose leaf paths crc32-collide into one noise stream.
+
+    trainable_key: train `params[trainable_key]` only (DP-LoRA's
+    `"lora"`, with the model's `dp_spec` as `spec`): the rest of the tree
+    is frozen, carried through untouched, and spends no privacy budget;
+    the optimizer state covers the subtree only.
 
     mesh: a `launch.mesh.Mesh`. The step is then this rank's part of the
     sharded step (`_make_sharded_step`): `batch` is still the GLOBAL
@@ -383,12 +400,14 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
     if mesh is not None:
         return _make_sharded_step(loss_fn, spec, layout, optimizer, cfg,
                                   batch_size=batch_size, mesh=mesh,
+                                  trainable_key=trainable_key,
                                   on_clip=on_clip)
     plan = build_plan(cfg, layout)
 
     def init_fn(params):
-        dev = next(t for _, t in tree_leaves(params)).device
-        return optimizer.init(params), init_dp_state(plan, dev)
+        tp = params if trainable_key is None else params[trainable_key]
+        dev = next(t for _, t in tree_leaves(tp)).device
+        return optimizer.init(tp), init_dp_state(plan, dev)
 
     mode = base_mode(cfg.mode)
     execution = "twopass" if cfg.mode.endswith("_twopass") else cfg.execution
@@ -408,7 +427,9 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
                       execution=execution)
         return clipped_microbatches(
             lambda mb, n: dp_clipped_gradients(loss_fn, params, mb, layout,
-                                               batch_size=n, **kw),
+                                               batch_size=n,
+                                               trainable_key=trainable_key,
+                                               **kw),
             batch, batch_size, cfg.microbatches)
 
     def step_fn(params, opt_state, dp_state, batch, seed: int):
@@ -436,8 +457,8 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
                     _layout_stds(plan, layout, thresholds, assign), seed,
                     dp_state.step))
             count_gen = generator(thresholds.device, seed, dp_state.step)
-            return _apply_update(cfg, optimizer, batch_size, params,
-                                 opt_state, dp_state, noised, counts,
+            return _apply_update(cfg, optimizer, trainable_key, batch_size,
+                                 params, opt_state, dp_state, noised, counts,
                                  thresholds, res.loss, count_gen)
 
     return init_fn, step_fn, plan
@@ -449,7 +470,8 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
 
 
 def _make_sharded_step(loss_fn, spec, layout, optimizer, cfg: DPConfig, *,
-                       batch_size: int, mesh, on_clip=None):
+                       batch_size: int, mesh, trainable_key=None,
+                       on_clip=None):
     """`make_dp_train_step` on one rank of a (data[, pod], model) mesh.
 
     See `core.clipping.sharded_clipped_gradients` for the per-mode
@@ -488,12 +510,14 @@ def _make_sharded_step(loss_fn, spec, layout, optimizer, cfg: DPConfig, *,
     lo = mesh.data_index() * b_local
 
     def init_fn(params):
-        dev = next(t for _, t in tree_leaves(params)).device
-        return optimizer.init(params), init_dp_state(plan, dev)
+        tp = params if trainable_key is None else params[trainable_key]
+        dev = next(t for _, t in tree_leaves(tp)).device
+        return optimizer.init(tp), init_dp_state(plan, dev)
 
     def one(params, batch_mb, thresholds, bsz, assign):
         kw = dict(mode=mode, batch_size=bsz, data_size=d_size, mesh=mesh,
-                  data_axes=dax, model_axis="model")
+                  data_axes=dax, model_axis="model",
+                  trainable_key=trainable_key)
         if mode == "per_layer":
             kw["thresholds"] = thresholds
         elif mode == "ghost_flat":
@@ -535,8 +559,8 @@ def _make_sharded_step(loss_fn, spec, layout, optimizer, cfg: DPConfig, *,
                     _layout_stds(plan, layout, thresholds, assign), seed,
                     dp_state.step))
             count_gen = generator(thresholds.device, seed, dp_state.step)
-            return _apply_update(cfg, optimizer, batch_size, params,
-                                 opt_state, dp_state, noised, counts,
+            return _apply_update(cfg, optimizer, trainable_key, batch_size,
+                                 params, opt_state, dp_state, noised, counts,
                                  thresholds, res.loss, count_gen)
 
     return init_fn, step_fn, plan

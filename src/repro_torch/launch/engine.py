@@ -1,8 +1,7 @@
 """Continuous-batching decode engine over a fixed slot pool.
 
-The counterpart of `repro.launch.engine.DecodeEngine` without the
-multi-tenant plane (ROADMAP.md A.10). Three device operations, none of
-whose shapes depend on the traffic:
+The counterpart of `repro.launch.engine.DecodeEngine`. Three device
+operations, none of whose shapes depend on the traffic:
 
   admission  chunked prefill: a Python loop over `prefill_chunk` prompt
       positions per dispatch, calling `serve_step` once per position.
@@ -44,6 +43,43 @@ the reference engine on the same parameters, up to argmax ties.
     engine = DecodeEngine(model, params, num_slots=8, cache_len=128)
     rid = engine.submit(prompt_tokens, max_new_tokens=32)
     done = engine.run()          # {rid: Completion}
+
+Multi-tenant serving (`max_tenants=T`): one frozen base model and many
+privately fine-tuned DP-LoRA adapters (the paper's Sec. 5.3 recipe).
+The adapters of every live tenant lie in ONE tenant-stacked buffer per
+leaf, (n, T, ...), allocated once (`core.lora.stacked_adapter_zeros`);
+each pool slot carries an int adapter-slot id, and every dispatch applies
+each row's own adapter (`core.lora.stacked_lora_delta`). The ids and the
+buffer are data: onboarding a tenant, hot-swapping an adapter
+(`update_adapter`, the target of `launch.swap.AdapterWatcher`) and
+retiring a tenant are `copy_` writes into the allocated buffer and host
+table updates, and `serve_step` is given the same adapter storage
+throughout (`adapter_storages` records it, after each write into the
+buffer: the counterpart of the reference's `trace_counts`). The rows' slot
+ids are a (num_slots,) tensor made anew at each admission, so a CUDA graph
+of the step would need them written in place first. It works on both
+planes.
+
+  * `add_tenant` fills a free adapter slot; when all T are held the
+    tenant WAITS (FIFO) and its requests hold the queue until a slot
+    frees (`adapter_slot_deferrals`).
+  * `update_adapter` is blue/green: with requests of the tenant in
+    flight, the new version lands in a spare slot and only new admissions
+    route to it; the old slot drains with its requests (each keeps its
+    version to the last token) and frees at the last retirement. With no
+    spare slot, or nothing in flight, the write is in place.
+  * `remove_tenant` refuses new submits, drains the tenant's queued and
+    in-flight requests, then recycles its slot to the waiters.
+
+Prefix sharing on the paged plane is namespaced by (tenant, adapter
+version): the KV bytes depend on the adapter, so a prefix never crosses
+tenants or survives a swap.
+
+    eng = DecodeEngine(model, base_params, num_slots=8, cache_len=128,
+                       max_tenants=4)
+    alice = eng.add_tenant(adapter_tree, name="alice")
+    rid = eng.submit(prompt_tokens, max_new_tokens=32, tenant=alice)
+    eng.update_adapter(alice, new_tree)   # hot swap, in place
 """
 from __future__ import annotations
 
@@ -54,6 +90,9 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import leaf_crc32, tree_flatten
+from repro_torch.core.lora import (stacked_adapter_zeros,
+                                   stacked_slot_update)
 from repro_torch.launch.pages import PagePool, PrefixStore, pages_needed
 
 
@@ -97,13 +136,22 @@ class DecodeEngine:
         "admission_deferrals": "admissions deferred because the page pool "
                                "could not cover the request's full "
                                "reservation (FIFO: the head blocks)",
+        "tenants_admitted": "tenants granted an adapter slot (multi-"
+                            "tenant mode)",
+        "adapter_swaps": "hot swaps installed via update_adapter "
+                         "(blue/green or in-place)",
+        "adapter_slot_deferrals": "admissions deferred because the "
+                                  "request's tenant is still waiting for "
+                                  "an adapter slot (FIFO, like page "
+                                  "reservation deferral)",
     }
 
     def __init__(self, model, params, *, num_slots: int, cache_len: int,
                  prefill_chunk: int = 8, eos_id: int | None = None,
                  paging: str = "auto", page_len: int = 16,
                  num_pages: int | None = None, host_spill: bool = True,
-                 prefill_skew_chunks: int = 1, on_token=None):
+                 prefill_skew_chunks: int = 1, on_token=None,
+                 max_tenants: int | None = None):
         """num_slots: pool width S, the batch of every dispatch.
         cache_len: per-slot logical context horizon in tokens, a multiple
         of page_len for the paged plane. prefill_chunk: prompt positions
@@ -114,6 +162,12 @@ class DecodeEngine:
         chunks. on_token: None, or a callable (rid, token, logits) called
         as each token is emitted, with the (V,) device row of logits the
         token is the argmax of (a view, valid until the next dispatch).
+        max_tenants: None serves the single model in `params`; an int T
+        is multi-tenant mode (module doc): the model must be built with
+        `lora_rank > 0` (its adapter spec sizes the tenant-stacked
+        buffer), `params` holds the frozen base, and every `submit`
+        names a tenant of `add_tenant`. T bounds the adapters resident at
+        once, not the tenants ever onboarded.
         The engine runs on the device of `params`."""
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
@@ -187,6 +241,43 @@ class DecodeEngine:
         # the host, so these include the device time
         self.seconds = {"prefill": 0.0, "decode": 0.0}
 
+        # ---- multi-tenant adapter plane ----
+        self.multi_tenant = max_tenants is not None
+        # per pool slot: the adapter-slot id riding every dispatch, the
+        # owning tenant and its prefix namespace
+        self._tid = np.zeros((num_slots,), np.int32)
+        # its device copy, refreshed at admission (a host-to-device copy
+        # every serve_step would wait for the device each time)
+        self._tid_dev = torch.as_tensor(self._tid, device=self.device)
+        self._slot_tid = np.full((num_slots,), -1, np.int64)
+        self._slot_ns: list[bytes] = [b""] * num_slots
+        # the distinct adapter storages (each leaf's data_ptr and shape)
+        # serve_step is given, recorded where the buffer is written: one
+        # entry for the life of an engine
+        self.adapter_storages: set = set()
+        self._serve_params = params
+        self.max_tenants = None
+        if self.multi_tenant:
+            if max_tenants < 1:
+                raise ValueError("max_tenants must be >= 1")
+            spec_lora = model.spec.get("lora")
+            if not spec_lora:
+                raise ValueError(
+                    "multi-tenant serving needs a model built with "
+                    "lora_rank > 0 (the adapter spec sizes the "
+                    "tenant-stacked buffer)")
+            self.max_tenants = int(max_tenants)
+            self._adapters = stacked_adapter_zeros(
+                spec_lora, self.max_tenants, device=self.device)
+            self._tenants: dict[int, dict] = {}
+            self._next_tid = 0
+            self._aslot_free: list[int] = list(range(self.max_tenants))
+            self._aslot_rc = np.zeros((self.max_tenants,), np.int64)
+            self._draining: set[int] = set()
+            self._waiting: collections.deque = collections.deque()
+            self._serve_params = {**params, "lora_stack": self._adapters}
+            self._record_storage()
+
     # ------------------------------------------------------------------
     # Public surface.
     # ------------------------------------------------------------------
@@ -198,9 +289,29 @@ class DecodeEngine:
         return int(sum(v.numel() * v.element_size()
                        for v in self.cache.values()))
 
-    def submit(self, prompt, max_new_tokens: int) -> int:
+    @property
+    def num_pending(self) -> int:
+        return len(self._queue)
+
+    @property
+    def num_live(self) -> int:
+        return int(self._live.sum())
+
+    @property
+    def live_requests(self) -> list[int]:
+        """Ids of the requests decoding in the pool now (admitted, not
+        retired)."""
+        return [int(r) for r in self._rid[self._live]]
+
+    def completions(self) -> dict[int, Completion]:
+        return dict(self._done)
+
+    def submit(self, prompt, max_new_tokens: int,
+               tenant: int | None = None) -> int:
         """Enqueue one request (1-D int token ids, >= 1 token); admitted
-        into a free slot at the next `step()` (FIFO). Returns its id."""
+        into a free slot at the next `step()` (FIFO). Returns its id.
+        tenant: required in multi-tenant mode (an `add_tenant` id that is
+        not retiring), refused otherwise."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError(
@@ -217,10 +328,202 @@ class DecodeEngine:
                 raise ValueError(
                     f"request needs {need} pages but the page pool holds "
                     f"only num_pages={self.num_pages}")
+        if self.multi_tenant:
+            t = self._tenant(tenant)
+            if t["retiring"]:
+                raise ValueError(f"tenant {tenant} is retiring: no new "
+                                 f"requests accepted")
+            t["queued"] += 1
+            t["stats"]["requests_submitted"] += 1
+        elif tenant is not None:
+            raise ValueError("tenant= requires a multi-tenant engine "
+                             "(max_tenants=)")
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append((rid, prompt, int(max_new_tokens)))
+        self._queue.append((rid, prompt, int(max_new_tokens), tenant))
         return rid
+
+    # ------------------------------------------------------------------
+    # Multi-tenant surface.
+    # ------------------------------------------------------------------
+
+    @property
+    def num_free_adapter_slots(self) -> int:
+        """Adapter slots not held by a live or draining tenant version."""
+        self._require_mt()
+        return len(self._aslot_free)
+
+    def adapter_bytes(self) -> int:
+        """Device bytes held by the tenant-stacked adapter buffer."""
+        self._require_mt()
+        return int(sum(v.numel() * v.element_size()
+                       for v in tree_flatten(self._adapters)))
+
+    def add_tenant(self, adapters=None, *, name: str | None = None) -> int:
+        """Onboard a tenant; returns its id (stable for its lifetime,
+        independent of adapter slots). adapters: the tenant's trained
+        adapter tree (the `lora` subtree of a fine-tune, leaves (n, d_in,
+        r) / (n, r, d_out) as `adapter_template()`), or None for the base
+        model. With a free adapter slot it is installed at once (a copy
+        into the buffer); otherwise the tenant WAITS, FIFO, and its
+        requests hold the queue until a retiring tenant's slot frees."""
+        self._require_mt()
+        tid = self._next_tid
+        self._next_tid += 1
+        self._tenants[tid] = {
+            "tid": tid, "name": name or f"tenant-{tid}", "aslot": None,
+            "version": 0, "retiring": False, "removed": False,
+            "queued": 0, "inflight": 0, "pending_tree": adapters,
+            "stats": {"requests_submitted": 0, "requests_done": 0,
+                      "tokens_out": 0, "swaps": 0}}
+        self._waiting.append(tid)
+        self._assign_adapter_slots()
+        return tid
+
+    def update_adapter(self, tid: int, adapters) -> None:
+        """Hot-swap a tenant's adapter (`launch.swap` calls it with a
+        published, crc-verified tree). Blue/green: while the tenant has
+        requests in flight on the old version, the new one goes into a
+        SPARE adapter slot and only new admissions route to it; the old
+        slot drains and frees at its last request's retirement. With no
+        request in flight (or no spare slot) the write is in place. Either
+        way it is a copy into the allocated buffer, and the paged prefix
+        namespace rolls over with the version."""
+        t = self._tenant(tid)
+        if t["retiring"]:
+            raise ValueError(f"tenant {tid} is retiring: cannot swap")
+        if t["aslot"] is None:
+            t["pending_tree"] = adapters  # not installed yet: restage
+        elif self._aslot_rc[t["aslot"]] > 0 and self._aslot_free:
+            old = t["aslot"]
+            new = self._aslot_free.pop(0)
+            stacked_slot_update(self._adapters, new, adapters)
+            t["aslot"] = new
+            self._draining.add(old)  # frees when its last request retires
+        else:
+            stacked_slot_update(self._adapters, t["aslot"], adapters)
+        self._record_storage()
+        t["version"] += 1
+        t["stats"]["swaps"] += 1
+        self.stats["adapter_swaps"] += 1
+
+    def remove_tenant(self, tid: int) -> None:
+        """Retire a tenant: new submits are refused at once; its queued
+        and in-flight requests drain on its current version, and its
+        adapter slot returns to the free list (waking FIFO waiters) at
+        the last one's retirement. Idempotent."""
+        t = self._tenant(tid, allow_removed=True)
+        if t["retiring"]:
+            return
+        t["retiring"] = True
+        self._maybe_release(tid)
+
+    def tenant_stats(self, tid: int) -> dict:
+        """Per-tenant counters (requests_submitted, requests_done,
+        tokens_out, swaps) and lifecycle: state ('waiting' | 'active' |
+        'retiring' | 'removed'), version, adapter_slot, queued, inflight,
+        name."""
+        t = self._tenant(tid, allow_removed=True)
+        state = ("removed" if t["removed"] else
+                 "retiring" if t["retiring"] else
+                 "active" if t["aslot"] is not None else "waiting")
+        return dict(t["stats"], state=state, version=t["version"],
+                    adapter_slot=t["aslot"], queued=t["queued"],
+                    inflight=t["inflight"], name=t["name"])
+
+    def tenants(self) -> list[int]:
+        """Ids of the tenants not removed yet, in onboarding order."""
+        self._require_mt()
+        return [tid for tid, t in self._tenants.items() if not t["removed"]]
+
+    def adapter_template(self) -> dict:
+        """A zero per-tenant adapter tree on the engine's device, leaves
+        (n, ...) (the stacked buffer without the tenant axis): the
+        `load_checkpoint` template of a published adapter (`launch.swap`).
+        Its leaves flatten in the published manifest's order."""
+        self._require_mt()
+
+        def zeros(tree):
+            if isinstance(tree, dict):
+                return {k: zeros(v) for k, v in tree.items()}
+            return torch.zeros(tree.shape[:1] + tree.shape[2:],
+                               dtype=tree.dtype, device=tree.device)
+
+        return zeros(self._adapters)
+
+    def adapter_crcs(self, tid: int) -> list[int]:
+        """crc32 of every adapter leaf INSTALLED on the device for `tid`,
+        in flatten order, over the raw bytes a checkpoint manifest
+        checksums: the bitwise check of a hot swap, read back from the
+        live buffer (`launch.swap` compares it with the manifest)."""
+        t = self._tenant(tid)
+        if t["aslot"] is None:
+            raise ValueError(f"tenant {tid} has no installed adapter yet")
+        return [leaf_crc32(leaf[:, t["aslot"]])
+                for leaf in tree_flatten(self._adapters)]
+
+    def _require_mt(self):
+        if not self.multi_tenant:
+            raise ValueError("this engine was built single-model; pass "
+                             "max_tenants= for multi-tenant serving")
+
+    def _tenant(self, tid, allow_removed: bool = False) -> dict:
+        self._require_mt()
+        t = self._tenants.get(tid)
+        if t is None:
+            raise ValueError(f"unknown tenant id {tid!r}")
+        if t["removed"] and not allow_removed:
+            raise ValueError(f"tenant {tid} was removed")
+        return t
+
+    def _assign_adapter_slots(self) -> None:
+        """FIFO: hand freed adapter slots to waiting tenants."""
+        while self._waiting and self._aslot_free:
+            tid = self._waiting.popleft()
+            t = self._tenants[tid]
+            if t["removed"] or t["aslot"] is not None:
+                continue
+            aslot = self._aslot_free.pop(0)
+            stacked_slot_update(self._adapters, aslot,
+                                t.pop("pending_tree", None))
+            self._record_storage()
+            t["aslot"] = aslot
+            self.stats["tenants_admitted"] += 1
+
+    def _maybe_release(self, tid: int) -> None:
+        """A retiring tenant with nothing queued or in flight: recycle."""
+        t = self._tenants[tid]
+        if (not t["retiring"] or t["removed"] or t["queued"]
+                or t["inflight"]):
+            return
+        t["removed"] = True
+        if t["aslot"] is not None:
+            # inflight == 0: no pool slot pins this adapter slot
+            self._aslot_free.append(t["aslot"])
+            t["aslot"] = None
+        self._assign_adapter_slots()
+
+    def _prefix_ns(self, tid) -> bytes:
+        """Prefix-store namespace: KV that depends on an adapter never
+        crosses a tenant or an adapter version."""
+        if not self.multi_tenant:
+            return b""
+        t = self._tenants[tid]
+        return f"{tid}:{t['version']}|".encode()
+
+    def _record_storage(self) -> None:
+        """Note the adapter buffer's storage after a write into it."""
+        self.adapter_storages.add(tuple(
+            (t.data_ptr(), tuple(t.shape))
+            for t in tree_flatten(self._adapters)))
+
+    def _serve(self, token, active):
+        """One serve_step over the pool (with the rows' adapter-slot ids
+        in multi-tenant mode)."""
+        batch = {"token": token, "active": active}
+        if self.multi_tenant:
+            batch["tenant"] = self._tid_dev
+        return self.model.serve_step(self._serve_params, self.cache, batch)
 
     def step(self) -> int:
         """Admit whatever fits into free slots (chunked prefill), then one
@@ -233,8 +536,7 @@ class DecodeEngine:
         t0 = time.perf_counter()
         tok = torch.as_tensor(self._tok, device=self.device)
         live = torch.as_tensor(self._live, device=self.device)
-        logits, self.cache = self.model.serve_step(
-            self.params, self.cache, {"token": tok[:, None], "active": live})
+        logits, self.cache = self._serve(tok[:, None], live)
         nxt = torch.argmax(logits.float(), dim=-1).to(torch.int32)
         nxt = torch.where(live, nxt, tok).cpu().numpy()
         self.seconds["decode"] += time.perf_counter() - t0
@@ -251,7 +553,11 @@ class DecodeEngine:
         """Drive until the queue and the pool drain, or until `max_steps`
         pool steps; returns the completions so far (keyed by request id).
         An unbounded run raises RuntimeError if the queue head can never
-        be admitted."""
+        be admitted (a tenant waiting for an adapter slot no drain will
+        free, or a page reservation nothing live can release); a bounded
+        run returns at `max_steps` instead, which is how a caller pumps
+        the pool while waiting on an external action (a `remove_tenant`,
+        a hot swap)."""
         steps = 0
         while self._queue or self._live.any():
             if max_steps is not None and steps >= max_steps:
@@ -264,8 +570,9 @@ class DecodeEngine:
                     and len(self._queue) == before and self._queue):
                 raise RuntimeError(
                     f"engine stalled with {len(self._queue)} queued "
-                    f"request(s) and no live slots: the queue head's page "
-                    f"reservation cannot be satisfied")
+                    f"request(s) and no live slots: the queue head cannot "
+                    f"be admitted (waiting tenant without a free adapter "
+                    f"slot, or an unsatisfiable page reservation)")
         return dict(self._done)
 
     # ------------------------------------------------------------------
@@ -340,14 +647,21 @@ class DecodeEngine:
         """Move queued requests into free slots (FIFO, a blocked request
         blocks everything behind it): recycle the slots, then
         length-masked chunked prefill of all admitted slots together.
-        Gates: the skew cap and, on the paged plane, the page
-        reservation."""
+        Gates: the skew cap, on the paged plane the page reservation, and
+        in multi-tenant mode the tenant's adapter slot (a tenant still
+        waiting for one defers its request, FIFO)."""
         free = [s for s in range(self.num_slots) if not self._live[s]]
         batch = []  # (slot, rid, prompt, tail, max_new)
         ch_lo = ch_hi = 0
         while free and self._queue:
-            rid, prompt, max_new = self._queue[0]
-            hit = self._prefix.probe(prompt) if self.paged else None
+            rid, prompt, max_new, tenant = self._queue[0]
+            ns = self._prefix_ns(tenant)
+            if self.multi_tenant:
+                t = self._tenants[tenant]
+                if t["aslot"] is None:
+                    self.stats["adapter_slot_deferrals"] += 1
+                    break
+            hit = self._prefix.probe(prompt, ns) if self.paged else None
             j = hit[1] if hit is not None else 0
             ch = -(-(prompt.size - j * self.page_len) // self._chunk)
             if batch:
@@ -365,6 +679,17 @@ class DecodeEngine:
                 j, row = plan
             self._queue.popleft()
             slot = free.pop(0)
+            if self.multi_tenant:
+                # pin the tenant's CURRENT adapter slot to this pool slot:
+                # a blue/green swap mid-request moves the tenant to a new
+                # slot, and this request keeps decoding on the old one
+                aslot = t["aslot"]
+                self._tid[slot] = aslot
+                self._slot_tid[slot] = tenant
+                self._aslot_rc[aslot] += 1
+                t["queued"] -= 1
+                t["inflight"] += 1
+            self._slot_ns[slot] = ns
             ch_lo, ch_hi = (ch, ch) if not batch else (min(ch_lo, ch),
                                                        max(ch_hi, ch))
             if self.paged:
@@ -382,6 +707,8 @@ class DecodeEngine:
             mask[slot] = True
         dev = self.device
         self._reset(mask)
+        if self.multi_tenant:
+            self._tid_dev = torch.as_tensor(self._tid, device=dev)
         if self.paged:  # the host table is authoritative for pt
             self.cache["pt"] = torch.as_tensor(self._table, device=dev)
 
@@ -399,9 +726,7 @@ class DecodeEngine:
         for c0 in range(0, padded, c):
             for t in range(c0, c0 + c):
                 act = valid_d[:, t]
-                logits, self.cache = self.model.serve_step(
-                    self.params, self.cache,
-                    {"token": toks_d[:, t:t + 1], "active": act})
+                logits, self.cache = self._serve(toks_d[:, t:t + 1], act)
                 last = torch.where(act[:, None], logits.float(), last)
                 self.stats["serve_steps"] += 1
             self.stats["prefill_dispatches"] += 1
@@ -421,7 +746,8 @@ class DecodeEngine:
                 j_reg = prompt.size // self.page_len
                 if j_reg:
                     self._prefix.register(prompt,
-                                          self._row_pages[slot][:j_reg])
+                                          self._row_pages[slot][:j_reg],
+                                          self._slot_ns[slot])
             # the first output token falls out of the prefill itself
             self._emit(slot, int(first[slot]), last)
         if self.paged:
@@ -456,6 +782,8 @@ class DecodeEngine:
         self._gen[slot] += 1
         self._tok[slot] = tok
         self.stats["tokens_out"] += 1
+        if self.multi_tenant:
+            self._tenants[self._slot_tid[slot]]["stats"]["tokens_out"] += 1
         if self.eos_id is not None and tok == self.eos_id:
             self._retire(slot, "eos")
         elif self._gen[slot] >= self._max[slot]:
@@ -469,6 +797,22 @@ class DecodeEngine:
         self._live[slot] = False
         self._rid[slot] = -1
         self.stats["requests_done"] += 1
+        if self.multi_tenant:
+            tid = int(self._slot_tid[slot])
+            aslot = int(self._tid[slot])
+            t = self._tenants[tid]
+            t["inflight"] -= 1
+            t["stats"]["requests_done"] += 1
+            self._aslot_rc[aslot] -= 1
+            if self._aslot_rc[aslot] == 0 and aslot in self._draining:
+                # the last request on a superseded version: its slot
+                # returns to the pool (and may wake a FIFO waiter)
+                self._draining.discard(aslot)
+                self._aslot_free.append(aslot)
+                self._assign_adapter_slots()
+            self._slot_tid[slot] = -1
+            self._maybe_release(tid)
+        self._slot_ns[slot] = b""
         if self.paged:
             # O(table) recycle: pages go back to the free list (or stay
             # alive under their prefix-registry / co-sharing references);

@@ -1,7 +1,7 @@
 """Serving: ragged-batch greedy decode and the slot-pool engine.
 
-The counterpart of `repro.launch.serve`, single tenant. Two entry points
-share the model's `serve_step`:
+The counterpart of `repro.launch.serve`. Two entry points share the
+model's `serve_step`:
 
   * `greedy_decode` / `fused_prefill`, the static-batch path on the
     contiguous plane (`--mode batch`). Prompts may be right-padded ragged
@@ -16,6 +16,14 @@ share the model's `serve_step`:
     pool (`--mode engine`, the default), on the paged plane or the
     contiguous one (`--paging auto|on|off`).
 
+Multi-tenant DP-LoRA serving (`--tenants T`, engine mode only): the model
+is built with `--lora-rank` adapters, and the engine holds T adapter
+slots; tenant i serves the i-th `--adapter-dir` (a training service's
+`<service_dir>/publish`, its newest verified publish installed at the
+start) or the base model, and the requests go round-robin over the
+tenants. `--watch` polls each directory between pool steps and hot-swaps
+a new publish into the live engine (`launch.swap.AdapterWatcher`).
+
 The parser has only the flags that work in the port; a flag of the
 reference that is not ported yet fails in argparse.
 
@@ -28,6 +36,7 @@ Add `--device cpu` (and `--reduced`) to run without a GPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -148,6 +157,23 @@ def build_serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many common system-prompt tokens "
                          "to every request")
+    ap.add_argument("--tenants", type=int, default=None,
+                    help="serve multi-tenant: the adapter-slot count of "
+                         "the tenant-stacked DP-LoRA buffer (engine mode "
+                         "only); requests round-robin over the tenants")
+    ap.add_argument("--lora-rank", type=int, default=4,
+                    help="adapter rank for multi-tenant serving (the rank "
+                         "the adapters were trained at)")
+    ap.add_argument("--adapter-dir", action="append", default=None,
+                    metavar="DIR",
+                    help="a training service's publish directory "
+                         "(<service_dir>/publish) to load a tenant's "
+                         "adapter from; repeatable, one tenant each, the "
+                         "other tenants (up to --tenants) serve the base "
+                         "model")
+    ap.add_argument("--watch", action="store_true",
+                    help="poll each --adapter-dir between pool steps and "
+                         "hot-swap new publishes into the live engine")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cuda unless asked)")
@@ -182,6 +208,39 @@ def serve_requests(model, params, reqs, *, gen: int, num_slots: int,
     return eng, eng.run()
 
 
+def serve_tenants(eng, reqs, *, gen: int, adapter_dirs=(),
+                  watch: bool = False, num_tenants: int, say=print):
+    """Multi-tenant serving on `eng` (a `DecodeEngine` with
+    `max_tenants`): `num_tenants` tenants, the i-th tracking
+    `adapter_dirs[i]` through an `AdapterWatcher` (its newest verified
+    publish installed first) or serving the base model; the requests go
+    round-robin over the tenants. With `watch` the pool runs in bursts of
+    8 steps and every watcher polls between them. Returns (tenant ids,
+    completions keyed by request id)."""
+    from repro_torch.launch.swap import AdapterWatcher
+    tids = [eng.add_tenant(name=f"tenant-{i}") for i in range(num_tenants)]
+    watchers = []
+    for tid, d in zip(tids, adapter_dirs or ()):
+        w = AdapterWatcher(eng, tid, d)
+        got = w.poll()
+        say(f"# tenant {tid} <- {d}: "
+            f"{'step ' + str(got.step) if got else 'base model'}")
+        watchers.append(w)
+    for i, r in enumerate(reqs):
+        eng.submit(r, max_new_tokens=gen, tenant=tids[i % len(tids)])
+    if not (watch and watchers):
+        return tids, eng.run()
+    # a swap lands between dispatches, never inside one
+    while eng.num_pending or eng.num_live:
+        eng.run(max_steps=8)
+        for w in watchers:
+            got = w.poll()
+            if got is not None:
+                say(f"# hot swap: tenant {got.tenant} -> step {got.step} "
+                    f"(v{got.version}, bitwise ok)")
+    return tids, eng.completions()
+
+
 def last_logits(model, params, seq, page_len: int = 16) -> torch.Tensor:
     """(V,) f32 logits after feeding the tokens `seq` one by one through a
     fresh single-slot paged cache: the per-request reference used to
@@ -206,6 +265,10 @@ def serve_params(model, seed: int, device: str):
 def main(argv=None) -> int:
     args = build_serve_parser().parse_args(argv)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.tenants is not None:
+        if args.mode != "engine":
+            raise SystemExit("--tenants requires --mode engine")
+        cfg = dataclasses.replace(cfg, lora_rank=args.lora_rank)
     model = build_model(cfg, device=args.device)
     params = serve_params(model, args.seed, args.device)
 
@@ -222,11 +285,20 @@ def main(argv=None) -> int:
             # paging needs cache_len % page_len == 0: round up
             cache_len = -(-cache_len // args.page_len) * args.page_len
         num_slots = args.batch if args.slots is None else args.slots
-        eng, done = serve_requests(model, params, reqs, gen=args.gen,
-                                   num_slots=num_slots, cache_len=cache_len,
-                                   paging=args.paging,
-                                   page_len=args.page_len,
-                                   num_pages=args.num_pages)
+        if args.tenants is None:
+            eng, done = serve_requests(
+                model, params, reqs, gen=args.gen, num_slots=num_slots,
+                cache_len=cache_len, paging=args.paging,
+                page_len=args.page_len, num_pages=args.num_pages)
+        else:
+            eng = DecodeEngine(model, params, num_slots=num_slots,
+                               cache_len=cache_len, paging=args.paging,
+                               page_len=args.page_len,
+                               num_pages=args.num_pages,
+                               max_tenants=args.tenants)
+            tids, done = serve_tenants(
+                eng, reqs, gen=args.gen, adapter_dirs=args.adapter_dir,
+                watch=args.watch, num_tenants=args.tenants)
         wall = time.perf_counter() - t0
         toks = np.full((args.batch, args.gen), -1, np.int32)
         for rid, c in done.items():
@@ -235,6 +307,14 @@ def main(argv=None) -> int:
         extra = (f"slots={eng.num_slots} dispatches={s['decode_dispatches']}"
                  f"d+{s['prefill_dispatches']}p "
                  f"paged={'yes' if eng.paged else 'no'} ")
+        if eng.multi_tenant:
+            extra += (f"tenants={len(tids)} swaps={s['adapter_swaps']} "
+                      f"adapter_storages={len(eng.adapter_storages)} ")
+            for tid in tids:
+                ts = eng.tenant_stats(tid)
+                print(f"# tenant {tid} ({ts['name']}): v{ts['version']} "
+                      f"done={ts['requests_done']} "
+                      f"tokens={ts['tokens_out']}")
         if eng.paged:
             extra += (f"pages={eng.num_pages}x{eng.page_len} "
                       f"peak_pages={s['peak_pages_in_use']} "

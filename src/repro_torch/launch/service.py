@@ -31,10 +31,18 @@ over-refusing (wasted compute):
     append and the checkpoint save retry with capped exponential backoff;
     a torn newest checkpoint falls back to the newest step that verifies.
 
-Not ported here: the adapter-only publish for live serving (LoRA, ROADMAP
-A.10) and the compile cache and autotune table of the startup (A.11).
+  * **Adapter publish** (DP-LoRA, `--lora-rank`): after each full
+    checkpoint the service writes the adapters alone, the tree
+    `{"lora": ...}` with the epsilon spent in its meta, to
+    `<service_dir>/publish`, which a serving engine's
+    `launch.swap.AdapterWatcher` polls. A run that trains no adapters
+    publishes nothing.
 
-Layout under --service-dir:  ledger.jsonl  +  ckpt/step_<N>/...
+Not ported here: the compile cache and autotune table of the startup
+(A.11).
+
+Layout under --service-dir:  ledger.jsonl  +  ckpt/step_<N>/...  (+
+publish/step_<N>/... under --lora-rank)
 
   PYTHONPATH=src python -m repro_torch.launch.service --service-dir DIR \\
       --arch qwen3-4b --steps 4 --batch 8 --seq 256 --docs 128
@@ -307,6 +315,9 @@ class TrainService:
 
         os.makedirs(args.service_dir, exist_ok=True)
         self.ckpt_dir = os.path.join(args.service_dir, "ckpt")
+        # adapter-only publishes for the serving side (launch.swap),
+        # written only when the run trains adapters
+        self.publish_dir = os.path.join(args.service_dir, "publish")
         self.ledger = PrivacyLedger(
             os.path.join(args.service_dir, "ledger.jsonl"))
 
@@ -421,10 +432,29 @@ class TrainService:
             if stage == "pre-rename":
                 self.fault.fire("pre-ckpt-rename", step)
 
-        return with_retries(
+        path = with_retries(
             lambda: save_checkpoint(self.ckpt_dir, step, self.state(),
                                     meta=meta, fault_hook=hook),
             sleep=self.sleep, describe="checkpoint save")
+        self._publish_adapter(step)
+        return path
+
+    def _publish_adapter(self, step: int) -> None:
+        """The adapter-only publish for live serving (`launch.swap` polls
+        `<service_dir>/publish`). It follows the full checkpoint, so a
+        publish never refers to training state that could be lost; the
+        tree is `{"lora": ...}`, the watcher's template, with the epsilon
+        spent in its meta. Nothing on a run that trains no adapters."""
+        if (self.runtime.model.trainable_key != "lora"
+                or "lora" not in self.params):
+            return
+        meta = {"epsilon": self.epsilon(), "delta": self.delta,
+                "source_step": step}
+        with_retries(
+            lambda: save_checkpoint(self.publish_dir, step,
+                                    {"lora": self.params["lora"]},
+                                    meta=meta),
+            sleep=self.sleep, describe="adapter publish")
 
     def run(self) -> dict:
         """Train until target_steps are committed or the budget runs out.
@@ -471,7 +501,8 @@ def build_service_parser() -> argparse.ArgumentParser:
     ap = build_train_parser(
         mesh=False, description="crash-safe online DP training service")
     ap.add_argument("--service-dir", required=True,
-                    help="durable state root: ledger.jsonl + ckpt/")
+                    help="durable state root: ledger.jsonl + ckpt/ (+ "
+                         "publish/ under --lora-rank)")
     ap.add_argument("--budget-eps", type=float, default=None,
                     help="hard epsilon budget enforced by the admission "
                          "gate (default: --epsilon)")

@@ -1,7 +1,7 @@
 """Training CLI: DP-SGD with adaptive group-wise clipping (Algorithm 1).
 
 The counterpart of `repro.launch.train`. The parser has only the flags
-the port runs; a flag of the reference that is not ported yet (LoRA, the
+the port runs; a flag of the reference that is not ported yet (the
 compile cache) fails in argparse.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
@@ -74,6 +74,14 @@ per expert and layer), its flat and group modes by either execution.
 warning, and the header says so). Grouped dispatch (`moe_dispatch =
 "grouped"`) has no flag, as in the reference: `build_everything` and
 `Trainer` take a `cfg` to run in place of the `--arch` one.
+
+`--lora-rank R` is DP-LoRA (the paper's large-model recipe): rank-R
+adapters on the attention projections train as one clipping group each
+(qkv and o; MLA's kv_b and o), the base frozen. The step trains
+`params["lora"]` only (`trainable_key`): its noise, counts, quantile
+update and Adam state cover the adapters, and the base stays bit for bit
+as it was. The header prints `lora_rank=R`; every mode runs, BK included
+(an MTP config's reused embed and head are frozen, so BK applies).
 """
 from __future__ import annotations
 
@@ -133,6 +141,10 @@ def build_train_parser(*, mesh: bool = True,
     ap.add_argument("--microbatches", type=int, default=1,
                     help="clip the batch in this many equal parts, "
                          "accumulating the clipped sums exactly")
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help="DP-LoRA: train rank-R adapters on the attention "
+                         "projections, the base frozen (0: a full "
+                         "fine-tune)")
     ap.add_argument("--fixed-thresholds", action="store_true")
     ap.add_argument("--init-threshold", type=float, default=1.0)
     ap.add_argument("--quantile", type=float, default=0.5)
@@ -200,6 +212,8 @@ def build_everything(args: argparse.Namespace, *, cfg=None, mesh=None,
     if cfg is None:
         cfg = get_config(args.arch, reduced=args.reduced,
                          variant=args.variant)
+    if getattr(args, "lora_rank", 0):
+        cfg = dataclasses.replace(cfg, lora_rank=args.lora_rank)
     mode = args.clipping
     if mode == "per_shard":
         # per-device clipping: blocked groups aligned with M (virtual or
@@ -241,17 +255,26 @@ def build_everything(args: argparse.Namespace, *, cfg=None, mesh=None,
     else:
         opt = optim.sgd(sched, momentum=0.9)
     init_fn, step_fn, plan = make_dp_train_step(
-        model.loss_fn, model.spec, model.layout, opt, dpc,
-        batch_size=args.batch, mesh=mesh, on_clip=on_clip)
+        model.loss_fn, model.dp_spec, model.layout, opt, dpc,
+        batch_size=args.batch, trainable_key=model.trainable_key, mesh=mesh,
+        on_clip=on_clip)
     return cfg, model, rows, sampler, init_fn, step_fn, plan
+
+
+def trainable(model, params):
+    """The leaves of `params` that train (every leaf, or DP-LoRA's
+    `params["lora"]`): the ones that require grad."""
+    key = model.trainable_key
+    return tree_leaves(params if key is None else params[key])
 
 
 def init_state(model, init_fn, seed: int, device) -> dict:
     """Fresh training state: random parameters from `seed` on `device`
-    (every leaf requiring grad), their optimizer and DP states."""
+    (every trainable leaf requiring grad), their optimizer and DP
+    states."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = model.init_train_params(gen)
-    for _, leaf in tree_leaves(params):
+    for _, leaf in trainable(model, params):
         leaf.requires_grad_()
     opt_state, dp_state = init_fn(params)
     return {"params": params, "opt_state": opt_state, "dp_state": dp_state}
@@ -264,7 +287,7 @@ def restore_latest(directory: str, model, init_fn, device, placements=None):
     restore allocates the state once. `placements` (a mesh's
     `params_shardings`): each rank keeps its slices of the parameters."""
     params = meta_params(model.spec)
-    for _, leaf in tree_leaves(params):
+    for _, leaf in trainable(model, params):
         leaf.requires_grad_()
     opt_state, dp_state = init_fn(params)
     template = {"params": params, "opt_state": opt_state,
@@ -365,6 +388,8 @@ class Trainer:
         p = self.plan
         tail = (f" moe_dispatch={self.cfg.moe_dispatch}"
                 if self.cfg.num_experts else "")
+        if self.cfg.lora_rank:
+            tail += f" lora_rank={self.cfg.lora_rank}"
         if (self.execution == "bk" and p.config.mode in BK_MODES
                 and self.model.reused_groups):
             tail += (f" bk_falls_back=twopass(groups "

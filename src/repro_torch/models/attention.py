@@ -22,7 +22,15 @@ counterpart of `repro.models.attention`.
   form that materializes per-head K/V from the latent: with thresholds
   it trains (q_a, q_b, kv_a, kv_b, o as `dp_linear`, q_norm and kv_norm
   as `dp_scale`), without it is the plain forward, the decode's oracle.
-  The reference's DP-LoRA branches (`lora`, `tenant`) are A.10.
+* DP-LoRA (`core.lora`): `gqa_attention` takes adapters on `qkv` and
+  `o`, `mla_attention` on `kv_b` and `o` (`lora`, `lora_th`): each
+  adapted projection is a `dp_lora_linear` over its frozen weight, the
+  bias added after the adapter term, and `dp_blocks` does not apply to
+  it. Every decode entry point takes the multi-tenant serving plane's
+  adapters (`lora`: one layer's tenant-stacked pairs, `tenant`: (B,)
+  slot ids): GQA adds each row's delta to the qkv and o projections,
+  MLA carries the kv_b delta through the absorbed form in factored f32
+  (`_mla_lora_sel`) and adds the o delta.
 
 Serving hooks: every decode entry point takes an optional `active` (B,)
 row mask, the engine's per-slot write/retire hook: rows with
@@ -38,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import dp_layers as dpl
+from repro_torch.core import lora as lora_lib
 from repro_torch.kernels import paged_attn as K
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -203,30 +212,61 @@ def _qk_norm(cfg, params, q, k, th=None):
             apply(params["k_norm"], k, th["k_norm"]))
 
 
-def _proj(cfg: ModelConfig, params, x, th):
+def _proj(cfg: ModelConfig, params, x, th, lora=None, lora_th=None):
     """A projection: clipped per column block (per-shard clipping) when
     `cfg.dp_blocks > 1`, else as one group; th None is the plain forward.
-    The reference's DP-LoRA branch is ROADMAP A.10."""
+    With an adapter pair `lora` ({'a', 'b'}) the weight is frozen and the
+    pair trains as one group under `lora_th` (`core.lora.dp_lora_linear`;
+    None: the plain forward), the bias added after the adapter term, and
+    `dp_blocks` does not apply."""
+    if lora is not None:
+        if lora_th is None:
+            y = (x @ params["w"] + (x @ lora["a"]) @ lora["b"]
+                 * (cfg.lora_alpha / lora["a"].shape[-1]))
+        else:
+            y = lora_lib.dp_lora_linear(lora["a"], lora["b"], params["w"],
+                                        x, lora_th, cfg.lora_alpha)
+        return y + params["b"] if "b" in params else y
     if cfg.dp_blocks > 1 and th is not None:
         return L.linear_blocked(params, x, th)
     return L.linear(params, x, th)
 
 
+def _pair(lora, lora_th, name):
+    """One projection's adapter pair and its thresholds (None, None when
+    the projection has no adapter)."""
+    if lora is None:
+        return None, None
+    return lora[name], None if lora_th is None else lora_th[name]
+
+
 def gqa_attention(cfg: ModelConfig, params, x, th, positions, *,
-                  causal=True, window=None):
+                  causal=True, window=None, lora=None, lora_th=None):
     """Self-attention, training (and prefill). x: (B, T, D); th: this
     block's attention thresholds ({'qkv', 'o', 'q_norm', 'k_norm'}: (B,)
     each, (M, B) for the projections when `cfg.dp_blocks = M > 1`), or
     None for the plain forward; positions: (B, T); window: the sliding
-    window, None for full attention."""
-    qkv = _proj(cfg, params["qkv"], x, None if th is None else th["qkv"])
+    window, None for full attention. lora / lora_th: DP-LoRA's adapters
+    {'qkv', 'o'} of this layer and their thresholds (or BK channels),
+    the base projections frozen; lora_th None runs them plainly."""
+    qkv = _proj(cfg, params["qkv"], x, None if th is None else th["qkv"],
+                *_pair(lora, lora_th, "qkv"))
     q, k, v = _split_qkv(cfg, qkv)
     q, k = _qk_norm(cfg, params, q, k, th)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     out = attend(q, k, v, positions, positions, causal=causal, window=window)
     out = out.reshape(x.shape[0], x.shape[1], -1)
-    return _proj(cfg, params["o"], out, None if th is None else th["o"])
+    return _proj(cfg, params["o"], out, None if th is None else th["o"],
+                 *_pair(lora, lora_th, "o"))
+
+
+def _stacked_delta(cfg: ModelConfig, x, lora, tenant):
+    """The serving plane's adapter term of one projection: `lora` is its
+    tenant-stacked pair {'a': (T, d_in, r), 'b': (T, r, d_out)}, `tenant`
+    the (B,) slot ids (`core.lora.stacked_lora_delta`)."""
+    return lora_lib.stacked_lora_delta(x, lora["a"], lora["b"], tenant,
+                                       cfg.lora_alpha)
 
 
 def _paged_write(pool, new, pt, pos, active):
@@ -251,15 +291,19 @@ def _paged_write(pool, new, pt, pos, active):
 
 
 def gqa_decode_paged(cfg: ModelConfig, params, x, kpool, vpool, pt, pos, *,
-                     active=None):
+                     active=None, lora=None, tenant=None):
     """One-token GQA decode through a paged KV cache.
 
     x: (B, 1, D); kpool/vpool: one layer's (N+1, L, KV, hd) pools shared
     by every slot (last page = trash), written in place; pt: (B, P) int32
     page table; pos: (B,) int32 new token index; active: optional (B,)
-    bool row mask (inactive rows write only to the trash page).
+    bool row mask (inactive rows write only to the trash page); lora /
+    tenant: the multi-tenant plane's tenant-stacked {'qkv', 'o'} pairs
+    of this layer and the (B,) slot ids (as `gqa_decode`).
     Returns the attention output (B, 1, D)."""
     qkv = L.linear(params["qkv"], x)
+    if lora is not None:
+        qkv = qkv + _stacked_delta(cfg, x, lora["qkv"], tenant)
     q, k, v = _split_qkv(cfg, qkv)
     q, k = _qk_norm(cfg, params, q, k)
     posb = pos[:, None]
@@ -273,11 +317,14 @@ def gqa_decode_paged(cfg: ModelConfig, params, x, kpool, vpool, pt, pos, *,
     qr = q[:, 0].reshape(b, kv, h // kv, hd)  # [kv, g] grouping of `attend`
     out = K.paged_attn(qr, kpool, vpool, pt, pos, scale=1.0 / math.sqrt(hd))
     out = out.reshape(b, 1, h * hd).to(q.dtype)
-    return L.linear(params["o"], out)
+    y = L.linear(params["o"], out)
+    if lora is not None:
+        y = y + _stacked_delta(cfg, out, lora["o"], tenant)
+    return y
 
 
 def gqa_decode(cfg: ModelConfig, params, x, cache_k, cache_v, pos, *,
-               window=None, active=None):
+               window=None, active=None, lora=None, tenant=None):
     """One-token GQA decode against a contiguous per-slot cache.
 
     x: (B, 1, D); cache_k / cache_v: one layer's (B, cap, KV, hd) caches,
@@ -287,8 +334,15 @@ def gqa_decode(cfg: ModelConfig, params, x, cache_k, cache_v, pos, *,
     has cap = the context, and slot = pos; a sliding-window cache is a
     ring of cap = min(window, context) slots, slot = pos % cap, where
     slot s holds position pos - ((slot - s) mod cap), negative for a slot
-    not written yet. Returns the attention output (B, 1, D)."""
+    not written yet. lora / tenant: the multi-tenant plane's
+    tenant-stacked {'qkv', 'o'} pairs of this layer ({'a': (T, d_in, r),
+    'b': (T, r, d_out)}) and the (B,) int slot ids: each row adds its own
+    tenant's low-rank delta to the frozen projections, the serving form
+    of `dp_lora_linear`'s forward. Returns the attention output (B, 1,
+    D)."""
     qkv = L.linear(params["qkv"], x)
+    if lora is not None:
+        qkv = qkv + _stacked_delta(cfg, x, lora["qkv"], tenant)
     q, k, v = _split_qkv(cfg, qkv)
     q, k = _qk_norm(cfg, params, q, k)
     posb = pos[:, None]
@@ -306,7 +360,11 @@ def gqa_decode(cfg: ModelConfig, params, x, cache_k, cache_v, pos, *,
         kpos = posb - ((slot[:, None] - ar) % cap)
         kpos = torch.where(kpos >= 0, kpos, _UNWRITTEN_POS)
     out = attend(q, cache_k, cache_v, posb, kpos, causal=True, window=window)
-    return L.linear(params["o"], out.reshape(x.shape[0], 1, -1))
+    out = out.reshape(x.shape[0], 1, -1)
+    y = L.linear(params["o"], out)
+    if lora is not None:
+        y = y + _stacked_delta(cfg, out, lora["o"], tenant)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -373,13 +431,15 @@ def _mla_latent(cfg: ModelConfig, params, x, positions, th=None):
 
 
 def mla_attention(cfg: ModelConfig, params, x, positions, th=None, *,
-                  causal=True):
+                  causal=True, lora=None, lora_th=None):
     """Full-sequence MLA with per-head K/V materialized from the latent.
     x: (B, T, D); positions: (B, T); th: this block's attention
     thresholds ({'q_a', 'q_norm', 'q_b' (or 'q'), 'kv_a', 'kv_norm',
     'kv_b', 'o'}: (B,) each) for training, every projection a
     `dp_linear` and each norm a `dp_scale`; None is the plain forward
-    (serving's oracle)."""
+    (serving's oracle). lora / lora_th: DP-LoRA's adapters {'kv_b', 'o'}
+    (the per-head expansion and the output) and their thresholds, as
+    `gqa_attention`'s."""
     b, t = x.shape[0], x.shape[1]
     h = cfg.num_heads
     nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
@@ -387,18 +447,69 @@ def mla_attention(cfg: ModelConfig, params, x, positions, th=None, *,
     q_nope, q_rope = _mla_q(cfg, params, x, th)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     ckv, k_rope = _mla_latent(cfg, params, x, positions, th)
-    kv = L.linear(params["kv_b"], ckv, _th(th, "kv_b")).reshape(
-        b, t, h, nope + vd)
+    kv = _proj(cfg, params["kv_b"], ckv, _th(th, "kv_b"),
+               *_pair(lora, lora_th, "kv_b")).reshape(b, t, h, nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_rope.expand(b, t, h, rope)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = attend(q, k, v, positions, positions, causal=causal,
                  scale=1.0 / math.sqrt(nope + rope))
-    return L.linear(params["o"], out.reshape(b, t, h * vd), _th(th, "o"))
+    return _proj(cfg, params["o"], out.reshape(b, t, h * vd), _th(th, "o"),
+                 *_pair(lora, lora_th, "o"))
+
+
+def _mla_lora_sel(cfg: ModelConfig, lora, tenant):
+    """Each row's tenant kv_b adapter factors for the absorbed decode:
+    (A (B, lr, r), Bn (B, r, H, nope), Bv (B, r, H, vd), scale), in f32.
+    The absorbed form applies the adapter without forming the dense
+    (lr, H (nope + vd)) delta of a row's weight: both sides stay O(r)."""
+    h, nope, vd = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    idx = tenant.long()
+    rk = lora["kv_b"]["a"].shape[-1]
+    a = lora["kv_b"]["a"].index_select(0, idx).float()
+    bm = lora["kv_b"]["b"].index_select(0, idx).float().reshape(
+        idx.shape[0], rk, h, nope + vd)
+    return a, bm[..., :nope], bm[..., nope:], cfg.lora_alpha / rk
+
+
+def _absorbed_q(cfg: ModelConfig, params, q_nope, lora, tenant):
+    """q_lat (B, 1, H, lr) f32: q_nope folded through W_UK, plus the kv_b
+    adapter's W_UK part when serving tenants; and the row factors."""
+    lr, h = cfg.kv_lora_rank, cfg.num_heads
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    w_kv_b = params["kv_b"]["w"].reshape(lr, h, nope + vd)
+    q_lat = torch.einsum("bohn,lhn->bohl", q_nope.float(),
+                         w_kv_b[..., :nope].float())
+    sel = None
+    if lora is not None:
+        sel = _mla_lora_sel(cfg, lora, tenant)
+        la, lbn, _, lsc = sel
+        t1 = torch.einsum("bohn,brhn->bohr", q_nope.float(), lbn)
+        q_lat = q_lat + torch.einsum("bohr,blr->bohl", t1, la) * lsc
+    return q_lat, sel
+
+
+def _absorbed_out(cfg: ModelConfig, params, x, lat, sel, lora, tenant):
+    """The attended latent (B, 1, H, lr) f32 expanded through W_UV (and
+    the kv_b adapter's W_UV part), then the o projection (and its
+    adapter): the attention output (B, 1, D)."""
+    b, lr, h = x.shape[0], cfg.kv_lora_rank, cfg.num_heads
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    w_kv_b = params["kv_b"]["w"].reshape(lr, h, nope + vd)
+    out = torch.einsum("bohl,lhv->bohv", lat, w_kv_b[..., nope:].float())
+    if sel is not None:
+        la, _, lbv, lsc = sel
+        t2 = torch.einsum("bohl,blr->bohr", lat, la)
+        out = out + torch.einsum("bohr,brhv->bohv", t2, lbv) * lsc
+    out = out.reshape(b, 1, h * vd).to(x.dtype)
+    y = L.linear(params["o"], out)
+    if lora is not None:
+        y = y + _stacked_delta(cfg, out, lora["o"], tenant)
+    return y
 
 
 def mla_decode(cfg: ModelConfig, params, x, cache_ckv, cache_krope, pos, *,
-               active=None):
+               active=None, lora=None, tenant=None):
     """Absorbed-form one-token MLA decode against contiguous latent caches,
     the reference's f32 math line for line.
 
@@ -408,12 +519,12 @@ def mla_decode(cfg: ModelConfig, params, x, cache_ckv, cache_krope, pos, *,
     folded into the query (q_lat = q_nope W_UK per head), the scores are
     the latent and RoPE parts' f32 einsums summed, then scaled, masked to
     `index <= pos` and softmaxed over the S slots; W_UV expands the
-    attended latent. Returns the attention output (B, 1, D)."""
-    b = x.shape[0]
-    h = cfg.num_heads
-    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
-                      cfg.v_head_dim)
-    lr = cfg.kv_lora_rank
+    attended latent. lora / tenant: the multi-tenant plane's
+    tenant-stacked {'kv_b', 'o'} pairs of this layer and the (B,) slot
+    ids: the kv_b delta rides through the absorption (its W_UK part
+    shifts q_lat, its W_UV part the latent's expansion), in factored
+    form, per row. Returns the attention output (B, 1, D)."""
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     posb = pos[:, None]
     q_nope, q_rope = _mla_q(cfg, params, x)  # (B, 1, H, *)
     q_rope = L.apply_rope(q_rope, posb, cfg.rope_theta)
@@ -421,9 +532,7 @@ def mla_decode(cfg: ModelConfig, params, x, cache_ckv, cache_krope, pos, *,
     _masked_cache_write(cache_ckv, ckv, pos, active)
     _masked_cache_write(cache_krope, k_rope[:, :, 0], pos, active)
 
-    w_kv_b = params["kv_b"]["w"].reshape(lr, h, nope + vd)
-    q_lat = torch.einsum("bohn,lhn->bohl", q_nope.float(),
-                         w_kv_b[..., :nope].float())  # (B, 1, H, lr)
+    q_lat, sel = _absorbed_q(cfg, params, q_nope, lora, tenant)
     scores = (torch.einsum("bohl,bsl->bhos", q_lat, cache_ckv.float())
               + torch.einsum("bohr,bsr->bhos", q_rope.float(),
                              cache_krope.float()))
@@ -433,12 +542,11 @@ def mla_decode(cfg: ModelConfig, params, x, cache_ckv, cache_krope, pos, *,
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)  # (B, H, 1, S)
     lat = torch.einsum("bhos,bsl->bohl", w, cache_ckv.float())
-    out = torch.einsum("bohl,lhv->bohv", lat, w_kv_b[..., nope:].float())
-    return L.linear(params["o"], out.reshape(b, 1, h * vd).to(x.dtype))
+    return _absorbed_out(cfg, params, x, lat, sel, lora, tenant)
 
 
 def mla_decode_paged(cfg: ModelConfig, params, x, latpool, pt, pos, *,
-                     active=None):
+                     active=None, lora=None, tenant=None):
     """Absorbed-form one-token MLA decode through a paged latent cache.
 
     x: (B, 1, D); latpool: one layer's (N+1, L, lr + rope) pool of the
@@ -448,11 +556,10 @@ def mla_decode_paged(cfg: ModelConfig, params, x, latpool, pt, pos, *,
     (q_lat = q_nope W_UK per head), so `paged_attn` runs KV = 1, G = H,
     dq = lr + rope against the pool passed as both K and V (the aliased
     plan) with the value read cut to dv = lr; W_UV expands the attended
-    latent after it. Returns the attention output (B, 1, D)."""
-    b = x.shape[0]
-    h = cfg.num_heads
-    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
-                      cfg.v_head_dim)
+    latent after it. lora / tenant: as `mla_decode`'s (the q_lat shift
+    lands before the kernel, so it sees the adapted query). Returns the
+    attention output (B, 1, D)."""
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     lr = cfg.kv_lora_rank
     posb = pos[:, None]
     q_nope, q_rope = _mla_q(cfg, params, x)  # (B, 1, H, *)
@@ -461,12 +568,9 @@ def mla_decode_paged(cfg: ModelConfig, params, x, latpool, pt, pos, *,
     _paged_write(latpool, torch.cat([ckv, k_rope[:, :, 0]], dim=-1), pt,
                  pos, active)
 
-    w_kv_b = params["kv_b"]["w"].reshape(lr, h, nope + vd)
-    q_lat = torch.einsum("bohn,lhn->bohl", q_nope.float(),
-                         w_kv_b[..., :nope].float())  # (B, 1, H, lr)
+    q_lat, sel = _absorbed_q(cfg, params, q_nope, lora, tenant)
     q_cat = torch.cat([q_lat, q_rope.float()], dim=-1)  # KV = 1, G = H
     pool = latpool.unsqueeze(2)  # (N+1, L, 1, lr + rope)
     lat = K.paged_attn(q_cat, pool, pool, pt, pos,
                        scale=1.0 / math.sqrt(nope + rope), dv=lr)
-    out = torch.einsum("bohl,lhv->bohv", lat, w_kv_b[..., nope:].float())
-    return L.linear(params["o"], out.reshape(b, 1, h * vd).to(x.dtype))
+    return _absorbed_out(cfg, params, x, lat, sel, lora, tenant)

@@ -55,6 +55,11 @@ class ModelConfig:
     # per-shard clipping layout: the qkv and o projections split into M
     # column blocks, each its own clipping group (M virtual model shards)
     dp_blocks: int = 1
+    # DP-LoRA (the paper's large-model recipe, Sec. 5.3): adapters of rank
+    # lora_rank on the attention projections, the base frozen; 0 = a full
+    # fine-tune. The adapter term is scaled by lora_alpha / lora_rank.
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
     # rematerialize each block in the training forward (activation
     # checkpointing): backward keeps only block inputs and recomputes the
     # rest, at about 1.33x the forward FLOPs

@@ -27,6 +27,17 @@ reference puts them; `loss_fn` splits each stack into per-layer views
 that a Python loop walks. Serving splits them once, at init
 (`unstack_blocks`). The views share the stacked allocation, so nothing is
 copied either way.
+
+DP-LoRA (`cfg.lora_rank > 0`, the paper's large-model recipe): the spec
+gains a `lora` subtree, one adapter pair (`core.lora.lora_spec`, leaves
+(n, ...)) on each attention stack's qkv and o projections (MLA: kv_b and
+o), and everything else is frozen. `layout` is then the adapters' alone
+(`dp_spec = {"lora": ...}`, `trainable_key = "lora"`); `base_layout` is
+the frozen tree's, whose groups the loss runs at +inf thresholds (no norm
+and no weight gradient for them). Serving a multi-tenant pool passes
+`params["lora_stack"]`, the tenant-stacked adapters (leaves (n, T, ...),
+`core.lora.stacked_adapter_zeros`), with `batch["tenant"]`, (B,) slot
+ids: both or neither.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import dp_layers as dpl
+from repro_torch.core import lora as lora_lib
 from repro_torch.core import spec as S
 from repro_torch.core.spec import P
 from repro_torch.models import attention as A
@@ -84,7 +96,43 @@ def decoder_spec(cfg: ModelConfig) -> dict:
         spec["mtp"] = {"proj": L.linear_spec(2 * d, d, dtype=cfg.dtype),
                        "block": _attn_block_spec(cfg, 0, moe_layer=False),
                        "norm": L.rmsnorm_spec(d, dtype=cfg.dtype)}
+    if cfg.lora_rank > 0:
+        spec["lora"] = lora_tree(cfg, spec)
     return spec
+
+
+def lora_tree(cfg: ModelConfig, spec: dict) -> dict:
+    """DP-LoRA's adapter specs: a pair of rank `cfg.lora_rank` on every
+    attention stack's qkv and o projections (MLA: kv_b, the per-head
+    expansion, and o), stacked like the stack's layers. The MTP block
+    has none, as in the reference."""
+    h, kv, hd, d = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                    cfg.d_model)
+    out = {}
+    for name in STACKED:
+        if name not in spec:
+            continue
+        n = spec[name]["attn_norm"]["s"].shape[0]
+
+        def pair(din, dout):
+            return lora_lib.lora_spec(din, dout, cfg.lora_rank, stack=(n,),
+                                      dtype=cfg.dtype)
+
+        if cfg.attention_kind == "mla":
+            out[name] = {"kv_b": pair(cfg.kv_lora_rank, h * (
+                cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                         "o": pair(h * cfg.v_head_dim, d)}
+        else:
+            out[name] = {"qkv": pair(d, (h + 2 * kv) * hd),
+                         "o": pair(h * hd, d)}
+    return out
+
+
+def layer_slice(tree, layer: int):
+    """Layer `layer`'s views of a tree of stacked leaves (n, ...)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, layer) for k, v in tree.items()}
+    return tree[layer]
 
 
 def _unstack(node, n: int) -> list:
@@ -129,15 +177,30 @@ class Model:
     # groups the loss consumes twice a step (MTP's second `embed` and
     # `head`): BK falls back to two passes on such a layout
     reused_groups: tuple[str, ...] = ()
+    # DP-LoRA: the frozen tree's clipping groups (run at +inf); the
+    # subtree that trains ("lora", None for a full fine-tune) and the spec
+    # the step noises and updates (`{"lora": ...}`, else `spec`)
+    base_layout: S.GroupLayout | None = None
+    trainable_key: str | None = None
+    dp_spec: dict | None = None
+
+    def _draw(self, generator: torch.Generator) -> dict:
+        # the base first, so its draws do not depend on the adapters
+        base = {k: v for k, v in self.spec.items() if k != "lora"}
+        tree = S.init_params(base, generator)
+        if "lora" in self.spec:
+            tree["lora"] = S.init_params(self.spec["lora"], generator)
+        return tree
 
     def init_params(self, generator: torch.Generator) -> Any:
-        """Random serving parameters from `generator`, on its device."""
-        return unstack_blocks(S.init_params(self.spec, generator))
+        """Random serving parameters from `generator`, on its device (a
+        LoRA model's adapters stay stacked under `lora`)."""
+        return unstack_blocks(self._draw(generator))
 
     def init_train_params(self, generator: torch.Generator) -> Any:
         """Random training parameters (the reference's stacked layout)
         from `generator`, on its device."""
-        return S.init_params(self.spec, generator)
+        return self._draw(generator)
 
     @staticmethod
     def cache_slot_axes(cache) -> dict:
@@ -155,15 +218,26 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available; pass device='cpu' to run on the CPU")
     spec = decoder_spec(cfg)
+    base_spec = {k: v for k, v in spec.items() if k != "lora"}
+    base_layout = S.GroupLayout(base_spec)
+    lora_on = "lora" in spec
+    dp_spec = {"lora": spec["lora"]} if lora_on else spec
     serve_step, init_cache, init_paged_cache = _make_decoder_serve(
-        cfg, spec, device)
-    return Model(cfg=cfg, spec=spec, layout=S.GroupLayout(spec),
-                 loss_fn=_make_decoder_loss(cfg),
+        cfg, base_spec, device)
+    return Model(cfg=cfg, spec=spec,
+                 layout=S.GroupLayout(dp_spec) if lora_on else base_layout,
+                 loss_fn=_make_decoder_loss(cfg, base_layout if lora_on
+                                            else None),
                  serve_step=serve_step, init_cache=init_cache,
                  init_paged_cache=init_paged_cache,
                  prefill_step=_make_prefill(cfg),
                  num_params=_count(spec),
-                 reused_groups=("embed", "head") if cfg.mtp_depth else ())
+                 # the adapters' layout holds no embed or head group
+                 reused_groups=(("embed", "head")
+                                if cfg.mtp_depth and not lora_on else ()),
+                 base_layout=base_layout,
+                 trainable_key="lora" if lora_on else None,
+                 dp_spec=dp_spec)
 
 
 # ---------------------------------------------------------------------------
@@ -172,12 +246,13 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
 
 
 def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False,
-                      window=None):
+                      window=None, lora=None, lora_th=None):
     """One block -> (x, aux): aux is the MoE block's (B,) f32 load-balance
     loss, None for a dense block; th: this block's thresholds, (B,) per
     group ((E, B) per expert group), or None for the plain forward
     (prefill); window: GQA's sliding window (MLA has none, as in the
-    reference)."""
+    reference); lora / lora_th: this layer's DP-LoRA adapters and their
+    thresholds (`models.attention`)."""
     def sub(name):
         return None if th is None else S.subth(th, name)
 
@@ -186,10 +261,11 @@ def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False,
 
     h = L.rmsnorm(params["attn_norm"], x, one("attn_norm"), eps=cfg.norm_eps)
     if cfg.attention_kind == "mla":
-        att = A.mla_attention(cfg, params["attn"], h, positions, sub("attn"))
+        att = A.mla_attention(cfg, params["attn"], h, positions, sub("attn"),
+                              lora=lora, lora_th=lora_th)
     else:
         att = A.gqa_attention(cfg, params["attn"], h, sub("attn"), positions,
-                              window=window)
+                              window=window, lora=lora, lora_th=lora_th)
     x = x + att
     h = L.rmsnorm(params["mlp_norm"], x, one("mlp_norm"), eps=cfg.norm_eps)
     if moe_layer:
@@ -200,14 +276,15 @@ def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False,
     return x + y, aux
 
 
-def _block(cfg, params, x, th, positions, moe_layer=False, window=None):
+def _block(cfg, params, x, th, positions, moe_layer=False, window=None,
+           lora=None, lora_th=None):
     """`_apply_attn_block`, rematerialized in backward when `cfg.remat`."""
     if not cfg.remat:
         return _apply_attn_block(cfg, params, x, th, positions, moe_layer,
-                                 window)
+                                 window, lora, lora_th)
     return torch.utils.checkpoint.checkpoint(
         _apply_attn_block, cfg, params, x, th, positions, moe_layer, window,
-        use_reentrant=False, preserve_rng_state=False)
+        lora, lora_th, use_reentrant=False, preserve_rng_state=False)
 
 
 def _per_example_ce(logits, targets):
@@ -221,7 +298,10 @@ def _per_example_ce(logits, targets):
     return torch.sum(ce, dim=-1) / torch.clamp(valid.sum(dim=-1), min=1)
 
 
-def _make_decoder_loss(cfg: ModelConfig):
+def _make_decoder_loss(cfg: ModelConfig,
+                       base_layout: S.GroupLayout | None = None):
+    """The per-example loss; `base_layout` (DP-LoRA): the frozen tree's
+    groups, run at +inf beside the adapters' thresholds."""
     def embed(params, tokens, th):
         return dpl.dp_embed(params["embed"]["w"], tokens, th["embed"])
 
@@ -253,10 +333,15 @@ def _make_decoder_loss(cfg: ModelConfig):
         {'tokens', 'targets' (-1 = ignore), optional 'positions'}, (B, T)
         each; th: {group name: stack + (B,)} encoded thresholds
         (`GroupLayout.pack*`), or the BK capture's channels
-        (`core.bk.build_channels`), which unbind per layer the same way.
-        Each block is rematerialized in backward when `cfg.remat`."""
+        (`core.bk.build_channels`), which unbind per layer the same way;
+        under DP-LoRA the adapters' only (`lora/...`), the frozen groups
+        running at +inf. Each block is rematerialized in backward when
+        `cfg.remat`."""
         tokens = batch["tokens"]
         bsz, t = tokens.shape
+        if base_layout is not None:
+            th = {**base_layout.pack_value(float("inf"), bsz,
+                                           device=tokens.device), **th}
         x = embed(params, tokens, th)
         positions = batch.get("positions")
         if positions is None:
@@ -268,10 +353,19 @@ def _make_decoder_loss(cfg: ModelConfig):
             if name not in stacks:
                 continue
             rows = {k: v.unbind(0) for k, v in S.subth(th, name).items()}
+            lora = lora_rows = None
+            if base_layout is not None:  # the adapters ride the layer loop
+                lora = params["lora"][name]
+                lora_rows = {k: v.unbind(0) for k, v in
+                             S.subth(th, "lora/" + name).items()}
             for layer, bp in enumerate(stacks[name]):
                 bth = {k: r[layer] for k, r in rows.items()}
+                lp = lth = None
+                if lora is not None:
+                    lp = layer_slice(lora, layer)
+                    lth = {k: r[layer] for k, r in lora_rows.items()}
                 x, aux_l = _block(cfg, bp, x, bth, positions, moe_layer,
-                                  cfg.sliding_window)
+                                  cfg.sliding_window, lp, lth)
                 if aux_l is not None:
                     aux = aux_l if aux is None else aux + aux_l
         x = L.rmsnorm(params["final_norm"], x, th["final_norm"],
@@ -374,32 +468,40 @@ def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
                 cache[f"{name}_{kind}"] = zeros(shape)
         return cache
 
-    def attention(name, layer, bp, hn, cache, pos, active):
+    def attention(name, layer, bp, hn, cache, pos, active, lora, tenant):
         """One layer's decode attention on the cache's plane: paged when
-        `pt` is in the cache, as the reference chooses, else contiguous."""
+        `pt` is in the cache, as the reference chooses, else contiguous;
+        lora / tenant: the layer's tenant-stacked adapters and the rows'
+        slot ids (None, None for a single model)."""
+        kw = dict(active=active, lora=lora, tenant=tenant)
         if "pt" in cache:
             if mla:
                 return A.mla_decode_paged(
                     cfg, bp, hn, cache[f"{name}_latpool"][layer],
-                    cache["pt"], pos, active=active)
+                    cache["pt"], pos, **kw)
             return A.gqa_decode_paged(
                 cfg, bp, hn, cache[f"{name}_kpool"][layer],
-                cache[f"{name}_vpool"][layer], cache["pt"], pos,
-                active=active)
+                cache[f"{name}_vpool"][layer], cache["pt"], pos, **kw)
         if mla:
             return A.mla_decode(cfg, bp, hn, cache[f"{name}_ckv"][layer],
-                                cache[f"{name}_krope"][layer], pos,
-                                active=active)
+                                cache[f"{name}_krope"][layer], pos, **kw)
         return A.gqa_decode(cfg, bp, hn, cache[f"{name}_k"][layer],
                             cache[f"{name}_v"][layer], pos, window=window,
-                            active=active)
+                            **kw)
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
-        """batch: {'token': (B, 1) int32, optional 'active': (B,) bool};
-        returns (logits (B, V) in the model dtype, cache). `cache` is a
-        paged cache (`init_paged_cache`) or a contiguous one
-        (`init_cache`).
+        """batch: {'token': (B, 1) int32, optional 'active': (B,) bool,
+        optional 'tenant': (B,) int}; returns (logits (B, V) in the model
+        dtype, cache). `cache` is a paged cache (`init_paged_cache`) or a
+        contiguous one (`init_cache`).
+
+        Multi-tenant serving: `params['lora_stack']` (the tenant-stacked
+        adapters, leaves (n, T, ...)) together with `batch['tenant']` (the
+        rows' adapter-slot ids), both or neither, adds every row's own
+        adapter delta to the adapted projections. Both are data of fixed
+        shape: admitting a tenant or swapping an adapter changes no
+        input shape here.
 
         Rows with `active=False` leave every live entry untouched (a paged
         write goes to the trash page, a contiguous one rewrites its own
@@ -410,13 +512,21 @@ def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
         tensors and a new `pos`."""
         token = batch["token"]
         active = batch.get("active")
+        lstack = params.get("lora_stack")
+        tenant = batch.get("tenant")
+        if (lstack is None) != (tenant is None):
+            raise ValueError(
+                "multi-tenant serve_step needs BOTH params['lora_stack'] "
+                "and batch['tenant'] (or neither)")
         pos = cache["pos"]
         x = params["embed"]["w"][token.long()]  # (B, 1, D)
         for name, _, moe_layer in stacks:
             for layer, bp in enumerate(params[name]):
+                lp = (None if lstack is None
+                      else layer_slice(lstack[name], layer))
                 hn = L.rmsnorm(bp["attn_norm"], x, eps=cfg.norm_eps)
                 x = x + attention(name, layer, bp["attn"], hn, cache, pos,
-                                  active)
+                                  active, lp, tenant)
                 hn = L.rmsnorm(bp["mlp_norm"], x, eps=cfg.norm_eps)
                 if moe_layer:
                     y, _ = MOE.moe_fn(cfg)(cfg, bp["moe"], hn)
@@ -439,8 +549,10 @@ def _make_prefill(cfg: ModelConfig):
         """The full-sequence forward to the last position's logits (B, V),
         in the model dtype: the inference-prefill workload. params: the
         serving parameters (per-layer blocks, as `serve_step` takes);
-        batch: {'tokens': (B, T), optional 'positions': (B, T)}. The
-        reference's vision and M-RoPE branches are ROADMAP A.9."""
+        batch: {'tokens': (B, T), optional 'positions': (B, T)}. A LoRA
+        model's trained adapters (`params['lora']`, stacked) run in
+        their layers, as in the reference's prefill. The reference's
+        vision and M-RoPE branches are ROADMAP A.9."""
         tokens = batch["tokens"]
         bsz, t = tokens.shape
         x = params["embed"]["w"][tokens.long()]
@@ -448,10 +560,12 @@ def _make_prefill(cfg: ModelConfig):
         if positions is None:
             positions = torch.arange(t, device=tokens.device)[None].expand(
                 bsz, t)
+        lora = params.get("lora")
         for name, moe_layer in STACKS:
-            for bp in params.get(name, ()):
+            for layer, bp in enumerate(params.get(name, ())):
+                lp = None if lora is None else layer_slice(lora[name], layer)
                 x, _ = _apply_attn_block(cfg, bp, x, None, positions,
-                                         moe_layer, cfg.sliding_window)
+                                         moe_layer, cfg.sliding_window, lp)
         x = L.rmsnorm(params["final_norm"], x[:, -1:], eps=cfg.norm_eps)
         return L.linear(params["head"], x)[:, 0]
 

@@ -18,7 +18,9 @@ PORT_FILES = sorted(
     for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + [
         "chip_smoke.py", "examples/torch_quickstart.py",
         "examples/torch_serve_batched.py", "examples/torch_train_e2e.py",
-        "examples/torch_train_service.py", "examples/torch_train_mesh.py"]
+        "examples/torch_train_service.py", "examples/torch_train_mesh.py",
+        "examples/torch_dp_lora_finetune.py",
+        "examples/torch_multi_tenant_serve.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -48,7 +50,7 @@ def test_port_package_is_scanned():
                  "launch/sharding.py", "launch/train.py",
                  "launch/service.py", "checkpoint/store.py",
                  "checkpoint/packer.py", "launch/mesh.py",
-                 "core/pipeline.py"):
+                 "core/pipeline.py", "core/lora.py", "launch/swap.py"):
         assert f"src/repro_torch/{name}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
@@ -149,6 +151,39 @@ def test_torch_serve_example_defaults_to_cuda_and_raises_without_it():
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     assert "tokens over" not in out.stdout
+
+
+@pytest.mark.parametrize("example,marker", [
+    ("torch_dp_lora_finetune.py", "LoRA params"),
+    ("torch_multi_tenant_serve.py", "tenant A trained")])
+def test_torch_lora_examples_default_to_cuda_and_raise_without_it(
+        example, marker):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / example), "--steps", "1"]
+        if example == "torch_dp_lora_finetune.py"
+        else [sys.executable, str(ROOT / "examples" / example)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert marker not in out.stdout
+
+
+def test_torch_multi_tenant_example_on_cpu(tmp_path):
+    """Two services (epsilon 2 and 8) publish, one engine serves both,
+    a hot swap lands mid-traffic, bit for bit, at tiny size."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" /
+                             "torch_multi_tenant_serve.py"),
+         "--device", "cpu", "--work-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert ("(read back equal to its manifest's crcs); in-flight requests "
+            "drain") in out.stdout
+    assert "swaps=3 adapter_storages=1" in out.stdout
+    assert (tmp_path / "tenant-b" / "publish" / "step_00000012").is_dir()
 
 
 def test_torch_serve_example_on_cpu():

@@ -12,7 +12,9 @@ the JAX package's `jax.jacrev` oracle, on the CPU in f32.
   (rtol 2e-3, atol 1e-6);
 * the kernel calls: one `clip_reduce` per linear and example (the
   primitives' no-norm backward, factor 1), no norm kernel;
-* `trainable_key` (DP-LoRA) refused, naming ROADMAP A.10.
+* `trainable_key` (DP-LoRA): naive_flat over tiny's adapters against the
+  reference's jacrev oracle of the subtree; the sharded driver refuses
+  it, naming ROADMAP A.18.
 
 Tolerances against the reference: float32, the same math summed in
 another order (`assert_trees_close`: rtol 1e-5, atol 1e-5 of the leaf's
@@ -146,7 +148,29 @@ def test_naive_flat_kernel_calls(monkeypatch):
 
 
 def test_trainable_key_names_its_roadmap_item():
-    m, _ = _models(*CONFIGS["tiny"])
+    """naive_flat trains the adapters alone on one device (the reference's
+    jacrev over the subtree); the sharded driver names ROADMAP A.18."""
+    from repro_torch.core.clipping import sharded_clipped_gradients
+    m, jm = _models("tiny", False, {"lora_rank": 4})
     tree = bridge.numpy_params(m.spec, seed=0)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        _naive(m, tree, _batch(m.cfg.vocab_size), trainable_key="lora")
+    rng = np.random.default_rng(1)
+    for pair in tree["lora"]["dense_blocks"].values():
+        pair["b"] = (0.05 * rng.standard_normal(pair["b"].shape)).astype(
+            np.float32)
+    batch = _batch(m.cfg.vocab_size)
+    with jax_backend.scoped("xla"):
+        want = jax.jit(functools.partial(
+            jax_clip, jm.loss_fn, layout=jm.layout, mode="naive_flat",
+            batch_size=B, flat_threshold=0.5, trainable_key="lora"))(
+            _j(tree), _j(batch))
+    got = _naive(m, tree, batch, c=0.5, trainable_key="lora")
+    assert set(got.grads) == {"lora"}
+    np.testing.assert_allclose(float(got.loss), float(want.loss), rtol=1e-6)
+    np.testing.assert_allclose(got.norms_sq.numpy(), np.asarray(want.norms_sq),
+                               rtol=1e-5, atol=1e-9)
+    assert_trees_close(got.grads, want.grads)
+    with pytest.raises(NotImplementedError, match="A.18"):
+        sharded_clipped_gradients(
+            m.loss_fn, bridge.train_params_from_numpy(tree, "cpu"),
+            _t(batch), m.layout, mode="naive_flat", batch_size=B,
+            data_size=1, mesh=None, trainable_key="lora")

@@ -583,8 +583,8 @@ def test_serve_cli_requests_match_reference():
         np.testing.assert_array_equal(r[:16], reqs[0][:16])
 
 
-@pytest.mark.parametrize("argv", [["--lora-rank", "4"], ["--watch"],
-                                  ["--backend", "xla"], ["--tenants", "2"],
+@pytest.mark.parametrize("argv", [["--autotune", "off"], ["--cache", "off"],
+                                  ["--backend", "xla"], ["--cache-dir", "x"],
                                   ["--arch", "rwkv6-7b"]])
 def test_serve_cli_refuses_unported_flags(argv):
     with pytest.raises(SystemExit):

@@ -605,9 +605,11 @@ def test_kernel_calls_per_step_under_per_shard(monkeypatch):
 def test_unported_modes_name_their_roadmap_item():
     """Every clipping mode of the reference is ported (naive_flat takes
     one flat noise group, as ghost_flat, and the CLI accepts it); what
-    stays unported names its item: DP-LoRA's `trainable_key` (A.10), and
-    the BK recipes of `dp_shift` / `dp_broadcast` (the recurrent
+    stays unported names its item: DP-LoRA's `trainable_key` under the
+    sharded driver (A.18; one device trains it, `test_torch_lora.py`),
+    and the BK recipes of `dp_shift` / `dp_broadcast` (the recurrent
     families, A.8)."""
+    from repro_torch.core.clipping import sharded_clipped_gradients
     from repro_torch.core import bk
     m = build_model(get_config("tiny"), device="cpu")
     assert train.build_train_parser().parse_args(
@@ -619,8 +621,10 @@ def test_unported_modes_name_their_roadmap_item():
         assert plan.num_noise_groups == 1
     params = bridge.train_params_from_numpy(
         bridge.numpy_params(m.spec, seed=0), "cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        dp_clipped_gradients(m.loss_fn, params, _t(_batch(m.cfg.vocab_size)),
-                             m.layout, mode="non_private", batch_size=B,
-                             trainable_key="lora")
+    with pytest.raises(NotImplementedError, match="A.18"):
+        sharded_clipped_gradients(
+            m.loss_fn, params, _t(_batch(m.cfg.vocab_size)), m.layout,
+            mode="non_private", batch_size=B, data_size=1, mesh=None,
+            trainable_key="lora")
+    assert "lora" not in bk._NOT_PORTED
     assert bk._NOT_PORTED["shift"] == bk._NOT_PORTED["broadcast"] == "A.8"
