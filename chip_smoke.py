@@ -188,8 +188,9 @@ exits non-zero:
 
  12 service   the crash-safe training service (`launch.service`) on phase
               5's settings (qwen3-4b at full width, its depth cut to
-              SERVICE_DEPTH = 12 of 36 layers for the time limit (the
-              full depth took 307-370 s), per_layer,
+              SERVICE_DEPTH = 2 of 36 layers for the time limit (the
+              full depth took 307-370 s, 12 layers 194.5-207.9 s, 6
+              layers 175.3 s), per_layer,
               B = 8, T = 256, adam, epsilon 8, rate 1/16; 4 steps, a
               checkpoint every 2), on one shared `ServiceRuntime`:
               (a) the first step from the seeded state twice, each state's
@@ -204,22 +205,26 @@ exits non-zero:
               the verify's seconds and GB/s, the raw and stored bytes, the
               codec, threads and free disk, and one host thread's zlib
               rates on bf16 weights (level 6, Huffman only, stored);
-              ghost_norm / clip_reduce launches 49 each per executed
-              step (4 linears x 12 blocks + the head), re-executions
+              ghost_norm / clip_reduce launches 9 each per executed
+              step (4 linears x 2 blocks + the head), re-executions
               included (5 executed steps in (a), 5 in
-              (b)); (c) the service CLI in subprocesses at --reduced width:
-              `--fault-at post-ledger-append:3` exits 86, the resume exits
-              0 with the crcs of an uninterrupted CLI run, a flipped byte
-              in the newest shard falls back to step 2 and re-trains to the
-              same crcs, and `--calib-steps 2` stops cleanly with
+              (b)); (c) the service CLI in subprocesses at --reduced width,
+              in three chains side by side, beside phase 16 (e)'s first
+              launch (all four launches report their walls alone):
+              `--fault-at post-ledger-append:3` exits 86 and the resume
+              exits 0; an uninterrupted CLI run, whose crcs the resume
+              must end on, then a flipped byte in its newest shard: the
+              next resume falls back to step 2 and re-trains to the same
+              crcs; and `--calib-steps 2` stops cleanly with
               status=budget_exhausted at step 2, epsilon within budget.
 
   13 moe/mla  serving of the MoE and MLA families through phase 3's
               `serve_model`, random parameters from seed 0, page_len 16,
               a 16-token shared prefix, 16 generated tokens a request:
-              granite-moe-3b-a800m at full width and depth (32 layers of
-              40 experts top-8, GQA KV = 8, G = 3, head dim 64, bf16,
-              3.37 B parameters; 16 requests of 32-96 tokens, 8 slots),
+              granite-moe-3b-a800m at full width, its depth cut to
+              MOE_SERVE_DEPTH = 8 of 32 layers for the time limit (40
+              experts top-8, GQA KV = 8, G = 3, head dim 64, bf16; 16
+              requests of 32-96 tokens, 8 slots),
               then deepseek-v3-671b at full width with its depth cut to
               5 layers (`dataclasses.replace(cfg, num_layers=5)`: the 3
               first_k_dense layers, 2 MoE layers of 256 experts, mtp
@@ -228,7 +233,7 @@ exits non-zero:
               its absorbed-form MLA decode calling paged_attn with KV =
               1, G = 128, dq = 576, dv = 512, an f32 query over the bf16
               latent pool passed as both pools. Gates as phase 3's:
-              paged_attn launched 32 / 5 times a serve_step. Each
+              paged_attn launched 8 / 5 times a serve_step. Each
               path's line (tok/s, ms per dispatch and serve_step, peak
               GB, the depth cut), its profile of 3 decode steps, and
               paged_attn at its captured inputs with the most valid rows
@@ -352,6 +357,38 @@ exits non-zero:
               scale_contract exactly zero on the stack slices whose
               factor rows are all zero (groups another model shard
               owns). ms per step by rank, beside the oracle's.
+              (c) DP-LoRA in (b)'s spawn: rank-8 adapters on qkv and o
+              (seeded from LORA_SEED, b non-zero), per_layer and
+              ghost_flat / per_group by BK, the same gates over the
+              adapters, beside their own oracles; and no grad_psum of
+              a base leaf (each all-reduce's leaf read off the trace),
+              every rank's adapter digest equal, the crc32s of each
+              rank's stored base slices unchanged, launches from the
+              layout (16 + 16 per_layer, 16 ghost_norm + 4
+              scale_contract BK; no fused_norm_clip), the kernels timed
+              at rank 0's adapter inputs. (d) Algorithm 2 on the card, in
+              the same launch: four ranks of the stage axis (gloo on
+              cuda:0, the sends
+              staged through the host; NCCL with a card each), four
+              stages of two 2560-wide f32 layers, 4 classes, B = 8 in two
+              microbatches: the +inf loss's grads, the per_group driver
+              (twopass) and per_layer, each against `reference_loss` on
+              the same rank (f32, rtol 1e-5, atol 1e-5 of the largest
+              magnitude); only pipeline_send and pipeline_out_psum in
+              the log, every send drained, launches from the route rule
+              (fused_norm_clip at the 2560 x 4 head), every kernel held
+              to its plain version at the ranks' inputs. (e) the service
+              on the mesh (`--mesh 2x2`, qwen3-4b at 2 of 36 layers,
+              `--lora-rank 8 --clipping per_group`, 4 steps, a
+              checkpoint every 2): a first launch, beside phase 12's CLI
+              runs, crashes at post-ledger-append:3 and must end with
+              86; (b)-(d)'s launch then resumes it; the uninterrupted reference is the
+              one-process run in memory (`--microbatches 2`) where (c)
+              found the per_group LoRA step bitwise, else a mesh run:
+              its checkpoint and adapter crcs and ledger, the step-4
+              publish verified against its manifest, the ranks' digests
+              equal, the base slices bitwise. Each part's seconds in
+              `sharded_s`.
 
  17 DP-LoRA   (a) qwen3-4b at full width and depth with rank-8 adapters on
               qkv and o (`--lora-rank 8`, the base frozen) through the
@@ -403,12 +440,15 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -2435,9 +2475,12 @@ SERVICE_ARGV = ["--arch", "qwen3-4b", "--clipping", "per_layer",
                 "--seed", "0", "--checkpoint-every", "2", "--log-every", "1"]
 SERVICE_CRASH = ("post-ledger-append", 3)
 # qwen3-4b's layers in the service, of 36: the full width, the crash and
-# the bitwise resume stay, a third of the depth keeps the whole script
-# inside its time limit beside phase 16 (the full depth took 307-370 s)
-SERVICE_DEPTH = 12
+# the bitwise resume stay; 2 layers keep the whole script inside its time
+# limit beside phase 16 (the full depth took 307-370 s, 12 layers
+# 194.5-207.9 s, 6 layers 175.3 s, whose 8.3 GB state's saves, load and
+# verify took 93 s; the embedding and head are 0.78 of the 2 layers'
+# 0.98 B parameters)
+SERVICE_DEPTH = 2
 # (c)'s CLI runs at --reduced width (a few seconds a run)
 SERVICE_CLI_ARGV = ["--arch", "qwen3-4b", "--reduced", "--clipping",
                     "per_layer", "--epsilon", "8", "--steps", "4",
@@ -2601,9 +2644,10 @@ def cli_wait(proc, expect) -> str:
 
 
 def phase_service_cli(work) -> dict:
-    """(c): the service CLI at --reduced width in subprocesses: the
-    uninterrupted run and the budget stop beside the crash, resume,
-    corrupt-shard and fallback chain."""
+    """(c): the service CLI at --reduced width in subprocesses, in three
+    chains side by side: the crash and its resume; the uninterrupted run,
+    then a flipped byte in its newest shard and the resume that falls
+    back; the budget stop."""
     import re
     from repro_torch.checkpoint import store
     from repro_torch.launch.service import PrivacyLedger
@@ -2612,17 +2656,19 @@ def phase_service_cli(work) -> dict:
         return store.manifest_crcs(os.path.join(work, name, "ckpt"), 4)
 
     point, step = SERVICE_CRASH
+    crash = cli_service(work, "crash", "--fault-at", f"{point}:{step}")
+    straight = cli_service(work, "straight")
     # sigma calibrated for 2 steps: the gate refuses step 2
-    side = [cli_service(work, "straight"),
-            cli_service(work, "budget", "--calib-steps", "2")]
+    budget = cli_service(work, "budget", "--calib-steps", "2")
+    procs = [crash, straight, budget]
     try:
-        cli_wait(cli_service(work, "crash", "--fault-at", f"{point}:{step}"),
-                 86)
-        cli_wait(cli_service(work, "crash"), 0)
-        crash_crcs = crcs("crash")
+        cli_wait(crash, 86)
+        procs.append(cli_service(work, "crash"))
+        cli_wait(straight, 0)
+        straight_crcs = crcs("straight")
         # one flipped byte in the newest shard: the resume falls back to
         # the previous verified step and re-trains the gap
-        ckpt = os.path.join(work, "crash", "ckpt")
+        ckpt = os.path.join(work, "straight", "ckpt")
         shard = os.path.join(ckpt, "step_00000004", sorted(
             f for f in os.listdir(os.path.join(ckpt, "step_00000004"))
             if f.startswith("shard_"))[-1])
@@ -2632,22 +2678,23 @@ def phase_service_cli(work) -> dict:
             f.seek(-1, os.SEEK_CUR)
             f.write(bytes([b[0] ^ 0xFF]))
         fallback = store.latest_verified_step(ckpt)
-        out = cli_wait(cli_service(work, "crash"), 0)
+        procs.append(cli_service(work, "straight"))
+        cli_wait(procs[3], 0)
+        out = cli_wait(procs[4], 0)
         resumed_at = int(re.search(r"resume_at=(\d+)", out).group(1))
-        cli_wait(side[0], 0)
-        budget_out = cli_wait(side[1], 0)
+        budget_out = cli_wait(budget, 0)
     finally:
-        for proc in side:
+        for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-    if crash_crcs != crcs("straight"):
+    if crcs("crash") != straight_crcs:
         raise RuntimeError("CLI resume: final crcs differ from the "
                            "uninterrupted CLI run's")
-    if fallback != 2 or resumed_at != 2 or crcs("crash") != crcs("straight"):
+    if fallback != 2 or resumed_at != 2 or crcs("straight") != straight_crcs:
         raise RuntimeError(f"corrupt shard: fallback {fallback}, resumed at "
                            f"{resumed_at}, final crcs equal "
-                           f"{crcs('crash') == crcs('straight')}")
+                           f"{crcs('straight') == straight_crcs}")
     records = len(PrivacyLedger(os.path.join(work, "crash",
                                              "ledger.jsonl")).replay())
     m = re.search(r"status=budget_exhausted step=(\d+) epsilon=([0-9.]+) "
@@ -2665,7 +2712,8 @@ def phase_service_cli(work) -> dict:
 
 
 def phase_service(torch, gpu):
-    """Phase 12. Returns the launches by kernel over (a) and (b)."""
+    """Phase 12 (a) and (b); (c) is `phase_service_cli_beside`. Returns
+    the launches by kernel over (a) and (b)."""
     import dataclasses
     import shutil
     from repro_torch.configs import get_config
@@ -2684,7 +2732,9 @@ def phase_service(torch, gpu):
         full, num_layers=SERVICE_DEPTH))
     depth_cut = {"num_layers": SERVICE_DEPTH, "of": full.num_layers,
                  "why": "the script's time limit: phase 12 at full depth "
-                        "took 307-370 s, and phase 16 needs its share"}
+                        "took 307-370 s, at 6 layers 175 s, and phase 16 "
+                        "(DP-LoRA on the mesh, the pipeline, the service "
+                        "on the mesh) needs its share"}
     build_s = time.perf_counter() - t0
     raw = state_bytes(torch, runtime)
     free = shutil.disk_usage(work).free
@@ -2809,10 +2859,23 @@ def phase_service(torch, gpu):
     del runtime
     gc.collect()
     torch.cuda.empty_cache()
-    cli = phase_service_cli(work)
-    emit({"phase": "service_cli_summary", "gpu": gpu, **cli})
-    shutil.rmtree(work)
     return launches
+
+
+def phase_service_cli_beside(gpu, beside):
+    """Phase 12 (c) (`phase_service_cli`) with `beside`, phase 16 (e)'s
+    first launch, on a thread alongside: subprocesses and spawned ranks
+    whose walls alone are reported share the host, and nothing timed
+    runs in this process meanwhile. Returns `beside`'s result."""
+    import concurrent.futures
+    import shutil
+    work = os.path.join(ROOT, "build", "smoke_service")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        other = pool.submit(beside)
+        cli = phase_service_cli(work)
+        emit({"phase": "service_cli_summary", "gpu": gpu, **cli})
+        shutil.rmtree(work)
+        return other.result()
 
 
 # ---------------------------------------------------------------------------
@@ -2820,10 +2883,21 @@ def phase_service(torch, gpu):
 # ---------------------------------------------------------------------------
 
 MLA_DEPTH = 5  # deepseek-v3's layers on one card: first_k_dense 3 + 2 MoE
-# (label, arch, layers kept (None: all), requests, min and max prompt
-# tokens behind the shared prefix, slots)
-SERVE13 = [("moe_serve", "granite-moe-3b-a800m", None, 16, 32, 96, 8),
+# granite's layers served, of 32: its 92 prefill dispatches, host-bound,
+# took 1.0-1.2 s each at full depth (86-117 s a run), more than the
+# script's time limit can carry beside phase 16
+MOE_SERVE_DEPTH = 8
+# (label, arch, layers kept, requests, min and max prompt tokens behind
+# the shared prefix, slots)
+SERVE13 = [("moe_serve", "granite-moe-3b-a800m", MOE_SERVE_DEPTH, 16, 32,
+            96, 8),
            ("mla_serve", "deepseek-v3-671b", MLA_DEPTH, 8, 32, 64, 4)]
+SERVE13_WHY = {
+    "moe_serve": "the script's time limit: at 32 layers granite's 92 "
+                 "prefill dispatches took 86-117 s (host-bound); full width",
+    "mla_serve": "671 B bf16 parameters (1.34 TB) fit no single 80 GB "
+                 "card; full width, first_k_dense dense layers then MoE "
+                 "ones, mtp kept"}
 SERVE13_PREFIX, SERVE13_GEN, SERVE13_PAGE = 16, 16, 16
 SERVE13_KEYS = ("point", "q", "kpool", "vpool_is_kpool", "dtype",
                 "pool_dtype", "ms", "graph_ms", "plain_ms", "bound_ms",
@@ -2842,14 +2916,10 @@ def phase_moe_mla_serve(torch, gpu):
     blocks = {}
     for label, arch, depth, n_req, lo, hi, slots in SERVE13:
         cfg = get_config(arch)
-        extra = {"label": label}
-        if depth is not None:
-            extra["depth_cut"] = {
-                "num_layers": depth, "of": cfg.num_layers,
-                "why": "671 B bf16 parameters (1.34 TB) fit no single "
-                       "80 GB card; full width, first_k_dense dense "
-                       "layers then MoE ones, mtp kept"}
-            cfg = dataclasses.replace(cfg, num_layers=depth)
+        extra = {"label": label, "depth_cut": {
+            "num_layers": depth, "of": cfg.num_layers,
+            "why": SERVE13_WHY[label]}}
+        cfg = dataclasses.replace(cfg, num_layers=depth)
         launches, snap, model, params, eng, step_ms = serve_model(
             torch, gpu, "moe_mla_serve", cfg, n_req=n_req, min_len=lo,
             max_len=hi, prefix=SERVE13_PREFIX, gen=SERVE13_GEN, slots=slots,
@@ -3442,17 +3512,68 @@ SHARDED_VARIANTS = [("per_layer", "per_layer", ("ghost_norm", "clip_reduce")),
 SHARDED_GRAD_RTOL, SHARDED_GRAD_ATOL_FRAC = 2.0 ** -7, 1e-3
 SHARDED_NORM_RTOL, SHARDED_NORM_ATOL = 2e-4, 2e-6
 SHARDED_TIMEOUT_S = 600
+# (c) DP-LoRA in (b)'s spawn: rank-8 adapters on qkv and o, the base
+# frozen; label, mode, the kernels whose inputs rank 0 records. A fresh
+# adapter's b is zero (so is dA at the first step): each run's adapters
+# are first replaced by draws from LORA_SEED, the same global values on
+# every rank and in the oracle
+SHARDED_LORA_RANK = 8
+SHARDED_LORA_VARIANTS = [
+    ("lora_per_layer", "per_layer", ("ghost_norm", "clip_reduce")),
+    ("lora_ghost_flat_bk", "ghost_flat", ("ghost_norm", "scale_contract")),
+    ("lora_per_group_bk", "per_group", ("ghost_norm", "scale_contract"))]
+LORA_SEED = 7
+# (d) Algorithm 2 on the card: four stages of two layers at qwen3-4b's
+# width, the class count of tests/test_torch_pipeline.py, two
+# microbatches; f32, that test's tolerances (rtol 1e-5, atol 1e-5 of the
+# largest magnitude)
+PIPE_CFG = dict(n_stages=4, layers_per_stage=2, d_model=2560, d_in=2560,
+                n_classes=4)
+PIPE_BATCH, PIPE_MICRO, PIPE_SEED = 8, 2, 11
+PIPE_RTOL, PIPE_ATOL_FRAC = 1e-5, 1e-5
+# the +inf loss's grads, the per_group driver (twopass, the stages as
+# supergroups, embed and head in 0) and the per_layer driver
+PIPE_VARIANTS = ("grads", "per_group_twopass", "per_layer")
+PIPE_TIMEOUT_S = 300
+# (e) the service on the mesh: qwen3-4b at full width and 2 of its 36
+# layers, per-device clipping by BK over rank-8 adapters
+MESH_SERVICE_DEPTH = 2
+MESH_SERVICE_ARGV = ["--arch", "qwen3-4b", "--lora-rank",
+                     str(SHARDED_LORA_RANK), "--clipping", "per_group",
+                     "--execution", "bk", "--epsilon", "8", "--steps", "4",
+                     "--batch", "8", "--seq", "256", "--docs", "64",
+                     "--optimizer", "adam", "--seed", "0",
+                     "--checkpoint-every", "2", "--log-every", "1"]
+MESH_SERVICE_TIMEOUT_S = 400
 
 
-def sharded_argv(mode, *, microbatches=1, mesh=None, backend=None):
+def sharded_argv(mode, *, microbatches=1, mesh=None, backend=None,
+                 lora=False):
     argv = ["--arch", "qwen3-4b", "--clipping", mode, "--execution", "bk",
             "--group-count", str(SHARDED_MESH[1]), "--epsilon", "8",
             "--steps", str(SHARDED_STEPS), "--batch", "8", "--seq", "256",
             "--docs", "64", "--microbatches", str(microbatches),
             "--optimizer", "adam", "--seed", "0"]
+    if lora:
+        argv += ["--lora-rank", str(SHARDED_LORA_RANK)]
     if mesh:
         argv += ["--mesh", mesh, "--dist-backend", backend]
     return argv
+
+
+def seed_adapters(torch, trainer) -> None:
+    """Overwrite a fresh LoRA run's adapters with draws from LORA_SEED (a
+    and b non-zero): the same global values on every rank and in the
+    one-process oracle, each rank keeping its slices."""
+    from repro_torch.core.spec import tree_leaves
+    from repro_torch.launch.sharding import shard_tree
+    new = lora_adapter(torch, trainer.model.spec["lora"], LORA_SEED)
+    if trainer.mesh is not None:
+        new = shard_tree(new, trainer.placements["lora"])
+    with torch.no_grad():
+        for (_, dst), (_, src) in zip(tree_leaves(trainer.params["lora"]),
+                                      tree_leaves(new)):
+            dst.copy_(src)
 
 
 def first_clip(keep: dict):
@@ -3477,15 +3598,17 @@ def on_host(keep: dict) -> dict:
             "norms": keep["norms"].cpu(), "counts": keep["counts"].cpu()}
 
 
-def sharded_oracle(torch, label, mode, cfg):
+def sharded_oracle(torch, label, mode, cfg, lora=False):
     """The one-process run of a variant (microbatches = the data shards'
-    batches): its first step's clip result (grads on the host, norms²,
-    counts) and ms per step."""
+    batches; with `lora`, the seeded adapters): its first step's clip
+    result (grads on the host, norms², counts) and ms per step."""
     from repro_torch.launch import train
     args = train.build_train_parser().parse_args(sharded_argv(
-        mode, microbatches=SHARDED_MESH[0]))
+        mode, microbatches=SHARDED_MESH[0], lora=lora))
     keep: dict = {}
     trainer = train.Trainer(args, cfg=cfg, on_clip=first_clip(keep))
+    if lora:
+        seed_adapters(torch, trainer)
     ms = []
     for i in range(SHARDED_STEPS):
         torch.cuda.synchronize()
@@ -3508,8 +3631,9 @@ def sharded_contract(entries: list, trace: list, num_leaves: int) -> dict:
     the clip drivers' model-axis collectives before each microbatch's
     factors (the step entry's `weight_gather`s are weight traffic, as the
     reference classifies them, and are counted apart in `by_site`), the
-    `flat_norm_psum`s, the `grad_psum`s and whether each BK one was
-    waited after the next leaf's contraction."""
+    `flat_norm_psum`s, the `grad_psum`s, the leaf each all-reduces (the
+    `reduce` or `contract` mark just before its issue) and whether each
+    BK one was waited after the next leaf's contraction."""
     marks = [i for i, e in enumerate(trace) if e == "factors"]
     ends = [i for i, e in enumerate(trace) if e.startswith("issue loss_psum")]
     before = 0
@@ -3535,10 +3659,14 @@ def sharded_contract(entries: list, trace: list, num_leaves: int) -> dict:
     for c in entries:
         k = f"{c[0]}@{','.join(c[1])}"
         by_site[k] = by_site.get(k, 0) + 1
+    reduced = [trace[i - 1].split(" ", 1)[1] for i, e in enumerate(trace)
+               if e.startswith("issue grad_psum#")
+               and trace[i - 1].startswith(("reduce ", "contract "))]
     return {"by_site": by_site, "factor_marks": len(marks),
             "model_axis_before_factors": before,
             "flat_norm_psum": [list(c[2:4]) for c in flat],
-            "grad_psum": len(grad), "leaves": num_leaves,
+            "grad_psum": len(grad), "grad_psum_leaves": sorted(reduced),
+            "leaves": num_leaves,
             "contractions": len(contracts),
             "interleaved_after_next_contraction": interleaved}
 
@@ -3564,13 +3692,13 @@ def params_digest(torch, tree, chunk: int = 1 << 24) -> str:
 
 
 def input_recorder(name, real, caps):
-    """`real` (a kernel's wrapper) that first keeps, on the host, the
-    inputs of its first call at each (din, dout)."""
-    def rec(a, g, *rest, **kw):  # ghost_norm takes no factors
+    """`real` (a kernel's wrapper) that first keeps, on the host, every
+    positional input of its first call at each (din, dout)."""
+    def rec(a, g, *rest, **kw):
         key = (name, a.shape[-1], g.shape[-1])
         if key not in caps:
-            caps[key] = (a.detach().cpu(), g.detach().cpu(),
-                         rest[0].detach().cpu() if rest else None)
+            caps[key] = tuple(x.detach().cpu() if hasattr(x, "detach")
+                              else x for x in (a, g) + rest)
         return real(a, g, *rest, **kw)
     return rec
 
@@ -3586,10 +3714,16 @@ def sharded_rank(runs: list, num_layers: int, out_dir: str) -> dict:
     (their wrappers swapped for `input_recorder`s during that step, as
     `train_variant` records them) to `out_dir`. Returns per run: ms,
     launches and the collective contract per step, the thresholds and a
-    params digest at the end, and this rank's device."""
+    params digest at the end, and this rank's device. A DP-LoRA run
+    (`--lora-rank`) first seeds its adapters (`seed_adapters`); its
+    digest is the adapters' alone, and it also returns the trainable
+    leaves' names and whether the crc32s of the rank's stored base slices
+    after its steps equal those of the first LoRA run's fresh base (every
+    run draws the same base from --seed)."""
     import dataclasses
 
     import torch
+    from repro_torch.checkpoint.store import tree_crcs
     from repro_torch.configs import get_config
     from repro_torch.core.spec import tree_leaves
     from repro_torch.kernels import bk as KB
@@ -3597,9 +3731,15 @@ def sharded_rank(runs: list, num_layers: int, out_dir: str) -> dict:
     from repro_torch.kernels import ghost_norm as GN
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
+    from repro_torch.launch.sharding import gather_tree
     wrappers = {"ghost_norm": GN, "clip_reduce": CR, "scale_contract": KB}
     mesh = None
     out = {}
+    base0 = None  # crc32s of the first LoRA run's fresh base slices
+
+    def base_crcs(trainer):
+        return tree_crcs({k: v for k, v in trainer.params.items()
+                          if k != "lora"})
 
     def sync():
         if mesh.device.type == "cuda":
@@ -3615,9 +3755,21 @@ def sharded_rank(runs: list, num_layers: int, out_dir: str) -> dict:
         caps: dict = {}
         patches = [(wrappers[n], n, input_recorder(
             n, getattr(wrappers[n], n), caps)) for n in capture if main]
+        t_run = time.perf_counter()
         trainer = train.Trainer(args, cfg=cfg, mesh=mesh,
                                 on_clip=first_clip(keep) if main else None)
-        num_leaves = len(list(tree_leaves(trainer.params)))
+        key = trainer.model.trainable_key
+        trained = [("/".join(p) if key is None else f"{key}/" + "/".join(p))
+                   for p, _ in tree_leaves(trainer.params if key is None
+                                           else trainer.params[key])]
+        num_leaves = len(trained)
+        crc_s = 0.0
+        if key is not None:
+            seed_adapters(torch, trainer)
+            if base0 is None:
+                t0 = time.perf_counter()
+                base0 = base_crcs(trainer)
+                crc_s += time.perf_counter() - t0
         steps = []
         for i in range(args.steps):
             now = patches if i == 0 else []  # only the first step's
@@ -3650,12 +3802,23 @@ def sharded_rank(runs: list, num_layers: int, out_dir: str) -> dict:
                     torch.save(caps, os.path.join(out_dir,
                                                   f"{label}_caps.pt"))
                     caps.clear()
+        # the global parameters; of a LoRA run the adapters alone (each
+        # rank's base slices are held to their fresh crc32s instead)
+        gp = (trainer.global_params() if key is None else
+              gather_tree(trainer.params[key], trainer.placements[key]))
         out[label] = {
             "steps": steps, "device": str(mesh.device),
             "thresholds": trainer.dp_state.qstate.thresholds.cpu().tolist(),
-            "digest": params_digest(torch, trainer.global_params()),
-            "coords": dict(mesh.coords)}
-        del trainer
+            "digest": params_digest(torch, gp),
+            "coords": dict(mesh.coords), "trained": sorted(trained)}
+        if key is not None:
+            t0 = time.perf_counter()
+            out[label].update(
+                base_crcs_unchanged=base_crcs(trainer) == base0,
+                base_leaves=len(base0),
+                crc_s=crc_s + time.perf_counter() - t0)
+        out[label]["run_s"] = time.perf_counter() - t_run
+        del trainer, gp
         if mesh.device.type == "cuda":
             torch.cuda.empty_cache()
     return out
@@ -3699,50 +3862,583 @@ def sharded_parity(torch, label, want, got_path, b_local):
                     "norms_atol": SHARDED_NORM_ATOL}}, ok
 
 
-def sharded_kernel_checks(torch, gpu, caps_path, label):
-    """Each recorded kernel input of rank 0 against the kernel's plain
-    version (phase 6's tolerances); scale_contract's stack slices whose
-    factor row is all zero (groups another model shard owns) must come
-    back exactly zero. Returns rows."""
-    caps = torch.load(caps_path, weights_only=False)
-    impls = train_impls()
+def sharded_kernel_checks(torch, gpu, caps_path, label, timed=False):
+    """Each recorded kernel input against the kernel's plain version
+    (phase 6's tolerances; each output of a kernel that returns two,
+    fused_norm_clip's norms and clipped sum); scale_contract's stack
+    slices whose factor row is all zero (groups another model shard owns)
+    must come back exactly zero. With `timed`, each row carries the
+    kernel's and the plain version's ms at those inputs (CUDA events,
+    eager). Returns rows."""
+    from repro_torch.kernels import bk as SC
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import fused_clip as FC
+    from repro_torch.kernels import ghost_norm as GN
+    # each pair takes the wrapper's own positional inputs
+    impls = {"ghost_norm": (GN.ghost_norm, GN.ghost_norm_ref),
+             "clip_reduce": (CR.clip_reduce, CR.clip_reduce_ref),
+             "scale_contract": (SC.scale_contract, SC.scale_contract_ref),
+             "fused_norm_clip": (FC.fused_norm_clip, FC.fused_norm_clip_ref)}
     rows = []
-    for (name, din, dout), (a, g, f) in sorted(caps.items()):
-        a, g = a.cuda(), g.cuda()
-        f = None if f is None else f.cuda()
+    for (name, din, dout), args in sorted(
+            torch.load(caps_path, weights_only=False).items()):
+        args = tuple(x.cuda() if isinstance(x, torch.Tensor) else x
+                     for x in args)
         kern, plain = impls[name]
-        got, want = kern(a, g, f), plain(a, g, f)
+        got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
-        err, rel, ok = sum_check(torch, got, want)
-        row = {"variant": label, "kernel": name, "a": list(a.shape),
-               "g": list(g.shape), "dtype": str(a.dtype),
-               "max_abs_err": err, "max_rel_err": rel, "ok": ok}
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        checks = [sum_check(torch, x, y) for x, y in zip(got, want)]
+        row = {"variant": label, "kernel": name, "a": list(args[0].shape),
+               "g": list(args[1].shape), "dtype": str(args[0].dtype),
+               "max_abs_err": max(c[0] for c in checks),
+               "max_rel_err": max(c[1] for c in checks),
+               "ok": all(c[2] for c in checks)}
+        if timed:
+            row["ms"] = cuda_ms(torch, lambda: kern(*args), 10, 2)
+            row["plain_ms"] = cuda_ms(torch, lambda: plain(*args), 10, 2)
         if name == "scale_contract":
-            zero = (f == 0).all(dim=-1)  # (S,) slices of unowned groups
+            zero = (args[2] == 0).all(dim=-1)  # (S,) unowned groups
             row["zero_factor_slices"] = int(zero.sum())
             row["zero_slices_exact"] = bool(
-                int(torch.count_nonzero(got[zero])) == 0)
-            ok = ok and row["zero_slices_exact"]
-            row["ok"] = ok
+                int(torch.count_nonzero(got[0][zero])) == 0)
+            row["ok"] = row["ok"] and row["zero_slices_exact"]
         rows.append(row)
-        if not ok:
+        if not row["ok"]:
             raise RuntimeError(f"phase 16: {name} disagrees with its plain "
-                               f"version at rank 0's inputs: {row}")
-        del a, g, f, got, want
+                               f"version at recorded inputs: {row}")
+        del args, got, want
     return rows
 
 
-def phase_sharded(torch, gpu):
-    """Phase 16. Returns the launches by kernel over every rank and step,
-    and the kernels' worst errors at rank 0's inputs."""
+def pipeline_inputs(torch, device):
+    """Algorithm 2's parameters (requiring grad) and batch at PIPE_CFG,
+    drawn from PIPE_SEED on `device`: the same bits on every rank."""
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.spec import init_params, tree_leaves
+    cfg = PL.PipelineConfig(**PIPE_CFG)
+    gen = torch.Generator(device=device).manual_seed(PIPE_SEED)
+    params = init_params(PL.pipeline_spec(cfg), gen)
+    for _, t in tree_leaves(params):
+        t.requires_grad_()
+    x = torch.randn((PIPE_BATCH, cfg.d_in), generator=gen, device=device)
+    y = torch.randint(0, cfg.n_classes, (PIPE_BATCH,), generator=gen,
+                      device=device)
+    return cfg, params, (x, y)
+
+
+def pipeline_launches(stage: int, variant: str) -> dict:
+    """Kernel launches of one pipelined call on the rank of `stage`, from
+    the route rule: the embed and the head run their backward on every
+    stage (the embed with a zero cotangent off stage 0, where its output
+    only anchors the receives), each of the stage's layers once per
+    microbatch; the +inf loss's grads clip_reduce a linear, the
+    per_group driver (twopass) ghost_norm then clip_reduce, per_layer
+    fused_norm_clip where `fused_clip.fits(din, dout)` passes, else
+    both."""
+    from repro_torch.kernels.fused_clip import fits
+    c = PIPE_CFG
+    d = c["d_model"]
+    calls = ([(c["d_in"], d)]
+             + [(d, d)] * (c["layers_per_stage"] * PIPE_MICRO)
+             + [(d, c["n_classes"])])
+    counts = dict.fromkeys(TRAIN_KERNELS, 0)
+    for din, dout in calls:
+        if variant == "grads":
+            names = ("clip_reduce",)
+        elif variant == "per_layer" and fits(din, dout):
+            names = ("fused_norm_clip",)
+        else:
+            names = ("ghost_norm", "clip_reduce")
+        for n in names:
+            counts[n] += 1
+    return counts
+
+
+def pipeline_rank(thresholds: dict, out_dir: str) -> dict:
+    """Phase 16 (d) on one rank of the stage axis, in a child process of
+    `launch.mesh.spawn`: each of PIPE_VARIANTS through the pipelined loss
+    (`core.pipeline.make_pipeline_loss`, the kernels engine) with every
+    launch counter set to 0 before and read after, timed, its collective
+    log, its staged sends drained; the first inputs of each kernel at
+    each shape kept (`input_recorder`) and saved to `out_dir`; then the
+    same variant through `reference_loss` in this process (no pipeline,
+    after the counters are read), against which the rank's losses, its
+    stage's gradients and norms² (the embed's on stage 0, the head's on
+    every stage) are held. Returns per variant: ms, launches, sites,
+    numels, drained, the errors and whether they are in tolerance."""
+    import torch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.clipping import dp_clipped_gradients
+    from repro_torch.core.spec import GroupLayout
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import fused_clip as FC
+    from repro_torch.kernels import ghost_norm as GN
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh_lib.make_debug_mesh(1, 1, pod=PIPE_CFG["n_stages"])
+    stage, dev = mesh.axis_index("pod"), mesh.device
+    cfg, params, batch = pipeline_inputs(torch, dev)
+    layout = GroupLayout(PL.pipeline_spec(cfg))
+    loss_fn = PL.make_pipeline_loss(cfg, mesh)
+    b = PIPE_BATCH
+    th = {k: torch.as_tensor(v, device=dev) for k, v in thresholds.items()}
+    names = ["embed/w", "head/w", "blocks/w", "blocks/b"]
+
+    def leaves(tree):
+        return [tree["embed"]["w"], tree["head"]["w"], tree["blocks"]["w"],
+                tree["blocks"]["b"]]
+
+    def call(variant, fn):
+        if variant == "grads":
+            losses = fn(params, batch, layout.pack_value(float("inf"), b,
+                                                          device=dev))
+            grads = torch.autograd.grad(losses.sum(), leaves(params),
+                                        allow_unused=True)
+            grads = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves(params), grads)]
+            return losses.detach(), grads, None
+        kw = (dict(mode="per_layer", thresholds=th["layer"])
+              if variant == "per_layer" else
+              dict(mode="per_group", execution="twopass",
+                   group_assignment=th["assign"],
+                   group_thresholds=th["group"]))
+        res = dp_clipped_gradients(fn, params, batch, layout, batch_size=b,
+                                   **kw)
+        return res.loss.detach(), leaves(res.grads), res.norms_sq
+
+    caps: dict = {}
+    real = [(GN, "ghost_norm"), (CR, "clip_reduce"), (FC, "fused_norm_clip")]
+    saved = [(m, a, getattr(m, a)) for m, a in real]
+    out = {"stage": stage, "device": str(dev),
+           "staged": mesh.stages(batch[0])}
+    for variant in PIPE_VARIANTS:
+        for m, a, fn in saved:
+            setattr(m, a, input_recorder(a, fn, caps))
+        try:
+            mesh.reset_log()
+            reset_launch_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with backend.scoped("kernels"):
+                got = call(variant, loss_fn)
+                loss_fn.drain()
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = launch_counts()
+        finally:
+            for m, a, fn in saved:
+                setattr(m, a, fn)
+        log = [tuple(c) for c in mesh.log]
+        with backend.scoped("kernels"):  # the one-process reference
+            want = call(variant, lambda p, bt, t: PL.reference_loss(
+                cfg, p, bt, t))
+        errs, ok = {}, True
+        pairs = list(zip(names, got[1], want[1]))
+        if got[2] is not None:
+            pairs.append(("norms_sq", got[2], want[2]))
+        pairs.append(("loss", got[0], want[0]))
+        for name, g, w in pairs:
+            if name.startswith("blocks"):  # this stage's slice
+                g, w = g[stage], w[stage]
+                if name == "blocks/w":
+                    others = torch.cat([got[1][2][:stage],
+                                        got[1][2][stage + 1:]])
+                    errs["other_stages_zero"] = not bool(others.any())
+                    ok = ok and errs["other_stages_zero"]
+            elif stage != 0 and (name == "embed/w" or (
+                    name == "head/w" and variant == "per_group_twopass")):
+                # the embed trains on stage 0, which alone forms the
+                # factor of supergroup 0 (embed and head) under per_group
+                continue
+            elif name == "norms_sq":  # the groups this stage owns
+                rows = [layout.group("stage").offset + stage] + (
+                    [layout.group(n).offset for n in ("embed", "head")]
+                    if stage == 0 else [])
+                g, w = g[rows], w[rows]
+            g, w = g.float(), w.float()
+            err = float((g - w).abs().max())
+            top = float(w.abs().max())
+            errs[name] = err / max(top, 1e-30)
+            ok = ok and bool(torch.allclose(
+                g, w, rtol=PIPE_RTOL, atol=PIPE_ATOL_FRAC * top))
+        out[variant] = {
+            "ms": ms, "launches": launches,
+            "sites": sorted({c[0] for c in log}),
+            "axes": sorted({c[1] for c in log}),
+            "numels": sorted({c[3] for c in log}),
+            "drained": mesh.sends_drained(), "rel_errs": errs,
+            "ok": ok}
+        del got, want
+    torch.save(caps, os.path.join(out_dir, f"pipe_caps_{stage}.pt"))
+    return out
+
+
+def pipeline_thresholds(torch) -> dict:
+    """Thresholds that clip some examples and not others, from the
+    one-process reference's norms² on the card: per_layer's per group,
+    and per_group's per supergroup (embed and head 0, stage s s + 1)."""
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.clipping import dp_clipped_gradients
+    from repro_torch.core.spec import GroupLayout
+    from repro_torch.kernels import backend
+    dev = torch.device("cuda")
+    cfg, params, batch = pipeline_inputs(torch, dev)
+    layout = GroupLayout(PL.pipeline_spec(cfg))
+    with backend.scoped("kernels"):
+        norms = dp_clipped_gradients(
+            lambda p, b, t: PL.reference_loss(cfg, p, b, t), params, batch,
+            layout, mode="ghost_flat", execution="twopass",
+            batch_size=PIPE_BATCH).norms_sq
+    assign = torch.zeros(layout.num_groups, dtype=torch.long, device=dev)
+    st = layout.group("stage")
+    assign[st.offset: st.offset + st.count] = 1 + torch.arange(
+        st.count, device=dev)
+    sup = torch.zeros((st.count + 1, PIPE_BATCH), device=dev).index_add_(
+        0, assign, norms)
+    return {"layer": norms.median(dim=1).values.sqrt().cpu(),
+            "group": sup.median(dim=1).values.sqrt().cpu(),
+            "assign": assign.cpu()}
+
+
+def sharded_pipeline(torch, gpu, backend_name, ranks, work):
+    """(d)'s gates over the ranks' `pipeline_rank` results (the stage
+    axis on (b)'s four ranks: gloo on cuda:0, the sends staged through
+    the host, or a card per rank over NCCL), then each kernel at the
+    inputs the ranks recorded against its plain version. Returns
+    (launches over the ranks and variants, name -> the kernels line's
+    pipeline block)."""
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    for res in ranks:
+        stage = res["stage"]
+        for v in PIPE_VARIANTS:
+            r = res[v]
+            want = pipeline_launches(stage, v)
+            bad = []
+            if not r["ok"]:
+                bad.append(f"off reference_loss: {r['rel_errs']}")
+            if not set(r["sites"]) <= {"pipeline_send",
+                                       "pipeline_out_psum"}:
+                bad.append(f"collectives {r['sites']}")
+            if r["axes"] != [("pod",)]:
+                bad.append(f"axes {r['axes']}")
+            # activations of a microbatch or of the batch: no norm vector
+            d = PIPE_CFG["d_model"]
+            if not set(r["numels"]) <= {PIPE_BATCH // PIPE_MICRO * d,
+                                        PIPE_BATCH * d}:
+                bad.append(f"numels {r['numels']}")
+            if not r["drained"]:
+                bad.append("a staged send left undrained")
+            got = {k: r["launches"][k] for k in want}
+            if got != want:
+                bad.append(f"launches {got}, expected {want}")
+            if bad:
+                raise RuntimeError(f"phase 16 (d): stage {stage} {v}: "
+                                   f"{bad}")
+            for k in launches:
+                launches[k] += r["launches"][k]
+    for v in PIPE_VARIANTS:
+        emit({"phase": "sharded_pipeline", "gpu": gpu, "variant": v,
+              "backend": backend_name, "config": PIPE_CFG,
+              "batch": PIPE_BATCH, "microbatches": PIPE_MICRO,
+              "staged": ranks[0]["staged"],
+              "devices": [res["device"] for res in ranks],
+              "ms_per_step_by_stage": [res[v]["ms"] for res in ranks],
+              "ms_per_step": max(res[v]["ms"] for res in ranks),
+              "rel_errs_by_stage": [res[v]["rel_errs"] for res in ranks],
+              "launches_by_stage": [
+                  {k: n for k, n in res[v]["launches"].items() if n}
+                  for res in ranks],
+              "sites": ranks[0][v]["sites"], "drained": True,
+              "tol": {"rtol": PIPE_RTOL, "atol_of_max": PIPE_ATOL_FRAC}})
+    blocks: dict = {}
+    for res in ranks:
+        for row in sharded_kernel_checks(
+                torch, gpu, os.path.join(work,
+                                         f"pipe_caps_{res['stage']}.pt"),
+                f"pipeline stage {res['stage']}", timed=True):
+            emit({"phase": "pipeline_kernel_vs_plain", "gpu": gpu,
+                  "stage": res["stage"], **row})
+            o = blocks.setdefault(row["kernel"], {
+                "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []})
+            o["max_abs_err"] = max(o["max_abs_err"], row["max_abs_err"])
+            o["max_rel_err"] = max(o["max_rel_err"], row["max_rel_err"])
+            o["shapes"].append({k: row[k] for k in (
+                "a", "g", "ms", "plain_ms", "max_abs_err")})
+    for name, o in blocks.items():
+        o["launches"] = launches[name]
+    for name, n in launches.items():
+        if n and name not in blocks:
+            raise RuntimeError(f"phase 16 (d): {name} launched but not "
+                               f"checked")
+    return launches, blocks
+
+
+def phase16_rank(runs: list, num_layers: int, out_dir: str,
+                 pipe_thresholds: dict, resume_argv: list) -> dict:
+    """Phase 16 (b)–(e) on one rank, in one launch of four ranks: (b)
+    and (c) (`sharded_rank`), (d) on the stage axis of the same ranks
+    (`pipeline_rank`), then (e)'s resume of the service incarnation an
+    earlier launch crashed (`service_rank`), each part timed."""
+    out, t0 = {}, time.perf_counter()
+    out["sharded"] = sharded_rank(runs, num_layers, out_dir)
+    out["sharded_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["pipeline"] = pipeline_rank(pipe_thresholds, out_dir)
+    out["pipeline_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["service"] = service_rank([("resumed", resume_argv)],
+                                  MESH_SERVICE_DEPTH, out_dir)["resumed"]
+    out["service_s"] = time.perf_counter() - t0
+    return out
+
+
+def service_rank(runs: list, num_layers: int, out_dir: str) -> dict:
+    """Phase 16 (e) on one rank, in a child process of
+    `launch.mesh.spawn`: service incarnations (`launch.service`, the
+    CLI's `run` built from each argv: one mesh, one runtime on qwen3-4b
+    cut to `num_layers`) in order. Per incarnation it records the step it
+    resumed at, its status and seconds, the adapters' crc32s and every
+    parameter's digest (global, gathered), the crc32s of the rank's
+    stored base slices when it starts fresh and when it ends, and on rank
+    0 each checkpoint save's seconds and bytes; the record is saved to
+    `out_dir` when the incarnation starts and again when it ends (a fault
+    ends the launch first) and returned."""
+    import dataclasses
+
+    import torch
+    from repro_torch.checkpoint.store import tree_crcs, tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import service, train
+    mesh = runtime = None
+    saves: list = []
+    real = service.save_checkpoint
+
+    def timed(directory, step, tree, **kw):
+        t0 = time.perf_counter()
+        path = real(directory, step, tree, **kw)
+        saves.append({"dir": os.path.basename(directory), "step": step,
+                      "s": time.perf_counter() - t0,
+                      "gb": sum(x.numel() * x.element_size()
+                                for x in tree_flatten(tree)
+                                if isinstance(x, torch.Tensor)) / 1e9})
+        return path
+
+    service.save_checkpoint = timed
+    out = {}
+    try:
+        for label, argv in runs:
+            args = service.build_service_parser().parse_args(argv)
+            if mesh is None:
+                mesh = train.setup_mesh(args)
+                cfg = dataclasses.replace(get_config(args.arch),
+                                          num_layers=num_layers)
+                runtime = service.build_runtime(args, cfg=cfg, mesh=mesh)
+            saves.clear()
+            t0 = time.perf_counter()
+            svc = service.TrainService(args, runtime=runtime)
+            rec = {"start": svc.committed, "rank": mesh.rank,
+                   "restore_s": time.perf_counter() - t0}
+            if not svc.committed:
+                rec["base_crcs_fresh"] = tree_crcs(
+                    {k: v for k, v in svc.params.items() if k != "lora"})
+            path = os.path.join(out_dir, f"{label}_{mesh.rank}.pt")
+            torch.save(rec, path)
+            with contextlib.redirect_stdout(io.StringIO()):
+                rec["status"] = svc.run()
+            rec["seconds"] = time.perf_counter() - t0
+            params = svc.global_params()
+            rec.update(
+                lora_crcs=tree_crcs({"lora": params["lora"]}),
+                digest=params_digest(torch, params),
+                base_crcs_end=tree_crcs(
+                    {k: v for k, v in svc.params.items() if k != "lora"}),
+                saves=list(saves), device=str(mesh.device))
+            del params, svc
+            torch.save(rec, path)
+            out[label] = rec
+    finally:
+        service.save_checkpoint = real
+    return out
+
+
+def service_reference(torch, argv: list) -> dict:
+    """(e)'s uninterrupted reference in this process, in memory (no
+    checkpoint written, as phase 12's): the one-process runtime of the
+    mesh's flags with `--microbatches` = the data shards (whose clip
+    (c) found bitwise the mesh's per_group LoRA step), qwen3-4b cut to
+    MESH_SERVICE_DEPTH, its steps from the seeded state: the state's
+    per-leaf crc32s in the checkpoint's order, the adapters' crc32s,
+    the parameters' digest, the ledger records it would append, its
+    seconds."""
+    import dataclasses
+    from repro_torch.checkpoint.store import tree_crcs
+    from repro_torch.configs import get_config
+    from repro_torch.launch import service
+    from repro_torch.launch.train import init_state
+    t0 = time.perf_counter()
+    args = service.build_service_parser().parse_args(argv)
+    cfg = dataclasses.replace(get_config(args.arch),
+                              num_layers=MESH_SERVICE_DEPTH)
+    rt = service.build_runtime(args, cfg=cfg)
+    state = init_state(rt.model, rt.init_fn, rt.seed, rt.device)
+    run_steps(torch, rt, state, rt.make_sampler(), args.steps)
+    q, sigma = float(rt.plan.config.sampling_rate), float(rt.plan.sigma)
+    rec = {"crcs": tree_crcs(state),
+           "lora_crcs": tree_crcs({"lora": state["params"]["lora"]}),
+           "digest": params_digest(torch, state["params"]),
+           "ledger": [{"step": i, "q": q, "sigma": sigma,
+                       "orders_crc": service._ORDERS_CRC}
+                      for i in range(args.steps)],
+           "seconds": time.perf_counter() - t0}
+    del state, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_service(torch, gpu, backend_name, work, res, crash_s,
+                    bitwise):
+    """(e)'s gates: `res` the ranks' records of the resumed incarnation
+    (phase 16's launch) of the service a first launch crashed (`crash_s`
+    seconds). The uninterrupted reference is the one-process service in
+    this process, in memory, where (c) found the mesh's per_group LoRA
+    step `bitwise` with its oracle, else a mesh run in a launch of its
+    own. Gates: the resumed run's final checkpoint and adapter crcs equal
+    the reference's, its ledger the reference's record for record, the
+    step-4 publish reads back to its manifest's crcs, every rank's
+    parameter digest equal (and the reference's), each rank's base
+    slices bitwise as they were drawn. Returns the seconds of the
+    reference."""
+    from repro_torch.checkpoint.store import (all_steps, manifest_crcs,
+                                              verify_checkpoint)
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import service
+    t0 = time.perf_counter()
+    d, m = SHARDED_MESH
+    svc_dir = {k: os.path.join(work, f"svc_{k}") for k in ("reference",
+                                                           "crashed")}
+
+    def argv(name, mesh=True):
+        extra = (["--mesh", f"{d}x{m}", "--dist-backend", backend_name]
+                 if mesh else ["--microbatches", str(d)])
+        return MESH_SERVICE_ARGV + ["--service-dir", svc_dir[name], *extra]
+
+    def ledger(name):
+        return service.PrivacyLedger(os.path.join(
+            svc_dir[name], "ledger.jsonl")).replay()
+
+    first = [torch.load(os.path.join(work, f"first_{r}.pt"),
+                        weights_only=False) for r in range(d * m)]
+    if bitwise:
+        ref = service_reference(torch, argv("reference", mesh=False))
+    else:  # the uninterrupted mesh run, its checkpoint's crcs
+        ref = mesh_lib.spawn(
+            "chip_smoke:service_rank", d * m,
+            store_dir=os.path.join(work, "svc_ref"), backend=backend_name,
+            device="cuda", pg_timeout_s=120,
+            timeout_s=MESH_SERVICE_TIMEOUT_S, extra_paths=(ROOT,),
+            args=([("reference", argv("reference"))], MESH_SERVICE_DEPTH,
+                  work))[0]["reference"]
+        ref.update(crcs=manifest_crcs(os.path.join(svc_dir["reference"],
+                                                   "ckpt"), 4),
+                   ledger=ledger("reference"))
+    ref_s = time.perf_counter() - t0
+    pub = os.path.join(svc_dir["crashed"], "publish")
+    line = {
+        "phase": "sharded_service", "gpu": gpu, "backend": backend_name,
+        "arch": "qwen3-4b", "depth_cut": {"num_layers": MESH_SERVICE_DEPTH,
+                                          "of": 36},
+        "crash": f"{SERVICE_CRASH[0]}:{SERVICE_CRASH[1]}",
+        "exit_code_at_crash": 86,
+        "reference": ("one process in memory, --microbatches 2" if bitwise
+                      else "the mesh"),
+        "resumed_at": [r["start"] for r in res],
+        "ckpt_crcs_equal": manifest_crcs(os.path.join(
+            svc_dir["crashed"], "ckpt"), 4) == ref["crcs"],
+        "adapter_crcs_equal": all(r["lora_crcs"] == ref["lora_crcs"]
+                                  for r in res),
+        "ledger_equal": ledger("crashed") == ref["ledger"],
+        "ledger_records": len(ref["ledger"]),
+        "publish_steps": all_steps(pub),
+        "publish_verifies": verify_checkpoint(pub, 4),
+        "publish_crcs_equal": manifest_crcs(pub, 4) == res[0]["lora_crcs"],
+        "digests_equal": len({r["digest"] for r in res}
+                             | {ref["digest"]}) == 1,
+        "base_bitwise": all(a["base_crcs_fresh"] == b["base_crcs_end"]
+                            for a, b in zip(first, res)),
+        "seconds": {"crash_launch": crash_s,
+                    "resumed": max(r["seconds"] for r in res),
+                    "restore": max(r["restore_s"] for r in res),
+                    "reference": ref_s},
+        "saves": res[0]["saves"],
+        "devices": [r["device"] for r in res]}
+    emit(line)
+    ok = (line["resumed_at"] == [2] * (d * m) and line["ckpt_crcs_equal"]
+          and line["adapter_crcs_equal"] and line["ledger_equal"]
+          and line["ledger_records"] == 4 and line["publish_steps"] == [4, 2]
+          and line["publish_verifies"] and line["publish_crcs_equal"]
+          and line["digests_equal"] and line["base_bitwise"])
+    if not ok:
+        raise RuntimeError(f"phase 16 (e): the service on the mesh: {line}")
+    return ref_s
+
+
+def sharded_backend(torch) -> str:
+    """NCCL with a card per rank, else gloo with every rank on cuda:0."""
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def mesh_service_argv(work: str, backend: str, *extra) -> list:
+    """(e)'s service CLI flags on the mesh, over `work`/svc_crashed."""
+    d, m = SHARDED_MESH
+    return MESH_SERVICE_ARGV + [
+        "--service-dir", os.path.join(work, "svc_crashed"), "--mesh",
+        f"{d}x{m}", "--dist-backend", backend, *extra]
+
+
+def sharded_crash(torch, work: str) -> float:
+    """Phase 16 (e)'s first incarnation: the service on the mesh in a
+    launch of its own (its ranks' records under `work`), which its fault
+    at SERVICE_CRASH must end with 86. Returns the launch's seconds."""
+    from repro_torch.launch import mesh as mesh_lib
+    point, step = SERVICE_CRASH
+    backend = sharded_backend(torch)
+    t0 = time.perf_counter()
+    try:
+        mesh_lib.spawn(
+            "chip_smoke:service_rank", SHARDED_MESH[0] * SHARDED_MESH[1],
+            backend=backend, device="cuda",
+            timeout_s=MESH_SERVICE_TIMEOUT_S,
+            store_dir=os.path.join(work, "crash"), pg_timeout_s=120,
+            extra_paths=(ROOT,), args=([("first", mesh_service_argv(
+                work, backend, "--fault-at", f"{point}:{step}"))],
+                MESH_SERVICE_DEPTH, work))
+    except mesh_lib.RanksFailed as e:
+        if e.exit_code != 86:
+            raise
+        return time.perf_counter() - t0
+    raise RuntimeError("phase 16 (e): the service's fault did not end its "
+                       "launch")
+
+
+def phase_sharded(torch, gpu, work: str, crash_s: float):
+    """Phase 16, after (e)'s first launch (`sharded_crash` over `work`,
+    `crash_s` seconds). Returns the launches by kernel over every rank,
+    step and pipelined call, and per kernel the blocks of the kernels
+    line: the worst errors at rank 0's inputs of (b) ("sharded"), of (c)
+    ("sharded_lora", with the times at those inputs) and of the pipeline
+    ranks' inputs of (d) ("pipeline"), each with its launches."""
     import dataclasses
     import shutil
-    import tempfile
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_lib
     t_phase = time.perf_counter()
     full = get_config("qwen3-4b")
     cfg = dataclasses.replace(full, num_layers=SHARDED_DEPTH)
+    lora_cfg = dataclasses.replace(cfg, lora_rank=SHARDED_LORA_RANK)
     depth_cut = {"num_layers": SHARDED_DEPTH, "of": full.num_layers,
                  "why": "four replicas of the model and its Adam state (the "
                         "sharded engine replicates parameters at compute "
@@ -3750,26 +4446,48 @@ def phase_sharded(torch, gpu):
                         "share one 80 GB card"}
     d, m = SHARDED_MESH
     world = d * m
+    seconds: dict = {"crash": crash_s}
     # (a) the one-process oracle of each variant, then its memory freed
     t_part = time.perf_counter()
     oracle = {label: sharded_oracle(torch, label, mode, cfg)
               for label, mode, _ in SHARDED_VARIANTS}
-    oracle_s = time.perf_counter() - t_part
-    # (b) the mesh through the train CLI's Trainer: NCCL with a card per
-    # rank, else gloo with every rank on cuda:0
-    cards = torch.cuda.device_count()
-    backend = "nccl" if cards >= world else "gloo"
-    work = tempfile.mkdtemp(prefix="smoke_sharded_")
-    runs = [(label, sharded_argv(mode, mesh=f"{d}x{m}", backend=backend),
-             capture) for label, mode, capture in SHARDED_VARIANTS]
+    seconds["oracle"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
+    oracle.update({label: sharded_oracle(torch, label, mode, cfg, lora=True)
+                   for label, mode, _ in SHARDED_LORA_VARIANTS})
+    seconds["lora_oracle"] = time.perf_counter() - t_part
+    # (d)'s thresholds, from the one-process reference's norms²
+    t_part = time.perf_counter()
+    pipe_ths = pipeline_thresholds(torch)
+    seconds["pipeline_thresholds"] = time.perf_counter() - t_part
+    # (b)–(e) in one launch: the mesh through the train CLI's Trainer
+    # (NCCL with a card per rank, else gloo with every rank on cuda:0),
+    # the pipeline on the same ranks, the resume of (e)'s first launch
+    cards = torch.cuda.device_count()
+    backend = sharded_backend(torch)
+    variants = [(label, mode, capture, False)
+                for label, mode, capture in SHARDED_VARIANTS] + [
+        (label, mode, capture, True)
+        for label, mode, capture in SHARDED_LORA_VARIANTS]
+    runs = [(label, sharded_argv(mode, mesh=f"{d}x{m}", backend=backend,
+                                 lora=lora), capture)
+            for label, mode, capture, lora in variants]
+    resume_argv = mesh_service_argv(work, backend)
     try:
-        ranks = mesh_lib.spawn(
-            "chip_smoke:sharded_rank", world, backend=backend,
+        t_part = time.perf_counter()
+        results = mesh_lib.spawn(
+            "chip_smoke:phase16_rank", world, backend=backend,
             device="cuda", timeout_s=SHARDED_TIMEOUT_S, store_dir=work,
-            args=(runs, SHARDED_DEPTH, work), pg_timeout_s=300,
-            extra_paths=(ROOT,))
-        spawn_s = time.perf_counter() - t_part
+            args=(runs, SHARDED_DEPTH, work, pipe_ths, resume_argv),
+            pg_timeout_s=300, extra_paths=(ROOT,))
+        seconds["spawn"] = time.perf_counter() - t_part
+        ranks = [res["sharded"] for res in results]
+        seconds["lora_runs"] = max(
+            sum(res[label]["run_s"] for label, *_ in SHARDED_LORA_VARIANTS)
+            for res in ranks)
+        seconds["pipeline_ranks"] = max(res["pipeline_s"]
+                                        for res in results)
+        seconds["resume"] = max(res["service_s"] for res in results)
         emit({"phase": "sharded_backend", "gpu": gpu, "backend": backend,
               "cards": cards, "world": world, "mesh": f"{d}x{m}",
               "devices": {r: res[runs[0][0]]["device"]
@@ -3777,31 +4495,50 @@ def phase_sharded(torch, gpu):
               "coords": {r: res[runs[0][0]]["coords"]
                          for r, res in enumerate(ranks)}})
         launches = dict.fromkeys(TRAIN_KERNELS, 0)
-        kernels: dict = {}
-        for label, mode, capture in SHARDED_VARIANTS:
+        blocks: dict = {"sharded": {}, "sharded_lora": {}}
+        by_block = {k: dict.fromkeys(TRAIN_KERNELS, 0) for k in blocks}
+        parity: dict = {}
+        for label, mode, capture, lora in variants:
+            key = "sharded_lora" if lora else "sharded"
+            block = blocks[key]
             # clip-level parity at the first step
             line, ok = sharded_parity(torch, label, oracle[label],
                                       os.path.join(work, f"{label}_clip.pt"),
                                       8 // d)
             emit({"phase": "sharded_parity", "gpu": gpu, **line})
+            parity[label] = line
             if not ok:
                 raise RuntimeError(f"phase 16: {label} misses the "
                                    f"one-process step: {line}")
-            # every rank ends with the same thresholds and parameters
+            # every rank ends with the same thresholds and parameters (of
+            # a LoRA run: the adapters' bits, and each rank's frozen base
+            # slices with their fresh crc32s)
             thr = {tuple(res[label]["thresholds"]) for res in ranks}
             dig = {res[label]["digest"] for res in ranks}
-            emit({"phase": "sharded_ranks_agree", "gpu": gpu,
-                  "variant": label, "steps": SHARDED_STEPS,
-                  "thresholds": ranks[0][label]["thresholds"][:4],
-                  "num_thresholds": len(ranks[0][label]["thresholds"]),
-                  "thresholds_equal": len(thr) == 1,
-                  "params_digest": ranks[0][label]["digest"][:16],
-                  "digests_equal": len(dig) == 1})
+            agree = {"phase": "sharded_ranks_agree", "gpu": gpu,
+                     "variant": label, "steps": SHARDED_STEPS,
+                     "thresholds": ranks[0][label]["thresholds"][:4],
+                     "num_thresholds": len(ranks[0][label]["thresholds"]),
+                     "thresholds_equal": len(thr) == 1,
+                     "digest_of": "adapters" if lora else "params",
+                     "digest": ranks[0][label]["digest"][:16],
+                     "digests_equal": len(dig) == 1}
+            if lora:
+                agree.update(
+                    base_crcs_unchanged=[res[label]["base_crcs_unchanged"]
+                                         for res in ranks],
+                    base_leaves_per_rank=ranks[0][label]["base_leaves"],
+                    crc_s=max(res[label]["crc_s"] for res in ranks))
+                if not all(agree["base_crcs_unchanged"]):
+                    raise RuntimeError(f"phase 16 (c): {label}: the base "
+                                       f"changed: {agree}")
+            emit(agree)
             if len(thr) != 1 or len(dig) != 1:
                 raise RuntimeError(f"phase 16: {label}: ranks disagree "
                                    f"after {SHARDED_STEPS} steps")
             # the collective log: the Sec. 4 contract on every rank, step
-            per_step = expected_launches(label, cfg, batch=8 // d)
+            per_step = expected_launches(label, lora_cfg if lora else cfg,
+                                         batch=8 // d)
             for r, res in enumerate(ranks):
                 for s, step in enumerate(res[label]["steps"]):
                     c = step["contract"]
@@ -3818,6 +4555,9 @@ def phase_sharded(torch, gpu):
                         bad.append("a flat_norm_psum")
                     if c["grad_psum"] != c["leaves"]:
                         bad.append("not one grad_psum per leaf")
+                    if c["grad_psum_leaves"] != res[label]["trained"]:
+                        bad.append("a grad_psum of a leaf that does not "
+                                   "train")
                     if mode != "per_layer" and not (
                             c["contractions"] == c["leaves"]
                             and c["interleaved_after_next_contraction"]):
@@ -3831,6 +4571,7 @@ def phase_sharded(torch, gpu):
                                            f"step {s}: {bad}: {c}")
                     for k in launches:
                         launches[k] += step["launches"][k]
+                        by_block[key][k] += step["launches"][k]
             c0 = ranks[0][label]["steps"][0]["contract"]
             emit({"phase": "sharded_collectives", "gpu": gpu,
                   "variant": label, "rank": 0, **c0,
@@ -3840,36 +4581,60 @@ def phase_sharded(torch, gpu):
                   for res in ranks]
             emit({"phase": "sharded_train", "gpu": gpu, "variant": label,
                   "arch": cfg.name, "depth_cut": depth_cut,
+                  "lora_rank": SHARDED_LORA_RANK if lora else 0,
                   "backend": backend, "batch": 8, "seq": 256,
                   "ms_per_step_by_rank": ms,
                   "ms_per_step": [max(col) for col in zip(*ms)],
                   "oracle_ms_per_step": oracle[label]["ms"],
                   "losses": [step["metrics"][0]
                              for step in ranks[0][label]["steps"]]})
-            if capture:
-                for row in sharded_kernel_checks(
-                        torch, gpu, os.path.join(work, f"{label}_caps.pt"),
-                        label):
-                    emit({"phase": "sharded_kernel_vs_plain", "gpu": gpu,
-                          **row})
-                    o = kernels.setdefault(row["kernel"], {
-                        "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": 0})
-                    o["max_abs_err"] = max(o["max_abs_err"],
-                                           row["max_abs_err"])
-                    o["max_rel_err"] = max(o["max_rel_err"],
-                                           row["max_rel_err"])
-                    o["shapes"] += 1
-        for name in ("ghost_norm", "clip_reduce", "scale_contract"):
-            if name not in kernels or not launches[name]:
-                raise RuntimeError(f"phase 16: {name} was not launched and "
-                                   f"checked on the sharded path")
-            kernels[name]["launches"] = launches[name]
+            for row in sharded_kernel_checks(
+                    torch, gpu, os.path.join(work, f"{label}_caps.pt"),
+                    label, timed=lora):
+                emit({"phase": "sharded_kernel_vs_plain", "gpu": gpu,
+                      **row})
+                o = block.setdefault(row["kernel"], {
+                    "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": 0})
+                o["max_abs_err"] = max(o["max_abs_err"],
+                                       row["max_abs_err"])
+                o["max_rel_err"] = max(o["max_rel_err"],
+                                       row["max_rel_err"])
+                o["shapes"] += 1
+                if lora:
+                    o.setdefault("rows", []).append({k: row[k] for k in (
+                        "a", "g", "ms", "plain_ms", "max_abs_err")})
+        for key, block in blocks.items():
+            for name in ("ghost_norm", "clip_reduce", "scale_contract"):
+                if name not in block or not by_block[key][name]:
+                    raise RuntimeError(f"phase 16: {name} was not launched "
+                                       f"and checked on the {key} path")
+            for name, o in block.items():
+                o["launches"] = by_block[key][name]
+        # (d) Algorithm 2 on the card
+        t_part = time.perf_counter()
+        p_launches, blocks["pipeline"] = sharded_pipeline(
+            torch, gpu, backend, [res["pipeline"] for res in results], work)
+        seconds["pipeline_checks"] = time.perf_counter() - t_part
+        for k in launches:
+            launches[k] += p_launches[k]
+        # (e) the crash-safe service on the mesh: the resume, against the
+        # one-process service where (c)'s per_group step was bitwise
+        bitwise = (parity["lora_per_group_bk"]["grads"]["unequal"] == 0
+                   and parity["lora_per_group_bk"]["norms_bitwise"])
+        seconds["reference"] = sharded_service(
+            torch, gpu, backend, work, [res["service"] for res in results],
+            seconds["crash"], bitwise)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    seconds["additions"] = (
+        seconds["lora_oracle"] + seconds["lora_runs"]
+        + seconds["pipeline_thresholds"] + seconds["pipeline_ranks"]
+        + seconds["pipeline_checks"] + seconds["crash"]
+        + seconds["resume"] + seconds["reference"])
     emit({"phase": "sharded_s", "gpu": gpu, "backend": backend,
-          "oracle_s": oracle_s, "spawn_s": spawn_s,
+          "seconds_by_part": seconds,
           "seconds": time.perf_counter() - t_phase})
-    return launches, kernels
+    return launches, blocks
 
 
 # ---------------------------------------------------------------------------
@@ -4562,6 +5327,11 @@ def main() -> int:
     del scale_caps
     clock("scale kernels")
     service_launches = phase_service(torch, gpu)
+    # phase 12 (c), the service CLI's subprocesses, beside phase 16 (e)'s
+    # first launch, four ranks that the service's fault ends
+    sharded_work = tempfile.mkdtemp(prefix="smoke_sharded_")
+    crash_s = phase_service_cli_beside(
+        gpu, lambda: sharded_crash(torch, sharded_work))
     clock("service")
     # phase 13: paged_attn on granite's and deepseek-v3's serving paths
     for label, block in phase_moe_mla_serve(torch, gpu).items():
@@ -4581,10 +5351,11 @@ def main() -> int:
         for err in ("max_abs_err", "max_rel_err"):
             kernel[err] = max(kernel[err], block[err])
     clock("dense and contiguous")
-    # phase 16: sharded training on a 2x2 mesh of ranks
+    # phase 16: sharded training on a 2x2 mesh of ranks, DP-LoRA there,
+    # Algorithm 2's pipeline, the service on the mesh
     gc.collect()
     torch.cuda.empty_cache()
-    s_launches, sharded = phase_sharded(torch, gpu)
+    s_launches, s_blocks = phase_sharded(torch, gpu, sharded_work, crash_s)
     clock("sharded training")
     # phase 17: DP-LoRA training, the kernels at the adapters' shapes,
     # the service's publish, multi-tenant serving with a hot swap
@@ -4604,7 +5375,7 @@ def main() -> int:
         for key, extra in (("moe", moe), ("naive_flat", naive),
                            ("long_context", long), ("mla_train", mla),
                            ("moe_bk", moe_bk), ("dense_train", dense),
-                           ("sharded", sharded), ("lora", lora)):
+                           *s_blocks.items(), ("lora", lora)):
             if k["name"] in extra:
                 k[key] = extra[k["name"]]
                 for err in ("max_abs_err", "max_rel_err"):

@@ -1,9 +1,11 @@
 """Sharded DP training on a (data, model) mesh of ranks with the PyTorch
 port: the train CLI's `--mesh DxM` on D * M ranks started by
 `repro_torch.launch.mesh.spawn`, next to the single-device run of the
-same flags. Per-device clipping (`--clipping per_group`, the default
-here) keeps every norm on its model shard; the step lines of the two runs
-agree up to f32 summation order.
+same flags, twice: the full fine-tune, then DP-LoRA (`--lora-rank 4`:
+the adapters train, the base is frozen, and only the adapters' gradients
+are all-reduced). Per-device clipping (`--clipping per_group`, the
+default here) keeps every norm on its model shard; the step lines of the
+two runs agree up to f32 summation order.
 
     PYTHONPATH=src python examples/torch_train_mesh.py --device cpu
     PYTHONPATH=src python examples/torch_train_mesh.py   # the GPU(s)
@@ -52,24 +54,27 @@ def main() -> int:
         cards = torch.cuda.device_count()
         backend = "nccl" if cards >= world else "gloo"
         print(f"# {world} ranks on {cards} card(s): dist_backend={backend}")
-    argv = ["--arch", "tiny", "--clipping", "per_group", "--steps", "3",
-            "--batch", "8", "--seq", "16", "--docs", "32", "--log-every",
-            "1", "--seed", "3", *rest, "--device", args.device]
-    single = [ln for ln in rank_output(
-        argv + ["--group-count", str(shape["model"])]).splitlines()
-        if ln.startswith("step")]
-    with tempfile.TemporaryDirectory() as work:
-        outs = mesh.spawn("torch_train_mesh:rank_output", world,
-                          backend=backend, device=args.device,
-                          store_dir=work, timeout_s=600,
-                          extra_paths=(os.path.dirname(
-                              os.path.abspath(__file__)),),
-                          args=(argv + ["--mesh", args.mesh,
-                                        "--dist-backend", backend],))
-    print(outs[0], end="")
-    sharded = [ln for ln in outs[0].splitlines() if ln.startswith("step")]
-    print(f"# single device: {len(single)} step lines, "
-          f"{sum(a == b for a, b in zip(single, sharded))} identical")
+    for extra in ([], ["--lora-rank", "4"]):
+        argv = ["--arch", "tiny", "--clipping", "per_group", "--steps", "3",
+                "--batch", "8", "--seq", "16", "--docs", "32",
+                "--log-every", "1", "--seed", "3", *extra, *rest,
+                "--device", args.device]
+        single = [ln for ln in rank_output(
+            argv + ["--group-count", str(shape["model"])]).splitlines()
+            if ln.startswith("step")]
+        with tempfile.TemporaryDirectory() as work:
+            outs = mesh.spawn("torch_train_mesh:rank_output", world,
+                              backend=backend, device=args.device,
+                              store_dir=work, timeout_s=600,
+                              extra_paths=(os.path.dirname(
+                                  os.path.abspath(__file__)),),
+                              args=(argv + ["--mesh", args.mesh,
+                                            "--dist-backend", backend],))
+        print(outs[0], end="")
+        sharded = [ln for ln in outs[0].splitlines()
+                   if ln.startswith("step")]
+        print(f"# single device: {len(single)} step lines, "
+              f"{sum(a == b for a, b in zip(single, sharded))} identical")
     return 0
 
 

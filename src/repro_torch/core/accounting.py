@@ -20,6 +20,7 @@ service's persistent privacy ledger (`launch.service`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Iterable, Sequence
@@ -187,6 +188,9 @@ def compute_epsilon(
     return rdp_to_eps(rdp, delta, orders)
 
 
+# a pure function of its arguments: the runs of one process that share a
+# budget (trainers, service runtimes, oracles) share one bisection
+@functools.lru_cache(maxsize=256)
 def calibrate_sigma(
     *,
     target_eps: float,

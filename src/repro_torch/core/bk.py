@@ -44,7 +44,9 @@ epilogue on every rank with its masked factor rows and passes
 `psum_axes`: each stacked leaf's clipped sum is then all-reduced over
 those mesh axes asynchronously, and waited on after the NEXT leaf's
 contraction, so each layer's reduction overlaps the next layer's
-`scale_contract`, as the reference interleaves its psums.
+`scale_contract`, as the reference interleaves its psums. Under DP-LoRA
+the spec is `{"lora": ...}`: the adapter leaves alone are contracted and
+all-reduced.
 """
 from __future__ import annotations
 

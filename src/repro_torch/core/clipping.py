@@ -66,8 +66,9 @@ adapters, `core.lora`), and the layout's spec is that subtree. Every
 mode then runs on the rest of the tree detached, so a frozen linear's
 backward passes dx only: no ghost norm, no weight gradient, and the
 clipped grads come back as `{trainable_key: ...}`. BK applies when the
-layout covers exactly the trainable subtree, as in the reference; the
-sharded driver does not take it yet (ROADMAP A.18).
+layout covers exactly the trainable subtree, as in the reference. The
+sharded driver takes it too: every rank clips the subtree, and only its
+leaves are all-reduced (no base leaf crosses the wire).
 """
 from __future__ import annotations
 
@@ -420,12 +421,15 @@ class ShardedClipResult(NamedTuple):
 
 
 def _psum_tree(tree, axes, mesh):
-    """One all-reduce per leaf (site `grad_psum`), all issued before the
-    first wait."""
-    paths, leaves = zip(*tree_leaves(tree))
-    pending = [mesh.psum(g, axes, site="grad_psum", async_op=True)
-               for g in leaves]
-    return _rebuild(paths, [p.wait() for p in pending])
+    """One all-reduce per leaf (site `grad_psum`, each marked `reduce
+    <path>` in the trace just before its issue), all issued before the
+    first wait. `tree` holds the trainable leaves only."""
+    pending = []
+    for path, g in tree_leaves(tree):
+        mesh.mark("reduce " + "/".join(path))
+        pending.append((path, mesh.psum(g, axes, site="grad_psum",
+                                        async_op=True)))
+    return _rebuild([p for p, _ in pending], [h.wait() for _, h in pending])
 
 
 def sharded_clipped_gradients(
@@ -441,18 +445,18 @@ def sharded_clipped_gradients(
     """`dp_clipped_gradients` on one rank of `mesh` (see the comment
     above). `batch` is this rank's LOCAL batch shard of `batch_size`
     examples, `data_size` the number of data-plane shards (the global
-    batch is both); `data_axes` default to the mesh's."""
+    batch is both); `data_axes` default to the mesh's. trainable_key:
+    as `dp_clipped_gradients` (DP-LoRA's `"lora"`): the grads, and so
+    every `grad_psum`, cover `params[trainable_key]` alone."""
     check_mode(mode)
-    if trainable_key is not None:
-        raise NotImplementedError(
-            "training a parameter subtree (trainable_key, DP-LoRA) under "
-            "sharded execution is not ported yet: ROADMAP.md item A.18")
     if mode.endswith("_twopass"):
         mode, execution = base_mode(mode), "twopass"
     if data_axes is None:
         data_axes = tuple(a for a in mesh.axis_names if a != model_axis)
     data_axes = tuple(data_axes)
     all_axes = data_axes + (model_axis,)
+    params = _freeze_rest(params, trainable_key)
+    tk = trainable_key
     dev = next(t for _, t in tree_leaves(params)).device
     global_b = batch_size * data_size
 
@@ -462,7 +466,7 @@ def sharded_clipped_gradients(
 
     if mode == "non_private":
         th = layout.pack_value(float("inf"), batch_size, device=dev)
-        val, grads = _grads_only(loss_fn, params, batch, th)
+        val, grads = _grads_only(loss_fn, params, batch, th, tk)
         norms = torch.zeros((layout.num_groups, batch_size),
                             dtype=torch.float32, device=dev)
         return ShardedClipResult(_psum_tree(grads, data_axes, mesh), norms,
@@ -473,7 +477,7 @@ def sharded_clipped_gradients(
         if thresholds is None:
             raise ValueError("per_layer mode needs thresholds (K,)")
         val, grads, norms = _grads_and_norms(loss_fn, params, batch, layout,
-                                             thresholds, batch_size)
+                                             thresholds, batch_size, tk)
         counts = mesh.psum(clip_counts(norms, thresholds), data_axes,
                            site="clip_count_psum")
         return ShardedClipResult(_psum_tree(grads, data_axes, mesh), norms,
@@ -489,7 +493,7 @@ def sharded_clipped_gradients(
         raise ValueError("per_group mode needs group_thresholds (M,)")
 
     val, norms, cap = _norms_pass(loss_fn, params, batch, layout,
-                                  batch_size, execution)
+                                  batch_size, execution, tk)
     midx = mesh.axis_index(model_axis)
     assign = torch.as_tensor(shard_assignment, device=dev).long()
     own = (assign == midx).float()  # (K,)
@@ -530,6 +534,7 @@ def sharded_clipped_gradients(
     if f_full is None:
         f_full = mesh.psum(f_rows.contiguous(), (model_axis,),
                            site="factor_gather_psum")
-    _, grads = _grads_only(loss_fn, params, batch, layout.pack_rows(-f_full))
+    _, grads = _grads_only(loss_fn, params, batch, layout.pack_rows(-f_full),
+                           tk)
     return ShardedClipResult(_psum_tree(grads, data_axes, mesh), norms,
                              mean_loss(val), counts)

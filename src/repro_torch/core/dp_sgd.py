@@ -30,8 +30,9 @@ seeded generators, so every rank ends the step with the same bits.
 DP-LoRA (`trainable_key="lora"`): only `params["lora"]` trains. The
 noise, the clip counts, the quantile update and the optimizer (its state
 covers the adapters only) act on that subtree, and the base stays bit for
-bit as it was. Under a mesh the clipping driver refuses it (ROADMAP
-A.18).
+bit as it was. Under a mesh the same holds on every rank: the sharded
+driver all-reduces the adapters' gradients alone, and every rank ends the
+step with the same adapter bits.
 """
 from __future__ import annotations
 

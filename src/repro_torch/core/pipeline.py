@@ -30,7 +30,10 @@ test) stage 0 alone can form.
 
 Sends are non-blocking and tagged by microbatch (a receive matches its
 send whatever order autograd runs the backward in); `drain()` waits for
-the outstanding ones, each forward drains the previous backward's.
+the outstanding ones, each forward drains the previous backward's. On a
+card the backward's receives and sends run on autograd's device thread;
+under gloo the mesh stages them through the host (`launch.mesh`), the
+staged copy kept alive by its pending handle until `drain()`.
 """
 from __future__ import annotations
 

@@ -26,16 +26,32 @@ card, and a world larger than the visible cards raises, naming
 `--dist-backend gloo`, under which ranks share a card and gloo stages
 CUDA tensors through the host itself for all-reduce and all-gather (of
 every dtype the drivers send, bf16 among them). gloo sends and receives
-only host tensors, so `isend` / `recv` (the pipeline's transport) refuse
-a CUDA tensor under gloo.
+only host tensors, so under gloo `isend` / `recv` (the pipeline's
+transport) stage a CUDA tensor through the host here: `isend` copies it
+to the host (a synchronous copy, complete before gloo reads it) and the
+handle keeps that copy alive until `wait()`; `recv` receives into a host
+buffer and returns it on the rank's device. That is how ranks sharing one
+card run the pipeline, not a fallback: under NCCL nothing is staged.
+
+A mesh of one rank (every axis of size 1) needs no process group: each
+of its collectives is the identity, as a psum over a size-1 axis is.
+
+`python -m repro_torch.launch.mesh --nproc N MODULE ARGS...` launches a
+CLI (`MODULE.main(ARGS)`, the train CLI or the service) on N ranks of
+this host through `spawn` and exits with the launch's code: 0, or the
+failed rank's (`RanksFailed.exit_code`), so the service's fault ends it
+with 86. torchrun launches the same CLIs but exits 1 when a rank fails,
+naming the rank's code only in its error report.
 """
 from __future__ import annotations
 
+import argparse
 import datetime
 import importlib
 import math
 import os
 import sys
+import tempfile
 import time
 import traceback
 from typing import Any, NamedTuple
@@ -101,16 +117,21 @@ class Mesh:
         self.axis_names = names
         self.shape = {a: int(shape[a]) for a in names}
         self.size = math.prod(self.shape.values())
-        world = dist.get_world_size()
+        alone = self.size == 1 and not dist.is_initialized()
+        world = 1 if alone else dist.get_world_size()
         if world != self.size:
             raise ValueError(f"a {self.describe()} mesh needs {self.size} "
                              f"ranks, the process group has {world}")
-        self.rank = dist.get_rank()
+        self.rank = 0 if alone else dist.get_rank()
         self.device = torch.device(device)
         self.backend = backend
         self.coords = self._coords(self.rank)
         self.log: list[Collective] = []
         self.trace: list[str] = []
+        # checkpoint directories every rank was found to share
+        # (`train.check_shared`)
+        self.shared_dirs: set[str] = set()
+        self._sends: list[str] = []  # isend labels since reset_log
         # one group per axis set a psum names, made in the same order on
         # every rank: each axis, the data plane, data + model
         sets = [(a,) for a in names]
@@ -225,32 +246,54 @@ class Mesh:
     def _peer(self, axis: str, index: int) -> int:
         return self.rank_of(dict(self.coords, **{axis: index}))
 
-    def _check_p2p(self, t: torch.Tensor) -> None:
-        if self.backend == "gloo" and t.is_cuda:
-            raise ValueError("gloo sends and receives only host tensors: run "
-                             "the pipeline on the CPU, or over NCCL with a "
-                             "card per rank")
+    def stages(self, t: torch.Tensor) -> bool:
+        """Whether point-to-point traffic of `t` goes through the host:
+        a CUDA tensor under gloo, which sends and receives host tensors
+        only. Never under NCCL."""
+        return self.backend == "gloo" and t.is_cuda
 
     def isend(self, t: torch.Tensor, axis: str, to_index: int, *,
               site: str, tag: int = 0):
         """Start sending `t` to the rank at coordinate `to_index` along
         `axis` (the others equal); returns a handle to `wait()` on, which
-        keeps the sent buffer alive."""
-        self._check_p2p(t)
+        keeps the sent buffer (under gloo, a CUDA tensor's host copy)
+        alive."""
         self._record(site, (axis,), t)
-        src = t.detach().contiguous()
+        label = f"{site}#{len(self.log) - 1}"
+        self.trace.append(f"issue {label}")
+        self._sends.append(label)
+        src = t.detach()
+        if self.stages(src):
+            src = src.cpu()  # synchronous: complete before gloo reads it
+        src = src.contiguous()
         work = dist.isend(src, self._peer(axis, to_index), tag=tag)
-        return _Pending(self, work, src, f"{site}#{len(self.log) - 1}")
+        return _Pending(self, work, src, label)
 
     def recv(self, shape, dtype, axis: str, from_index: int, *, site: str,
              tag: int = 0) -> torch.Tensor:
         """A tensor on the rank's device received from the rank at
-        `from_index` along `axis` (blocking, matched by `tag`)."""
+        `from_index` along `axis` (blocking, matched by `tag`); under gloo
+        on a card, received into a host buffer and copied to the card."""
         buf = torch.empty(shape, dtype=dtype, device=self.device)
-        self._check_p2p(buf)
         self._record(site, (axis,), buf)
+        if self.stages(buf):
+            host = torch.empty(shape, dtype=dtype)
+            dist.recv(host, self._peer(axis, from_index), tag=tag)
+            return buf.copy_(host)
         dist.recv(buf, self._peer(axis, from_index), tag=tag)
         return buf
+
+    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+        """Rank `src`'s picklable `obj` on every rank (a host-side
+        broadcast over the whole mesh, site `object_broadcast`): how the
+        ranks take one rank's decision."""
+        self.log.append(Collective("object_broadcast", self.axis_names,
+                                   "object", 1))
+        if self.size == 1:
+            return obj
+        box = [obj if self.rank == src else None]
+        dist.broadcast_object_list(box, src=src)
+        return box[0]
 
     def barrier(self) -> None:
         if self.size > 1:
@@ -261,9 +304,17 @@ class Mesh:
         trace, between the collectives around it."""
         self.trace.append(event)
 
+    def sends_drained(self) -> bool:
+        """Whether every `isend` issued since the last `reset_log` was
+        waited (each staged copy released)."""
+        waited = {e.split(" ", 1)[1] for e in self.trace
+                  if e.startswith("wait ")}
+        return all(label in waited for label in self._sends)
+
     def reset_log(self) -> None:
         self.log.clear()
         self.trace.clear()
+        self._sends.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +490,22 @@ def _child(rank, world, qualname, backend, device, pg_timeout_s, store,
         os._exit(1)
 
 
+class RanksFailed(RuntimeError):
+    """Spawned ranks exited non-zero. `codes` maps each failed rank to
+    its exit code; `exit_code` is the launch's: rank 0's where it failed
+    (the rank that writes, whose deliberate exit, such as the service's
+    injected fault, takes its peers down with it), else the lowest failed
+    rank's."""
+
+    def __init__(self, message: str, codes: dict[int, int]):
+        super().__init__(message)
+        self.codes = dict(codes)
+
+    @property
+    def exit_code(self) -> int:
+        return self.codes[min(self.codes)]
+
+
 def spawn(fn_qualname: str, world: int, *, backend: str = "gloo",
           device: str = "cpu", timeout_s: float = 120.0, store_dir: str,
           args: tuple = (), kwargs: dict | None = None,
@@ -450,9 +517,9 @@ def spawn(fn_qualname: str, world: int, *, backend: str = "gloo",
     has joined a process group of `backend` through a FileStore in
     `store_dir`, on `device` (cuda: cuda:(rank % cards)). Returns each
     rank's result, in rank order. A rank's exception fails the call with
-    its traceback (the other ranks are killed); so does a rank that dies,
-    and the hard join timeout `timeout_s` kills every child and raises
-    TimeoutError."""
+    its traceback (the other ranks are killed); so does a rank that dies
+    (`RanksFailed`, which carries the exit codes), and the hard join
+    timeout `timeout_s` kills every child and raises TimeoutError."""
     if device != "cpu":
         rank_device(device, backend, 0, world)  # refuse before starting
     os.makedirs(store_dir, exist_ok=True)
@@ -493,8 +560,9 @@ def spawn(fn_qualname: str, world: int, *, backend: str = "gloo",
                     res = result(r)
                     msgs.append(f"rank {r} exited {codes[r]}" + (
                         f":\n{res[1]}" if res else " without a result"))
-                raise RuntimeError("spawned ranks failed:\n" +
-                                   "\n".join(msgs))
+                raise RanksFailed("spawned ranks failed:\n" +
+                                  "\n".join(msgs),
+                                  {r: codes[r] for r in failed})
             if all(c == 0 for c in codes):
                 break
             if time.monotonic() > deadline:
@@ -512,3 +580,46 @@ def spawn(fn_qualname: str, world: int, *, backend: str = "gloo",
                                else f"rank {r} failed:\n{res[1]}")
         out.append(res[1])
     return out
+
+
+def _run_cli(module: str, argv: list) -> int:
+    """A rank of `main`: `module.main(argv)`; a non-zero code ends this
+    rank with that code."""
+    code = importlib.import_module(module).main(argv) or 0
+    if code:
+        sys.stdout.flush()
+        shutdown()
+        os._exit(code)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.mesh",
+        description="Run MODULE.main(ARGS) on --nproc ranks of this host "
+                    "(launch.mesh.spawn); exit with the launch's code.")
+    ap.add_argument("--nproc", type=int, required=True,
+                    help="ranks: the product of MODULE's --mesh")
+    ap.add_argument("module", help="e.g. repro_torch.launch.service")
+    ap.add_argument("args", nargs=argparse.REMAINDER)
+    a = ap.parse_args(argv)
+    # the ranks join with the CLI's own backend and device
+    flags = argparse.ArgumentParser(add_help=False)
+    flags.add_argument("--dist-backend", default="nccl")
+    flags.add_argument("--device", default="cuda")
+    f, _ = flags.parse_known_args(a.args)
+    with tempfile.TemporaryDirectory(prefix="mesh-launch-") as store:
+        try:
+            spawn("repro_torch.launch.mesh:_run_cli", a.nproc,
+                  backend=f.dist_backend, device=f.device, store_dir=store,
+                  timeout_s=math.inf, args=(a.module, a.args),
+                  pg_timeout_s=float(os.environ.get(TIMEOUT_ENV,
+                                                    PG_TIMEOUT_S)))
+        except RanksFailed as e:
+            print(e, file=sys.stderr)
+            return e.exit_code
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

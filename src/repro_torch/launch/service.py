@@ -38,6 +38,22 @@ over-refusing (wasted compute):
     `launch.swap.AdapterWatcher` polls. A run that trains no adapters
     publishes nothing.
 
+  * **A mesh of ranks** (`--mesh DxM --dist-backend ...`, launched by
+    `python -m repro_torch.launch.mesh --nproc D*M`, torchrun or
+    `launch.mesh.spawn`, as the train CLI's): every rank runs
+    the sharded step on its data shard, the weights stored model-sharded
+    between steps. Rank 0 alone appends and fsyncs the ledger, saves the
+    checkpoints and publishes the adapters; its ledger replay reaches the
+    other ranks through a broadcast, so every rank admits the same steps,
+    and every rank restores its slices of the same checkpoint
+    (`load_checkpoint(shardings=)`). A checkpoint's state is gathered by
+    every rank before rank 0 writes it, and the others wait for its
+    published directory, however long the save takes (the directory
+    must be shared by every rank: the first save checks it). A fault
+    fires on rank 0; its `os._exit(86)` ends the launch. The repo's
+    launcher (`launch.mesh`'s CLI, `RanksFailed.exit_code` under spawn)
+    exits 86; torchrun exits 1 and names the 86 in its error report.
+
 Not ported here: the compile cache and autotune table of the startup
 (A.11).
 
@@ -67,8 +83,12 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.core import accounting
 from repro_torch.core.quantile import export_state as export_quantile_state
 from repro_torch.data import PoissonSampler, make_lm_batch
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.sharding import (gather_tree, params_shardings,
+                                         shard_tree)
 from repro_torch.launch.train import (build_everything, build_train_parser,
-                                      init_state, restore_latest)
+                                      checkpoint_on_rank0, init_state,
+                                      restore_latest, setup_mesh)
 
 # exit code of a deterministically injected fault (distinguishable from a
 # real crash); budget exhaustion is a CLEAN exit (0)
@@ -266,6 +286,8 @@ class ServiceRuntime:
     batch: int
     seed: int
     device: torch.device
+    mesh: object = None  # the rank's launch.mesh.Mesh under --mesh
+    placements: object = None  # params_shardings on that mesh
 
     def make_sampler(self) -> PoissonSampler:
         return PoissonSampler(num_examples=self.rows.shape[0],
@@ -273,19 +295,23 @@ class ServiceRuntime:
                               max_batch=self.batch, seed=1)
 
 
-def build_runtime(args, *, cfg=None) -> ServiceRuntime:
+def build_runtime(args, *, cfg=None, mesh=None) -> ServiceRuntime:
     """The service's model, data and step from its arguments; `cfg`
     replaces the config of `--arch` (a depth cut), as in
-    `launch.train.build_everything`."""
+    `launch.train.build_everything`; `mesh` (`launch.train.setup_mesh`)
+    makes the step this rank's sharded step."""
     # sigma is calibrated for the --calib-steps horizon (default --steps);
     # running past it is what the budget gate is for
     build_args = argparse.Namespace(**vars(args))
     build_args.steps = getattr(args, "calib_steps", None) or args.steps
     cfg, model, rows, _sampler, init_fn, step_fn, plan = build_everything(
-        build_args, cfg=cfg)
-    return ServiceRuntime(cfg=cfg, model=model, rows=rows, init_fn=init_fn,
-                          step=step_fn, plan=plan, batch=args.batch,
-                          seed=args.seed, device=torch.device(args.device))
+        build_args, cfg=cfg, mesh=mesh)
+    return ServiceRuntime(
+        cfg=cfg, model=model, rows=rows, init_fn=init_fn, step=step_fn,
+        plan=plan, batch=args.batch, seed=args.seed,
+        device=torch.device(args.device) if mesh is None else mesh.device,
+        mesh=mesh, placements=(None if mesh is None
+                               else params_shardings(model.spec, mesh)))
 
 
 class TrainService:
@@ -294,17 +320,22 @@ class TrainService:
     Construction replays the ledger and loads the newest verified
     checkpoint (or initializes fresh state); `run()` trains until
     `target_steps` are committed or the budget is exhausted (raising
-    BudgetExhausted after a final checkpoint).
+    BudgetExhausted after a final checkpoint). On a mesh (the runtime's)
+    it is one rank's incarnation: `params` holds the rank's slices, and
+    only rank 0 (`is_main`) writes or fires a fault.
     """
 
     def __init__(self, args, *, runtime: ServiceRuntime | None = None,
                  fault: FaultInjector | None = None,
                  sleep: Callable[[float], None] = time.sleep):
         self.args = args
-        self.fault = fault or FaultInjector.parse(
-            getattr(args, "fault_at", None))
-        self.sleep = sleep
         self.runtime = runtime or build_runtime(args)
+        self.mesh = self.runtime.mesh
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        self.fault = (fault or FaultInjector.parse(
+            getattr(args, "fault_at", None))) if self.is_main else (
+            FaultInjector())
+        self.sleep = sleep
         self.target_steps = args.steps
         self.delta = args.delta
         self.budget_eps = getattr(args, "budget_eps", None) or args.epsilon
@@ -331,8 +362,12 @@ class TrainService:
     # -- startup: ledger replay + checkpoint restore -----------------------
 
     def _restore(self) -> None:
-        records = with_retries(self.ledger.replay, sleep=self.sleep,
-                               describe="ledger replay")
+        records = None
+        if self.is_main:  # the replay may truncate a torn trailing record
+            records = with_retries(self.ledger.replay, sleep=self.sleep,
+                                   describe="ledger replay")
+        if self.mesh is not None:  # before rank 0 appends anything
+            records = self.mesh.broadcast_object(records)
         self.acct = accounting.RdpAccountant()
         for rec in records:
             if (abs(rec["q"] - self.q) > 1e-12
@@ -348,11 +383,14 @@ class TrainService:
         rt = self.runtime
         found = with_retries(
             lambda: restore_latest(self.ckpt_dir, rt.model, rt.init_fn,
-                                   rt.device),
+                                   rt.device, rt.placements),
             sleep=self.sleep, describe="checkpoint load")
         if found is None:
             self.committed = 0
             state = init_state(rt.model, rt.init_fn, rt.seed, rt.device)
+            if self.mesh is not None:  # stored model-sharded between steps
+                state["params"] = shard_tree(state["params"],
+                                             rt.placements)
         else:
             self.committed, state, manifest = found
             meta = manifest.get("meta") or {}
@@ -365,6 +403,13 @@ class TrainService:
                     f"log disagree")
         self.params = state["params"]
         self.opt_state, self.dp_state = state["opt_state"], state["dp_state"]
+        if self.mesh is not None:
+            main = self.mesh.broadcast_object(self.committed)
+            if main != self.committed:
+                raise LedgerCorrupt(
+                    f"rank {self.mesh.rank} restored step {self.committed}, "
+                    f"rank 0 step {main}: the ranks do not share one "
+                    f"checkpoint directory")
         # the privacy invariant: every committed step MUST be ledgered (the
         # converse, ledgered but uncommitted, is the safe crash gap that
         # deterministic re-execution closes)
@@ -406,18 +451,29 @@ class TrainService:
         self.fault.fire("pre-ledger-append", step)
         record = {"step": step, "q": self.q, "sigma": self.sigma,
                   "orders_crc": _ORDERS_CRC}
-        with_retries(lambda: self.ledger.append(record), sleep=self.sleep,
-                     describe="ledger append")
+        if self.is_main:  # every rank spends; rank 0 alone writes
+            with_retries(lambda: self.ledger.append(record),
+                         sleep=self.sleep, describe="ledger append")
         self.acct.spend(self.q, self.sigma)
         self.ledgered_steps += 1
         self.fault.fire("post-ledger-append", step)
 
     def state(self) -> dict:
-        """The checkpointed tree (the reference's keys)."""
-        return {"params": self.params, "opt_state": self.opt_state,
+        """The checkpointed tree (the reference's keys), with the global
+        parameters (gathered from every rank under a mesh: a
+        collective)."""
+        return {"params": self.global_params(), "opt_state": self.opt_state,
                 "dp_state": self.dp_state}
 
-    def _checkpoint(self) -> str:
+    def global_params(self):
+        if self.mesh is None:
+            return self.params
+        return gather_tree(self.params, self.runtime.placements)
+
+    def _checkpoint(self) -> str | None:
+        """Save the state at the committed step (rank 0 writes, after
+        every rank gathered it) and publish the adapters; returns the
+        checkpoint's path on rank 0."""
         step = self.committed
         meta = {
             "sampler": self.sampler.state(),
@@ -432,28 +488,31 @@ class TrainService:
             if stage == "pre-rename":
                 self.fault.fire("pre-ckpt-rename", step)
 
-        path = with_retries(
-            lambda: save_checkpoint(self.ckpt_dir, step, self.state(),
-                                    meta=meta, fault_hook=hook),
-            sleep=self.sleep, describe="checkpoint save")
-        self._publish_adapter(step)
-        return path
+        def write(state):
+            path = with_retries(
+                lambda: save_checkpoint(self.ckpt_dir, step, state,
+                                        meta=meta, fault_hook=hook),
+                sleep=self.sleep, describe="checkpoint save")
+            self._publish_adapter(step, state["params"])
+            return path
 
-    def _publish_adapter(self, step: int) -> None:
+        return checkpoint_on_rank0(self.mesh, self.ckpt_dir, step,
+                                   self.state, write)
+
+    def _publish_adapter(self, step: int, params) -> None:
         """The adapter-only publish for live serving (`launch.swap` polls
         `<service_dir>/publish`). It follows the full checkpoint, so a
         publish never refers to training state that could be lost; the
         tree is `{"lora": ...}`, the watcher's template, with the epsilon
         spent in its meta. Nothing on a run that trains no adapters."""
         if (self.runtime.model.trainable_key != "lora"
-                or "lora" not in self.params):
+                or "lora" not in params):
             return
         meta = {"epsilon": self.epsilon(), "delta": self.delta,
                 "source_step": step}
         with_retries(
             lambda: save_checkpoint(self.publish_dir, step,
-                                    {"lora": self.params["lora"]},
-                                    meta=meta),
+                                    {"lora": params["lora"]}, meta=meta),
             sleep=self.sleep, describe="adapter publish")
 
     def run(self) -> dict:
@@ -474,13 +533,18 @@ class TrainService:
                 self.ledger.close()
                 raise
             batch = self._fetch_batch()
-            self.params, self.opt_state, self.dp_state, met = \
-                self.runtime.step(self.params, self.opt_state, self.dp_state,
-                                  batch, self.step_seed)
+            # the entry all-gather under a mesh
+            params, self.opt_state, self.dp_state, met = self.runtime.step(
+                self.global_params(), self.opt_state, self.dp_state, batch,
+                self.step_seed)
+            self.params = (params if self.mesh is None
+                           else shard_tree(params, self.runtime.placements))
+            del params
             loss = float(met.loss)  # waits: the update is now materialized
             self.committed += 1
             self.fault.fire("post-step-commit", step)
-            if step % log_every == 0 or self.committed == self.target_steps:
+            if self.is_main and (step % log_every == 0
+                                 or self.committed == self.target_steps):
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"eps {self.epsilon():.4f}/{self.budget_eps} "
                       f"thr {float(met.mean_threshold):.4f}", flush=True)
@@ -499,7 +563,7 @@ class TrainService:
 
 def build_service_parser() -> argparse.ArgumentParser:
     ap = build_train_parser(
-        mesh=False, description="crash-safe online DP training service")
+        description="crash-safe online DP training service")
     ap.add_argument("--service-dir", required=True,
                     help="durable state root: ledger.jsonl + ckpt/ (+ "
                          "publish/ under --lora-rank)")
@@ -519,8 +583,22 @@ def build_service_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_service_parser().parse_args(argv)
-    svc = TrainService(args)
-    print(f"# service dir={args.service_dir} arch={svc.runtime.cfg.name} "
+    mesh = setup_mesh(args)
+    try:
+        return run(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh_lib.shutdown()
+
+
+def run(args, mesh=None, *, runtime: ServiceRuntime | None = None) -> int:
+    """The CLI's incarnation on this rank (every line printed by rank
+    0); `runtime` (built on the same mesh) is shared across incarnations
+    in one process."""
+    svc = TrainService(args, runtime=runtime or build_runtime(args,
+                                                              mesh=mesh))
+    say = print if svc.is_main else (lambda *a, **k: None)
+    say(f"# service dir={args.service_dir} arch={svc.runtime.cfg.name} "
           f"mode={svc.runtime.plan.config.mode} q={svc.q:.5f} "
           f"sigma={svc.sigma:.4f} budget_eps={svc.budget_eps} "
           f"resume_at={svc.committed} ledgered={svc.ledgered_steps} "
@@ -528,12 +606,12 @@ def main(argv=None) -> int:
     try:
         status = svc.run()
     except BudgetExhausted as e:
-        print(f"# service: status=budget_exhausted step={svc.committed} "
-              f"epsilon={svc.epsilon():.4f} budget={svc.budget_eps}")
-        print(f"# {e}")
+        say(f"# service: status=budget_exhausted step={svc.committed} "
+            f"epsilon={svc.epsilon():.4f} budget={svc.budget_eps}")
+        say(f"# {e}")
         return 0
-    print(f"# service: status={status['status']} step={status['committed']} "
-          f"epsilon={status['epsilon']:.4f} budget={status['budget_eps']}")
+    say(f"# service: status={status['status']} step={status['committed']} "
+        f"epsilon={status['epsilon']:.4f} budget={status['budget_eps']}")
     return 0
 
 

@@ -12,7 +12,9 @@ paths that name clipping groups):
 
 `group_shard_assignment` turns them into the supergroups of `per_group`
 clipping, on a mesh (its model axis) or without one (`--group-count`
-virtual shards), with the reference's assignment exactly. `_spec_for`
+virtual shards), with the reference's assignment exactly (DP-LoRA's
+adapter pairs are stacked groups of one block: layer l to shard l * M /
+L, whichever member is the largest). `_spec_for`
 returns a tuple of axis names (`"model"` or None per dim; () for
 replicated) where the reference returns a `PartitionSpec`.
 

@@ -43,11 +43,13 @@ crash-safe service with a persistent privacy ledger, see
 `repro_torch.launch.service`.
 
 `--mesh DxM` runs the sharded step (`core.dp_sgd._make_sharded_step`)
-on a (data = D, model = M) mesh of D * M ranks, launched by torchrun or
-by `launch.mesh.spawn`:
+on a (data = D, model = M) mesh of D * M ranks, launched by torchrun,
+the repo's launcher or `launch.mesh.spawn`:
 
   python -m torch.distributed.run --nproc-per-node 4 \\
       -m repro_torch.launch.train --mesh 2x2 --dist-backend gloo ...
+  python -m repro_torch.launch.mesh --nproc 4 \\
+      repro_torch.launch.train --mesh 2x2 --dist-backend gloo ...
 
 Each rank clips its data shard of the global `--batch`; the model axis
 distributes the clipping bookkeeping (shard-local norms, per-device
@@ -59,10 +61,14 @@ go through the host). per_group's supergroups are the mesh's model
 shards' ownership, per_shard's blocks its M shards (`dp_blocks = M`).
 The weights are STORED model-sharded between steps
 (`launch.sharding.params_shardings`) and gathered at each step's entry;
-a checkpoint holds the global leaves (rank 0 writes them) and a resume
-restores each rank's slice. Rank 0 alone prints; the header names the
-mesh and the backend. The step lines equal the single-device run's up to
-f32 summation order.
+a checkpoint holds the global leaves (rank 0 writes them, the other ranks
+wait for its published directory, however long the save takes; the first
+save checks that every rank shares the directory) and a resume restores
+each rank's slice. Rank 0 alone prints; the header names
+the mesh and the backend. The step lines equal the single-device run's
+up to f32 summation order. `--lora-rank` runs under `--mesh` too: every
+rank clips the adapters alone, only their gradients are all-reduced, and
+the frozen base is stored and gathered as the other weights are.
 
 `--arch qwen1.5-32b` trains QKV biases (one group with the qkv weight),
 `--arch minicpm-2b` and `--arch deepseek-67b` the other dense configs;
@@ -87,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
@@ -111,12 +118,9 @@ CLIPPING = ["per_layer", "ghost_flat", "per_group", "naive_flat",
             "per_shard"]
 
 
-def build_train_parser(*, mesh: bool = True,
-                       **kwargs) -> argparse.ArgumentParser:
+def build_train_parser(**kwargs) -> argparse.ArgumentParser:
     """The training CLI's flags, shared with the service
-    (`launch.service` adds its ledger, budget and fault flags, and runs
-    on one device: `mesh=False` leaves out `--mesh` and
-    `--dist-backend`)."""
+    (`launch.service` adds its ledger, budget and fault flags)."""
     ap = argparse.ArgumentParser(**kwargs)
     ap.add_argument("--arch", default="tiny", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
@@ -173,18 +177,17 @@ def build_train_parser(*, mesh: bool = True,
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model trains (cuda unless asked)")
-    if mesh:
-        ap.add_argument("--mesh", default=None, metavar="DxM",
-                        help="run the sharded step on a (data=D, model=M) "
-                             "mesh of D*M ranks (torchrun or "
-                             "launch.mesh.spawn): batch over data, the "
-                             "clipping bookkeeping over model, weights "
-                             "STORED model-sharded between steps")
-        ap.add_argument("--dist-backend", default="nccl",
-                        choices=["nccl", "gloo"],
-                        help="torch.distributed backend under --mesh: nccl "
-                             "takes one rank per card; gloo lets ranks "
-                             "share a card or run on the CPU")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="run the sharded step on a (data=D, model=M) "
+                         "mesh of D*M ranks (torchrun or "
+                         "launch.mesh.spawn): batch over data, the "
+                         "clipping bookkeeping over model, weights "
+                         "STORED model-sharded between steps")
+    ap.add_argument("--dist-backend", default="nccl",
+                    choices=["nccl", "gloo"],
+                    help="torch.distributed backend under --mesh: nccl "
+                         "takes one rank per card; gloo lets ranks "
+                         "share a card or run on the CPU")
     return ap
 
 
@@ -295,6 +298,72 @@ def restore_latest(directory: str, model, init_fn, device, placements=None):
     return load_latest_checkpoint(
         directory, template, device=device,
         shardings=None if placements is None else {"params": placements})
+
+
+def published(directory: str, step: int) -> int | None:
+    """The identity (the directory's inode) of the published checkpoint
+    of `step` under `directory`, or None: a save publishes a new
+    directory by one rename, so a new identity means a complete save."""
+    try:
+        return os.stat(os.path.join(directory, f"step_{step:08d}")).st_ino
+    except FileNotFoundError:
+        return None
+
+
+def check_shared(mesh, directory: str) -> None:
+    """Raise on every rank of `mesh` unless each sees `directory` as rank
+    0 does: rank 0 writes a marker file there, every rank looks for it,
+    and a psum of the misses (site `shared_dir_check`) tells them all. A
+    directory on node-local disks fails here, where the ranks' poll for
+    rank 0's save could never end."""
+    name = None
+    if mesh.rank == 0:
+        os.makedirs(directory, exist_ok=True)
+        name = f".shared-{os.getpid()}-{time.time_ns()}"
+        with open(os.path.join(directory, name), "w"):
+            pass
+    marker = os.path.join(directory, mesh.broadcast_object(name))
+    missing = torch.tensor([0.0 if os.path.exists(marker) else 1.0],
+                           device=mesh.device)
+    missing = int(mesh.psum(missing, mesh.axis_names,
+                            site="shared_dir_check").item())
+    if mesh.rank == 0:
+        os.remove(marker)
+    if missing:
+        raise RuntimeError(
+            f"{missing} of {mesh.size} ranks do not see rank 0's files "
+            f"under {directory}: a checkpoint directory on a mesh must be "
+            f"shared by every rank")
+
+
+def checkpoint_on_rank0(mesh, directory: str, step: int, state_fn,
+                        write):
+    """`write(state_fn())` on rank 0 of `mesh` (or without one), which
+    saves the checkpoint of `step` under `directory`; returns its result
+    there, None elsewhere. `state_fn` runs on every rank (under a mesh it
+    gathers, a collective). The other ranks then poll for the newly
+    published directory, which a collective could not wait on past the
+    process group's timeout, and all meet at a barrier: the checkpoint
+    exists before any rank goes on, however long the save takes. The
+    first save into a directory checks that every rank shares it
+    (`check_shared`), as the poll and a resume need; if rank 0 dies, the
+    launcher ends the rest."""
+    if mesh is not None and mesh.size > 1 and \
+            directory not in mesh.shared_dirs:
+        check_shared(mesh, directory)
+        mesh.shared_dirs.add(directory)
+    before = published(directory, step)
+    if mesh is not None:
+        mesh.barrier()  # every rank has read `before`
+    state = state_fn()
+    out = write(state) if mesh is None or mesh.rank == 0 else None
+    del state
+    if mesh is not None and mesh.size > 1:
+        if mesh.rank != 0:
+            while published(directory, step) in (None, before):
+                time.sleep(0.05)
+        mesh.barrier()
+    return out
 
 
 class Trainer:
@@ -448,14 +517,12 @@ def run(args, mesh=None) -> int:
             f"in {args.steps} steps, {wall:.1f}s "
             f"({wall / ran * 1e3:.1f} ms/step)")
     if args.checkpoint_dir:
-        state = trainer.state()  # collective under a mesh: every rank
-        if trainer.is_main:
-            path = save_checkpoint(args.checkpoint_dir, args.steps, state,
-                                   meta={"sampler": trainer.sampler.state()})
-            say(f"# checkpoint: {path}")
-        del state
-        if mesh is not None:
-            mesh.barrier()  # the checkpoint exists before any rank goes on
+        path = checkpoint_on_rank0(
+            mesh, args.checkpoint_dir, args.steps, trainer.state,
+            lambda state: save_checkpoint(
+                args.checkpoint_dir, args.steps, state,
+                meta={"sampler": trainer.sampler.state()}))
+        say(f"# checkpoint: {path}")
     return 0
 
 

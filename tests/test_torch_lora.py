@@ -19,8 +19,8 @@
 * the serving helpers `stacked_lora_delta`, `stacked_adapter_zeros`,
   `stacked_slot_update` against the reference's;
 * the train CLI's `--lora-rank`, the service's adapter publish after each
-  checkpoint (none without adapters), and the sharded driver's refusal
-  of `trainable_key`, naming ROADMAP A.18.
+  checkpoint (none without adapters), and the sharded driver on a mesh
+  of one rank, bitwise the single-device driver.
 
 Tolerances: f32, the same math in another summation order: 1e-5 (atol
 1e-5 of a leaf's largest magnitude); 1e-4 after a noised step.
@@ -396,10 +396,29 @@ def test_service_publishes_adapters_after_each_checkpoint(lora_rank,
     assert manifest_crcs(pub, 4) == tree_crcs({"lora": svc.params["lora"]})
 
 
-def test_sharded_driver_refuses_trainable_key_naming_a18():
+def test_sharded_driver_trains_lora_on_one_rank_bitwise():
+    """The sharded driver trains the adapters: on a mesh of one rank (its
+    collectives the identity) per_layer is bitwise the single-device
+    driver, and its one `grad_psum` a leaf covers the adapters alone
+    (four ranks: `test_torch_sharded_lora.py`)."""
+    from repro_torch.launch.mesh import Mesh
     m, _ = _models_cached("qwen3-4b", True)
     params = bridge.train_params_from_numpy(_tree(m), "cpu")
-    with pytest.raises(NotImplementedError, match="A.18"):
-        sharded_clipped_gradients(m.loss_fn, params, _t(_batch(
-            m.cfg.vocab_size)), m.layout, mode="per_layer", batch_size=B,
-            data_size=1, mesh=None, trainable_key="lora")
+    batch = _t(_batch(m.cfg.vocab_size))
+    th = torch.full((m.layout.num_groups,), 0.3)
+    mesh = Mesh({"data": 1, "model": 1}, device="cpu", backend="gloo")
+    with backend.scoped("kernels"):
+        got = sharded_clipped_gradients(
+            m.loss_fn, params, batch, m.layout, mode="per_layer",
+            batch_size=B, data_size=1, mesh=mesh, thresholds=th,
+            trainable_key="lora")
+        want = dp_clipped_gradients(m.loss_fn, params, batch, m.layout,
+                                    mode="per_layer", batch_size=B,
+                                    thresholds=th, trainable_key="lora")
+    assert torch.equal(got.norms_sq, want.norms_sq)
+    assert torch.equal(got.loss, want.loss)
+    pairs = list(zip(tree_leaves(got.grads), tree_leaves(want.grads)))
+    assert [p for (p, _), _ in pairs] == [p for _, (p, _) in pairs]
+    assert all(torch.equal(g, w) for (_, g), (_, w) in pairs)
+    assert {p[0] for (p, _), _ in pairs} == {"lora"}
+    assert [c.site for c in mesh.log].count("grad_psum") == len(pairs)

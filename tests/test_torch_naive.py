@@ -14,7 +14,8 @@ the JAX package's `jax.jacrev` oracle, on the CPU in f32.
   primitives' no-norm backward, factor 1), no norm kernel;
 * `trainable_key` (DP-LoRA): naive_flat over tiny's adapters against the
   reference's jacrev oracle of the subtree; the sharded driver refuses
-  it, naming ROADMAP A.18.
+  naive_flat with it as without (a single-device oracle in both
+  packages).
 
 Tolerances against the reference: float32, the same math summed in
 another order (`assert_trees_close`: rtol 1e-5, atol 1e-5 of the leaf's
@@ -147,10 +148,13 @@ def test_naive_flat_kernel_calls(monkeypatch):
     assert np.isfinite(float(res.loss))
 
 
-def test_trainable_key_names_its_roadmap_item():
+def test_naive_flat_trains_lora_and_the_sharded_driver_refuses_it():
     """naive_flat trains the adapters alone on one device (the reference's
-    jacrev over the subtree); the sharded driver names ROADMAP A.18."""
+    jacrev over the subtree); the sharded driver refuses it with
+    `trainable_key` as without, naive_flat being a single-device oracle
+    in both packages."""
     from repro_torch.core.clipping import sharded_clipped_gradients
+    from repro_torch.launch.mesh import Mesh
     m, jm = _models("tiny", False, {"lora_rank": 4})
     tree = bridge.numpy_params(m.spec, seed=0)
     rng = np.random.default_rng(1)
@@ -169,8 +173,11 @@ def test_trainable_key_names_its_roadmap_item():
     np.testing.assert_allclose(got.norms_sq.numpy(), np.asarray(want.norms_sq),
                                rtol=1e-5, atol=1e-9)
     assert_trees_close(got.grads, want.grads)
-    with pytest.raises(NotImplementedError, match="A.18"):
+    with pytest.raises(ValueError, match="naive_flat is a single-device "
+                                         "oracle"):
         sharded_clipped_gradients(
             m.loss_fn, bridge.train_params_from_numpy(tree, "cpu"),
             _t(batch), m.layout, mode="naive_flat", batch_size=B,
-            data_size=1, mesh=None, trainable_key="lora")
+            data_size=1, trainable_key="lora",
+            mesh=Mesh({"data": 1, "model": 1}, device="cpu",
+                      backend="gloo"))

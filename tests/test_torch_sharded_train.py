@@ -269,15 +269,15 @@ def test_on_clip_sees_the_clip_result_before_the_noise(mode):
         assert not counts.any()
 
 
-def test_gloo_point_to_point_refuses_cuda_tensors():
-    """gloo sends and receives only host tensors: the mesh refuses a CUDA
-    one under gloo, naming the reason, and lets it through NCCL."""
+def test_gloo_stages_cuda_point_to_point():
+    """gloo sends and receives only host tensors: the mesh stages a CUDA
+    one through the host under gloo, and neither a CUDA tensor under NCCL
+    nor a host tensor (the card's run: `test_torch_sharded_service.py`,
+    `-m cuda`)."""
     from types import SimpleNamespace
     from repro_torch.launch.mesh import Mesh
-    cuda = SimpleNamespace(is_cuda=True)
-    with pytest.raises(ValueError, match="gloo sends and receives only "
-                                         "host tensors"):
-        Mesh._check_p2p(SimpleNamespace(backend="gloo"), cuda)
-    Mesh._check_p2p(SimpleNamespace(backend="nccl"), cuda)
-    Mesh._check_p2p(SimpleNamespace(backend="gloo"),
-                    SimpleNamespace(is_cuda=False))
+    cuda, host = (SimpleNamespace(is_cuda=c) for c in (True, False))
+    assert Mesh.stages(SimpleNamespace(backend="gloo"), cuda)
+    assert not Mesh.stages(SimpleNamespace(backend="nccl"), cuda)
+    assert not Mesh.stages(SimpleNamespace(backend="gloo"), host)
+    assert not Mesh.stages(SimpleNamespace(backend="nccl"), host)

@@ -602,15 +602,17 @@ def test_kernel_calls_per_step_under_per_shard(monkeypatch):
     assert np.isfinite(float(met.loss)) and np.isfinite(float(met.grad_norm))
 
 
-def test_unported_modes_name_their_roadmap_item():
+def test_every_mode_ported_sharded_lora_runs_and_a8_named():
     """Every clipping mode of the reference is ported (naive_flat takes
-    one flat noise group, as ghost_flat, and the CLI accepts it); what
-    stays unported names its item: DP-LoRA's `trainable_key` under the
-    sharded driver (A.18; one device trains it, `test_torch_lora.py`),
-    and the BK recipes of `dp_shift` / `dp_broadcast` (the recurrent
-    families, A.8)."""
+    one flat noise group, as ghost_flat, and the CLI accepts it), and the
+    sharded driver trains DP-LoRA's `trainable_key` (here on a mesh of
+    one rank; `test_torch_sharded_lora.py` on four); what stays unported
+    names its item: the BK recipes of `dp_shift` / `dp_broadcast` (the
+    recurrent families, A.8)."""
+    import dataclasses
     from repro_torch.core.clipping import sharded_clipped_gradients
     from repro_torch.core import bk
+    from repro_torch.launch.mesh import Mesh
     m = build_model(get_config("tiny"), device="cpu")
     assert train.build_train_parser().parse_args(
         ["--clipping", "naive_flat"]).clipping == "naive_flat"
@@ -619,12 +621,15 @@ def test_unported_modes_name_their_roadmap_item():
             mode=mode, group_assignment=(0,) * m.layout.num_groups),
             m.layout)
         assert plan.num_noise_groups == 1
+    m = build_model(dataclasses.replace(get_config("tiny"), lora_rank=4),
+                    device="cpu")
     params = bridge.train_params_from_numpy(
         bridge.numpy_params(m.spec, seed=0), "cpu")
-    with pytest.raises(NotImplementedError, match="A.18"):
-        sharded_clipped_gradients(
-            m.loss_fn, params, _t(_batch(m.cfg.vocab_size)), m.layout,
-            mode="non_private", batch_size=B, data_size=1, mesh=None,
-            trainable_key="lora")
+    res = sharded_clipped_gradients(
+        m.loss_fn, params, _t(_batch(m.cfg.vocab_size)), m.layout,
+        mode="non_private", batch_size=B, data_size=1,
+        mesh=Mesh({"data": 1, "model": 1}, device="cpu", backend="gloo"),
+        trainable_key="lora")
+    assert set(res.grads) == {"lora"}
     assert "lora" not in bk._NOT_PORTED
     assert bk._NOT_PORTED["shift"] == bk._NOT_PORTED["broadcast"] == "A.8"

@@ -6,16 +6,19 @@ so a rank starts quickly.
 Each worker joins the process group that `spawn` set up, builds its mesh,
 runs one part of the sharded path on its rank and returns plain data
 (numpy arrays, lists, strings): the clip drivers case by case
-(`clip_cases`), full steps (`train_steps`), the quantile update with
-`counts_axes` (`quantile_update`), a checkpoint and resume through the
-train CLI's `Trainer` (`checkpoint_resume`), the train CLI itself
-(`train_cli`) and Algorithm 2's pipeline (`pipeline_grads`). The tests
-hold the results against the reference's single-device drivers, and
-every rank against the others.
+(`clip_cases`), full steps (`train_steps`), DP-LoRA's clip cases and
+steps (`lora_mesh`), the quantile update with `counts_axes`
+(`quantile_update`), a checkpoint and resume through the train CLI's
+`Trainer` (`checkpoint_resume`), the train CLI itself (`train_cli`), the
+service (`service_cli`, `service_runs`) and Algorithm 2's pipeline
+(`pipeline_grads`, on the CPU or a card). The tests hold the results
+against the reference's single-device drivers, and every rank against
+the others.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import os
 
@@ -62,8 +65,11 @@ def collectives(mesh) -> dict:
     return {"log": [tuple(c) for c in mesh.log], "trace": list(mesh.trace)}
 
 
-def _model(arch, reduced, device):
-    return build_model(get_config(arch, reduced=reduced), device=device)
+def _model(arch, reduced, device, lora_rank=0):
+    cfg = get_config(arch, reduced=reduced)
+    if lora_rank:
+        cfg = dataclasses.replace(cfg, lora_rank=lora_rank)
+    return build_model(cfg, device=device)
 
 
 def _local(batch, mesh, batch_size):
@@ -77,43 +83,15 @@ def _local(batch, mesh, batch_size):
 
 def clip_cases(arch: str, reduced: bool, tree: dict, batch: dict,
                mesh_shape: dict, cases: dict) -> dict:
-    """`sharded_clipped_gradients` for each case (name -> (mode,
-    execution, kwargs with numpy thresholds)), on the rank's batch shard:
-    grads (global), norms² (local), counts, loss and the collective log
-    of each, and on rank 0 the single-device driver's grads on the whole
-    batch; the mesh's coordinates and groups; and each parameter leaf's
-    placement with a shard / gather round trip."""
+    """`sharded_clipped_gradients` for each case (`_clip_cases_on`); the
+    mesh's coordinates and groups; and each parameter leaf's placement
+    with a shard / gather round trip."""
     mesh = mesh_lib.make_debug_mesh(**mesh_shape)
     model = _model(arch, reduced, mesh.device)
     params = bridge.train_params_from_numpy(tree, mesh.device)
-    bsz = next(iter(batch.values())).shape[0]
-    local, b_local, d_size = _local(batch, mesh, bsz)
-    assign = torch.as_tensor(group_shard_assignment(
-        model.layout, mesh.shape["model"]), device=mesh.device)
     out = {"coords": dict(mesh.coords), "data_index": mesh.data_index(),
-           "groups": {",".join(k): v[1] for k, v in mesh._groups.items()}}
-    whole = {k: torch.from_numpy(np.asarray(v)).to(mesh.device)
-             for k, v in batch.items()}
-    for name, (mode, execution, kw) in cases.items():
-        mesh.reset_log()
-        kw = {k: (torch.as_tensor(v, device=mesh.device)
-                  if isinstance(v, np.ndarray) else v)
-              for k, v in kw.items()}
-        res = scg(model.loss_fn, params, local, model.layout, mode=mode,
-                  batch_size=b_local, data_size=d_size, mesh=mesh,
-                  shard_assignment=assign, execution=execution, **kw)
-        out[name] = {"grads": to_numpy(res.grads),
-                     "norms": res.norms_sq.detach().cpu().numpy(),
-                     "counts": res.counts.detach().cpu().numpy(),
-                     "loss": float(res.loss), **collectives(mesh)}
-        if mesh.rank == 0:  # the port's single-device driver on the batch
-            if mode == "per_group":
-                kw["group_assignment"] = assign
-            one = dp_clipped_gradients(model.loss_fn, params, whole,
-                                       model.layout, mode=mode,
-                                       batch_size=bsz, execution=execution,
-                                       **kw)
-            out[name]["single_device"] = to_numpy(one.grads)
+           "groups": {",".join(k): v[1] for k, v in mesh._groups.items()},
+           **_clip_cases_on(mesh, model, params, batch, cases)}
     placements = params_shardings(model.spec, mesh)
     mesh.reset_log()
     back = gather_tree(shard_tree(params, placements), placements)
@@ -125,6 +103,52 @@ def clip_cases(arch: str, reduced: bool, tree: dict, batch: dict,
     out["replicated"] = [pl.spec for _, pl in _placement_leaves(
         replicated(params, mesh))]
     out["gather_log"] = collectives(mesh)
+    return out
+
+
+def _clip_cases_on(mesh, model, params, batch: dict, cases: dict, *,
+                   by_shard: bool = False) -> dict:
+    """`sharded_clipped_gradients` for each case (name -> (mode,
+    execution, kwargs with numpy thresholds)), on the rank's batch shard,
+    training `model.trainable_key` (every leaf, or DP-LoRA's adapters):
+    grads (global), norms² (local), counts, loss and the collective log
+    of each, and on rank 0 the single-device driver's grads on the whole
+    batch, or with `by_shard` summed over the data shards' batches (an
+    MoE's capacity couples the examples a forward dispatches)."""
+    bsz = next(iter(batch.values())).shape[0]
+    local, b_local, d_size = _local(batch, mesh, bsz)
+    assign = torch.as_tensor(group_shard_assignment(
+        model.layout, mesh.shape["model"]), device=mesh.device)
+    step = b_local if by_shard else bsz
+    wholes = [{k: torch.from_numpy(np.asarray(v)[lo: lo + step]).to(
+        mesh.device) for k, v in batch.items()}
+        for lo in range(0, bsz, step)]
+    out = {}
+    for name, (mode, execution, kw) in cases.items():
+        mesh.reset_log()
+        kw = {k: (torch.as_tensor(v, device=mesh.device)
+                  if isinstance(v, np.ndarray) else v)
+              for k, v in kw.items()}
+        res = scg(model.loss_fn, params, local, model.layout, mode=mode,
+                  batch_size=b_local, data_size=d_size, mesh=mesh,
+                  shard_assignment=assign, execution=execution,
+                  trainable_key=model.trainable_key, **kw)
+        out[name] = {"grads": to_numpy(res.grads),
+                     "norms": res.norms_sq.detach().cpu().numpy(),
+                     "counts": res.counts.detach().cpu().numpy(),
+                     "loss": float(res.loss), **collectives(mesh)}
+        if mesh.rank == 0:  # the port's single-device driver on the batch
+            if mode == "per_group":
+                kw["group_assignment"] = assign
+            total: dict = {}
+            for part in wholes:
+                one = dp_clipped_gradients(
+                    model.loss_fn, params, part, model.layout, mode=mode,
+                    batch_size=step, execution=execution,
+                    trainable_key=model.trainable_key, **kw)
+                for k, g in to_numpy(one.grads).items():
+                    total[k] = total.get(k, 0) + g
+            out[name]["single_device"] = total
     return out
 
 
@@ -169,20 +193,24 @@ def train_cases(arch: str, reduced: bool, tree: dict, batches: list,
 def train_steps(arch: str, reduced: bool, tree: dict, batches: list,
                 mesh, dp_kw: dict, *, batch_size: int,
                 optimizer=("sgd", {"lr": 0.05, "momentum": 0.9}),
-                draws: list | None = None, seed: int = 0) -> dict:
-    """`make_dp_train_step(mesh=mesh)` for len(batches) steps from the
-    numpy parameters `tree`: the parameters, thresholds, metrics,
-    optimizer state, each step's collective log and the counts its
-    `on_clip` hook saw. `draws[s]` = (z,
-    zq): the reference's noise for step s, substituted for the port's."""
-    dev = mesh.device
-    model = _model(arch, reduced, dev)
+                draws: list | None = None, seed: int = 0,
+                lora_rank: int = 0) -> dict:
+    """`make_dp_train_step(mesh=mesh)` (mesh None: the single-device
+    step, on the CPU) for len(batches) steps from the numpy parameters
+    `tree`, training the adapters alone under `lora_rank`: the
+    parameters, thresholds, metrics, optimizer state, each step's
+    collective log and the counts its `on_clip` hook saw. `draws[s]` =
+    (z, zq): the reference's noise for step s, substituted for the
+    port's."""
+    dev = "cpu" if mesh is None else mesh.device
+    model = _model(arch, reduced, dev, lora_rank)
     dpc = dp_sgd.DPConfig(**{k: tuple(v) if isinstance(v, list) else v
                              for k, v in dp_kw.items()})
     hooked = []  # the on_clip hook's counts, a step
     init_fn, step_fn, plan = dp_sgd.make_dp_train_step(
-        model.loss_fn, model.spec, model.layout, _optimizer(optimizer), dpc,
-        batch_size=batch_size, mesh=mesh,
+        model.loss_fn, model.dp_spec, model.layout, _optimizer(optimizer),
+        dpc, batch_size=batch_size, mesh=mesh,
+        trainable_key=model.trainable_key,
         on_clip=lambda res, counts: hooked.append(counts.cpu().numpy()))
     params = bridge.train_params_from_numpy(tree, dev)
     opt_state, dp_state = init_fn(params)
@@ -193,13 +221,15 @@ def train_steps(arch: str, reduced: bool, tree: dict, batches: list,
         for s, b in enumerate(batches):
             if draws:
                 cur["z"], cur["zq"] = draws[s]
-            mesh.reset_log()
+            if mesh is not None:
+                mesh.reset_log()
             batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
                      for k, v in b.items()}
             params, opt_state, dp_state, met = step_fn(
                 params, opt_state, dp_state, batch, seed)
             mets.append([float(x) for x in met])
-            logs.append(collectives(mesh))
+            if mesh is not None:
+                logs.append(collectives(mesh))
     opt = {f: to_numpy(getattr(opt_state, f)) for f in opt_state._fields
            if isinstance(getattr(opt_state, f), dict)}
     return {"params": to_numpy(params), "opt": opt,
@@ -329,36 +359,105 @@ def train_cli(argv: list) -> str:
     return buf.getvalue()
 
 
+def lora_mesh(clips: list, step: dict, single_dp_kw: dict,
+              mesh_shape: dict) -> dict:
+    """DP-LoRA on one mesh: for each (name, arch, reduced, lora_rank,
+    tree, batch, cases) of `clips`, the sharded clip cases
+    (`_clip_cases_on`, the adapters trained; an MoE config's oracle by
+    data shard); then the noised steps of
+    `step` (`train_steps`' keywords) on the mesh and, on rank 0, the
+    single-device step with the same draws under `single_dp_kw`
+    ("step_single")."""
+    mesh = mesh_lib.make_debug_mesh(**mesh_shape)
+    out = {}
+    for name, arch, reduced, rank, tree, batch, cases in clips:
+        model = _model(arch, reduced, mesh.device, rank)
+        params = bridge.train_params_from_numpy(tree, mesh.device)
+        out[name] = _clip_cases_on(mesh, model, params, batch, cases,
+                                   by_shard=bool(model.cfg.num_experts))
+    out["step"] = train_steps(mesh=mesh, **step)
+    if mesh.rank == 0:
+        out["step_single"] = train_steps(mesh=None, **dict(
+            step, dp_kw=single_dp_kw))
+    return out
+
+
+def service_runs(runs: list) -> list:
+    """Service incarnations (`launch.service`) on one mesh and one
+    runtime, as `service.run` builds them: per argv of `runs`, the
+    restored step, the status, this rank's global parameter crcs (the
+    adapters' apart) and the checkpoint writes it made, (directory name,
+    step) each. `--fault-at` ends the launch (exit 86 on rank 0)."""
+    from repro_torch.checkpoint.store import tree_crcs
+    from repro_torch.launch import service
+    mesh = runtime = None
+    writes: list = []
+    real = service.save_checkpoint
+
+    def counting(directory, step, tree, **kw):
+        writes.append((os.path.basename(directory), step))
+        return real(directory, step, tree, **kw)
+
+    service.save_checkpoint = counting
+    out = []
+    try:
+        for argv in runs:
+            args = service.build_service_parser().parse_args(argv)
+            if mesh is None:
+                mesh = train.setup_mesh(args)
+                runtime = service.build_runtime(args, mesh=mesh)
+            writes.clear()
+            svc = service.TrainService(args, runtime=runtime)
+            start = svc.committed
+            with contextlib.redirect_stdout(io.StringIO()):
+                status = svc.run()
+            params = svc.global_params()
+            out.append({"start": start, "status": status,
+                        "crcs": tree_crcs(params),
+                        "lora_crcs": tree_crcs({"lora": params["lora"]}),
+                        "writes": list(writes)})
+    finally:
+        service.save_checkpoint = real
+    return out
+
+
 def pipeline_grads(cfg_kw: dict, tree: dict, x: np.ndarray, y: np.ndarray,
                    assign: np.ndarray, group_thresholds: np.ndarray) -> dict:
     """Algorithm 2 on S ranks (the `pod` axis): the pipelined loss with
     +inf thresholds, its parameter gradients, and the per_group driver
     (twopass) over it with the stages as supergroups; this rank's
-    results and collective log."""
+    results and collective log. On a card under gloo the sends and
+    receives are staged through the host; "drained" says every send was
+    waited."""
     cfg = PL.PipelineConfig(**cfg_kw)
     mesh = mesh_lib.make_debug_mesh(1, 1, pod=cfg.n_stages)
     spec = PL.pipeline_spec(cfg)
     layout = GroupLayout(spec)
     loss_fn = PL.make_pipeline_loss(cfg, mesh)
-    params = bridge.train_params_from_numpy(tree, "cpu")
-    batch = (torch.from_numpy(x), torch.from_numpy(y).long())
+    dev = mesh.device
+    params = bridge.train_params_from_numpy(tree, dev)
+    batch = (torch.from_numpy(x).to(dev), torch.from_numpy(y).long().to(dev))
     bsz = x.shape[0]
-    inf = layout.pack_value(float("inf"), bsz)
+    inf = layout.pack_value(float("inf"), bsz, device=dev)
     losses = loss_fn(params, batch, inf)
     leaves = [t for _, t in tree_leaves(params)]
     grads = torch.autograd.grad(losses.sum(), leaves, allow_unused=True)
     loss_fn.drain()
-    grads = {"/".join(p): (torch.zeros_like(t) if g is None else g).numpy()
-             for (p, t), g in zip(tree_leaves(params), grads)}
+    grads = {"/".join(p): (torch.zeros_like(t) if g is None else g).cpu()
+             .numpy() for (p, t), g in zip(tree_leaves(params), grads)}
     fwd_log = collectives(mesh)
+    drained = mesh.sends_drained()
     mesh.reset_log()
     res = dp_clipped_gradients(
         loss_fn, params, batch, layout, mode="per_group", batch_size=bsz,
-        execution="twopass", group_assignment=torch.from_numpy(assign),
-        group_thresholds=torch.from_numpy(group_thresholds))
+        execution="twopass", group_assignment=torch.from_numpy(assign).to(
+            dev), group_thresholds=torch.from_numpy(group_thresholds).to(dev))
     loss_fn.drain()
-    return {"stage": mesh.axis_index("pod"),
-            "losses": losses.detach().numpy(), "grads": grads,
+    clip_log = collectives(mesh)
+    drained = drained and mesh.sends_drained()
+    return {"stage": mesh.axis_index("pod"), "device": str(dev),
+            "losses": losses.detach().cpu().numpy(), "grads": grads,
             "clip_grads": to_numpy(res.grads),
-            "clip_norms": res.norms_sq.numpy(), "log": fwd_log,
-            "clip_log": collectives(mesh)}
+            "clip_norms": res.norms_sq.cpu().numpy(), "log": fwd_log,
+            "clip_log": clip_log,
+            "drained": drained}
