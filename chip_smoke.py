@@ -48,7 +48,7 @@ exits non-zero:
               gap of the CPU logits under 1e-4 at the first divergence).
   5 train     qwen3-4b at full width and depth (bf16, random seeded
               parameters) trained through the train CLI's own `Trainer`:
-              B = 8, T = 256, adam, epsilon 8, 1 warm-up + 3 timed steps
+              B = 8, T = 256, adam, epsilon 8, 1 warm-up + 2 timed steps
               of each of six Figure-1 variants (the labels of
               benchmarks/bench_throughput.py): per_layer, non_private,
               ghost_flat_twopass, per_group_twopass, ghost_flat_bk,
@@ -73,7 +73,7 @@ exits non-zero:
               ratio_vs_per_layer for per_shard, losses, thresholds, clip
               fraction, peak memory, and one profiled step of per_layer
               and of non_private (the others are not profiled: a profile
-              costs 11-24 s of the time limit).
+              of the device's kernels costs 4-6 s of the time limit).
               The kernels' inputs at the five linear shapes (per_layer's
               first step), at the two blocked shapes (per_shard's first
               step: ghost_norm_blocked's, and clip_reduce's with the
@@ -116,7 +116,7 @@ exits non-zero:
   8 moe train granite-moe-3b-a800m at full width and depth (32 layers,
               d_model 1536, 40 experts top-8, bf16, 3.37 B parameters,
               2,723 clipping groups; flat dispatch) through the same
-              `Trainer`: 1 warm-up + 3 timed steps of per_layer and of
+              `Trainer`: 1 warm-up + 2 timed steps of per_layer and of
               non_private, B = 8, T = 256, adam, epsilon 8, each with one
               profiled step. Launches per step (65 linears outside the
               fused route's rule: qkv and o of 32 layers and the head; 32
@@ -156,8 +156,9 @@ exits non-zero:
               kernels line carries them under each kernel's "moe" key, and
               its max_abs_err is the worst over both models' inputs.
  11 scale     the rest of single-device training at full width through
-              the same `Trainer` (1 warm-up + 3 timed steps each, the
-              sampling rate 1/16 of phase 5): qwen3-4b naive_flat (B = 8,
+              the same `Trainer` (1 warm-up + SCALE_TIMED = 1 timed step
+              each, the sampling rate 1/16 of phase 5): qwen3-4b
+              naive_flat (B = 8,
               T = 256, --microbatches 4: the fewest whose per-example
               gradients, 8.8 GB each, fit beside the f32 accumulator) as
               the seventh Figure-1 variant with its ratio_vs_nonprivate;
@@ -244,7 +245,7 @@ exits non-zero:
 
   14 moe/mla  the training half of the MoE and MLA families through the
      train    same `Trainer` (train_variant, phase 5's settings: B = 8, T =
-              256, adam, epsilon 8, rate 1/16, remat on, 1 warm-up + 3
+              256, adam, epsilon 8, rate 1/16, remat on, 1 warm-up + 2
               timed steps a variant):
               (a) granite-moe-3b-a800m at full width and depth, flat
               dispatch, ghost_flat_bk and per_group_bk (2 supergroups):
@@ -427,11 +428,62 @@ exits non-zero:
               base and two seeded adapters, mixed equal to alone through
               paged_attn's latent branch.
 
+ 18 autotune  the `auto` ghost-op backend, the startup caches and BK over
+              blocked layouts: (a) `kernels.autotune.sweep` on the card
+              into a fresh cache root: the quick shapes with every op,
+              then norms / clip_sum / linear_clip / scale_contract at B =
+              8, T = 256 at qwen3-4b's four linears and head, granite's
+              router and both sides of qwen3-4b's rank-8 adapters on qkv
+              and o, and paged_attn at (c)'s bucket; each bucket's
+              candidates in µs (medians of 21 eager calls) and the
+              choices that differ from the `kernels` engine's (`plain`
+              only past autotune.PLAIN_MARGIN), each such bucket's static
+              candidate timed again (a sweep reading RECHECK_FACTOR = 4
+              times the new one fails); the table reloaded (it must hit) and
+              loaded with one byte flipped and under another stamp (both
+              empty); (b) one per_layer step of the train CLI's
+              `Trainer` at full width, qwen3-4b and granite at AUTO_TRAIN
+              = 2 layers, under `kernels`, `auto` without a table (the
+              same launches, bitwise the same pre-noise grads and norms²)
+              and `auto` with (a)'s table (each kernel launched as
+              `choose_op` predicts over the step's captured linear_clip
+              shapes; grads and norms² within TRAIN_RTOL /
+              TRAIN_ATOL_FRAC of kernels'); (c) 8 requests of 32-64
+              tokens behind phase 3's 32-token prefix, 16 generated, on
+              qwen3-4b at AUTO_SERVE_DEPTH = 2 layers under `plain`,
+              `kernels` and `auto`, and with no engine scoped (a bare
+              `DecodeEngine`, as the examples serve): tokens equal up to
+              ties, paged_attn once a layer a serve_step under kernels
+              and unscoped, never under plain, under auto as the table
+              resolves the bucket; (d) run
+              beside phase 12 (c) (the parent idles there), on a cache
+              root seeded with phase 1's libraries: two serve CLI starts
+              (tiny, paged, on the card) run nvcc zero times, a flipped
+              byte in clip_reduce's library makes the next start, of the
+              train CLI (tiny, per_shard), delete and rebuild it (one
+              nvcc run), and
+              programs.json lists both entry points; every start's
+              seconds; (e) qwen3-4b at full width, A16_DEPTH = 2 layers,
+              dp_blocks = 16: ghost_flat and per_group by BK against
+              twopass under `kernels` (grads within phase 16's
+              tolerance, norms² within 1e-4 relative, ghost_norm_blocked
+              once a blocked linear in the capture and clip_reduce once a
+              stack slice of each blocked leaf, no fallback). One line
+              with the phase's seconds by part.
+
+Phase 1 enables the build cache (`launch.compile_cache`, <repo>/.cache):
+each kernel source builds once a run, and every CLI subprocess after it
+(phases 12 and 16) loads the libraries from there; phase 18 (d)'s starts
+load copies of them, and rebuild one on purpose. The main thread runs
+in a `kernels` engine scope, as the CLIs do (outside any scope the engine
+is `plain` but for the paged decode, which launches its kernel on the
+card: phase 18 (c) serves once with no engine scoped to show it).
+
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8, 11, 12, 14, 15, 16 and 17 (paged_attn's:
-phases 3, 13, 15 and 17). A clock line follows each phase.
+the sum over phases 5, 8, 11, 12, 14, 15, 16, 17 and 18 (paged_attn's:
+phases 3, 13, 15, 17 and 18). A clock line follows each phase.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -653,7 +705,11 @@ def paged_attn_bound(q, kpool, vpool, pt, pos, dv, bw):
 
 def phase_build(torch, gpu):
     from repro_torch.kernels import _build
+    from repro_torch.launch import compile_cache
+    # the build cache every CLI start of this run shares (<repo>/.cache):
+    # each source builds once here, the subprocesses load the libraries
     t0 = time.perf_counter()
+    cache_dir = compile_cache.enable(quiet=False)
     libs = _build.build()
     build_s = time.perf_counter() - t0
     # -Xptxas -v: each kernel's name, registers and spills, and ptxas's
@@ -667,7 +723,10 @@ def phase_build(torch, gpu):
               for name, log in _build.BUILD_LOGS.items()}
     emit({"phase": "build", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernels": sorted(libs),
-          "build_s": build_s, "ptxas": ptxas, "spill_store_bytes": spills})
+          "build_s": build_s, "nvcc_runs": _build.NVCC_RUNS,
+          "compile_cache": cache_dir,
+          "cache_sweep": compile_cache.last_sweep(),
+          "ptxas": ptxas, "spill_store_bytes": spills})
 
 
 def serve_model(torch, gpu, phase, cfg, *, n_req, min_len, max_len, prefix,
@@ -1071,9 +1130,11 @@ def phase_cuda_vs_cpu(torch, gpu, arch="qwen3-4b"):
 # Phases 5-7: the training slice.
 # ---------------------------------------------------------------------------
 
-TRAIN_WARMUP, TRAIN_TIMED = 1, 3
-# phase 5's profiled variants: the Figure-1 pair (a profile costs 11-24 s
-# of the run's time limit)
+# 2 timed steps a variant (3 until the smoke run needed phase 18's time:
+# 7 + 2 + 5 variants' third steps of 0.5-1.1 s)
+TRAIN_WARMUP, TRAIN_TIMED = 1, 2
+# phase 5's profiled variants: the Figure-1 pair (a profile costs 4-6 s of
+# the run's time limit)
 PROFILED = ("per_layer", "non_private")
 # (label, --clipping, --execution, --group-count): the Figure-1 variants
 # of benchmarks/bench_throughput.py but naive_flat, and per-device
@@ -1227,7 +1288,9 @@ def expected_launches(label: str, cfg, fused_route: bool = True, *,
                       batch: int = 8, microbatches: int = 1) -> dict:
     """Kernel launches per step of a variant (the tables in the doc), per
     microbatch times `microbatches`: a BK step takes ghost_norm per linear
-    and one scale_contract per linear leaf; non_private clip_reduce per
+    and one scale_contract per linear leaf (a blocked one
+    ghost_norm_blocked, and clip_reduce a stack slice); non_private
+    clip_reduce per
     linear; naive_flat clip_reduce per linear and example (one no-norm
     backward per example); a blocked linear ghost_norm_blocked and
     clip_reduce; a twopass step ghost_norm and clip_reduce; per_layer
@@ -1257,7 +1320,11 @@ def expected_launches(label: str, cfg, fused_route: bool = True, *,
 
     leaves = linear_leaves(cfg)
     for _, din, dout, blocked, _ in leaves:
-        if label.endswith("_bk"):
+        if label.endswith("_bk") and blocked:
+            # the capture's blocked norms; the epilogue's blocked leaf,
+            # one clip_reduce with (B, M) factors a stack slice
+            add("ghost_norm_blocked", "clip_reduce")
+        elif label.endswith("_bk"):
             add("ghost_norm")
         elif label == "non_private":
             add("clip_reduce")
@@ -1271,26 +1338,30 @@ def expected_launches(label: str, cfg, fused_route: bool = True, *,
         else:
             add("ghost_norm", "clip_reduce")
     if label.endswith("_bk"):
-        # one call per stacked linear leaf
-        counts["scale_contract"] = len({leaf[-1] for leaf in leaves})
+        # one call per stacked linear leaf that is not blocked
+        counts["scale_contract"] = len({leaf[-1] for leaf in leaves
+                                        if not leaf[3]})
     return {k: v * microbatches for k, v in counts.items()}
 
 
 def profile_step(torch, trainer, step_ms) -> dict:
     """Device time of one more training step by kernel (torch.profiler,
-    CUDA activity); the idle share compares it with the unprofiled ms per
-    step."""
+    CUDA activity alone); the idle share compares it with the unprofiled
+    ms per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's kernels alone: with the host ops' events a qwen3-4b
+    # step's profile took 10-15 s to record and fold, without them 4-6 s
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.step()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not rows:
+        raise RuntimeError("the profiler recorded no device kernel")
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     return {"profile_s": time.perf_counter() - t0,
@@ -2404,6 +2475,9 @@ def phase_fused_kernel(torch, gpu, router):
 # rate B / N at phase 5's 1/16, so sigma and the count noise are those of
 # the B = 8 runs. None is profiled: the profiler's post-processing of a
 # step of 120,000-134,000 device ops takes about two minutes.
+# one timed step each (3 until the smoke run needed phase 18's time: the
+# four paths' 4.1-6.6 s steps)
+SCALE_TIMED = 1
 SCALE_PATHS = [
     ("naive_flat", "qwen3-4b", "naive_flat", 8, 256, 4, 64),
     ("per_layer_b64", "qwen3-4b", "per_layer", 64, 256, 8, 512),
@@ -2451,7 +2525,7 @@ def phase_scale_train(torch, gpu, qwen_ms, moe_ms):
                                           seq=seq, microbatches=nmb,
                                           docs=docs),
             moe_ms if arch == MOE_ARCH else qwen_ms, patches, kind=mode,
-            profile=False)
+            profile=False, timed=SCALE_TIMED)
         for k in launches:
             launches[k] += counts[k]
     for label, got in caps.items():
@@ -2862,20 +2936,21 @@ def phase_service(torch, gpu):
     return launches
 
 
-def phase_service_cli_beside(gpu, beside):
-    """Phase 12 (c) (`phase_service_cli`) with `beside`, phase 16 (e)'s
-    first launch, on a thread alongside: subprocesses and spawned ranks
-    whose walls alone are reported share the host, and nothing timed
-    runs in this process meanwhile. Returns `beside`'s result."""
+def phase_service_cli_beside(gpu, *beside):
+    """Phase 12 (c) (`phase_service_cli`) with each of `beside` (phase 16
+    (e)'s first launch, phase 18 (d)'s CLI starts) on a thread alongside:
+    subprocesses and spawned ranks whose walls alone are reported share
+    the host, and nothing timed runs in this process meanwhile. Returns
+    their results."""
     import concurrent.futures
     import shutil
     work = os.path.join(ROOT, "build", "smoke_service")
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        other = pool.submit(beside)
+    with concurrent.futures.ThreadPoolExecutor(len(beside)) as pool:
+        others = [pool.submit(fn) for fn in beside]
         cli = phase_service_cli(work)
         emit({"phase": "service_cli_summary", "gpu": gpu, **cli})
         shutil.rmtree(work)
-        return other.result()
+        return [other.result() for other in others]
 
 
 # ---------------------------------------------------------------------------
@@ -2959,7 +3034,7 @@ MOE_BK = [("ghost_flat_bk", "ghost_flat", "bk", 2),
 # granite's grouped dispatch and deepseek-v3's variants, per_layer first
 # (the ratios divide by it)
 PAIR = ("per_layer", "non_private")
-# the variants phase 14 profiles (a profile costs 11-24 s of the limit)
+# the variants phase 14 profiles (a profile costs 2-6 s of the limit)
 PROFILED14 = ("ghost_flat_bk", "mla_per_layer")
 
 
@@ -5255,6 +5330,566 @@ def phase_lora(torch, gpu, qwen_ms):
     return launches, pa, blocks
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the auto backend and its measured table, the startup caches,
+# book-keeping over blocked layouts.
+# ---------------------------------------------------------------------------
+
+AUTO_B, AUTO_T = 8, 256  # the training shapes of phases 5 and 8
+AUTO_LORA_RANK = 8  # phase 17's adapters
+# (b): the Trainer at full width, these depths
+AUTO_TRAIN = (("qwen3-4b", 2), (MOE_ARCH, 2))
+# (c): phase 3's serving (fewer requests, fewer layers)
+AUTO_SERVE_DEPTH = 2
+AUTO_SERVE_REQ = dict(n_req=8, min_len=32, max_len=64, prefix=32, gen=16,
+                      slots=8, page_len=16)
+# (e): BK over qwen3-4b's 16 column blocks of qkv and o
+A16_DEPTH, A16_BLOCKS = 2, 16
+LINEAR_OPS = ("norms", "clip_sum", "linear_clip", "scale_contract")
+CACHE_CLI_TIMEOUT = 300
+# a pinned sigma skips the accountant's calibration (seconds of host time)
+CACHE_TRAIN_ARGV = ["repro_torch.launch.train", "--arch", "tiny",
+                    "--clipping", "per_shard", "--group-count", "2",
+                    "--sigma", "1.0", "--steps", "1", "--batch", "4",
+                    "--seq", "16", "--docs", "16"]
+CACHE_SERVE_ARGV = ["repro_torch.launch.serve", "--arch", "tiny", "--batch",
+                    "2", "--prompt-len", "8", "--gen", "2"]
+CORRUPTED = "clip_reduce"  # the library (d) flips a byte in
+# (a): a sweep reading of a bucket's static candidate this many times its
+# second reading fails the phase
+RECHECK_FACTOR = 4.0
+
+
+def sweep18_shapes() -> list:
+    """(B, T, din, dout) of the linear ops beyond the quick shapes:
+    qwen3-4b's four linears and head, granite's router, and the two sides
+    of qwen3-4b's rank-8 adapters on qkv and o."""
+    from repro_torch.configs import get_config
+    q, g = get_config("qwen3-4b"), get_config(MOE_ARCH)
+    dims = list(linear_shapes(q)) + [(g.d_model, g.num_experts)]
+    r = AUTO_LORA_RANK
+    for din, dout in list(linear_shapes(q))[:2]:  # qkv, o
+        dims += [(din, r), (r, dout)]
+    return [(AUTO_B, AUTO_T, din, dout) for din, dout in dims]
+
+
+def paged18_shape() -> tuple:
+    """(c)'s paged decode as a sweep shape: (B, logical context, q dim,
+    v dim)."""
+    from repro_torch.configs import get_config
+    hd = get_config("qwen3-4b").resolved_head_dim
+    return (AUTO_SERVE_REQ["slots"], serve_cache_len(AUTO_SERVE_REQ), hd,
+            hd)
+
+
+def autotune_sweep(torch, gpu, root):
+    """(a): the sweep on the card into a fresh cache root, its rows
+    printed; the table reloaded (it must hit), then loaded with one byte
+    flipped and under another stamp (both must come back empty). Returns
+    the reloaded table."""
+    from repro_torch.kernels import autotune, backend
+    t0 = time.perf_counter()
+    table = autotune.load(autotune.default_path(root))
+    rows = []
+
+    def progress(op, shape, timings):
+        t, din, dout = autotune.table_dims(op, shape)
+        rows.append({"op": op, "shape": list(shape),
+                     "bucket": autotune.bucket_key(op, t, din, dout),
+                     "us": timings, "t": t, "din": din, "dout": dout})
+
+    for ops, shapes in ((autotune.OPS, autotune.SWEEP_SHAPES_QUICK),
+                        (LINEAR_OPS, sweep18_shapes()),
+                        (("paged_attn",), (paged18_shape(),))):
+        autotune.sweep(ops=ops, shapes=shapes, table=table, save=False,
+                       progress=progress)
+    path = table.save()
+    sweep_s = time.perf_counter() - t0
+    back = autotune.load(path)
+    if back.stale_reason is not None or back.entries != table.entries:
+        raise RuntimeError(f"autotune: the reloaded table missed "
+                           f"({back.stale_reason})")
+    differ = []
+    for row in rows:
+        args = (row["op"], row["t"], row["din"], row["dout"])
+        row["choice"] = backend.choose_op(*args, on_gpu=True, table=back)
+        row["static"] = backend.choose_op(*args, autotune=False,
+                                          on_gpu=True)
+        measured = back.best(*args, plain_margin=autotune.PLAIN_MARGIN)
+        if row["choice"] != measured:
+            raise RuntimeError(f"autotune: {row['bucket']} resolves to "
+                               f"{row['choice']}, measured {measured}")
+        if row["choice"] != row["static"]:
+            differ.append({k: row[k] for k in ("bucket", "shape", "choice",
+                                               "static", "us")})
+    # a bucket the table takes off the static route: its static candidate
+    # timed again; a sweep reading RECHECK_FACTOR times the new one was an
+    # outlier that routed the bucket
+    for d in differ:
+        was = d["us"].get(d["static"])
+        if was is None:
+            continue
+        op = d["bucket"].split("|")[0]
+        again = autotune.measure_op(op, tuple(d["shape"]),
+                                    backends=(d["static"],))[d["static"]]
+        d["static_us_again"] = again
+        if was > RECHECK_FACTOR * again:
+            raise RuntimeError(f"autotune: {d['bucket']}'s {d['static']} "
+                               f"read {was:.1f} us in the sweep, "
+                               f"{again:.1f} us again")
+    with open(path, "rb") as f:
+        blob = bytearray(f.read())
+    blob[len(blob) // 2] ^= 0x01
+    flipped = path + ".flipped"
+    with open(flipped, "wb") as f:
+        f.write(bytes(blob))
+    bad = {"flipped_byte": autotune.load(flipped),
+           "other_stamp": autotune.load(path, topology=dict(
+               back.topology, kernel_sources="0" * 64))}
+    if any(len(t) or t.stale_reason is None for t in bad.values()):
+        raise RuntimeError(f"autotune: a damaged or foreign table loaded "
+                           f"{ {k: len(t) for k, t in bad.items()} }")
+    emit({"phase": "autotune_sweep", "gpu": gpu, "table": path,
+          "topology": back.topology, "buckets": len(back),
+          "rows": [{k: r[k] for k in ("op", "shape", "bucket", "us",
+                                      "choice", "static")} for r in rows],
+          "differs_from_kernels": differ,
+          "plain_margin": autotune.PLAIN_MARGIN,
+          "recheck_factor": RECHECK_FACTOR, "reload_hits": True,
+          "stale_reasons": {k: t.stale_reason for k, t in bad.items()},
+          "sweep_s": sweep_s})
+    return back
+
+
+def predicted_launches(torch, shapes) -> dict:
+    """The kernels `auto` launches for linear_clip calls with norms at
+    `shapes` [(t, din, dout)] under the installed table (`choose_op`):
+    kernels -> ghost_norm + clip_reduce, fused -> fused_norm_clip (where
+    the card takes the layer's tiles), plain -> none."""
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import fused_clip as FC
+    out = dict.fromkeys(TRAIN_KERNELS, 0)
+    for t, din, dout in shapes:
+        name = backend.choose_op("linear_clip", t, din, dout, on_gpu=True)
+        if name == "fused" and not FC.takes(din, dout,
+                                            torch.device("cuda")):
+            name = "kernels"
+        if name == "fused":
+            out["fused_norm_clip"] += 1
+        elif name == "kernels":
+            out["ghost_norm"] += 1
+            out["clip_reduce"] += 1
+    return out
+
+
+def auto_train(torch, gpu, table, launches):
+    """(b): one per_layer step through the train CLI's `Trainer` at full
+    width (AUTO_TRAIN's depths) under `kernels`, `auto` without a table
+    and `auto` with (a)'s. auto without a table launches what kernels
+    does and gives bitwise its pre-noise grads and norms²; with the table
+    each kernel launches as `choose_op` predicts over the linear_clip
+    shapes the step captured, and the grads and norms² agree with
+    kernels' within TRAIN_RTOL / TRAIN_ATOL_FRAC."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (autotune, backend, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import train
+    out = {}
+    real = backend.AutoBackend.linear_clip
+    for arch, depth in AUTO_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        runs = {}
+        for label, be, tab in (("kernels", "kernels", None),
+                               ("auto", "auto", None),
+                               ("auto_table", "auto", table)):
+            args = train_args("per_layer", arch=arch, batch=AUTO_B,
+                              seq=AUTO_T)
+            args.backend = be
+            autotune.install(tab)
+            keep, shapes = {}, []
+
+            def capture(self, a, g, c, extra_norms_sq=None, *, norms=True):
+                if norms:
+                    shapes.append((a.shape[1], a.shape[-1], g.shape[-1]))
+                return real(self, a, g, c, extra_norms_sq, norms=norms)
+
+            trainer = train.Trainer(args, cfg=cfg, on_clip=first_clip(keep))
+            backend.AutoBackend.linear_clip = capture
+            try:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                met = trainer.step()
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                counts = launch_counts()
+            finally:
+                backend.AutoBackend.linear_clip = real
+            if not math.isfinite(float(met.loss)):
+                raise RuntimeError(f"auto train {arch} {label}: loss "
+                                   f"{float(met.loss)}")
+            runs[label] = {"counts": counts, "keep": keep, "ms": ms,
+                           "shapes": shapes}
+            for k in TRAIN_KERNELS:
+                launches[k] += counts[k]
+            del trainer, met
+            gc.collect()
+            torch.cuda.empty_cache()
+        autotune.install(None)
+        base = runs["kernels"]
+        want = expected_launches("per_layer", cfg)
+        got = {k: base["counts"][k] for k in want}
+        if got != want:
+            raise RuntimeError(f"auto train {arch}: kernels launched {got}, "
+                               f"expected {want}")
+        plain_auto = runs["auto"]
+        same = ({k: plain_auto["counts"][k] for k in want} == want
+                and all(torch.equal(g, base["keep"]["grads"][p])
+                        for p, g in plain_auto["keep"]["grads"].items())
+                and torch.equal(plain_auto["keep"]["norms"],
+                                base["keep"]["norms"]))
+        if not same:
+            raise RuntimeError(f"auto train {arch}: auto without a table is "
+                               f"not bitwise kernels")
+        tabled = runs["auto_table"]
+        with autotune.use_table(table):
+            predicted = predicted_launches(torch, tabled["shapes"])
+        got = {k: tabled["counts"][k] for k in predicted}
+        if got != predicted or len(tabled["shapes"]) != len(
+                linear_leaves(cfg)):
+            raise RuntimeError(f"auto train {arch}: launches {got}, "
+                               f"choose_op predicts {predicted} over "
+                               f"{len(tabled['shapes'])} calls")
+        worst = 0.0
+        for p, g in tabled["keep"]["grads"].items():
+            w = base["keep"]["grads"][p].float()
+            err = (g.float() - w).abs()
+            tol = TRAIN_RTOL * w.abs() + TRAIN_ATOL_FRAC * w.abs().max()
+            if bool((err > tol).any()):
+                raise RuntimeError(f"auto train {arch}: {p} off kernels' "
+                                   f"by {float(err.max())}")
+            worst = max(worst, float(err.max() / w.abs().max().clamp_min(
+                1e-30)))
+        wn, gn = base["keep"]["norms"], tabled["keep"]["norms"]
+        if not torch.allclose(gn, wn, rtol=TRAIN_RTOL,
+                              atol=TRAIN_ATOL_FRAC * float(wn.abs().max())):
+            raise RuntimeError(f"auto train {arch}: norms² off kernels'")
+        out[arch] = {"num_layers": depth,
+                     "launches": {k: {kk: r["counts"][kk] for kk in want}
+                                  for k, r in runs.items()},
+                     "predicted_with_table": predicted,
+                     "ms": {k: r["ms"] for k, r in runs.items()},
+                     "auto_no_table_bitwise": True,
+                     "table_max_rel_err": worst}
+    emit({"phase": "autotune_train", "gpu": gpu, "batch": AUTO_B,
+          "seq": AUTO_T, **out})
+
+
+def auto_serve(torch, gpu, table, launches):
+    """(c): AUTO_SERVE_REQ through the serve CLI's `serve_requests` on
+    qwen3-4b at AUTO_SERVE_DEPTH layers under `plain`, `kernels` and
+    `auto` with (a)'s table, and in a fresh context with no engine scoped
+    (`unscoped`): tokens equal up to ties (`compare_runs`), paged_attn
+    launched once a layer a serve_step under kernels and unscoped, never
+    under plain, and under auto as the table resolves the bucket."""
+    import contextlib
+    import contextvars
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (autotune, backend, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import build_model
+    req = AUTO_SERVE_REQ
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              num_layers=AUTO_SERVE_DEPTH)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    reqs = serve.build_requests(cfg.vocab_size, req["n_req"],
+                                min_len=req["min_len"],
+                                max_len=req["max_len"],
+                                shared_prefix=req["prefix"], seed=0)
+    cache_len = serve_cache_len(req)
+    hd = cfg.resolved_head_dim
+    runs = {}
+
+    def serve_once(be):
+        autotune.install(table if be == "auto" else None)
+        top2 = Top2()
+        with (contextlib.nullcontext() if be == "unscoped"
+              else backend.scoped(be)):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            eng, done = serve.serve_requests(
+                model, params, reqs, gen=req["gen"], num_slots=req["slots"],
+                cache_len=cache_len, page_len=req["page_len"],
+                on_token=top2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            impl = backend.active().paged_impl(
+                t=cache_len, din=hd, dout=hd, device=torch.device("cuda"))
+            if backend.active().name != ("plain" if be == "unscoped"
+                                         else be):
+                raise RuntimeError(f"auto serve {be}: the engine in effect "
+                                   f"is {backend.active().name}")
+        return eng, done, top2, wall, counts, impl
+
+    for be in ("plain", "kernels", "auto", "unscoped"):
+        # a fresh context holds no engine scope, not even main()'s
+        eng, done, top2, wall, counts, impl = (
+            contextvars.Context().run(serve_once, be) if be == "unscoped"
+            else serve_once(be))
+        steps = eng.stats["serve_steps"]
+        want = cfg.num_layers * steps if impl == "kernels" else 0
+        if counts["paged_attn"] != want or sorted(done) != list(
+                range(req["n_req"])):
+            raise RuntimeError(f"auto serve {be}: paged_attn launched "
+                               f"{counts['paged_attn']}, expected {want} "
+                               f"({impl}); completed {sorted(done)}")
+        launches["paged_attn"] += counts["paged_attn"]
+        runs[be] = {"run": top2.run(), "impl": impl,
+                    "paged_attn": counts["paged_attn"],
+                    "serve_steps": steps,
+                    "ms_per_serve_step": 1e3 * wall / steps}
+    autotune.install(None)
+    want_impl = {"kernels": "kernels", "plain": "plain",
+                 "unscoped": "kernels"}
+    if any(runs[be]["impl"] != w for be, w in want_impl.items()):
+        raise RuntimeError("auto serve: the fixed engines resolved "
+                           f"{ {be: runs[be]['impl'] for be in want_impl} }")
+    ties = {f"{be}_vs_kernels": compare_runs(
+        f"auto serve {be}", runs[be]["run"], runs["kernels"]["run"], True)
+        for be in ("plain", "auto", "unscoped")}
+    emit({"phase": "autotune_serve", "gpu": gpu, "arch": cfg.name,
+          "num_layers": cfg.num_layers, "requests": req["n_req"],
+          "cache_len": cache_len,
+          "bucket": autotune.bucket_key("paged_attn", cache_len, hd, hd),
+          **{be: {k: v for k, v in r.items() if k != "run"}
+             for be, r in runs.items()}, "tokens": ties})
+
+
+def cache_cli(work, argv, root) -> dict:
+    """One CLI start in a subprocess on the cache root `root`: its exit
+    must be 0; returns its wall seconds and its `# startup` line's
+    seconds, nvcc runs and build-cache sweep."""
+    import ast
+    import re
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv, "--cache-dir", root],
+                          capture_output=True, text=True, env=env, cwd=work,
+                          timeout=CACHE_CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"cache CLI {argv[0]} exit {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    m = re.search(r"# startup ([0-9.]+)s to [^:]*: nvcc_runs=(\d+) "
+                  r"compile_cache=\S+ (\{.*\})", proc.stdout)
+    if m is None:
+        raise RuntimeError(f"cache CLI {argv[0]}: no startup line: "
+                           f"{proc.stdout[-2000:]}")
+    return {"entry": argv[0].rsplit(".", 1)[-1], "wall_s": wall,
+            "startup_s": float(m.group(1)), "nvcc_runs": int(m.group(2)),
+            "sweep": ast.literal_eval(m.group(3))}
+
+
+def cache_chain(work) -> dict:
+    """(d): the build cache across CLI starts, on a cache root under
+    `work` seeded with this run's libraries (a copy: nothing the parent
+    loaded is touched): two serve CLI starts run nvcc zero times (the
+    first adopts every library, the second keeps them);
+    then one byte of CORRUPTED's library flipped (written through a
+    rename): the next start, of the train CLI, deletes it and rebuilds
+    it, one nvcc run; and programs.json lists both entry points. Runs beside phase 12
+    (c): its starts' seconds are on a shared host. `work` is removed."""
+    import shutil
+    from repro_torch.kernels import _build
+    from repro_torch.launch import compile_cache
+    t0 = time.perf_counter()
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "cache")
+    comp = compile_cache.compile_dir(root)
+    os.makedirs(comp)
+    try:
+        out = cache_starts(work, root, _build.build_dir(), comp)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {**out, "chain_s": time.perf_counter() - t0}
+
+
+def cache_starts(work, root, built, comp) -> dict:
+    """cache_chain's starts on `root` (its build directory `comp` seeded
+    from `built`) and their gates."""
+    import shutil
+    from repro_torch.launch import compile_cache
+    libs = sorted(n for n in os.listdir(built) if n.endswith(".so"))
+    for name in libs:
+        shutil.copy2(os.path.join(built, name), comp)
+    # two serve starts (the cheaper: 1-2 s past the imports) run nvcc
+    # zero times; the train start after the damage loads clip_reduce
+    starts = [cache_cli(work, CACHE_SERVE_ARGV, root) for _ in range(2)]
+    (bad,) = [n for n in libs if n.startswith(CORRUPTED + "-")]
+    path = os.path.join(comp, bad)
+    with open(path, "rb") as f:
+        blob = bytearray(f.read())
+    blob[len(blob) // 2] ^= 0xFF
+    with open(path + ".new", "wb") as f:
+        f.write(bytes(blob))
+    os.replace(path + ".new", path)
+    starts.append(cache_cli(work, CACHE_TRAIN_ARGV, root))
+    n = len(libs)
+    want = [(0, {"adopted": n}), (0, {"kept": n}),
+            (1, {"kept": n - 1, "dropped_corrupt": 1})]
+    for s, (runs, stats) in zip(starts, want):
+        if s["nvcc_runs"] != runs or any(s["sweep"].get(k) != v
+                                         for k, v in stats.items()):
+            raise RuntimeError(f"cache chain: {s}, expected nvcc {runs} "
+                               f"and {stats}")
+    progs = compile_cache.warmed_programs(root)
+    entries = sorted((r["parts"]["entry"], r["runs"])
+                     for r in progs.values())
+    if entries != [("serve", 2), ("train", 1)]:
+        raise RuntimeError(f"cache chain: programs.json lists {entries}")
+    return {"libraries": n, "corrupted": bad, "starts": starts,
+            "programs": entries}
+
+
+def a16_bk(torch, gpu, launches):
+    """(e): BK over qwen3-4b's blocked layout (A16_BLOCKS column blocks
+    of qkv and o) at full width, A16_DEPTH layers: ghost_flat and
+    per_group by BK against twopass on the same params and batch under
+    the kernels engine: grads within phase 16's tolerance, norms² within
+    1e-4 relative, the launches from the layout (`expected_launches`:
+    ghost_norm_blocked once a blocked linear in the capture, clip_reduce
+    once a stack slice of each blocked leaf in the epilogue), no BK
+    fallback."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.clipping import dp_clipped_gradients
+    from repro_torch.core.spec import tree_leaves
+    from repro_torch.kernels import backend, launch_counts, reset_launch_counts
+    from repro_torch.launch.sharding import group_shard_assignment
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=A16_DEPTH,
+                              dp_blocks=A16_BLOCKS)
+    model = build_model(cfg)
+    params = model.init_train_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    for _, leaf in tree_leaves(params):
+        leaf.requires_grad_()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (AUTO_B, AUTO_T + 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "targets": tokens[:, 1:].contiguous()}
+    assign = torch.as_tensor(group_shard_assignment(model.layout, 2),
+                             device="cuda")
+    kws = {"ghost_flat": {"flat_threshold": 1.0},
+           "per_group": {"group_assignment": assign,
+                         "group_thresholds": torch.tensor(
+                             [1.0, 0.5], device="cuda")}}
+    out = {}
+    for mode, kw in kws.items():
+        res = {}
+        for ex in ("bk", "twopass"):
+            with warnings.catch_warnings(record=True) as caught, \
+                    backend.scoped("kernels"):
+                warnings.simplefilter("always")
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                r = dp_clipped_gradients(model.loss_fn, params, batch,
+                                         model.layout, mode=mode,
+                                         batch_size=AUTO_B, execution=ex,
+                                         **kw)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                counts = launch_counts()
+            if any("falling back" in str(w.message) for w in caught):
+                raise RuntimeError(f"A.16 {mode} {ex}: BK fell back")
+            want = expected_launches(f"{mode}_{ex}", cfg)
+            if {k: counts[k] for k in want} != want:
+                raise RuntimeError(f"A.16 {mode} {ex}: launches {counts}, "
+                                   f"expected {want}")
+            for k in TRAIN_KERNELS:
+                launches[k] += counts[k]
+            res[ex] = (r, ms, want)
+        (rb, bms, bwant), (rt, tms, twant) = res["bk"], res["twopass"]
+        worst, unequal, elems = 0.0, 0, 0
+        tw = dict(tree_leaves(rt.grads))
+        for p, g in tree_leaves(rb.grads):
+            w = tw[p].float()
+            err = (g.float() - w).abs()
+            top = float(w.abs().max())
+            tol = SHARDED_GRAD_RTOL * w.abs() + SHARDED_GRAD_ATOL_FRAC * top
+            if bool((err > tol).any()):
+                raise RuntimeError(f"A.16 {mode}: {'/'.join(p)} off twopass "
+                                   f"by {float(err.max())}")
+            worst = max(worst, float(err.max()) / max(top, 1e-30))
+            unequal += int((err > 0).sum())
+            elems += w.numel()
+        nb, nt = rb.norms_sq.float(), rt.norms_sq.float()
+        norm_rel = float(((nb - nt).abs() / nt.abs().clamp_min(1e-30)).max())
+        if norm_rel > 1e-4:
+            raise RuntimeError(f"A.16 {mode}: norms² {norm_rel} relative "
+                               f"off twopass")
+        out[mode] = {"ms": {"bk": bms, "twopass": tms},
+                     "launches": {"bk": bwant, "twopass": twant},
+                     "grads_max_rel_err": worst, "grads_unequal": unequal,
+                     "grads_elements": elems, "norms_max_rel_err": norm_rel,
+                     "loss": float(rb.loss)}
+        del res, rb, rt
+    emit({"phase": "autotune_a16", "gpu": gpu, "arch": cfg.name,
+          "num_layers": cfg.num_layers, "dp_blocks": cfg.dp_blocks,
+          "groups": model.layout.num_groups, "batch": AUTO_B, "seq": AUTO_T,
+          "tol": {"grads_rtol": SHARDED_GRAD_RTOL,
+                  "grads_atol_of_max": SHARDED_GRAD_ATOL_FRAC,
+                  "norms_rtol": 1e-4}, **out})
+
+
+CACHE_WORK = os.path.join(ROOT, "build", "smoke_cache")
+
+
+def phase_autotune(torch, gpu, cache):
+    """Phase 18: (a) the sweep, (b) `auto` in training, (c) serving by
+    backend, (e) BK over blocked layouts; `cache` is (d)'s result
+    (`cache_chain`, run beside phase 12 (c), whose CLI subprocesses leave
+    the parent idle). Returns the launches of (b), (c) and (e) by
+    kernel."""
+    import shutil
+    from repro_torch.kernels import autotune
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "smoke_autotune")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    launches = dict.fromkeys(TRAIN_KERNELS + ("paged_attn",), 0)
+    secs = {}
+    try:
+        table = autotune_sweep(torch, gpu, work)
+        secs["a_sweep"] = time.perf_counter() - t_phase
+        for name, fn in (("b_train", auto_train), ("c_serve", auto_serve)):
+            t0 = time.perf_counter()
+            fn(torch, gpu, table, launches)
+            secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a16_bk(torch, gpu, launches)
+        secs["e_a16"] = time.perf_counter() - t0
+    finally:
+        autotune.install(None)
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "autotune_cache", "gpu": gpu, "beside": "phase 12 (c)",
+          **cache})
+    emit({"phase": "autotune", "gpu": gpu, "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "seconds_by_part": secs,
+          "d_cache_chain_s_beside_phase_12": cache["chain_s"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5264,6 +5899,15 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the entry points' engine: outside any scope it is plain (but for the
+    # paged decode's kernel); phase 18 scopes plain and auto inside and
+    # serves once with no scope
+    from repro_torch.kernels import backend
+    with backend.scoped("kernels"):
+        return run_phases(torch)
+
+
+def run_phases(torch) -> int:
     t_start = time.perf_counter()
 
     def clock(after):  # the run's own time budget, phase by phase
@@ -5330,8 +5974,9 @@ def main() -> int:
     # phase 12 (c), the service CLI's subprocesses, beside phase 16 (e)'s
     # first launch, four ranks that the service's fault ends
     sharded_work = tempfile.mkdtemp(prefix="smoke_sharded_")
-    crash_s = phase_service_cli_beside(
-        gpu, lambda: sharded_crash(torch, sharded_work))
+    crash_s, cache = phase_service_cli_beside(
+        gpu, lambda: sharded_crash(torch, sharded_work),
+        lambda: cache_chain(CACHE_WORK))
     clock("service")
     # phase 13: paged_attn on granite's and deepseek-v3's serving paths
     for label, block in phase_moe_mla_serve(torch, gpu).items():
@@ -5364,6 +6009,10 @@ def main() -> int:
     l_launches, l_paged, lora = phase_lora(torch, gpu, qwen_ms)
     kernel["launches"] += l_paged
     clock("dp-lora")
+    # phase 18: the auto backend's table, the startup caches, A.16
+    a_launches = phase_autotune(torch, gpu, cache)
+    kernel["launches"] += a_launches["paged_attn"]
+    clock("autotune")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's, the
     # T = 4096 path's, deepseek-v3's and granite's BK epilogue's times
@@ -5371,7 +6020,8 @@ def main() -> int:
     for k in train_kernels + [fused]:
         k["launches"] = sum(run[k["name"]] for run in (
             train_launches, moe_launches, scale_launches, service_launches,
-            mm_launches, d_train_launches, s_launches, l_launches))
+            mm_launches, d_train_launches, s_launches, l_launches,
+            a_launches))
         for key, extra in (("moe", moe), ("naive_flat", naive),
                            ("long_context", long), ("mla_train", mla),
                            ("moe_bk", moe_bk), ("dense_train", dense),

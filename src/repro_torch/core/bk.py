@@ -64,7 +64,7 @@ from repro_torch.core.spec import GroupLayout, P, tree_leaves
 from repro_torch.kernels import backend
 
 # recipe kinds of the reference that no ported primitive records yet
-_NOT_PORTED = {"linear_blocked": "A.16", "shift": "A.8", "broadcast": "A.8"}
+_NOT_PORTED = {"shift": "A.8", "broadcast": "A.8"}
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +95,12 @@ class BkChannel:
             raise ValueError("a BkChannel unbinds along its stack axis 0")
         return tuple(BkChannel(ci, self.group, self.sink, self.row + (i,))
                      for i, ci in enumerate(self.c.unbind(0)))
+
+    @property
+    def T(self) -> "BkChannel":
+        """The same channel with its threshold tensor transposed (a
+        blocked linear's (M, B) layout row -> the primitive's (B, M))."""
+        return BkChannel(self.c.T, self.group, self.sink, self.row)
 
 
 def thresholds_of(c):
@@ -135,10 +141,11 @@ def stash(channel: BkChannel, **values: torch.Tensor) -> None:
 class Recipe:
     """What one DP-primitive call site stashes for one clipping group."""
 
-    kind: str  # linear | lora | embed | scale | expert | expert_grouped
+    kind: str  # linear | linear_blocked | lora | embed | scale | expert |
+    #            expert_grouped
     c_ndim: int  # rank of the PER-CALL threshold (after unbinding)
     sinks: dict  # sink name -> (per-call shape, dtype)
-    extras: dict  # kind-specific statics (vocab)
+    extras: dict  # kind-specific statics (vocab; m, block_axis)
     count: int = 1  # consumptions per step of one row; > 1 -> no BK
     rows: set = dataclasses.field(default_factory=set)  # rows consumed
 
@@ -182,6 +189,16 @@ def record_linear(c: BkChannel, w, x) -> None:
     gdt = torch.result_type(x, w)
     _record(c, "linear", {"a": ((bsz, tf, din), x.dtype),
                           "g": ((bsz, tf, dout), gdt)})
+
+
+def record_linear_blocked(c: BkChannel, w, x, block_axis: str) -> None:
+    """A blocked linear (`dp_linear_blocked`): the linear's residuals,
+    and its M blocks (c is the primitive's (B, M)) along `block_axis`."""
+    bsz, tf, din, dout = x.shape[0], _tfold(x), x.shape[-1], w.shape[-1]
+    gdt = torch.result_type(x, w)
+    _record(c, "linear_blocked", {"a": ((bsz, tf, din), x.dtype),
+                                  "g": ((bsz, tf, dout), gdt)},
+            m=c.c.shape[-1], block_axis=block_axis)
 
 
 def record_lora(c: BkChannel, a, b, x) -> None:
@@ -341,6 +358,26 @@ def _leaf_grad(layout: GroupLayout, recipes, residuals, f_rows, node: P,
             dw = eng.scale_contract(_fold(sink["a"], 3), g4, f2)
             return dw.reshape(node.shape).to(node.dtype)
         db = torch.einsum("sbto,sb->so", g4.float(), f2)
+        return db.reshape(node.shape).to(node.dtype)
+
+    if r.kind == "linear_blocked":
+        # the group's stack shape ends in (M,): (S, M, B) factors
+        m, ax = r.extras["m"], r.extras["block_axis"]
+        g4, f3 = _fold(sink["g"], 3), f.reshape(-1, m, bsz)
+        if per_elem == 2:  # the weight: one blocked contraction a slice
+            a4 = _fold(sink["a"], 3)
+            out = torch.empty((a4.shape[0],) + tuple(node.shape[-2:]),
+                              dtype=node.dtype, device=f_rows.device)
+            for s_ in range(a4.shape[0]):
+                out[s_].copy_(eng.clipped_sum_linear_blocked(
+                    a4[s_], g4[s_], f3[s_].T, block_axis=ax))
+            return out.reshape(node.shape)
+        if ax == "out":  # the bias's columns live with the 'out' blocks
+            s_, b_, t_, dout = g4.shape
+            gb = g4.reshape(s_, b_, t_, m, dout // m).float()
+            db = torch.einsum("sbtmo,smb->smo", gb, f3)
+        else:  # 'in': the whole bias is block 0's (dp_linear_blocked)
+            db = torch.einsum("sbto,sb->so", g4.float(), f3[:, 0])
         return db.reshape(node.shape).to(node.dtype)
 
     if r.kind == "embed":

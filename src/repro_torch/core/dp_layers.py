@@ -44,8 +44,11 @@ again during backward, but the backward that runs is the first forward's,
 so the norms and residuals arrive once.
 
 `dp_linear_blocked` clips each of M column ('out') or row ('in') blocks
-of one weight to its own threshold (per-shard clipping); it takes no BK
-channel (ROADMAP A.16). `dp_expert_linear` (flat dispatch) and
+of one weight to its own threshold (per-shard clipping); its BK capture
+stashes the linear's activations and cotangents, its (B, M) norms² from
+the blocked ghost norm (`linear_norms_sq_blocked`), and the epilogue
+contracts each stack slice with its (B, M) factors. `dp_expert_linear`
+(flat dispatch) and
 `dp_expert_linear_grouped` (per-example buffers) clip each expert of an
 MoE layer's stacked weight to its own threshold, with exact per-example
 norms through the token dispatch; their BK capture stashes the slots'
@@ -132,8 +135,8 @@ class DPLinearBlocked(torch.autograd.Function):
     of {w, b}, thresholds c (B, M)."""
 
     @staticmethod
-    def forward(ctx, w, b, x, c, block_axis):
-        _forward_context(ctx, None)
+    def forward(ctx, w, b, x, c, block_axis, channel):
+        _forward_context(ctx, channel)
         ctx.has_bias = b is not None
         ctx.block_axis = block_axis
         ctx.save_for_backward(w, x, c)
@@ -161,8 +164,12 @@ class DPLinearBlocked(torch.autograd.Function):
                     n = n + torch.sum(sb * sb, dim=-1)
                 else:
                     n[:, 0] += eng.bias_norms_sq(g3)
-        if not ctx.needs_input_grad[0]:  # a norms-only pass
-            return None, None, dx, n, None
+        ch = _capturing(ctx)
+        if ch is not None:
+            bk.stash(ch, a=a3, g=g3)
+        if ch is not None or not ctx.needs_input_grad[0]:
+            # BK capture or a norms-only pass: no parameter gradient
+            return None, None, dx, n, None, None
         f = clip_factor(c, n) if need_n else factor_without_norms(c)
         dw = eng.clipped_sum_linear_blocked(a3, g3, f, block_axis=axis)
         db = None
@@ -176,21 +183,22 @@ class DPLinearBlocked(torch.autograd.Function):
             else:
                 db = eng.clipped_sum_bias(g3, f[:, 0])
             db = db.to(w.dtype)
-        return dw.to(w.dtype), db, dx, n, None
+        return dw.to(w.dtype), db, dx, n, None, None
 
 
 def dp_linear_blocked(w, b, x, c, block_axis: str = "out"):
     """y = x @ w (+ b) with the weight gradient clipped per block: c is
     (B, M) encoded thresholds, one per column ('out') or row ('in') block
-    of w, and the norms² come back as c's gradient, (B, M)."""
-    if bk.channel_of(c) is not None:
-        raise NotImplementedError(
-            "book-keeping capture of blocked linears (the reference's "
-            "linear_blocked recipe) is not ported yet: ROADMAP.md item A.16")
+    of w, and the norms² come back as c's gradient, (B, M); or a BK
+    channel of them (the capture pass)."""
     if block_axis not in ("out", "in"):
         raise ValueError(f"block_axis must be 'out' or 'in', got "
                          f"{block_axis!r}")
-    return DPLinearBlocked.apply(w, b, x, c, block_axis)
+    ch = bk.channel_of(c)
+    if ch is not None:
+        bk.record_linear_blocked(ch, w, x, block_axis)
+    return DPLinearBlocked.apply(w, b, x, bk.thresholds_of(c), block_axis,
+                                 ch)
 
 
 class DPEmbed(torch.autograd.Function):

@@ -84,8 +84,10 @@ class DPConfig:
     * `noise_strategy`: global | equal_budget | weighted (Sec. 3.3).
     * per_group: `group_assignment` maps each layout group to a
       supergroup; `num_supergroups` pads the count (else max + 1).
-    * `backend` (`--backend`): the ghost-op engine, `kernels` or `plain`
-      (`repro_torch.kernels.backend`), scoped around the step.
+    * `backend` (`--backend`): the ghost-op engine, `kernels`, `plain` or
+      `auto` (`repro_torch.kernels.backend`), scoped around the step;
+      `autotune` (`--autotune`): whether `auto` consults the installed
+      autotune table (else its static model).
     * `microbatches` (`--microbatches`): the batch is clipped in this many
       equal parts (Algorithm 2's structure); the clipped sums accumulate
       in f32 and the norms and loss are those of the whole batch, while
@@ -112,6 +114,7 @@ class DPConfig:
     group_assignment: tuple[int, ...] | None = None  # group -> supergroup
     num_supergroups: int | None = None
     backend: str = "kernels"
+    autotune: bool = True
     microbatches: int = 1
 
     @property
@@ -434,7 +437,7 @@ def make_dp_train_step(loss_fn: LossFn, spec: SpecTree, layout: GroupLayout,
             batch, batch_size, cfg.microbatches)
 
     def step_fn(params, opt_state, dp_state, batch, seed: int):
-        with ghost_backend.scoped(cfg.backend):
+        with ghost_backend.scoped(cfg.backend, autotune=cfg.autotune):
             thresholds = _effective_thresholds(cfg, plan, dp_state)
             assign = (None if assign_np is None else
                       torch.as_tensor(assign_np, device=thresholds.device))
@@ -544,7 +547,7 @@ def _make_sharded_step(loss_fn, spec, layout, optimizer, cfg: DPConfig, *,
         return ShardedClipResult(*res, sum(counts))
 
     def step_fn(params, opt_state, dp_state, batch, seed: int):
-        with ghost_backend.scoped(cfg.backend):
+        with ghost_backend.scoped(cfg.backend, autotune=cfg.autotune):
             thresholds = _effective_thresholds(cfg, plan, dp_state)
             assign = torch.as_tensor(assign_np, device=thresholds.device)
             local = {k: v[lo: lo + b_local] for k, v in batch.items()}

@@ -1,19 +1,30 @@
 """Ghost-op backend engine: pluggable dispatch for the fused-clipping ops.
 
 The counterpart of `repro.kernels.backend`. Every backward of the DP
-primitives (`repro_torch.core.dp_layers`) resolves its ghost ops through
-the engine returned by `active()`. Two backends are registered:
+primitives (`repro_torch.core.dp_layers`) and every paged decode
+(`models.attention`) resolves its ghost ops through the engine returned by
+`active()`. Three backends are registered:
 
   plain    the plain PyTorch paths of `repro_torch.core.ghost` (gram /
-           gram_chunked / outer by the cost model); the counterpart of the
-           reference's `xla` backend and the oracle of the other.
+           gram_chunked / outer by the cost model) and `paged_attn_ref`,
+           on the CPU and on the card alike; the counterpart of the
+           reference's `xla` backend and the oracle of the others.
   kernels  the hand-written Hopper kernels for the linear-layer hot path
-           (`kernels/ghost_norm.py`, `kernels/clip_reduce.py`), its
-           blocked form and the BK epilogue (`kernels/bk.py`); the
-           counterpart of `pallas`. Each wrapper runs its plain version
+           (`kernels/ghost_norm.py`, `kernels/clip_reduce.py`,
+           `kernels/fused_clip.py`), its blocked form, the BK epilogue
+           (`kernels/bk.py`) and the paged decode (`kernels/paged_attn.py`);
+           the counterpart of `pallas`. Each wrapper runs its plain version
            for a CPU tensor and its CUDA kernel for a CUDA tensor. Ops
            with no kernel inherit the plain implementations, as
            `PallasBackend` inherits the xla ones.
+  auto     per op and shape, the measured argmin of the installed autotune
+           table (`kernels.autotune`) where it has measured the bucket,
+           else the static model (`choose_op`): `plain` for a CPU tensor,
+           on the card `kernels` for every op, the fused route where
+           `fused_clip.fits` passes. So `auto` with no table, or with
+           `autotune=False`, launches exactly what `kernels` launches on
+           the card. A failed build or launch raises under `auto` as under
+           `kernels`: it never turns into the plain path.
 
 Backend selection matrix (op x backend):
 
@@ -35,25 +46,37 @@ Backend selection matrix (op x backend):
   clipped_sum_bias/embed/.. einsum/segment_sum     = plain (no kernel)
   scale_contract (BK)       einsum per slice       scale_contract
                                                    (scale_contract_ref)
+  paged_attn (decode)       paged_attn_ref         paged_attn (paged_attn_ref)
+
+Under `auto` each op is one table op: `norms` (linear_norms_sq and its
+blocked form), `clip_sum` (clipped_sum_linear and its blocked form),
+`linear_clip`, `scale_contract` and `paged_attn`, each choosing between
+the candidates `plain` and `kernels`; `linear_clip` also has `fused` (the
+one `fused_norm_clip` launch; there `kernels` is the composed pair).
+`candidate(op, name)` is the implementation of each, what the sweep
+times and what `auto` runs.
 
 `KernelsBackend.linear_clip` takes the fused route when the norms are
 asked for and `fused_clip.fits(din, dout)` passes: the reference
 engine's rule (`PallasBackend._fused_fits`), its 12 MiB guard and
 `bt = 256` arithmetic kept as they are so that both packages send the
 same layers to the fused kernel (the router of an MoE layer, the linears
-of the reduced configs). The card has no VMEM; a route rule
-measured on Hopper belongs to the measured table of ROADMAP A.11, with
-`auto`. Without norms (`non_private`, a direct-scale pass) the factor
-needs no norm and `clip_reduce` alone runs.
+of the reduced configs). The card has no VMEM: under `auto` a measured
+table decides the route instead. Without norms (`non_private`, a
+direct-scale pass) the factor needs no norm and `clip_reduce` alone runs.
 
 The engine is SCOPED: `with backend.scoped("kernels"): ...` pushes an
 engine for the dynamic extent of the block (a `contextvars` stack, so
-threads and tasks each see their own); outside any scope it is `plain`.
-The reference's tunables (outer-path cap, gram chunk, tile sizes,
-`prefer_fused`) stay at their defaults here: no caller of the port sets
-them, so the fused route is always allowed. The one setting an engine
-carries is `capture_residuals`, the reference's
-`EngineConfig.capture_residuals`: the book-keeping capture pass
+threads and tasks each see their own); outside any scope it is `plain`,
+so a training entry point scopes its engine explicitly, except that the
+paged decode runs its kernel there on a CUDA tensor: a server that
+scopes nothing serves the card through the kernel, and only an explicit
+`plain` engine runs `paged_attn_ref` on the card. The reference's tunables
+(outer-path cap, gram chunk, tile sizes, `prefer_fused`) stay at their
+defaults here: no caller of the port sets them, so the fused route is
+always allowed. An engine carries two settings of the reference's
+`EngineConfig`: `autotune` (False: `auto` ignores any installed table)
+and `capture_residuals`: the book-keeping capture pass
 (`repro_torch.core.bk.capture_clipped`) scopes it on, and the DP
 primitives refuse a BK channel from a forward run outside it (a capture
 pass returns no parameter gradients and must never pass for a gradient
@@ -63,17 +86,23 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
+
+import torch
 
 from repro_torch.core import ghost
 from repro_torch.core.ghost import clip_factor, factor_without_norms
+from repro_torch.kernels import autotune as autotune_mod
 from repro_torch.kernels import bk as bk_mod
 from repro_torch.kernels import clip_reduce as clip_reduce_mod
 from repro_torch.kernels import fused_clip as fused_clip_mod
 from repro_torch.kernels import ghost_norm as ghost_norm_mod
+from repro_torch.kernels import paged_attn as paged_attn_mod
 
 __all__ = [
-    "Backend", "PlainBackend", "KernelsBackend", "register_backend",
-    "backends", "make_engine", "active", "scoped", "clip_factor",
+    "Backend", "PlainBackend", "KernelsBackend", "AutoBackend",
+    "register_backend", "backends", "make_engine", "active", "scoped",
+    "clip_factor", "choose_linear_path", "choose_op", "candidate",
 ]
 
 _REGISTRY: dict[str, type["Backend"]] = {}
@@ -100,8 +129,10 @@ class Backend:
 
     name = "base"
 
-    def __init__(self, *, capture_residuals: bool = False):
+    def __init__(self, *, capture_residuals: bool = False,
+                 autotune: bool = True):
         self.capture_residuals = capture_residuals
+        self.autotune = autotune
 
     # -- norms² ------------------------------------------------------------
     def linear_norms_sq(self, a, g):
@@ -171,10 +202,41 @@ class Backend:
         """
         return bk_mod.scale_contract_ref(a, g, factors)
 
+    # -- paged decode attention (launch.engine's paged plane) --------------
+    def paged_impl(self, *, t=None, din=None, dout=None,
+                   device=None) -> str:
+        """Which implementation `paged_attn` resolves to: 'plain' or
+        'kernels'. `auto` decides from the shape hints (t = logical
+        context, din = query dim, dout = value dim); the fixed backends
+        ignore them."""
+        return "plain"
+
+    def paged_attn(self, q, kpool, vpool, pt, pos, *, scale, dv=None):
+        """One-token attention through a page table (kernels/paged_attn.py
+        shapes). Base = its plain version, on any device."""
+        return paged_attn_mod.paged_attn_ref(q, kpool, vpool, pt, pos,
+                                             scale=scale, dv=dv)
+
 
 @register_backend("plain")
 class PlainBackend(Backend):
     """Plain PyTorch paths (repro_torch.core.ghost): the oracle."""
+
+
+class _UnscopedBackend(PlainBackend):
+    """The engine outside any scope: the plain ghost ops, but the paged
+    decode through the kernel's wrapper (its CUDA kernel for a CUDA
+    tensor, its plain version for a CPU one), so a server that scopes no
+    engine never serves the card through `paged_attn_ref`. Only an
+    explicit `plain` engine does that."""
+
+    def paged_impl(self, *, t=None, din=None, dout=None,
+                   device=None) -> str:
+        return "kernels" if _on_gpu(device) else "plain"
+
+    def paged_attn(self, q, kpool, vpool, pt, pos, *, scale, dv=None):
+        return paged_attn_mod.paged_attn(q, kpool, vpool, pt, pos,
+                                         scale=scale, dv=dv)
 
 
 @register_backend("kernels")
@@ -189,6 +251,11 @@ class KernelsBackend(Backend):
         if not (norms and fused_clip_mod.fits(a3.shape[-1], g3.shape[-1])):
             return super().linear_clip(a3, g3, c, extra_norms_sq,
                                        norms=norms)
+        return self.fused_linear_clip(a3, g3, c, extra_norms_sq)
+
+    def fused_linear_clip(self, a, g, c, extra_norms_sq=None):
+        """`linear_clip` with norms by one `fused_norm_clip` launch."""
+        a3, g3 = ghost._as3d(a), ghost._as3d(g)
         extra = (None if extra_norms_sq is None
                  else extra_norms_sq.float().contiguous())
         n_w, dw = fused_clip_mod.fused_norm_clip(
@@ -226,39 +293,203 @@ class KernelsBackend(Backend):
         return bk_mod.scale_contract(a.contiguous(), g.contiguous(),
                                      factors.float().contiguous())
 
+    def paged_impl(self, *, t=None, din=None, dout=None,
+                   device=None) -> str:
+        return "kernels"
+
+    def paged_attn(self, q, kpool, vpool, pt, pos, *, scale, dv=None):
+        return paged_attn_mod.paged_attn(q, kpool, vpool, pt, pos,
+                                         scale=scale, dv=dv)
+
+
+def _on_gpu(device=None) -> bool:
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
+
+
+def choose_linear_path(t: int, din: int, dout: int, *,
+                       on_gpu: bool | None = None) -> str:
+    """The STATIC model's decision for one ghost op of a linear: 'plain'
+    or 'kernels'. The fallback for the buckets the autotune table has not
+    measured (`choose_op` is the full decision). Off the card the plain
+    path (the counterpart of the reference's off-TPU `xla`); on it the
+    kernels at every shape: each beat its plain version at every shape
+    the smoke run timed. `on_gpu` None: whether a CUDA device exists."""
+    return "kernels" if (_on_gpu() if on_gpu is None else on_gpu) \
+        else "plain"
+
+
+def choose_op(op: str, t: int, din: int, dout: int, *,
+              autotune: bool = True, on_gpu: bool | None = None,
+              table: "autotune_mod.AutotuneTable | None" = None) -> str:
+    """The auto backend's FULL decision for one engine op: the measured
+    argmin of the autotune table where this (op, shape bucket) has a
+    measurement, on the card and off it (`plain` only where it beats every
+    other candidate by `autotune.PLAIN_MARGIN`), else the static model;
+    for `linear_clip` on the card that is `fused` where `fused_clip.fits`
+    passes (the `kernels` engine's route). op is one of `autotune.OPS`;
+    `table=None` consults the installed table
+    (`autotune.installed_table()`); `autotune=False` ignores any."""
+    if autotune:
+        tab = (table if table is not None
+               else autotune_mod.installed_table())
+        if tab is not None:
+            measured = tab.best(op, t, din, dout,
+                                plain_margin=autotune_mod.PLAIN_MARGIN)
+            if measured is not None:
+                return measured
+    path = choose_linear_path(t, din, dout, on_gpu=on_gpu)
+    if op == "linear_clip" and path == "kernels" and \
+            fused_clip_mod.fits(din, dout):
+        return autotune_mod.FUSED
+    return path
+
+
+_OP_METHOD = {"norms": "linear_norms_sq", "clip_sum": "clipped_sum_linear",
+              "scale_contract": "scale_contract",
+              "paged_attn": "paged_attn"}
+
+
+def _candidate(plain: "Backend", kernels: "KernelsBackend", op: str,
+               name: str):
+    if name not in autotune_mod.candidates(op):
+        raise ValueError(f"unknown candidate {name!r} of {op!r}")
+    if op == "linear_clip":
+        if name == "plain":
+            return plain.linear_clip
+        if name == autotune_mod.FUSED:
+            return kernels.fused_linear_clip
+        # the composed pair ghost_norm + clip_reduce, never the fused route
+        return functools.partial(Backend.linear_clip, kernels)
+    return getattr(plain if name == "plain" else kernels, _OP_METHOD[op])
+
+
+def candidate(op: str, name: str):
+    """The implementation of candidate `name` of table op `op` (the
+    arguments of its engine method): what the sweep times and `auto`
+    runs."""
+    return _candidate(PlainBackend(), KernelsBackend(), op, name)
+
+
+@register_backend("auto")
+class AutoBackend(Backend):
+    """Per op and shape bucket: the installed table's measured argmin,
+    else the static model (`choose_op`), between the plain and kernels
+    engines (and the fused route of `linear_clip`)."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self._plain = PlainBackend(**kw)
+        self._kernels = KernelsBackend(**kw)
+
+    def choice(self, op: str, a, g) -> str:
+        """The candidate `op` takes for operands a (B, T, din) and g
+        (B, T, dout) (or their (B, din) / (B, dout) forms)."""
+        a3, g3 = ghost._as3d(a), ghost._as3d(g)
+        return choose_op(op, a3.shape[1], a3.shape[-1], g3.shape[-1],
+                         autotune=self.autotune, on_gpu=a3.is_cuda)
+
+    def _engine(self, op: str, a, g) -> Backend:
+        return (self._kernels if self.choice(op, a, g) == "kernels"
+                else self._plain)
+
+    # the blocked ops run the same kernels as the unblocked ones, so they
+    # share the "norms" / "clip_sum" buckets
+    def linear_norms_sq(self, a, g):
+        return self._engine("norms", a, g).linear_norms_sq(a, g)
+
+    def linear_norms_sq_blocked(self, a, g, num_blocks, *,
+                                block_axis="out"):
+        return self._engine("norms", a, g).linear_norms_sq_blocked(
+            a, g, num_blocks, block_axis=block_axis)
+
+    def clipped_sum_linear(self, a, g, factors):
+        return self._engine("clip_sum", a, g).clipped_sum_linear(
+            a, g, factors)
+
+    def clipped_sum_linear_blocked(self, a, g, factors, *,
+                                   block_axis="out"):
+        return self._engine("clip_sum", a, g).clipped_sum_linear_blocked(
+            a, g, factors, block_axis=block_axis)
+
+    def linear_clip(self, a, g, c, extra_norms_sq=None, *, norms=True):
+        if not norms:  # the factor needs no norm: a clip_sum alone
+            return super().linear_clip(a, g, c, extra_norms_sq, norms=False)
+        a3, g3 = ghost._as3d(a), ghost._as3d(g)
+        name = self.choice("linear_clip", a3, g3)
+        if name == autotune_mod.FUSED and not fused_clip_mod.takes(
+                a3.shape[-1], g3.shape[-1], a3.device):
+            # a bucket-mate of a measured shape with more output tiles
+            # than the card holds at once
+            name = "kernels"
+        return _candidate(self._plain, self._kernels, "linear_clip",
+                          name)(a3, g3, c, extra_norms_sq)
+
+    def scale_contract(self, a, g, factors):
+        # (S, B, T, d) or the unstacked (B, T, d): T is dim -2 of both
+        name = choose_op("scale_contract", a.shape[-2], a.shape[-1],
+                         g.shape[-1], autotune=self.autotune,
+                         on_gpu=a.is_cuda)
+        eng = self._kernels if name == "kernels" else self._plain
+        return eng.scale_contract(a, g, factors)
+
+    def paged_impl(self, *, t=None, din=None, dout=None,
+                   device=None) -> str:
+        """With shape hints this consults the table as every other op
+        does; without, the static rule (the kernel on the card)."""
+        on_gpu = _on_gpu(device)
+        if t is not None:
+            return choose_op("paged_attn", t, din or 0, dout or 0,
+                             autotune=self.autotune, on_gpu=on_gpu)
+        return "kernels" if on_gpu else "plain"
+
+    def paged_attn(self, q, kpool, vpool, pt, pos, *, scale, dv=None):
+        t, din, dout = autotune_mod.paged_attn_dims(
+            q, pt, kpool.shape[1], dv if dv is not None else vpool.shape[-1])
+        impl = self.paged_impl(t=t, din=din, dout=dout, device=q.device)
+        eng = self._kernels if impl == "kernels" else self._plain
+        return eng.paged_attn(q, kpool, vpool, pt, pos, scale=scale, dv=dv)
+
 
 # ---------------------------------------------------------------------------
 # Scoped engine resolution.
 # ---------------------------------------------------------------------------
 
-_DEFAULT = PlainBackend()
+_DEFAULT = _UnscopedBackend()
 _STACK: contextvars.ContextVar[tuple[Backend, ...]] = contextvars.ContextVar(
     "ghost_backend_stack", default=())
 
 
-def make_engine(backend: str, *, capture_residuals: bool = False
-                ) -> Backend:
+def make_engine(backend: str, *, capture_residuals: bool = False,
+                autotune: bool = True) -> Backend:
     """The registered backend named `backend`."""
     try:
         cls = _REGISTRY[backend]
     except KeyError:
         raise ValueError(f"unknown ghost backend {backend!r}; "
                          f"registered: {backends()}") from None
-    return cls(capture_residuals=capture_residuals)
+    return cls(capture_residuals=capture_residuals, autotune=autotune)
 
 
 def active() -> Backend:
-    """The engine in effect (innermost `scoped`, else `plain`)."""
+    """The engine in effect (innermost `scoped`, else `plain` with the
+    paged decode's kernel on the card)."""
     stack = _STACK.get()
     return stack[-1] if stack else _DEFAULT
 
 
 @contextlib.contextmanager
-def scoped(backend: str | None = None, *, capture_residuals: bool = False):
+def scoped(backend: str | None = None, *, capture_residuals: bool = False,
+           autotune: bool | None = None):
     """Push the engine `backend` (default: the active engine's backend)
-    for the dynamic extent of the block."""
-    eng = make_engine(active().name if backend is None else backend,
-                      capture_residuals=capture_residuals)
+    for the dynamic extent of the block; `autotune` None keeps the active
+    engine's setting."""
+    outer = active()
+    eng = make_engine(outer.name if backend is None else backend,
+                      capture_residuals=capture_residuals,
+                      autotune=outer.autotune if autotune is None
+                      else autotune)
     token = _STACK.set(_STACK.get() + (eng,))
     try:
         yield eng

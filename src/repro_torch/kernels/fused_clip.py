@@ -45,7 +45,12 @@ blocks a SM (none that `fits` passes) raises.
 `fits` is the reference engine's route rule (`PallasBackend._fused_fits`
 with its default `bt` and `vmem_limit_bytes`), copied so that both
 packages send the same layers to this kernel: the TPU kernel keeps an
-untiled (din, dout) f32 accumulator and its output in VMEM.
+untiled (din, dout) f32 accumulator and its output in VMEM. It is the
+static route of the `kernels` engine and the static fallback of `auto`;
+under `auto` the measured choice between this kernel, the composed pair
+and the plain path lives in the autotune table (`kernels.autotune`,
+candidate `fused` of op `linear_clip`). `takes` says whether a call of a
+(din, dout) layer fits the card at all.
 """
 from __future__ import annotations
 
@@ -83,10 +88,22 @@ def padded_dims(din: int, dout: int) -> tuple[int, int]:
 def fits(din: int, dout: int) -> bool:
     """Whether the reference engine routes a (din, dout) linear to its
     fused kernel: the TPU working set, two (din, dout) f32 buffers and
-    four sequence blocks, within its 12 MiB guard."""
+    four sequence blocks, within its 12 MiB guard. The static rule of
+    both `kernels` and `auto`; `auto` follows a measured table where it
+    has one (see module doc)."""
     dip, djp = padded_dims(din, dout)
     need = 4 * (2 * dip * djp + 2 * FIT_BT * (dip + djp))
     return need <= FIT_LIMIT_BYTES
+
+
+def takes(din: int, dout: int, device: torch.device) -> bool:
+    """Whether a (din, dout) call fits on `device`: every output tile
+    co-resident (`plan_fits`; the batch does not matter). Always on the
+    CPU, whose plain version has no such limit."""
+    if device.type != "cuda":
+        return True
+    tiles = -(-din // TILE_M) * -(-dout // TILE_N)
+    return tiles <= min(MAX_TILES, OCC * sm_count(device))
 
 
 def fused_norm_clip_ref(a: torch.Tensor, g: torch.Tensor, c: torch.Tensor,

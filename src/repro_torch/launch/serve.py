@@ -24,8 +24,16 @@ start) or the base model, and the requests go round-robin over the
 tenants. `--watch` polls each directory between pool steps and hot-swaps
 a new publish into the live engine (`launch.swap.AdapterWatcher`).
 
+The paged decode resolves through the ghost-op engine the CLI scopes
+around serving (`--backend`): `kernels` (the default) launches the
+`paged_attn` kernel on the card, `plain` runs its plain version there,
+and `auto` takes, per shape bucket (logical context, query and value
+dims), the candidate the installed autotune table measured fastest, else
+the kernel (`--autotune off` ignores the table). The startup caches
+(`--cache`, `--cache-dir`) are the train CLI's (`train.setup_caches`).
+
 The parser has only the flags that work in the port; a flag of the
-reference that is not ported yet fails in argparse.
+reference that is not ported fails in argparse.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --batch 16 --prompt-len 192 --min-prompt-len 64 --gen 32 \\
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels import backend
 from repro_torch.launch.engine import DecodeEngine
 from repro_torch.launch.inputs import pad_ragged_prompts, synthetic_requests
 from repro_torch.models.transformer import build_model
@@ -157,6 +166,22 @@ def build_serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many common system-prompt tokens "
                          "to every request")
+    ap.add_argument("--backend", default="kernels",
+                    choices=["kernels", "plain", "auto"],
+                    help="the decode attention's engine "
+                         "(repro_torch.kernels.backend): the paged_attn "
+                         "kernel, its plain version, or auto: the measured "
+                         "autotune table's choice per shape, else the "
+                         "kernel")
+    ap.add_argument("--autotune", default="on", choices=["on", "off"],
+                    help="on: install the measured table of this card "
+                         "(repro_torch.kernels.autotune) for --backend auto")
+    ap.add_argument("--cache", default="on", choices=["on", "off"],
+                    help="on: sweep the kernels' build cache and build "
+                         "there (repro_torch.launch.compile_cache)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="cache root (default <repo>/.cache or "
+                         "$REPRO_CACHE_DIR)")
     ap.add_argument("--tenants", type=int, default=None,
                     help="serve multi-tenant: the adapter-slot count of "
                          "the tenant-stacked DP-LoRA buffer (engine mode "
@@ -263,7 +288,10 @@ def serve_params(model, seed: int, device: str):
 
 
 def main(argv=None) -> int:
+    from repro_torch.launch.train import record_cache_program, setup_caches
+    started = time.perf_counter()
     args = build_serve_parser().parse_args(argv)
+    setup_caches(args)
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.tenants is not None:
         if args.mode != "engine":
@@ -271,6 +299,18 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, lora_rank=args.lora_rank)
     model = build_model(cfg, device=args.device)
     params = serve_params(model, args.seed, args.device)
+    record_cache_program(args, entry="serve", arch=cfg.name)
+    with backend.scoped(args.backend, autotune=args.autotune != "off"):
+        return run(args, cfg, model, params, started=started)
+
+
+def run(args, cfg, model, params, *, started: float | None = None) -> int:
+    """The CLI's requests through the engine (or batch mode) in the
+    caller's engine scope; prints the startup line (seconds from
+    `started`, the CLI's start, to the end of serving), the stats line
+    and the token grid."""
+    from repro_torch.launch.train import startup_line
+    started = time.perf_counter() if started is None else started
 
     lo = (args.prompt_len if args.min_prompt_len is None
           else args.min_prompt_len)
@@ -333,9 +373,11 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
         extra = f"prefill={args.prefill}"
     total = sum(len(r) for r in reqs) + args.batch * args.gen
+    print(startup_line(args, time.perf_counter() - started, "serving"))
     print(f"# arch={cfg.name} device={args.device} mode={args.mode} "
           f"batch={args.batch} prompt_lens={[len(r) for r in reqs]} "
-          f"{extra} generated {args.gen} tokens/seq in {wall:.2f}s "
+          f"{extra} backend={args.backend} generated {args.gen} "
+          f"tokens/seq in {wall:.2f}s "
           f"({total / wall:.1f} tok/s incl. prefill)")
     print(toks[:, :16])
     return 0

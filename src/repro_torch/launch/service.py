@@ -54,8 +54,11 @@ over-refusing (wasted compute):
     launcher (`launch.mesh`'s CLI, `RanksFailed.exit_code` under spawn)
     exits 86; torchrun exits 1 and names the 86 in its error report.
 
-Not ported here: the compile cache and autotune table of the startup
-(A.11).
+  * **Warm starts**: the daemon restarts on every crash and resume, so
+    it starts as the train CLI does (`train.setup_caches`: `--cache`,
+    `--autotune`, `--cache-dir`): the kernels' libraries come from the
+    build cache, swept for corruption, instead of a fresh nvcc build,
+    and `--backend auto` reads the measured autotune table.
 
 Layout under --service-dir:  ledger.jsonl  +  ckpt/step_<N>/...  (+
 publish/step_<N>/... under --lora-rank)
@@ -88,7 +91,8 @@ from repro_torch.launch.sharding import (gather_tree, params_shardings,
                                          shard_tree)
 from repro_torch.launch.train import (build_everything, build_train_parser,
                                       checkpoint_on_rank0, init_state,
-                                      restore_latest, setup_mesh)
+                                      record_cache_program, restore_latest,
+                                      setup_caches, setup_mesh)
 
 # exit code of a deterministically injected fault (distinguishable from a
 # real crash); budget exhaustion is a CLEAN exit (0)
@@ -583,6 +587,7 @@ def build_service_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_service_parser().parse_args(argv)
+    setup_caches(args)
     mesh = setup_mesh(args)
     try:
         return run(args, mesh)
@@ -598,6 +603,9 @@ def run(args, mesh=None, *, runtime: ServiceRuntime | None = None) -> int:
     svc = TrainService(args, runtime=runtime or build_runtime(args,
                                                               mesh=mesh))
     say = print if svc.is_main else (lambda *a, **k: None)
+    if svc.is_main:
+        record_cache_program(args, entry="service",
+                             arch=svc.runtime.cfg.name)
     say(f"# service dir={args.service_dir} arch={svc.runtime.cfg.name} "
           f"mode={svc.runtime.plan.config.mode} q={svc.q:.5f} "
           f"sigma={svc.sigma:.4f} budget_eps={svc.budget_eps} "

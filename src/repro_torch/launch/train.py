@@ -1,8 +1,8 @@
 """Training CLI: DP-SGD with adaptive group-wise clipping (Algorithm 1).
 
 The counterpart of `repro.launch.train`. The parser has only the flags
-the port runs; a flag of the reference that is not ported yet (the
-compile cache) fails in argparse.
+the port runs; a flag of the reference that is not ported fails in
+argparse.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --clipping per_layer --epsilon 8 --steps 4 --batch 8 --seq 256 \\
@@ -11,7 +11,23 @@ compile cache) fails in argparse.
 Add `--device cpu` (and `--reduced`, or `--arch tiny`) to run without a
 GPU. `--backend kernels` (the default) runs the linear layers' norms and
 clipped sums through the hand-written kernels (their plain versions on
-the CPU); `--backend plain` through the plain PyTorch paths.
+the CPU); `--backend plain` through the plain PyTorch paths; `--backend
+auto` per op and shape through the candidate the autotune table measured
+fastest on this card (`kernels.autotune`; `python -m
+repro_torch.kernels.autotune --sweep` writes it), else as `kernels` does
+(`--autotune off` ignores the table). The default stays `kernels`, where
+the reference's is `auto`: a measured table may route a bucket to the
+plain path, and `auto` without one is `kernels`.
+
+The startup caches (`setup_caches`): `--cache on` (the default) sweeps the
+kernels' build cache under `<cache-dir>/compile` (`launch.compile_cache`:
+a corrupt library is deleted and rebuilt at its next use; a warm start
+runs no nvcc) and builds there; `--autotune on` installs the measured
+table of this card and build under `<cache-dir>/autotune`. `--cache-dir`
+defaults to `<repo>/.cache` (or `$REPRO_CACHE_DIR`). After the first step
+a `# startup` line gives the seconds from the CLI's start and the nvcc
+runs of this process (the serve CLI prints it too, to the end of
+serving).
 
 `--clipping ghost_flat` (flat clipping) and `--clipping per_group` run by
 book-keeping (`--execution bk`, the default: one backward pass and the
@@ -162,10 +178,26 @@ def build_train_parser(**kwargs) -> argparse.ArgumentParser:
                          "per_shard: the number M of column blocks of the "
                          "qkv and o projections")
     ap.add_argument("--backend", default="kernels",
-                    choices=["kernels", "plain"],
+                    choices=["kernels", "plain", "auto"],
                     help="ghost-op engine (repro_torch.kernels.backend): "
-                         "the hand-written kernels, or the plain PyTorch "
-                         "paths")
+                         "the hand-written kernels, the plain PyTorch "
+                         "paths, or auto: per op and shape the measured "
+                         "autotune table's choice, else the kernels")
+    ap.add_argument("--autotune", default="on", choices=["on", "off"],
+                    help="on: install the measured autotune table of this "
+                         "card and build (repro_torch.kernels.autotune; "
+                         "pre-warm with `python -m repro_torch.kernels."
+                         "autotune --sweep`), which --backend auto "
+                         "consults; off: auto follows the static model")
+    ap.add_argument("--cache", default="on", choices=["on", "off"],
+                    help="on: sweep the kernels' build cache "
+                         "(repro_torch.launch.compile_cache) and build "
+                         "there, so a warm start runs no nvcc; off: build "
+                         "in the default directory, unchecked")
+    ap.add_argument("--cache-dir", default=None,
+                    help="cache root for the autotune table AND the "
+                         "kernels' builds (default <repo>/.cache or "
+                         "$REPRO_CACHE_DIR)")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume", action="store_true",
                     help="continue from the newest VERIFIED checkpoint in "
@@ -189,6 +221,48 @@ def build_train_parser(**kwargs) -> argparse.ArgumentParser:
                          "takes one rank per card; gloo lets ranks "
                          "share a card or run on the CPU")
     return ap
+
+
+def setup_caches(args) -> None:
+    """Enable the kernels' build cache and install the autotune table per
+    the shared --cache / --autotune / --cache-dir flags (train, service
+    and serve all start here). Best-effort: cache trouble never kills a
+    worker; it degrades to a cold build and the static model."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import compile_cache
+    if args.cache != "off":
+        compile_cache.enable(args.cache_dir)
+    if args.autotune != "off":
+        autotune.install_default(args.cache_dir)
+
+
+def record_cache_program(args, *, entry: str, arch: str) -> None:
+    """Stamp this entry point's semantic program key into the cache index
+    (which programs a warmed cache covers)."""
+    from repro_torch.launch import compile_cache
+    if args.cache == "off":
+        return
+    compile_cache.record_program({
+        "entry": entry, "arch": arch,
+        "mesh": getattr(args, "mesh", None) or "none",
+        "backend": args.backend,
+        "execution": getattr(args, "execution", "bk"),
+        "clipping": getattr(args, "clipping", None) or "none",
+        "torch_version": torch.__version__,
+    }, root=args.cache_dir)
+
+
+def startup_line(args, seconds: float, until: str = "the first step"
+                 ) -> str:
+    """The `# startup` line: seconds from the CLI's start `until` a point
+    of its run, nvcc runs of this process, and the build cache's
+    directory and sweep."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import compile_cache
+    cache = ("off" if args.cache == "off" else
+             f"{compile_cache.enabled_dir()} {compile_cache.last_sweep()}")
+    return (f"# startup {seconds:.3f}s to {until}: "
+            f"nvcc_runs={_build.NVCC_RUNS} compile_cache={cache}")
 
 
 def setup_mesh(args):
@@ -248,7 +322,7 @@ def build_everything(args: argparse.Namespace, *, cfg=None, mesh=None,
         target_quantile=args.quantile,
         quantile_budget_fraction=args.quantile_budget,
         noise_strategy=args.noise_strategy, backend=args.backend,
-        microbatches=args.microbatches)
+        autotune=args.autotune != "off", microbatches=args.microbatches)
     sched = optim.linear_decay(args.lr, args.steps,
                                warmup_steps=args.steps // 20)
     if args.optimizer == "adam":
@@ -484,19 +558,25 @@ def step_line(i: int, met) -> str:
 
 
 def main(argv=None) -> int:
+    started = time.perf_counter()
     args = build_train_parser().parse_args(argv)
+    setup_caches(args)
     mesh = setup_mesh(args)
     try:
-        return run(args, mesh)
+        return run(args, mesh, started=started)
     finally:
         if mesh is not None:
             mesh_lib.shutdown()
 
 
-def run(args, mesh=None) -> int:
-    """The CLI's run on this rank (every line printed by the main one)."""
+def run(args, mesh=None, *, started: float | None = None) -> int:
+    """The CLI's run on this rank (every line printed by the main one);
+    `started`: the perf_counter of the CLI's start (default: now)."""
+    started = time.perf_counter() if started is None else started
     trainer = Trainer(args, mesh=mesh)
     say = print if trainer.is_main else (lambda *a, **k: None)
+    if trainer.is_main:
+        record_cache_program(args, entry="train", arch=trainer.cfg.name)
     if args.resume and trainer.start_step:
         say(f"# resumed from step {trainer.start_step}")
     say(trainer.header(), flush=True)
@@ -507,6 +587,11 @@ def run(args, mesh=None) -> int:
         ran += 1
         if i % args.log_every == 0 or i == args.steps - 1:
             say(step_line(i, met), flush=True)
+        if ran == 1:
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize(trainer.device)
+            say(startup_line(args, time.perf_counter() - started),
+                flush=True)
     wall = time.time() - t_start
     plan = trainer.plan
     if plan.config.private and ran:

@@ -14,10 +14,15 @@ counterpart of `repro.models.attention`.
   their port; the caches are written IN PLACE (`_masked_cache_write`),
   an inactive row's entry rewritten with its own bits.
 * Paged decode: `gqa_decode_paged` and MLA's absorbed-form
-  `mla_decode_paged`, both through the `paged_attn` kernel. The pools are
-  updated IN PLACE (`index_put_`): the reference returns new pools from a
-  functional scatter, the port writes one row per slot into the existing
-  tensor and saves a copy of the whole pool on every step.
+  `mla_decode_paged`, both through the active ghost-op engine's
+  `paged_attn` (`kernels.backend`: the kernel under `kernels`, its plain
+  version under `plain`, `auto`'s choice by the reference's shape hints,
+  t = logical context, din = query dim, dout = value dim; outside any
+  scope the kernel on a CUDA tensor, its plain version on a CPU one).
+  The pools are updated IN PLACE (`index_put_`): the reference
+  returns new pools from a functional scatter, the port writes one row
+  per slot into the existing tensor and saves a copy of the whole pool on
+  every step.
 * MLA (DeepSeek-V3): `mla_spec`, and `mla_attention`, the full-sequence
   form that materializes per-head K/V from the latent: with thresholds
   it trains (q_a, q_b, kv_a, kv_b, o as `dp_linear`, q_norm and kv_norm
@@ -47,7 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import dp_layers as dpl
 from repro_torch.core import lora as lora_lib
-from repro_torch.kernels import paged_attn as K
+from repro_torch.kernels import backend as ghost_backend
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -315,7 +320,8 @@ def gqa_decode_paged(cfg: ModelConfig, params, x, kpool, vpool, pt, pos, *,
     b = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     qr = q[:, 0].reshape(b, kv, h // kv, hd)  # [kv, g] grouping of `attend`
-    out = K.paged_attn(qr, kpool, vpool, pt, pos, scale=1.0 / math.sqrt(hd))
+    out = ghost_backend.active().paged_attn(qr, kpool, vpool, pt, pos,
+                                            scale=1.0 / math.sqrt(hd))
     out = out.reshape(b, 1, h * hd).to(q.dtype)
     y = L.linear(params["o"], out)
     if lora is not None:
@@ -571,6 +577,9 @@ def mla_decode_paged(cfg: ModelConfig, params, x, latpool, pt, pos, *,
     q_lat, sel = _absorbed_q(cfg, params, q_nope, lora, tenant)
     q_cat = torch.cat([q_lat, q_rope.float()], dim=-1)  # KV = 1, G = H
     pool = latpool.unsqueeze(2)  # (N+1, L, 1, lr + rope)
-    lat = K.paged_attn(q_cat, pool, pool, pt, pos,
-                       scale=1.0 / math.sqrt(nope + rope), dv=lr)
+    # the engine's dispatch reads the reference's hints off these shapes:
+    # t = P * L, din = lr + rope, dout = lr
+    lat = ghost_backend.active().paged_attn(
+        q_cat, pool, pool, pt, pos, scale=1.0 / math.sqrt(nope + rope),
+        dv=lr)
     return _absorbed_out(cfg, params, x, lat, sel, lora, tenant)

@@ -14,7 +14,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import bk
 from repro_torch.core import dp_layers as dpl
 from repro_torch.core.spec import P
 
@@ -57,11 +56,10 @@ def linear(params, x, th=None):
 
 
 def linear_blocked(params, x, th):
-    """A linear clipped per column block. th: (M, B) from the layout ->
-    (B, M) for the primitive (a BK channel passes through, to be refused
-    there)."""
-    c = th if bk.channel_of(th) is not None else th.T
-    return dpl.dp_linear_blocked(params["w"], params.get("b"), x, c, "out")
+    """A linear clipped per column block. th: (M, B) from the layout, or
+    a BK channel of it -> (B, M) for the primitive."""
+    return dpl.dp_linear_blocked(params["w"], params.get("b"), x, th.T,
+                                 "out")
 
 
 def swiglu_spec(d: int, f: int, *, stack: tuple[int, ...] = (),

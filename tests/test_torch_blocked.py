@@ -16,7 +16,15 @@ the CPU in f32.
 * `dp_linear_blocked` (output, input cotangent, clipped weight and bias
   gradients, the (B, M) norms² as the threshold's gradient) against
   `jax.vjp` of the reference primitive, both axes, with and without bias,
-  under both engines; the norms-only and no-norms branches; the BK refusal;
+  under both engines; the norms-only and no-norms branches; a BK channel
+  outside the capture scope refused, bad block axes refused;
+* book-keeping over a blocked layout (the reference's `linear_blocked`
+  recipe): `ghost_flat` and `per_group` by BK against the reference's BK
+  on tiny with dp_blocks 2 and 4, and on a two-layer stacked net with a
+  bias blocked along 'out' and 'in' (M 2 and 4), f32: norms² and every
+  clipped gradient leaf; the calls from the layout (ghost_norm_blocked
+  once a blocked linear in the capture, clip_reduce once a stack slice of
+  each blocked leaf) and no twopass fallback;
 * the blocked `GroupLayout` and `group_shard_assignment` against the
   reference's on tiny, qwen3-4b-reduced and the full qwen3-4b;
 * the noise of blocked leaves per (layer, column block), against the
@@ -340,18 +348,19 @@ def test_dp_linear_blocked_norms_only_and_direct_scale(monkeypatch):
 
 
 def test_dp_linear_blocked_refuses_bk_and_bad_axes():
-    w, x = torch.ones((6, 8)), torch.ones((2, 3, 6))
-    with pytest.raises(NotImplementedError, match="A.16"):
-        DP.dp_linear_blocked(w, None, x, bk.BkChannel(torch.ones(2, 4), "g"))
+    """A BK channel whose forward ran outside the capture scope is refused
+    (a capture pass returns no parameter gradients), as are bad block
+    axes; BK over a blocked layout itself now runs (the tests below)."""
+    w = torch.ones((6, 8), requires_grad=True)
+    x = torch.ones((2, 3, 6))
+    ch = bk.BkChannel(torch.ones(2, 4, requires_grad=True), "g")
+    y = DP.dp_linear_blocked(w, None, x, ch)
+    with pytest.raises(RuntimeError, match="outside backend.scoped"):
+        torch.autograd.grad(y.sum(), [ch.c])
     with pytest.raises(ValueError, match="block_axis"):
         DP.dp_linear_blocked(w, None, x, torch.ones(2, 4), "rows")
-    # flat clipping by BK over a blocked layout reaches the same refusal
-    m, _ = _blocked("tiny", 4)
-    params = bridge.train_params_from_numpy(
-        bridge.numpy_params(m.spec, seed=0), "cpu")
-    with pytest.raises(NotImplementedError, match="A.16"):
-        dp_clipped_gradients(m.loss_fn, params, _t(_batch(257, b=2)),
-                             m.layout, mode="ghost_flat", batch_size=2)
+    with pytest.raises(ValueError, match="block_axis"):
+        DP.dp_linear_blocked(w, None, x, ch, "rows")
 
 
 def test_linear_blocked_transposes_layout_thresholds():
@@ -560,3 +569,156 @@ def test_per_shard_clipped_gradients_match_reference():
     assert_trees_close(got.grads, want.grads)
     n = got.norms_sq.numpy()
     assert (n > thr[:, None] ** 2).any() and (n < thr[:, None] ** 2).any()
+
+
+
+# ---------------------------------------------------------------------------
+# Book-keeping over blocked layouts (the reference's linear_blocked recipe).
+# ---------------------------------------------------------------------------
+
+
+def _jax_bk(loss_fn, tree, batch, layout, mode, kw):
+    import functools
+    from repro.core.clipping import dp_clipped_gradients as jax_clip
+    with jax_backend.scoped("xla"):
+        return jax.jit(functools.partial(
+            jax_clip, loss_fn, layout=layout, mode=mode,
+            batch_size=batch_size_of(batch), execution="bk"))(
+                _j(tree), _j(batch),
+                **{k: jnp.asarray(v) for k, v in kw.items()})
+
+
+def batch_size_of(batch):
+    return next(iter(batch.values())).shape[0]
+
+
+def _mode_kw(mode, k, rng):
+    """The flat threshold, or per_group's assignment of the K groups to
+    two supergroups and their thresholds."""
+    if mode == "ghost_flat":
+        return {"flat_threshold": np.float32(0.05)}
+    return {"group_assignment": (np.arange(k) % 2).astype(np.int32),
+            "group_thresholds": rng.uniform(0.02, 0.1, 2).astype(np.float32)}
+
+
+def _port_bk(loss_fn, params, batch, layout, mode, kw, engine="plain"):
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # a twopass fallback fails the test
+        with backend.scoped(engine):
+            return dp_clipped_gradients(
+                loss_fn, params, batch, layout, mode=mode,
+                batch_size=batch_size_of(batch), execution="bk",
+                **{k: torch.as_tensor(v) if isinstance(v, np.ndarray) else
+                   float(v) for k, v in kw.items()})
+
+
+def _held(got, want):
+    """f32: norms² and every leaf within 1e-5 of the largest magnitude."""
+    close(got.norms_sq, want.norms_sq)
+    assert_trees_close(got.grads, want.grads)
+    n = got.norms_sq.sum(0).numpy()
+    assert np.isfinite(n).all() and (n > 0).all()
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_bk_over_blocked_tiny_matches_reference_bk(m):
+    pm, jm = _blocked("tiny", m)
+    tree = bridge.numpy_params(pm.spec, seed=0)
+    batch = _batch(pm.cfg.vocab_size)
+    params = bridge.train_params_from_numpy(tree, "cpu")
+    rng = np.random.default_rng(m)
+    for mode in ("ghost_flat", "per_group"):
+        kw = _mode_kw(mode, pm.layout.num_groups, rng)
+        _held(_port_bk(pm.loss_fn, params, _t(batch), pm.layout, mode, kw),
+              _jax_bk(jm.loss_fn, tree, batch, jm.layout, mode, kw))
+
+
+def _net_spec(pkg_layers, m, d=8):
+    """Two stacked d -> d linears with a bias, blocked into M groups."""
+    return {"lin": pkg_layers.linear_spec(d, d, bias=True, stack=(2,),
+                                          blocks=m)}
+
+
+def _port_net(axis):
+    def loss_fn(params, batch, th):
+        x, lin = batch["x"], params["lin"]
+        for w, b, c in zip(lin["w"].unbind(0), lin["b"].unbind(0),
+                           th["lin"].unbind(0)):
+            x = torch.tanh(DP.dp_linear_blocked(w, b, x, c.T, axis))
+        return 0.5 * torch.sum(x.float() ** 2, dim=(1, 2))
+    return loss_fn
+
+
+def _jax_net(axis):
+    def loss_fn(params, batch, th):
+        def body(x, xs):
+            w, b, c = xs
+            return jnp.tanh(JDP.dp_linear_blocked(w, b, x, c.T, axis)), None
+
+        lin = params["lin"]
+        x, _ = jax.lax.scan(body, batch["x"], (lin["w"], lin["b"], th["lin"]))
+        return 0.5 * jnp.sum(x.astype(jnp.float32) ** 2, axis=(1, 2))
+    return loss_fn
+
+
+@pytest.mark.parametrize("m,axis", [(2, "out"), (4, "out"), (2, "in"),
+                                    (4, "in")])
+def test_bk_over_blocked_net_matches_reference_bk(m, axis):
+    """A bias along 'out' clips with its column blocks, along 'in' whole
+    with block 0; the layers are a stack of two (two epilogue slices)."""
+    layout = S.GroupLayout(_net_spec(L, m))
+    jlayout = JS.GroupLayout(_net_spec(JL, m))
+    rng = np.random.default_rng(10 * m + len(axis))
+    tree = {"lin": {"w": (0.6 * rng.standard_normal((2, 8, 8))
+                          ).astype(np.float32),
+                    "b": (0.3 * rng.standard_normal((2, 8))
+                          ).astype(np.float32)}}
+    batch = {"x": rng.standard_normal((3, 5, 8)).astype(np.float32)}
+    params = bridge.train_params_from_numpy(tree, "cpu")
+    for mode in ("ghost_flat", "per_group"):
+        kw = _mode_kw(mode, layout.num_groups, rng)
+        got = _port_bk(_port_net(axis), params, _t(batch), layout, mode, kw)
+        want = _jax_bk(_jax_net(axis), tree, batch, jlayout, mode, kw)
+        _held(got, want)
+        assert got.norms_sq.shape == (2 * m, 3)
+
+
+def test_bk_over_blocked_layout_calls_from_the_layout(monkeypatch):
+    """Under the kernels engine: the capture's norms by
+    ghost_norm_blocked once a blocked linear, the epilogue's blocked
+    leaves by clip_reduce with (B, M) factors once a stack slice (the
+    other linears: ghost_norm, and one scale_contract a stacked leaf),
+    equal to the plain engine's."""
+    pm, _ = _blocked("qwen3-4b", 4, reduced=True)
+    tree = bridge.numpy_params(pm.spec, seed=0)
+    batch = _t(_batch(pm.cfg.vocab_size))
+    params = bridge.train_params_from_numpy(tree, "cpu")
+    from repro_torch.kernels import bk as KBK
+    calls = dict.fromkeys(["blocked", "clip_reduce", "ghost_norm",
+                           "scale_contract"], 0)
+
+    def count(name, mod, attr):
+        real = getattr(mod, attr)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            if name == "clip_reduce":
+                assert a[2].shape == (a[0].shape[0], 4)  # (B, M) factors
+            return real(*a, **k)
+        monkeypatch.setattr(mod, attr, wrapped)
+
+    count("blocked", GN, "ghost_norm_blocked")
+    count("ghost_norm", GN, "ghost_norm")
+    count("clip_reduce", CR, "clip_reduce")
+    count("scale_contract", KBK, "scale_contract")
+    kw = {"flat_threshold": np.float32(0.05)}
+    got = _port_bk(pm.loss_fn, params, batch, pm.layout, "ghost_flat", kw,
+                   engine="kernels")
+    n = pm.cfg.num_layers
+    # qkv and o blocked in each layer; gate_up, down and the head not
+    assert calls == {"blocked": 2 * n, "clip_reduce": 2 * n,
+                     "ghost_norm": 2 * n + 1, "scale_contract": 3}
+    want = _port_bk(pm.loss_fn, params, batch, pm.layout, "ghost_flat", kw)
+    close(got.norms_sq, want.norms_sq.numpy())
+    assert_trees_close(got.grads, want.grads)

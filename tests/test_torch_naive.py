@@ -92,8 +92,9 @@ def test_naive_flat_matches_reference(name):
 @pytest.mark.parametrize("name", ["tiny", "tiny-blocked"])
 def test_naive_flat_reports_per_group_norms(name):
     """The port of `tests/test_bk.py:223`: naive_flat's (K, B) norms are
-    the ghost norms of the other modes (ghost_flat by two passes here: a
-    blocked layout takes no BK capture, ROADMAP A.16)."""
+    the ghost norms of the other modes (ghost_flat by two passes here;
+    BK over a blocked layout is held to the reference's BK in
+    `tests/test_torch_blocked.py`)."""
     m, _ = _models(*CONFIGS[name])
     tree = bridge.numpy_params(m.spec, seed=0)
     batch = _batch(m.cfg.vocab_size)

@@ -583,12 +583,25 @@ def test_serve_cli_requests_match_reference():
         np.testing.assert_array_equal(r[:16], reqs[0][:16])
 
 
-@pytest.mark.parametrize("argv", [["--autotune", "off"], ["--cache", "off"],
-                                  ["--backend", "xla"], ["--cache-dir", "x"],
+@pytest.mark.parametrize("argv", [["--backend", "pallas"],
+                                  ["--cache", "maybe"], ["--backend", "xla"],
+                                  ["--autotune", "auto"],
                                   ["--arch", "rwkv6-7b"]])
 def test_serve_cli_refuses_unported_flags(argv):
+    """The reference's engine names, values no flag takes, an unported
+    arch. (`--backend`, `--autotune`, `--cache` and `--cache-dir` are
+    ported: the test below.)"""
     with pytest.raises(SystemExit):
         serve.build_serve_parser().parse_args(argv)
+
+
+def test_serve_cli_takes_the_startup_flags():
+    args = serve.build_serve_parser().parse_args(
+        ["--backend", "auto", "--autotune", "off", "--cache", "off",
+         "--cache-dir", "x"])
+    assert (args.backend, args.autotune, args.cache, args.cache_dir) == (
+        "auto", "off", "off", "x")
+    assert serve.build_serve_parser().parse_args([]).backend == "kernels"
 
 
 def test_unported_arch_names_its_roadmap_item():
