@@ -470,6 +470,45 @@ exits non-zero:
               once a blocked linear in the capture and clip_reduce once a
               stack slice of each blocked leaf, no fallback). One line
               with the phase's seconds by part.
+ 19 recurrent rwkv6-7b (d 4,096, d_ff 14,336, 64 heads of 64, vocab
+              65,536) and zamba2-7b (d 3,584, in_proj 14,576 wide,
+              ssm_state 64, the shared block's 32 heads of 112, vocab
+              32,000) at full width, bf16, depths cut to RWKV_DEPTH = 4 of
+              32 and ZAMBA_DEPTH = 7 of 81 layers (two shared-attention
+              sites, layers 0 and 6): (a) training through the CLI's
+              `Trainer`, B = 8, T = 256, 1 warm-up + 1 timed step of
+              per_layer and non_private on both and ghost_flat by BK on
+              rwkv6 (no fallback), ghost_flat by BK on zamba2 (it must
+              warn and fall back to twopass: the shared block's
+              sensitivity_mult); finite losses and grads; the launches
+              of each step as `expected_launches` derives them (rwkv6's
+              decay LoRA 4,096 -> 64 -> 4,096 within the fused route's
+              rule: 8 fused_norm_clip a per_layer step); ms a step, peak
+              GB, one profiled per_layer step each (device ms, idle
+              share); card vs CPU (TRAIN_RTOL) on a per_layer step of
+              each at full width, 1 layer, f32, B = 2, T = 64; (b)
+              ghost_norm and clip_reduce against their plain versions at
+              the steps' captured inputs (zamba2's in_proj 3,584 ->
+              14,576 from per_layer, rwkv6's decay LoRA and channel mix
+              both ways from ghost_flat's capture, its factors a fixed
+              ramp), timed against their bound and library call, with
+              the loads (TMA or staged) each operand takes; and
+              fused_norm_clip, the decay LoRA's per_layer route, at the
+              same inputs (thresholds at 0.5-1.5 of each example's norm)
+              beside the composed pair it replaces, and scale_contract at
+              rwkv6's BK epilogue (the decay LoRA's and channel mix's
+              stacked leaves, ghost_flat_bk's sinks); (c) the engine
+              on the contiguous plane (`paging="auto"`), 8 slots, 16
+              requests of 16-48 tokens, 16 generated, on both models at
+              the same depths (zamba2's cache_len 32: its ring wraps):
+              tokens equal to greedy_decode(prefill="loop") up to ties,
+              `paging="on"` raises, 0 paged_attn launches (the oracle
+              runs the requests in batches of 8, the pool's width, so
+              the bf16 matmuls have the engine's shapes); (d) `_wkv_scan`
+              against `_wkv_chunked` (chunk 128) in f32 at the inputs of
+              one rwkv6-7b layer at full width (B = 8, T = 256, its init
+              decays): max |diff| within 1e-4 of the largest |o|, the ms
+              of each. One line with the phase's seconds by part.
 
 Phase 1 enables the build cache (`launch.compile_cache`, <repo>/.cache):
 each kernel source builds once a run, and every CLI subprocess after it
@@ -482,8 +521,9 @@ card: phase 18 (c) serves once with no engine scoped to show it).
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8, 11, 12, 14, 15, 16, 17 and 18 (paged_attn's:
-phases 3, 13, 15, 17 and 18). A clock line follows each phase.
+the sum over phases 5, 8, 11, 12, 14, 15, 16, 17, 18 and 19
+(paged_attn's: phases 3, 13, 15, 17 and 18; phase 19 gates it at 0).
+A clock line follows each phase.
 
 The last three lines are the kernels' JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1228,6 +1268,8 @@ def linear_leaves(cfg) -> list:
     the router (and a shared expert's gate_up and down) of each MoE layer,
     MTP's projection and block, the head (twice with MTP). The experts run
     no kernel."""
+    if cfg.arch_type in ("ssm", "hybrid"):
+        return recurrent_leaves(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
@@ -1270,6 +1312,39 @@ def linear_leaves(cfg) -> list:
                   {**attn_sub, "gate_up": "mlp", "down": "mlp"})
     return out + [("head", d, cfg.vocab_size, False, "head")] * (
         2 if cfg.mtp_depth else 1)
+
+
+def recurrent_leaves(cfg) -> list:
+    """`linear_leaves` of the recurrent families: RWKV-6's r, k, v, g, o,
+    decay LoRA and channel mix k, v, r a layer; Zamba2's in_proj and
+    out_proj a Mamba2 layer and the shared block's qkv, o, gate_up and
+    down at each site (one leaf each, called once a site); the head."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models.transformer import shared_sites
+    d, n, f = cfg.d_model, cfg.num_layers, cfg.d_ff
+    if cfg.shared_attention:
+        d_in, nh, st, _ = M2.dims(cfg)
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        out = [(nm, di, do, False, f"backbone/m/{nm}") for nm, di, do in (
+            ("in_proj", d, 2 * d_in + 2 * st + nh),
+            ("out_proj", d_in, d))] * n
+        out += [(nm, di, do, False, f"shared/{sub}/{nm}")
+                for nm, di, do, sub in (
+                    ("qkv", d, (h + 2 * kv) * hd, "attn"),
+                    ("o", h * hd, d, "attn"),
+                    ("gate_up", d, 2 * f, "mlp"),
+                    ("down", f, d, "mlp"))] * shared_sites(cfg)
+    else:
+        lora = 64  # rwkv6's decay LoRA rank
+        out = [(nm, di, do, False, f"blocks/{sub}/{leaf}")
+               for nm, di, do, sub, leaf in (
+                   ("r", d, d, "tm", "r"), ("k", d, d, "tm", "k"),
+                   ("v", d, d, "tm", "v"), ("g", d, d, "tm", "g"),
+                   ("w_lora_a", d, lora, "tm", "w_lora_a"),
+                   ("w_lora_b", lora, d, "tm", "w_lora_b"),
+                   ("o", d, d, "tm", "o"), ("cm_k", d, f, "cm", "k"),
+                   ("cm_v", f, d, "cm", "v"), ("cm_r", d, d, "cm", "r"))] * n
+    return out + [("head", d, cfg.vocab_size, False, "head")]
 
 
 def lora_pairs(cfg) -> list:
@@ -1375,7 +1450,7 @@ def profile_step(torch, trainer, step_ms) -> dict:
 
 def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
                   kind=None, profile=True, cfg=None, extra=None,
-                  timed=TRAIN_TIMED, check=None):
+                  timed=TRAIN_TIMED, check=None, fallback=None):
     """Train one variant through the CLI's `Trainer` (on `cfg` in place of
     the `--arch` config when given): TRAIN_WARMUP + `timed` steps with
     every launch counter set to 0 before and read after, then (with
@@ -1387,7 +1462,10 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
     records ms per step in `step_ms`, whose non_private and per_layer
     entries (B = 8) give the ratios. `check(trainer)`, called before the
     steps, returns a function called after them that raises on a failed
-    gate and returns more of the line. Returns the launch counts."""
+    gate and returns more of the line. `fallback`: a BK variant that must
+    warn, every step, that it falls back to twopass with this text in
+    the warning (zamba2's shared block); its launches are `kind`'s.
+    Returns the launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     steps = TRAIN_WARMUP + timed
@@ -1424,8 +1502,14 @@ def train_variant(torch, gpu, label, args, step_ms, patches=(), *,
     peak = torch.cuda.max_memory_allocated() / 1e9
     fallbacks = [str(w.message) for w in caught
                  if "falling back to the twopass" in str(w.message)]
-    if fallbacks:
+    if fallback is None and fallbacks:
         raise RuntimeError(f"{label}: BK fell back: {fallbacks}")
+    if fallback is not None:
+        if len(fallbacks) != steps or not all(fallback in m
+                                              for m in fallbacks):
+            raise RuntimeError(f"{label}: expected {steps} BK fallbacks "
+                               f"naming {fallback!r}, got {fallbacks}")
+        extra = {**(extra or {}), "bk_fallback": fallbacks[0]}
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                for r in rec):
         raise RuntimeError(f"{label}: non-finite loss or update: {rec}")
@@ -2073,10 +2157,13 @@ def train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees):
         return checks
 
     for label, mode, execution, case_cfg, fused, nmb, kw in cases:
+        t0 = time.perf_counter()
         got, cuda_counts = run(mode, execution, case_cfg, fused, nmb, "cuda",
                                kw)
+        t1 = time.perf_counter()
         want, cpu_counts = run(mode, execution, case_cfg, fused, nmb, "cpu",
                                kw)
+        secs = {"cuda_s": t1 - t0, "cpu_s": time.perf_counter() - t1}
         # one clip is one step: the card launches exactly the kernels of
         # the route, the CPU none
         kind = f"{label}_bk" if mode in ("ghost_flat", "per_group") else label
@@ -2104,7 +2191,7 @@ def train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees):
                "bk_vs_twopass_max_err_over_max":
                    {k: v[0] for k, v in twopass.items()},
                "tol": {"rtol": TRAIN_RTOL, "atol_of_max": TRAIN_ATOL_FRAC},
-               "cuda_launches": cuda_counts}
+               "cuda_launches": cuda_counts, **secs}
         if mode == "per_layer":
             out["clipped_share"] = float((n > torch.from_numpy(
                 kw["thresholds"])[:, None] ** 2).float().mean())
@@ -5890,6 +5977,386 @@ def phase_autotune(torch, gpu, cache):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the recurrent and hybrid families.
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH, ZAMBA_ARCH = "rwkv6-7b", "zamba2-7b"
+# depths on the card within the run's time: rwkv6's step is its T = 256
+# recurrence a layer (host-bound: a few kernels a time step); zamba2's 7
+# layers are two shared-attention sites (layers 0 and 6)
+RWKV_DEPTH, ZAMBA_DEPTH = 4, 7
+# (label, --clipping, --execution, the BK fallback's text, or None), the
+# per_layer first (the ratios divide by it)
+REC_VARIANTS = {
+    RWKV_ARCH: [("per_layer", "per_layer", "bk", None),
+                ("non_private", "non_private", "bk", None),
+                ("ghost_flat_bk", "ghost_flat", "bk", None)],
+    ZAMBA_ARCH: [("per_layer", "per_layer", "bk", None),
+                 ("non_private", "non_private", "bk", None),
+                 ("ghost_flat_bk", "ghost_flat", "bk",
+                  "sensitivity_mult > 1")]}
+# (b): the linears held at their captured inputs, and the variant and
+# kernel wrapper whose first step gives them
+REC_CAPTURE = {RWKV_ARCH: ("ghost_flat_bk", "ghost_norm",
+                           ("w_lora_a", "w_lora_b", "cm_k", "cm_v")),
+               ZAMBA_ARCH: ("per_layer", "clip_reduce", ("in_proj",))}
+# rwkv6's BK epilogue leaves whose scale_contract (b) times: a stack of
+# RWKV_DEPTH slices each
+REC_SC = ("w_lora_a", "w_lora_b", "cm_k", "cm_v")
+REC_REQ = dict(n_req=16, min_len=16, max_len=48, gen=16, slots=8)
+# zamba2's cache_len: below prompt + generation, so the shared block's
+# ring (cap = min(window, cache_len)) wraps; rwkv6 keeps O(1) state
+REC_CACHE_LEN = {RWKV_ARCH: 64, ZAMBA_ARCH: 32}
+REC_CPU = dict(b=2, t=64, num_layers=1)  # (a)'s card vs CPU step
+WKV_CHUNK = 128
+
+
+def rec_cfg(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    depth = RWKV_DEPTH if arch == RWKV_ARCH else ZAMBA_DEPTH
+    return dataclasses.replace(cfg, num_layers=depth), {"depth_cut": {
+        "num_layers": depth, "of": cfg.num_layers,
+        "why": "full width; the depth the smoke run's time allows"}}
+
+
+def loads(a, g) -> dict:
+    """Which path each bf16 operand of the tensor-core kernels takes: TMA
+    where its rows are 16-byte multiples from a 16-byte aligned base,
+    staged plain loads otherwise (`csrc/contract_mma.cuh:tma_ok`)."""
+    def one(x):
+        ok = (x.shape[-1] * x.element_size()) % 16 == 0 \
+            and x.data_ptr() % 16 == 0
+        return "tma" if ok else "staged"
+    return {"a": one(a), "g": one(g)}
+
+
+def rec_train(torch, gpu, arch, launches, caps, sc_caps):
+    """(a) for one arch: its variants at full width and the cut depth;
+    (b)'s inputs captured into `caps` (on the host) and, on rwkv6, the BK
+    epilogue's `scale_contract` inputs at REC_SC's leaves into `sc_caps`
+    (on the card: nothing writes those sinks after the step)."""
+    from repro_torch.kernels import bk as SC
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import ghost_norm as GN
+    cfg, cut = rec_cfg(arch)
+    shapes = linear_shapes(cfg)
+    variant, wrapper, names = REC_CAPTURE[arch]
+    mod = GN if wrapper == "ghost_norm" else CR
+    real = getattr(mod, wrapper)
+
+    def recording(a, g, *rest, **kw):
+        name = shapes.get((a.shape[-1], g.shape[-1]))
+        if name in names and name not in caps:
+            f = (rest[0] if rest else torch.linspace(
+                0.05, 1.0, a.shape[0], device=a.device))
+            caps[name] = (a.detach().cpu(), g.detach().cpu(),
+                          f.detach().float().cpu())
+        return real(a, g, *rest, **kw)
+
+    real_sc = SC.scale_contract
+
+    def recording_sc(a, g, factors):
+        name = shapes.get((a.shape[-1], g.shape[-1]))
+        if name in REC_SC:
+            sc_caps[name] = (a, g, factors)
+        return real_sc(a, g, factors)
+
+    step_ms = {}
+    for label, mode, execution, fallback in REC_VARIANTS[arch]:
+        patches = [(0, mod, wrapper, recording)] if label == variant else []
+        if arch == RWKV_ARCH and label == "ghost_flat_bk":
+            patches.append((0, SC, "scale_contract", recording_sc))
+        counts = train_variant(
+            torch, gpu, label, train_args(mode, execution, arch=arch),
+            step_ms, patches, cfg=cfg, profile=label == "per_layer",
+            extra=cut, timed=1, fallback=fallback,
+            kind="ghost_flat_twopass" if fallback else None)
+        for k in launches:
+            launches[k] += counts[k]
+    if sorted(n for n in names if n in caps) != sorted(names):
+        raise RuntimeError(f"{arch}: {wrapper} captured {sorted(caps)} of "
+                           f"{list(names)}")
+    if arch == RWKV_ARCH and sorted(sc_caps) != sorted(REC_SC):
+        raise RuntimeError(f"scale_contract captured {sorted(sc_caps)} of "
+                           f"{list(REC_SC)}")
+    return cfg, step_ms
+
+
+def rec_cuda_vs_cpu(torch, gpu):
+    """(a)'s card vs CPU: one per_layer clip of each arch at full width,
+    REC_CPU's depth and batch, f32, from one numpy tree (drawn on the card
+    and copied to the host: the host's draws of these 1.27 B parameters
+    take seconds)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import spec as S
+    from repro_torch.models.transformer import build_model
+    b, t = REC_CPU["b"], REC_CPU["t"]
+    rng = np.random.default_rng(0)
+    cases, trees = [], {}
+
+    def numpy_tree(tree):
+        return ({k: numpy_tree(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.cpu().numpy())
+
+    for arch in (RWKV_ARCH, ZAMBA_ARCH):
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=REC_CPU["num_layers"],
+                                  dtype=torch.float32)
+        m = build_model(cfg, device="cpu")
+        t0 = time.perf_counter()
+        trees[cfg.name] = numpy_tree(S.init_params(
+            m.spec, torch.Generator(device="cuda").manual_seed(0)))
+        emit({"phase": "recurrent_cpu_tree", "arch": cfg.name,
+              "params": m.num_params, "seconds": time.perf_counter() - t0})
+        thr = rng.uniform(0.05, 2.0, m.layout.num_groups).astype(np.float32)
+        cases.append((f"{arch}_per_layer", "per_layer", "bk", cfg, True, 1,
+                      {"thresholds": thr}))
+    vocab = min(get_config(a).vocab_size for a in (RWKV_ARCH, ZAMBA_ARCH))
+    tokens = rng.integers(0, vocab, (b, t)).astype(np.int32)
+    targets = np.roll(tokens, -1, 1)
+    targets[:, -1] = -1
+    train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees)
+
+
+def rec_serve(torch, gpu, arch) -> dict:
+    """(c) for one arch: the engine on the contiguous plane against the
+    loop oracle, `paging="on"` refused, no paged_attn."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.inputs import pad_ragged_prompts
+    from repro_torch.models.transformer import build_model
+    cfg, cut = rec_cfg(arch)
+    r, cache_len = REC_REQ, REC_CACHE_LEN[arch]
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    reqs = serve.build_requests(cfg.vocab_size, r["n_req"],
+                                min_len=r["min_len"], max_len=r["max_len"],
+                                shared_prefix=0, seed=2)
+    eng, erun, counts, step_ms = engine_run(
+        torch, model, params, reqs, gen=r["gen"], slots=r["slots"],
+        cache_len=cache_len, paging="auto")
+    if eng.paged or any(counts.values()):
+        raise RuntimeError(f"{arch} serving: paged={eng.paged}, launches "
+                           f"{counts}")
+    try:
+        DecodeEngine(model, params, num_slots=r["slots"],
+                     cache_len=cache_len, paging="on")
+        raise RuntimeError(f"{arch}: paging='on' was not refused")
+    except ValueError as e:
+        refused = str(e)
+    # the oracle in batches of the pool's width: a serve_step's bf16
+    # matmuls then have the engine's shapes, so a row's logits do not
+    # depend on how many rows ride with it (the rounding of a B = 16 or
+    # B = 1 batch differs by bf16 steps that compound through the
+    # recurrent state)
+    lrun = {"tokens": {}, "top2": {}, "top2_idx": {}}
+    for lo in range(0, len(reqs), r["slots"]):
+        prompts, lengths = pad_ragged_prompts(reqs[lo:lo + r["slots"]])
+        _, run = greedy_top2(torch, model, params,
+                             torch.from_numpy(prompts).cuda(),
+                             torch.from_numpy(lengths).cuda(), r["gen"],
+                             cache_len, "loop")
+        for key, rows in run.items():
+            lrun[key].update({lo + i: v for i, v in rows.items()})
+    wraps = sum(len(q) + r["gen"] > cache_len for q in reqs)
+    if arch == ZAMBA_ARCH and not wraps:
+        raise RuntimeError("zamba2: no request wraps the shared ring")
+    line = {"phase": "recurrent_serve", "gpu": gpu, "arch": cfg.name,
+            "num_layers": cfg.num_layers, **cut, "requests": len(reqs),
+            "slots": r["slots"], "cache_len": cache_len,
+            "requests_past_cache_len": wraps, "paged": eng.paged,
+            "paging_on_refused": refused, "launches": counts,
+            "ms_per_serve_step": step_ms,
+            "serve_steps": eng.stats["serve_steps"],
+            "cache_bytes": eng.cache_bytes(),
+            "vs_loop_oracle": compare_runs(f"{arch} engine vs loop", erun,
+                                           lrun, True)}
+    emit(line)
+    del eng, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def rec_wkv(torch, gpu) -> dict:
+    """(d): `_wkv_scan` against `_wkv_chunked` at one rwkv6-7b layer's
+    inputs (f32 parameters from its init, x ~ N(0, 1), B = 8, T = 256)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import spec as S
+    from repro_torch.models import rwkv6 as R6
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tm = S.init_params(R6.rwkv6_spec(cfg), gen)["tm"]
+    b, t = 8, 256
+    _, nh, hd = R6.dims(cfg)
+    x = torch.randn((b, t, cfg.d_model), generator=gen, device="cuda")
+    got = {}
+    real = R6._wkv_scan
+
+    def recording(*args):
+        got["args"] = args
+        return real(*args)
+
+    R6._wkv_scan = recording
+    try:
+        with torch.no_grad():
+            R6.time_mix(cfg, tm, x, x_prev=torch.zeros_like(x[:, :1]),
+                        state=torch.zeros((b, nh, hd, hd), device="cuda"))
+    finally:
+        R6._wkv_scan = real
+    args = got["args"]
+    with torch.no_grad():
+        so, ss = R6._wkv_scan(*args)
+        co, cs = R6._wkv_chunked(*args, WKV_CHUNK)
+        torch.cuda.synchronize()
+        big = float(so.abs().max())
+        err = float((co - so).abs().max())
+        serr = float((cs - ss).abs().max())
+        w = args[3]
+        line = {"phase": "recurrent_wkv", "gpu": gpu, "arch": cfg.name,
+                "shape": list(args[0].shape), "chunk": WKV_CHUNK,
+                "decay_min": float(w.min()), "decay_max": float(w.max()),
+                "max_abs_o": big, "max_abs_diff": err,
+                "state_max_abs_diff": serr, "tol_of_max_abs_o": 1e-4,
+                "scan_ms": cuda_ms(torch, lambda: R6._wkv_scan(*args), 3, 1),
+                "chunked_ms": cuda_ms(
+                    torch, lambda: R6._wkv_chunked(*args, WKV_CHUNK), 3, 1)}
+    emit(line)
+    if not err <= 1e-4 * big:
+        raise RuntimeError(f"wkv: chunked misses the scan by {err} (max "
+                           f"|o| {big})")
+    return line
+
+
+def rec_fused_rows(torch, gpu, caps, names, calls) -> dict:
+    """(b)'s fused_norm_clip at the decay LoRA's captured inputs (its
+    per_layer route: both sides within `fits`), thresholds at 0.5-1.5 of
+    each example's norm: against its plain version (n and dW, SUM_RTOL /
+    SUM_ATOL_FRAC of the largest magnitude), kernel, plain, composed
+    (ghost_norm + clip_reduce), library (per-example f32 bmm) and bound
+    ms a call. Returns a kernels-line block."""
+    from repro_torch.kernels import fused_clip as FC
+    bw = bandwidth(gpu)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0, "per_step": {},
+           "shapes": []}
+    for name in names:
+        a, g = caps[name][0].cuda(), caps[name][1].cuda()
+        if not FC.fits(a.shape[-1], g.shape[-1]):
+            raise RuntimeError(f"{name}: {tuple(a.shape)} x {tuple(g.shape)}"
+                               f" is outside the fused route")
+        n_ref, _ = FC.fused_norm_clip_ref(a, g, torch.full(
+            (a.shape[0],), math.inf, device="cuda"))
+        c = n_ref.sqrt() * torch.linspace(0.5, 1.5, a.shape[0],
+                                          device="cuda")
+        got = FC.fused_norm_clip(a, g, c)
+        want = FC.fused_norm_clip_ref(a, g, c)
+        errs = [sum_check(torch, x, y) for x, y in zip(got, want)]
+        if not all(e[2] for e in errs):
+            raise RuntimeError(f"fused_norm_clip disagrees at {name}: {errs}")
+        row = {"phase": "kernel_main_shapes", "gpu": gpu,
+               "kernel": "fused_norm_clip", "arch": RWKV_ARCH,
+               "variant": "per_layer", "linear": name,
+               "a": list(a.shape), "g": list(g.shape),
+               "dtype": str(a.dtype), "calls_per_step": calls[name],
+               "max_abs_err": max(e[0] for e in errs),
+               "max_rel_err": max(e[1] for e in errs),
+               "clipped": int((n_ref > c.square()).sum()),
+               "tol": {"rtol": SUM_RTOL, "atol_of_max": SUM_ATOL_FRAC}}
+        for key, fn in (
+                ("ms", lambda: FC.fused_norm_clip(a, g, c)),
+                ("plain_ms", lambda: FC.fused_norm_clip_ref(a, g, c)),
+                ("composed_ms", lambda: fused_composed(a, g, c, None)),
+                ("library_ms", lambda: fused_library(torch, a, g, c, None))):
+            row[key] = cuda_ms(torch, fn, 20, 2, flush)
+        row["bound_ms"], row["bound_by"] = fused_bound(a, g, None, bw)
+        emit(row)
+        for err in ("max_abs_err", "max_rel_err"):
+            out[err] = max(out[err], row[err])
+        step = out["per_step"].setdefault(
+            "rwkv6-7b_per_layer", dict.fromkeys(
+                ("ms", "plain_ms", "composed_ms", "library_ms", "bound_ms"),
+                0.0))
+        for k in step:
+            step[k] += calls[name] * row[k]
+        out["shapes"].append(row)
+    return out
+
+
+def phase_recurrent(torch, gpu):
+    """Phase 19. Returns (launches by kernel over (a)'s counted steps,
+    the kernels-line blocks of ghost_norm, clip_reduce, fused_norm_clip
+    and scale_contract at (b)'s shapes)."""
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def done(part, t0):  # each part's seconds, as it ends
+        secs[part] = time.perf_counter() - t0
+        emit({"phase": "recurrent_part", "part": part,
+              "seconds": secs[part]})
+
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    caps, sc_caps, cfgs, step_ms = {}, {}, {}, {}
+    for arch in (RWKV_ARCH, ZAMBA_ARCH):
+        t0 = time.perf_counter()
+        cfgs[arch], step_ms[arch] = rec_train(torch, gpu, arch, launches,
+                                              caps, sc_caps)
+        done(f"a_train_{arch}", t0)
+    t0 = time.perf_counter()
+    rec_cuda_vs_cpu(torch, gpu)
+    done("a_cuda_vs_cpu", t0)
+    t0 = time.perf_counter()
+    rows = {}
+    for arch in (RWKV_ARCH, ZAMBA_ARCH):
+        variant, _, names = REC_CAPTURE[arch]
+        calls = linear_calls(cfgs[arch])
+        for name in names:
+            a, g, _ = caps[name]
+            emit({"phase": "recurrent_loads", "gpu": gpu, "arch": arch,
+                  "linear": name, "a": list(a.shape), "g": list(g.shape),
+                  "loads": loads(a.cuda(), g.cuda())})
+        block = captured_rows(
+            torch, gpu, {n: caps[n] for n in names}, cfgs[arch].num_layers,
+            {f"{arch}_{variant}": (names, ("ghost_norm", "clip_reduce"))},
+            calls_per_step={n: calls[n] for n in names}, arch=arch)
+        for k, v in block.items():
+            o = rows.setdefault(k, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                    "per_step": {}, "shapes": []})
+            for err in ("max_abs_err", "max_rel_err"):
+                o[err] = max(o[err], v[err])
+            o["per_step"].update(v["per_step"])
+            o["shapes"] += v["shapes"]
+    rows["fused_norm_clip"] = rec_fused_rows(
+        torch, gpu, caps, ("w_lora_a", "w_lora_b"),
+        linear_calls(cfgs[RWKV_ARCH]))
+    rows.update(captured_rows(
+        torch, gpu, sc_caps, cfgs[RWKV_ARCH].num_layers,
+        {"rwkv6-7b_ghost_flat_bk": (REC_SC, ("scale_contract",))},
+        calls_per_step=dict.fromkeys(REC_SC, 1), arch=RWKV_ARCH))
+    del caps, sc_caps
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("b_kernels", t0)
+    for arch in (RWKV_ARCH, ZAMBA_ARCH):
+        t0 = time.perf_counter()
+        rec_serve(torch, gpu, arch)
+        done(f"c_serve_{arch}", t0)
+    t0 = time.perf_counter()
+    rec_wkv(torch, gpu)
+    done("d_wkv", t0)
+    emit({"phase": "recurrent", "gpu": gpu, "launches": launches,
+          "ms_per_step": step_ms, "seconds": time.perf_counter() - t_phase,
+          "seconds_by_part": secs})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6013,6 +6480,9 @@ def run_phases(torch) -> int:
     a_launches = phase_autotune(torch, gpu, cache)
     kernel["launches"] += a_launches["paged_attn"]
     clock("autotune")
+    # phase 19: the recurrent and hybrid families, trained and served
+    r_launches, recurrent = phase_recurrent(torch, gpu)
+    clock("recurrent")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's, the
     # T = 4096 path's, deepseek-v3's and granite's BK epilogue's times
@@ -6021,11 +6491,12 @@ def run_phases(torch) -> int:
         k["launches"] = sum(run[k["name"]] for run in (
             train_launches, moe_launches, scale_launches, service_launches,
             mm_launches, d_train_launches, s_launches, l_launches,
-            a_launches))
+            a_launches, r_launches))
         for key, extra in (("moe", moe), ("naive_flat", naive),
                            ("long_context", long), ("mla_train", mla),
                            ("moe_bk", moe_bk), ("dense_train", dense),
-                           *s_blocks.items(), ("lora", lora)):
+                           *s_blocks.items(), ("lora", lora),
+                           ("recurrent", recurrent)):
             if k["name"] in extra:
                 k[key] = extra[k["name"]]
                 for err in ("max_abs_err", "max_rel_err"):

@@ -86,6 +86,9 @@ def numpy_params(spec: dict, seed: int) -> dict:
                 std = (p.scale if p.scale is not None
                        else 1.0 / np.sqrt(fan_in))
             a = (std * rng.standard_normal(p.shape)).astype(np.float32)
+        elif p.init == "uniform":
+            r = p.scale if p.scale is not None else 0.02
+            a = rng.uniform(-r, r, p.shape).astype(np.float32)
         else:
             raise ValueError(f"numpy_params: init {p.init!r} not supported")
         node = out

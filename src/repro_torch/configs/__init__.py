@@ -12,13 +12,12 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = ["deepseek-67b", "deepseek-v3-671b", "granite-moe-3b-a800m",
-            "minicpm-2b", "qwen1.5-32b", "qwen3-4b", "tiny"]
+            "minicpm-2b", "qwen1.5-32b", "qwen3-4b", "rwkv6-7b", "tiny",
+            "zamba2-7b"]
 
 # architectures the reference serves that the port does not yet, with the
 # ROADMAP.md Queue A item that brings each one
 NOT_PORTED = {
-    "zamba2-7b": "A.8 (recurrent and hybrid families)",
-    "rwkv6-7b": "A.8 (recurrent and hybrid families)",
     "whisper-medium": "A.9 (encoder-decoder and M-RoPE families)",
     "qwen2-vl-72b": "A.9 (encoder-decoder and M-RoPE families)",
 }

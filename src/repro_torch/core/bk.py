@@ -63,10 +63,6 @@ from repro_torch.core.ghost import expert_clipped_sum, grouped_clipped_sum
 from repro_torch.core.spec import GroupLayout, P, tree_leaves
 from repro_torch.kernels import backend
 
-# recipe kinds of the reference that no ported primitive records yet
-_NOT_PORTED = {"shift": "A.8", "broadcast": "A.8"}
-
-
 # ---------------------------------------------------------------------------
 # The channel.
 # ---------------------------------------------------------------------------
@@ -141,8 +137,8 @@ def stash(channel: BkChannel, **values: torch.Tensor) -> None:
 class Recipe:
     """What one DP-primitive call site stashes for one clipping group."""
 
-    kind: str  # linear | linear_blocked | lora | embed | scale | expert |
-    #            expert_grouped
+    kind: str  # linear | linear_blocked | lora | embed | scale | shift |
+    #            broadcast | expert | expert_grouped
     c_ndim: int  # rank of the PER-CALL threshold (after unbinding)
     sinks: dict  # sink name -> (per-call shape, dtype)
     extras: dict  # kind-specific statics (vocab; m, block_axis)
@@ -226,6 +222,19 @@ def record_embed(c: BkChannel, table, ids) -> None:
 def record_scale(c: BkChannel, s, xhat) -> None:
     _record(c, "scale",
             {"pg": ((xhat.shape[0], xhat.shape[-1]), torch.float32)})
+
+
+def record_shift(c: BkChannel, x) -> None:
+    """A bias of its own (`dp_shift`): the per-example grad, (B, d)."""
+    _record(c, "shift", {"pg": ((x.shape[0], x.shape[-1]), torch.float32)})
+
+
+def record_broadcast(c: BkChannel, p) -> None:
+    """A broadcast parameter (`dp_broadcast`): the per-example grad, (B,)
+    + p.shape."""
+    bsz = c.c.shape[-1]
+    _record(c, "broadcast",
+            {"pg": ((bsz,) + tuple(p.shape), torch.float32)})
 
 
 def record_expert(c: BkChannel, w, x) -> None:
@@ -335,10 +344,6 @@ def _leaf_grad(layout: GroupLayout, recipes, residuals, f_rows, node: P,
     r = recipes.get(gname)
     if r is None:
         return torch.zeros(node.shape, dtype=node.dtype, device=f_rows.device)
-    if r.kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"BK recipe kind {r.kind!r} is not ported yet: ROADMAP.md item "
-            f"{_NOT_PORTED[r.kind]}")
     sink = residuals[gname]
     bsz = f_rows.shape[-1]
     f = f_rows[grp.offset: grp.offset + grp.count].reshape(
@@ -387,8 +392,9 @@ def _leaf_grad(layout: GroupLayout, recipes, residuals, f_rows, node: P,
         dt = dt[0][None] if len(dt) == 1 else torch.stack(dt)
         return dt.reshape(node.shape).to(node.dtype)
 
-    if r.kind == "scale":
-        pg = sink["pg"]  # prefix + (B,) + per-call param shape
+    if r.kind in ("scale", "shift", "broadcast"):
+        # the stashed per-example grads: prefix + (B,) + per-call shape
+        pg = sink["pg"]
         s_ = math.prod(pg.shape[:pg.dim() - (1 + per_elem)])
         out = torch.einsum("sbr,sb->sr", pg.reshape(s_, bsz, -1).float(),
                            f.reshape(s_, bsz))

@@ -53,8 +53,14 @@ contracts each stack slice with its (B, M) factors. `dp_expert_linear`
 MoE layer's stacked weight to its own threshold, with exact per-example
 norms through the token dispatch; their BK capture stashes the slots'
 activations and cotangents (and the flat one the slots' example ids).
-`dp_shift` and `dp_broadcast` (with the recurrent families, ROADMAP A.8)
-are not ported yet.
+
+`dp_shift` (y = x + b, a bias of its own group) and `dp_broadcast` (the
+broadcast trick for small parameters of any shape: the parameter
+expanded to a leading batch axis, whose cotangent IS the per-example
+gradient) carry the recurrent families' vectors (Mamba2's conv weight,
+dt bias, decay and skip; RWKV-6's token-shift mixes, decay base and
+bonus). Their BK capture stashes the (B, ...) per-example gradient
+itself, f32.
 """
 from __future__ import annotations
 
@@ -266,6 +272,80 @@ def dp_scale(s, xhat, c):
     if ch is not None:
         bk.record_scale(ch, s, xhat)
     return DPScale.apply(s, xhat, bk.thresholds_of(c), ch)
+
+
+class DPShift(torch.autograd.Function):
+    """y = x + b: a bias of its own clipping group."""
+
+    @staticmethod
+    def forward(ctx, b, x, c, channel):
+        _forward_context(ctx, channel)
+        ctx.dtype = b.dtype
+        ctx.save_for_backward(c)
+        return x + b
+
+    @staticmethod
+    def backward(ctx, gy):
+        c, = ctx.saved_tensors
+        eng = ctx.engine
+        g3 = _flat3(gy)
+        n = eng.bias_norms_sq(g3) if ctx.needs_input_grad[2] else None
+        dx = gy if ctx.needs_input_grad[1] else None
+        ch = _capturing(ctx)
+        if ch is not None:
+            # the per-example grad sum_t g_t is (B, d): stash it
+            bk.stash(ch, pg=torch.sum(g3.float(), dim=1))
+        if ch is not None or not ctx.needs_input_grad[0]:
+            return None, dx, n, None
+        f = clip_factor(c, n) if n is not None else factor_without_norms(c)
+        db = eng.clipped_sum_bias(g3, f).to(ctx.dtype)
+        return db, dx, n, None
+
+
+def dp_shift(b, x, c):
+    """y = x + b with per-example clipping of b to c (B,), or a BK
+    capture through the channel c."""
+    ch = bk.channel_of(c)
+    if ch is not None:
+        bk.record_shift(ch, x)
+    return DPShift.apply(b, x, bk.thresholds_of(c), ch)
+
+
+class DPBroadcast(torch.autograd.Function):
+    """p expanded to (B,) + p.shape: the cotangent arriving back is the
+    per-example gradient, so its norms² and the clipped sum need no
+    ghost identity."""
+
+    @staticmethod
+    def forward(ctx, p, c, channel):
+        _forward_context(ctx, channel)
+        ctx.dtype = p.dtype
+        ctx.save_for_backward(c)
+        return p.expand((c.shape[-1],) + tuple(p.shape))
+
+    @staticmethod
+    def backward(ctx, gy):
+        c, = ctx.saved_tensors
+        n = (ctx.engine.vector_norms_sq(gy) if ctx.needs_input_grad[1]
+             else None)
+        ch = _capturing(ctx)
+        if ch is not None:
+            bk.stash(ch, pg=gy.float())
+        if ch is not None or not ctx.needs_input_grad[0]:
+            return None, n, None
+        f = clip_factor(c, n) if n is not None else factor_without_norms(c)
+        dp = torch.tensordot(f.float(), gy.float(), dims=1).to(ctx.dtype)
+        return dp, n, None
+
+
+def dp_broadcast(p, c):
+    """p expanded to (B,) + p.shape, B the thresholds' batch, with the
+    per-example gradients clipped to c (B,); or a BK capture through the
+    channel c."""
+    ch = bk.channel_of(c)
+    if ch is not None:
+        bk.record_broadcast(ch, p)
+    return DPBroadcast.apply(p, bk.thresholds_of(c), ch)
 
 
 class DPExpertLinear(torch.autograd.Function):

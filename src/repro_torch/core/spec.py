@@ -36,7 +36,7 @@ class P:
     """Specification of one parameter tensor."""
 
     shape: tuple[int, ...]
-    init: str = "normal"  # zeros | ones | normal | embed
+    init: str = "normal"  # zeros | ones | normal | embed | uniform
     scale: float | None = None  # stddev override
     dtype: torch.dtype = torch.float32
     group: str | None = None  # explicit group path (shared / joint groups)
@@ -142,6 +142,11 @@ def _init_leaf(p: P, gen: torch.Generator) -> torch.Tensor:
             flat[i:i + m] = torch.randn(m, generator=gen, device=dev,
                                         dtype=torch.float32).mul_(std)
         return out
+    if p.init == "uniform":  # U(-scale, scale), as the reference
+        r = p.scale if p.scale is not None else 0.02
+        u = torch.rand(p.shape, generator=gen, device=dev,
+                       dtype=torch.float32)
+        return u.mul_(2 * r).sub_(r).to(p.dtype)
     raise ValueError(f"unknown init {p.init!r}")
 
 

@@ -30,11 +30,14 @@ Two cache data planes:
       to host memory under pressure and come back bit for bit on a later
       hit.
 
-`paging="auto"` (the default) pages where the model can (full attention,
-no ring window) and `cache_len` is a multiple of `page_len`, and keeps the
-contiguous plane otherwise; `"on"` raises where it cannot page; `"off"`
-keeps the contiguous plane. A full-attention request must fit
-`cache_len`; a ring-window one may run past it.
+`paging="auto"` (the default) pages where the model can (it has an
+`init_paged_cache`: full attention, no ring window, no recurrent state)
+and `cache_len` is a multiple of `page_len`, and keeps the contiguous
+plane otherwise; `"on"` raises where it cannot page; `"off"` keeps the
+contiguous plane. A full-attention request must fit `cache_len`; a
+ring-window or recurrent one (rwkv6-7b, zamba2-7b: a Mamba2 state and
+the shared block's ring) may run past it. A recycled slot's recurrent
+state is zeroed with its other rows.
 
 The caches are updated in place (models.attention). Retirement and the
 queue are host-side numpy bookkeeping. Output is token for token that of
@@ -188,15 +191,16 @@ class DecodeEngine:
         self._skew = prefill_skew_chunks
         cfg = model.cfg
         # a full (non-ring) attention cache bounds the horizon; a ring
-        # window carries only the window
-        self._bounded = (cfg.attention_kind == "mla"
-                         or cfg.sliding_window is None)
-        can_page = self._bounded and cache_len % page_len == 0
+        # window or a recurrent state carries only the window or O(1)
+        self._bounded = cfg.attention_kind == "mla" or (
+            cfg.attention_kind == "gqa" and cfg.sliding_window is None)
+        can_page = (model.init_paged_cache is not None and self._bounded
+                    and cache_len % page_len == 0)
         if paging == "on" and not can_page:
             raise ValueError(
                 "paging='on' needs a full-attention model family and "
-                "cache_len divisible by page_len (ring-window caches "
-                "bypass paging)")
+                "cache_len divisible by page_len (ring-window / recurrent "
+                "caches bypass paging)")
         self.paged = can_page if paging == "auto" else paging == "on"
         self.page_len = page_len
 

@@ -39,6 +39,11 @@ reference that is not ported fails in argparse.
       --batch 16 --prompt-len 192 --min-prompt-len 64 --gen 32 \\
       --slots 8 --shared-prefix 32
 
+`--arch rwkv6-7b` and `--arch zamba2-7b` serve on the contiguous plane
+(`--paging auto` lands there: recurrent state a slot, and zamba2's
+shared block on a ring of min(window, cache_len)); `--paging on` exits
+with the engine's error.
+
 Add `--device cpu` (and `--reduced`) to run without a GPU.
 """
 from __future__ import annotations

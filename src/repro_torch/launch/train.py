@@ -93,7 +93,13 @@ the frozen base is stored and gathered as the other weights are.
 per expert and layer), its flat and group modes by either execution.
 `--arch deepseek-v3-671b` trains MLA with DeepSeek's MTP loss; MTP runs
 `embed` and `head` twice a step, so BK falls back to two passes (with a
-warning, and the header says so). Grouped dispatch (`moe_dispatch =
+warning, and the header says so). `--arch rwkv6-7b` trains RWKV-6 (the
+WKV recurrence step by step, as the reference's default) and `--arch
+zamba2-7b` Zamba2's Mamba2 backbone with its one shared attention block,
+every mode and execution; the shared block's groups carry
+sensitivity_mult = its sites, so zamba2's BK falls back to two passes
+the same way (header: `bk_falls_back=twopass(shared block at N
+sites)`). Grouped dispatch (`moe_dispatch =
 "grouped"`) has no flag, as in the reference: `build_everything` and
 `Trainer` take a `cfg` to run in place of the `--arch` one.
 
@@ -125,7 +131,7 @@ from repro_torch.data import (PoissonSampler, SyntheticLM, make_lm_batch,
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.sharding import (gather_tree, group_shard_assignment,
                                          params_shardings, shard_tree)
-from repro_torch.models.transformer import build_model
+from repro_torch.models.transformer import build_model, shared_sites
 
 # the modes BK executes (the others have no flat factor to wait for)
 BK_MODES = ("ghost_flat", "per_group")
@@ -537,6 +543,10 @@ class Trainer:
                 and self.model.reused_groups):
             tail += (f" bk_falls_back=twopass(groups "
                      f"{','.join(self.model.reused_groups)} run twice)")
+        if (self.execution == "bk" and p.config.mode in BK_MODES
+                and self.cfg.shared_attention):
+            tail += (f" bk_falls_back=twopass(shared block at "
+                     f"{shared_sites(self.cfg)} sites)")
         if self.mesh is not None:
             tail += (f" mesh={self.args.mesh} ({self.mesh.describe()}) "
                      f"dist_backend={self.mesh.backend}")

@@ -172,15 +172,17 @@ def _attend_blocked(qg, k, v, qpos, kpos, *, causal, window):
     return torch.cat(outs, dim=1)[:, :t]
 
 
-def gqa_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = ()) -> dict:
+def gqa_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = (),
+             sensitivity_mult: float = 1.0) -> dict:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
+    sm = sensitivity_mult
     out = {
         "qkv": L.linear_spec(d, (h + 2 * kv) * hd, bias=cfg.qkv_bias,
                              stack=stack, dtype=cfg.dtype,
-                             blocks=cfg.dp_blocks),
+                             blocks=cfg.dp_blocks, sensitivity_mult=sm),
         "o": L.linear_spec(h * hd, d, stack=stack, dtype=cfg.dtype,
-                           blocks=cfg.dp_blocks),
+                           blocks=cfg.dp_blocks, sensitivity_mult=sm),
     }
     if cfg.qk_norm:
         out["q_norm"] = L.rmsnorm_spec(hd, stack=stack, dtype=cfg.dtype)

@@ -1,10 +1,11 @@
-"""Model configuration for the dense and MoE decoder families.
+"""Model configuration for the decoder families the port runs.
 
 The counterpart of `repro.models.config.ModelConfig`, cut to the fields
-the dense and MoE families read (GQA with its QKV bias and sliding window,
-or MLA attention; flat or grouped dispatch; DeepSeek-V3's MTP depth); the
-recurrent, encoder-decoder and M-RoPE fields arrive with their families.
-`dtype` is a torch dtype.
+the dense, MoE, recurrent and hybrid families read (GQA with its QKV bias
+and sliding window, or MLA attention; flat or grouped dispatch;
+DeepSeek-V3's MTP depth; Mamba2 and RWKV-6 blocks, and Zamba2's shared
+attention block). The encoder-decoder and M-RoPE fields arrive with their
+families. `dtype` is a torch dtype.
 """
 from __future__ import annotations
 
@@ -16,19 +17,19 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # dense | moe
+    arch_type: str  # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
-    num_heads: int
-    num_kv_heads: int
+    num_heads: int = 0  # 0 => attention-free (pure SSM)
+    num_kv_heads: int = 0
     head_dim: int | None = None  # default d_model // num_heads
     qk_norm: bool = False  # per-head RMSNorm on q, k (Qwen3)
     qkv_bias: bool = False  # Qwen1.5
     sliding_window: int | None = None  # window size; None = full attention
     rope_theta: float = 10_000.0
-    attention_kind: str = "gqa"  # gqa | mla
+    attention_kind: str = "gqa"  # gqa | mla | none
     # MLA (DeepSeek-V3): compressed-latent attention
     q_lora_rank: int = 0  # 0 => direct q projection
     kv_lora_rank: int = 512
@@ -50,6 +51,20 @@ class ModelConfig:
     # t+2 (its loss weighs 0.3; serving carries the `mtp` parameters and
     # does not read them)
     mtp_depth: int = 0
+    # SSM: Mamba2 (state size 0 => no Mamba2 layers)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_kernel: int = 4
+    ssm_chunk: int = 256
+    # SSM: RWKV-6
+    rwkv_head_dim: int = 64
+    # hybrid layout: per-layer kinds (m = mamba2, a = attention, r = rwkv)
+    layer_pattern: str | None = None
+    # Zamba2: ONE attention block shared by every site, applied before
+    # every `shared_every`-th layer (sensitivity_mult = the site count)
+    shared_attention: bool = False
+    shared_every: int = 6
     dtype: torch.dtype = torch.float32
     norm_eps: float = 1e-5
     # per-shard clipping layout: the qkv and o projections split into M
@@ -71,15 +86,32 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
 
+    @property
+    def has_attention(self) -> bool:
+        return self.attention_kind != "none" and self.num_heads > 0
+
+    def pattern(self) -> str:
+        """Per-layer block kinds, length num_layers."""
+        if self.layer_pattern is None:
+            base = ("a" if self.has_attention
+                    else ("r" if self.ssm_state == 0 else "m"))
+            return base * self.num_layers
+        reps = self.num_layers // len(self.layer_pattern) + 1
+        return (self.layer_pattern * reps)[: self.num_layers]
+
     def validate(self) -> None:
-        if self.arch_type not in ("dense", "moe"):
+        if self.arch_type in ("audio", "vlm"):
             raise NotImplementedError(
-                f"{self.name}: only the dense and MoE decoder families are "
-                f"ported")
-        if self.attention_kind not in ("gqa", "mla"):
-            raise NotImplementedError(
+                f"{self.name}: the {self.arch_type} family is not ported "
+                f"yet: ROADMAP.md item A.9 (encoder-decoder and M-RoPE "
+                f"families)")
+        if self.arch_type not in ("dense", "moe", "ssm", "hybrid"):
+            raise ValueError(f"{self.name}: unknown arch_type "
+                             f"{self.arch_type!r}")
+        if self.attention_kind not in ("gqa", "mla", "none"):
+            raise ValueError(
                 f"{self.name}: attention {self.attention_kind!r} is not "
-                f"ported (the port has gqa and mla)")
+                f"gqa, mla or none")
         if self.num_experts:
             if self.moe_dispatch not in ("flat", "grouped"):
                 raise ValueError(f"{self.name}: moe_dispatch "
@@ -88,6 +120,8 @@ class ModelConfig:
             if self.num_experts_per_tok < 1 or self.moe_d_ff < 1:
                 raise ValueError(f"{self.name}: an MoE config needs "
                                  f"num_experts_per_tok and moe_d_ff")
+        if not self.has_attention:
+            return
         if self.num_kv_heads < 1 or self.num_heads % self.num_kv_heads:
             raise ValueError(
                 f"{self.name}: num_heads={self.num_heads} must be a multiple "

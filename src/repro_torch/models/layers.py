@@ -1,8 +1,8 @@
 """Shared building blocks: norms, linear, SwiGLU, rotary embeddings.
 
-`rmsnorm`, `linear` and `swiglu` take an optional `th`, this module's
-slice of the encoded-threshold dict (tensors, or the BK capture's
-channels, `repro_torch.core.bk`). With it (training) every parameter
+`rmsnorm`, `linear`, `swiglu` and `broadcast` take an optional `th`,
+this module's slice of the encoded-threshold dict (tensors, or the BK
+capture's channels, `repro_torch.core.bk`). With it (training) every parameter
 goes through a DP primitive (`repro_torch.core.dp_layers`), so clipping is
 fused into backprop; without it (serving) they are the plain forward.
 Every bf16 rounding point of the reference is mirrored: normalisation and
@@ -35,16 +35,28 @@ def rmsnorm(params, x, th=None, *, eps: float = 1e-5):
     return dpl.dp_scale(params["s"], _normalize(x, eps), th)
 
 
+def broadcast(p, th, bsz: int):
+    """p expanded to (bsz,) + p.shape: `dp_broadcast` under thresholds
+    (each example's cotangent is its gradient), the plain expand without
+    them."""
+    if th is None:
+        return p.expand((bsz,) + tuple(p.shape))
+    return dpl.dp_broadcast(p, th)
+
+
 def linear_spec(din: int, dout: int, *, bias: bool = False,
                 stack: tuple[int, ...] = (), dtype=torch.float32,
-                blocks: int = 1) -> dict:
+                blocks: int = 1, sensitivity_mult: float = 1.0) -> dict:
+    """sensitivity_mult: the call sites of a shared layer (its group's
+    clipped sum adds one clipped gradient per site)."""
     s = len(stack)
-    out = {"w": P(stack + (din, dout), dtype=dtype, stack=s, blocks=blocks)}
+    out = {"w": P(stack + (din, dout), dtype=dtype, stack=s, blocks=blocks,
+                  sensitivity_mult=sensitivity_mult)}
     if bias:
         # a blocked layer splits the bias into the same M column blocks, so
         # the {w, b} pair stays one group per block
         out["b"] = P(stack + (dout,), init="zeros", dtype=dtype, stack=s,
-                     blocks=blocks)
+                     blocks=blocks, sensitivity_mult=sensitivity_mult)
     return out
 
 
@@ -63,10 +75,13 @@ def linear_blocked(params, x, th):
 
 
 def swiglu_spec(d: int, f: int, *, stack: tuple[int, ...] = (),
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, sensitivity_mult: float = 1.0) -> dict:
+    sm = sensitivity_mult
     return {
-        "gate_up": linear_spec(d, 2 * f, stack=stack, dtype=dtype),
-        "down": linear_spec(f, d, stack=stack, dtype=dtype),
+        "gate_up": linear_spec(d, 2 * f, stack=stack, dtype=dtype,
+                               sensitivity_mult=sm),
+        "down": linear_spec(f, d, stack=stack, dtype=dtype,
+                            sensitivity_mult=sm),
     }
 
 

@@ -1,9 +1,16 @@
-"""Model assembly for the dense and MoE decoder families: the counterpart
-of `repro.models.transformer`, cut to what serving and DP training run.
+"""Model assembly for the decoder families: the counterpart of
+`repro.models.transformer`, cut to what serving and DP training run.
 Dense and MoE models (flat or grouped dispatch) with GQA (QKV bias,
 sliding window) or MLA attention serve and train; an MTP config
 (deepseek-v3-671b) adds DeepSeek's multi-token-prediction loss to
-training.
+training. The recurrent families serve and train too: Mamba2 stacks and
+RWKV-6 stacks (`blocks`; rwkv6-7b) and Zamba2's hybrid (zamba2-7b: a
+Mamba2 `backbone` and ONE `shared` attention block run before every
+`shared_every`-th layer, its groups at `sensitivity_mult` = the number
+of its sites, each site clipped per call as the reference does). They
+decode on the contiguous plane only (`init_paged_cache` is None, the
+reference's `paged_ok`): O(1) recurrent state per slot and the shared
+block's sliding-window ring.
 
     m = build_model(cfg)
     # serving, on the paged plane or the contiguous one
@@ -18,7 +25,8 @@ training.
 
 Parameters are plain dicts keyed by the reference's spec paths. Training
 keeps the reference's stacked layout, leaves (n_layers, ...) under
-`dense_blocks` and, for an MoE config, `moe_blocks` (its first
+`dense_blocks` (`blocks` / `backbone` for the recurrent families) and,
+for an MoE config, `moe_blocks` (its first
 `first_k_dense` layers dense, the rest MoE, in the reference's order;
 an MTP config adds the unstacked `mtp` subtree, which training runs
 and serving carries without reading), so
@@ -54,30 +62,55 @@ from repro_torch.core import spec as S
 from repro_torch.core.spec import P
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R6
 from repro_torch.models.config import ModelConfig
 
-# spec subtrees whose leaves carry a leading layer-stack dim, in the
-# order the layers run: (name, whether its blocks are MoE)
+# attention stacks: spec subtrees whose leaves carry a leading layer-stack
+# dim, in the order the layers run: (name, whether its blocks are MoE)
 STACKS = (("dense_blocks", False), ("moe_blocks", True))
-STACKED = tuple(name for name, _ in STACKS)
+# every stacked subtree: the attention stacks, the recurrent families'
+# `blocks` (Mamba2's or RWKV-6's) and Zamba2's Mamba2 `backbone`
+STACKED = tuple(name for name, _ in STACKS) + ("blocks", "backbone")
 
 
-def _attn_block_spec(cfg: ModelConfig, n: int, *, moe_layer: bool) -> dict:
-    """A block's spec, stacked n deep (n = 0: one unstacked block)."""
+def _attn_block_spec(cfg: ModelConfig, n: int, *, moe_layer: bool,
+                     sens: float = 1.0) -> dict:
+    """A block's spec, stacked n deep (n = 0: one unstacked block). sens:
+    the sensitivity multiplier of a block shared by several sites (its
+    projections and MLP; the norms keep 1, as in the reference)."""
     stack = (n,) if n else ()
     spec = {
         "attn_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
         "attn": (A.mla_spec(cfg, stack=stack) if cfg.attention_kind == "mla"
-                 else A.gqa_spec(cfg, stack=stack)),
+                 else A.gqa_spec(cfg, stack=stack, sensitivity_mult=sens)),
         "mlp_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
     }
     if moe_layer:
         spec["moe"] = MOE.moe_spec(cfg, stack=stack)
     else:
         spec["mlp"] = L.swiglu_spec(cfg.d_model, cfg.d_ff, stack=stack,
-                                    dtype=cfg.dtype)
+                                    dtype=cfg.dtype, sensitivity_mult=sens)
     return spec
+
+
+def shared_sites(cfg: ModelConfig) -> int:
+    """Zamba2: the layers the shared attention block runs before."""
+    return -(-cfg.num_layers // cfg.shared_every)
+
+
+def family(cfg: ModelConfig) -> str:
+    """'attention' (dense / MoE stacks), 'mamba2', 'rwkv6' or 'hybrid'
+    (Zamba2: a Mamba2 backbone and one shared attention block)."""
+    if cfg.shared_attention:
+        return "hybrid"
+    kinds = set(cfg.pattern())
+    if len(kinds) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: mixed layer patterns without shared_attention, "
+            f"as in the reference")
+    return {"a": "attention", "m": "mamba2", "r": "rwkv6"}[kinds.pop()]
 
 
 def decoder_spec(cfg: ModelConfig) -> dict:
@@ -85,12 +118,27 @@ def decoder_spec(cfg: ModelConfig) -> dict:
     spec = {"embed": {"w": P((v, d), init="embed", dtype=cfg.dtype)},
             "final_norm": L.rmsnorm_spec(d, dtype=cfg.dtype),
             "head": {"w": P((d, v), dtype=cfg.dtype)}}
+    fam, n = family(cfg), cfg.num_layers
+
+    def norm():
+        return L.rmsnorm_spec(d, stack=(n,), dtype=cfg.dtype)
+
+    if fam == "hybrid":
+        spec["backbone"] = {"norm": norm(),
+                            "m": M2.mamba2_spec(cfg, stack=(n,))}
+        spec["shared"] = _attn_block_spec(cfg, 0, moe_layer=False,
+                                          sens=float(shared_sites(cfg)))
+    elif fam == "mamba2":
+        spec["blocks"] = {"norm": norm(), "m": M2.mamba2_spec(cfg, stack=(n,))}
+    elif fam == "rwkv6":
+        spec["blocks"] = {"norm1": norm(), "norm2": norm(),
+                          **R6.rwkv6_spec(cfg, stack=(n,))}
     n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
     n_dense = cfg.num_layers - n_moe
-    if n_dense:
+    if fam == "attention" and n_dense:
         spec["dense_blocks"] = _attn_block_spec(cfg, n_dense,
                                                 moe_layer=False)
-    if n_moe:
+    if fam == "attention" and n_moe:
         spec["moe_blocks"] = _attn_block_spec(cfg, n_moe, moe_layer=True)
     if cfg.mtp_depth:
         spec["mtp"] = {"proj": L.linear_spec(2 * d, d, dtype=cfg.dtype),
@@ -109,7 +157,7 @@ def lora_tree(cfg: ModelConfig, spec: dict) -> dict:
     h, kv, hd, d = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
                     cfg.d_model)
     out = {}
-    for name in STACKED:
+    for name, _ in STACKS:
         if name not in spec:
             continue
         n = spec[name]["attn_norm"]["s"].shape[0]
@@ -145,14 +193,19 @@ def _unstack(node, n: int) -> list:
     return list(node.unbind(0))
 
 
+def _stack_len(node) -> int:
+    while isinstance(node, dict):
+        node = node[next(iter(node))]
+    return node.shape[0]
+
+
 def unstack_blocks(tree: dict) -> dict:
     """Split every `STACKED` subtree of a reference-shaped parameter tree
     into a list of per-layer subtrees (views along the stack axis)."""
     out = dict(tree)
     for name in STACKED:
         if name in out:
-            n = out[name]["attn_norm"]["s"].shape[0]
-            out[name] = _unstack(out[name], n)
+            out[name] = _unstack(out[name], _stack_len(out[name]))
     return out
 
 
@@ -170,8 +223,10 @@ class Model:
     serve_step: Callable  # (params, cache, batch) -> (logits, cache)
     init_cache: Callable  # (batch_size, cache_len): the contiguous plane
     # (slots, cache_len, *, num_pages, page_len): the paged plane; raises
-    # on a sliding-window GQA config, whose ring keeps the contiguous one
-    init_paged_cache: Callable
+    # on a sliding-window GQA config, whose ring keeps the contiguous one;
+    # None for the recurrent and hybrid families (the reference's
+    # `paged_ok`: their O(1) state and ring have nothing to page)
+    init_paged_cache: Callable | None
     prefill_step: Callable  # (params, {'tokens'}) -> last logits (B, V)
     num_params: int
     # groups the loss consumes twice a step (MTP's second `embed` and
@@ -207,11 +262,15 @@ class Model:
         return cache_slot_axes(cache)
 
 
-def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
-                ) -> Model:
-    """The dense or MoE decoder, GQA or MLA. `device` is where
-    `init_paged_cache` allocates; `cuda` unless the caller asks for the
-    CPU."""
+def build_model(cfg: ModelConfig, *, rwkv_formulation: str = "scan",
+                device: str | torch.device = "cuda") -> Model:
+    """The decoder of `cfg`: dense or MoE (GQA or MLA), Mamba2, RWKV-6 or
+    Zamba2's hybrid. rwkv_formulation: RWKV-6's training and prefill form,
+    'scan' (the reference's default) or 'chunked'. `device` is where the
+    decode caches allocate; `cuda` unless the caller asks for the CPU."""
+    if rwkv_formulation not in ("scan", "chunked"):
+        raise ValueError(f"rwkv_formulation must be 'scan' or 'chunked', "
+                         f"got {rwkv_formulation!r}")
     cfg.validate()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -227,10 +286,10 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
     return Model(cfg=cfg, spec=spec,
                  layout=S.GroupLayout(dp_spec) if lora_on else base_layout,
                  loss_fn=_make_decoder_loss(cfg, base_layout if lora_on
-                                            else None),
+                                            else None, rwkv_formulation),
                  serve_step=serve_step, init_cache=init_cache,
                  init_paged_cache=init_paged_cache,
-                 prefill_step=_make_prefill(cfg),
+                 prefill_step=_make_prefill(cfg, rwkv_formulation),
                  num_params=_count(spec),
                  # the adapters' layout holds no embed or head group
                  reused_groups=(("embed", "head")
@@ -276,15 +335,78 @@ def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False,
     return x + y, aux
 
 
+def _remat(cfg, fn, *args):
+    """fn(*args), rematerialized in backward when `cfg.remat`."""
+    if not cfg.remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def _block(cfg, params, x, th, positions, moe_layer=False, window=None,
            lora=None, lora_th=None):
     """`_apply_attn_block`, rematerialized in backward when `cfg.remat`."""
-    if not cfg.remat:
-        return _apply_attn_block(cfg, params, x, th, positions, moe_layer,
-                                 window, lora, lora_th)
-    return torch.utils.checkpoint.checkpoint(
-        _apply_attn_block, cfg, params, x, th, positions, moe_layer, window,
-        lora, lora_th, use_reentrant=False, preserve_rng_state=False)
+    return _remat(cfg, _apply_attn_block, cfg, params, x, th, positions,
+                  moe_layer, window, lora, lora_th)
+
+
+def _sub(th, name):
+    return None if th is None else S.subth(th, name)
+
+
+def _one(th, name):
+    return None if th is None else th[name]
+
+
+def _apply_mamba_block(cfg, params, x, th):
+    """x + Mamba2(norm(x)); th None: the plain forward."""
+    h = L.rmsnorm(params["norm"], x, _one(th, "norm"), eps=cfg.norm_eps)
+    return x + M2.mamba2_block(cfg, params["m"], h, _sub(th, "m"))
+
+
+def _apply_rwkv_block(cfg, params, x, th, formulation):
+    """One RWKV-6 layer over a whole sequence from a zero state (token
+    shifts from zeros), as the reference's training forward."""
+    bsz, d = x.shape[0], cfg.d_model
+    _, nh, hd = R6.dims(cfg)
+    zeros = x.new_zeros((bsz, 1, d))
+    s0 = torch.zeros((bsz, nh, hd, hd), dtype=torch.float32,
+                     device=x.device)
+    h = L.rmsnorm(params["norm1"], x, _one(th, "norm1"), eps=cfg.norm_eps)
+    att, _, _ = R6.time_mix(cfg, params["tm"], h, _sub(th, "tm"),
+                            x_prev=zeros, state=s0, formulation=formulation)
+    x = x + att
+    h = L.rmsnorm(params["norm2"], x, _one(th, "norm2"), eps=cfg.norm_eps)
+    ff, _ = R6.channel_mix(cfg, params["cm"], h, _sub(th, "cm"),
+                           x_prev=zeros)
+    return x + ff
+
+
+def recurrent_backbone(cfg, params, x, th, positions, formulation="scan"):
+    """The layers of a Mamba2, RWKV-6 or Zamba2 model over a sequence, each
+    rematerialized when `cfg.remat`. params: the stacked tree (or the
+    serving one, whose stacks are per-layer lists); th: the thresholds
+    (channels) or None for the plain forward. Zamba2's shared attention
+    block runs before layer i whenever i % shared_every == 0, under its
+    one set of thresholds at every site."""
+    name = "backbone" if cfg.shared_attention else "blocks"
+    layers = params[name]
+    if isinstance(layers, dict):
+        layers = _unstack(layers, _stack_len(layers))
+    rows = (None if th is None else
+            {k: v.unbind(0) for k, v in S.subth(th, name).items()})
+    for i, bp in enumerate(layers):
+        bth = None if rows is None else {k: r[i] for k, r in rows.items()}
+        if cfg.shared_attention:
+            if i % cfg.shared_every == 0:
+                x, _ = _block(cfg, params["shared"], x, _sub(th, "shared"),
+                              positions, window=cfg.sliding_window)
+            x = _remat(cfg, _apply_mamba_block, cfg, bp, x, bth)
+        elif "tm" in bp:
+            x = _remat(cfg, _apply_rwkv_block, cfg, bp, x, bth, formulation)
+        else:
+            x = _remat(cfg, _apply_mamba_block, cfg, bp, x, bth)
+    return x
 
 
 def _per_example_ce(logits, targets):
@@ -299,9 +421,11 @@ def _per_example_ce(logits, targets):
 
 
 def _make_decoder_loss(cfg: ModelConfig,
-                       base_layout: S.GroupLayout | None = None):
+                       base_layout: S.GroupLayout | None = None,
+                       rwkv_formulation: str = "scan"):
     """The per-example loss; `base_layout` (DP-LoRA): the frozen tree's
     groups, run at +inf beside the adapters' thresholds."""
+    recurrent = family(cfg) != "attention"
     def embed(params, tokens, th):
         return dpl.dp_embed(params["embed"]["w"], tokens, th["embed"])
 
@@ -348,7 +472,10 @@ def _make_decoder_loss(cfg: ModelConfig,
             positions = torch.arange(t, device=tokens.device)[None].expand(
                 bsz, t)
         aux = None
-        stacks = unstack_blocks(params)
+        if recurrent:
+            x = recurrent_backbone(cfg, params, x, th, positions,
+                                   rwkv_formulation)
+        stacks = {} if recurrent else unstack_blocks(params)
         for name, moe_layer in STACKS:
             if name not in stacks:
                 continue
@@ -385,7 +512,12 @@ def _make_decoder_loss(cfg: ModelConfig,
 # Which axis of each decode-cache tensor indexes the slot; page pools are
 # shared by every slot (None) and must pass through a slot recycle
 # untouched.
-_SLOT_AXIS_BY_KEY = {"pos": 0, "pt": 0}
+_SLOT_AXIS_BY_KEY = {
+    "pos": 0, "pt": 0,
+    "conv": 1, "ssm": 1,  # mamba2 recurrent state, (n, B, ...)
+    "tm_prev": 1, "cm_prev": 1, "wkv": 1,  # rwkv6 recurrent state
+    "shared_k": 1, "shared_v": 1,  # zamba2's shared-attention ring
+}
 
 
 def cache_slot_axes(cache) -> dict:
@@ -406,7 +538,103 @@ def cache_slot_axes(cache) -> dict:
     return out
 
 
+def _make_recurrent_serve(cfg: ModelConfig, device: torch.device):
+    """`serve_step` and `init_cache` of the Mamba2, RWKV-6 and Zamba2
+    families (the contiguous plane only: no paged cache)."""
+    fam, n = family(cfg), cfg.num_layers
+    d = cfg.d_model
+    window = cfg.sliding_window
+
+    def zeros(shape, dtype=cfg.dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def init_cache(batch_size: int, cache_len: int):
+        """Per-slot state in the reference's keys and layout, `pos` (B,)
+        int32 beside it: Mamba2's `conv` (n, B, K - 1, d_inner + 2N) conv
+        window and `ssm` (n, B, H, P, N) f32 state; RWKV-6's `tm_prev` /
+        `cm_prev` (n, B, 1, D) last inputs and `wkv` (n, B, H, hd, hd) f32
+        state; Zamba2 adds its shared block's `shared_k` / `shared_v`
+        (sites, B, cap, KV, hd) rings, cap = min(window, cache_len)."""
+        b = batch_size
+        cache = {"pos": torch.zeros((b,), dtype=torch.int32, device=device)}
+        if fam == "rwkv6":
+            _, nh, hd = R6.dims(cfg)
+            cache["tm_prev"] = zeros((n, b, 1, d))
+            cache["cm_prev"] = zeros((n, b, 1, d))
+            cache["wkv"] = zeros((n, b, nh, hd, hd), torch.float32)
+            return cache
+        d_in, nh, nst, p = M2.dims(cfg)
+        cache["conv"] = zeros((n, b, cfg.ssm_conv_kernel - 1, d_in + 2 * nst))
+        cache["ssm"] = zeros((n, b, nh, p, nst), torch.float32)
+        if fam == "hybrid":
+            cap = min(window, cache_len) if window else cache_len
+            kv = (shared_sites(cfg), b, cap, cfg.num_kv_heads,
+                  cfg.resolved_head_dim)
+            cache["shared_k"], cache["shared_v"] = zeros(kv), zeros(kv)
+        return cache
+
+    def write(view, new, active):
+        """The new state into the cache's layer view, in place; rows with
+        `active` False keep theirs."""
+        view.copy_(A.masked_state(active, new, view))
+
+    @torch.no_grad()
+    def serve_step(params, cache, batch):
+        """One-token decode (the attention families' contract, no
+        tenants): the recurrent state and the shared block's ring are
+        written in place, inactive rows keep theirs bit for bit."""
+        token, active = batch["token"], batch.get("active")
+        if "tenant" in batch or "lora_stack" in params:
+            raise ValueError(f"{cfg.name}: multi-tenant serving needs "
+                             f"attention stacks with adapters")
+        pos = cache["pos"]
+        x = params["embed"]["w"][token.long()]  # (B, 1, D)
+        if fam == "rwkv6":
+            for i, bp in enumerate(params["blocks"]):
+                hn = L.rmsnorm(bp["norm1"], x, eps=cfg.norm_eps)
+                att, tm_n, st_n = R6.time_mix_decode(
+                    cfg, bp["tm"], hn, x_prev=cache["tm_prev"][i],
+                    state=cache["wkv"][i])
+                x = x + att
+                hn = L.rmsnorm(bp["norm2"], x, eps=cfg.norm_eps)
+                ff, cm_n = R6.channel_mix_decode(
+                    cfg, bp["cm"], hn, x_prev=cache["cm_prev"][i])
+                x = x + ff
+                write(cache["tm_prev"][i], tm_n, active)
+                write(cache["cm_prev"][i], cm_n, active)
+                write(cache["wkv"][i], st_n, active)
+        else:
+            layers = params["backbone" if fam == "hybrid" else "blocks"]
+            for i, bp in enumerate(layers):
+                if fam == "hybrid" and i % cfg.shared_every == 0:
+                    site = i // cfg.shared_every
+                    sp = params["shared"]
+                    hn = L.rmsnorm(sp["attn_norm"], x, eps=cfg.norm_eps)
+                    x = x + A.gqa_decode(
+                        cfg, sp["attn"], hn, cache["shared_k"][site],
+                        cache["shared_v"][site], pos, window=window,
+                        active=active)
+                    hn = L.rmsnorm(sp["mlp_norm"], x, eps=cfg.norm_eps)
+                    x = x + L.swiglu(sp["mlp"], hn, f=cfg.d_ff)
+                hn = L.rmsnorm(bp["norm"], x, eps=cfg.norm_eps)
+                out, conv_n, ssm_n = M2.mamba2_decode(
+                    cfg, bp["m"], hn, cache["conv"][i], cache["ssm"][i])
+                x = x + out
+                write(cache["conv"][i], conv_n, active)
+                write(cache["ssm"][i], ssm_n, active)
+        x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+        logits = L.linear(params["head"], x)
+        new_cache = dict(cache)
+        new_cache["pos"] = (pos + 1 if active is None
+                            else pos + active.to(torch.int32))
+        return logits[:, 0], new_cache
+
+    return serve_step, init_cache
+
+
 def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
+    if family(cfg) != "attention":
+        return _make_recurrent_serve(cfg, device) + (None,)
     mla = cfg.attention_kind == "mla"
     window = cfg.sliding_window
     # (stack name, layers, whether MoE) in the order the layers run
@@ -543,7 +771,9 @@ def _make_decoder_serve(cfg: ModelConfig, spec: dict, device: torch.device):
     return serve_step, init_cache, init_paged_cache
 
 
-def _make_prefill(cfg: ModelConfig):
+def _make_prefill(cfg: ModelConfig, rwkv_formulation: str = "scan"):
+    recurrent = family(cfg) != "attention"
+
     @torch.no_grad()
     def prefill_step(params, batch):
         """The full-sequence forward to the last position's logits (B, V),
@@ -561,6 +791,9 @@ def _make_prefill(cfg: ModelConfig):
             positions = torch.arange(t, device=tokens.device)[None].expand(
                 bsz, t)
         lora = params.get("lora")
+        if recurrent:
+            x = recurrent_backbone(cfg, params, x, None, positions,
+                                   rwkv_formulation)
         for name, moe_layer in STACKS:
             for layer, bp in enumerate(params.get(name, ())):
                 lp = None if lora is None else layer_slice(lora[name], layer)

@@ -184,8 +184,8 @@ def test_variants_and_arch_list_match_reference():
                 configs.get_config(arch, reduced=reduced)
     with pytest.raises(ValueError, match="unknown variant"):
         configs.get_config("qwen3-4b", variant="long")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        configs.get_config("rwkv6-7b", variant="swa")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        configs.get_config("whisper-medium", variant="swa")
 
 
 # ---------------------------------------------------------------------------
