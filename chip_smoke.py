@@ -509,6 +509,43 @@ exits non-zero:
               one rwkv6-7b layer at full width (B = 8, T = 256, its init
               decays): max |diff| within 1e-4 of the largest |o|, the ms
               of each. One line with the phase's seconds by part.
+ 20 encdec /  whisper-medium (24 + 24 layers, d 1,024, 16 heads, vocab
+    m-rope    51,865, 1,500 stub frames) at full width and depth, and
+              qwen2-vl-72b (d 8,192, 64 heads over 8 KV heads of 128,
+              d_ff 29,568, vocab 152,064, M-RoPE sections 16 / 24 / 24)
+              at full width, bf16: (a) whisper trained through the
+              CLI's `Trainer` with the stub frames added to each batch
+              (`stub_inputs`; the CLI itself refuses whisper), B = 8,
+              256 decoder tokens, 1 warm-up + 2 timed steps of per_layer,
+              non_private (both profiled) and ghost_flat by BK (no
+              fallback), the launches of each step as `expected_launches`
+              derives them (265 linears a step: 4 an encoder layer, 7 a
+              decoder layer, the head; the 96 1,024 x 1,024 ones within
+              the fused route's rule); (b) qwen2-vl on VLM_PATCHES = 256
+              patch embeddings on a 16 x 16 grid plus 256 text tokens,
+              three distinct M-RoPE streams: per_layer at VL_TRAIN_DEPTH
+              = 1 of 80 layers (every parameter, profiled), DP-LoRA rank
+              32 at VL_LORA_DEPTH = 4 by per_layer and by BK; (c)
+              ghost_norm and clip_reduce against their plain versions at
+              per_layer's captured inputs (whisper's 1,500-token encoder
+              qkv, gate_up and down, a cross/kv, the 51,865-wide head;
+              qwen2-vl's gate_up, down and 152,064-wide head), with the
+              loads each operand takes, and fused_norm_clip at whisper's
+              encoder o; (d) card vs CPU (TRAIN_RTOL) of a per_layer clip
+              in f32 at full width: whisper at 1 + 1 layers with 1,500
+              frames, qwen2-vl at 1 layer with 16 patches + 16 tokens
+              (its embedding and head cut to VL_CPU_VOCAB rows), B = 2;
+              (e) whisper at full depth served by the engine on the
+              contiguous plane from the zero cross cache (the serve
+              CLI's) against the loop oracle at the pool's width,
+              `paging="on"` refused, then `prefill_cross` on stub frames
+              and greedy serve_steps against `prefill_step` over the
+              tokens so far (f32), no kernel launched; qwen2-vl at
+              VL_SERVE_DEPTH = 8 of 80 layers on the paged plane
+              (`serve_model`: paged_attn once a layer a serve_step)
+              against the loop oracle, `prefill_step` with the patches,
+              and paged_attn at the path's captured input (H 64, KV 8,
+              G 8, hd 128). One line with the phase's seconds by part.
 
 Phase 1 enables the build cache (`launch.compile_cache`, <repo>/.cache):
 each kernel source builds once a run, and every CLI subprocess after it
@@ -521,8 +558,9 @@ card: phase 18 (c) serves once with no engine scoped to show it).
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8, 11, 12, 14, 15, 16, 17, 18 and 19
-(paged_attn's: phases 3, 13, 15, 17 and 18; phase 19 gates it at 0).
+the sum over phases 5, 8, 11, 12, 14, 15, 16, 17, 18, 19 and 20
+(paged_attn's: phases 3, 13, 15, 17, 18 and 20; phase 19 gates it at
+0).
 A clock line follows each phase.
 
 The last three lines are the kernels' JSON line, the card's name and
@@ -1270,6 +1308,8 @@ def linear_leaves(cfg) -> list:
     no kernel."""
     if cfg.arch_type in ("ssm", "hybrid"):
         return recurrent_leaves(cfg)
+    if cfg.arch_type == "audio":
+        return encdec_leaves(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
@@ -1345,6 +1385,32 @@ def recurrent_leaves(cfg) -> list:
                    ("o", d, d, "tm", "o"), ("cm_k", d, f, "cm", "k"),
                    ("cm_v", f, d, "cm", "v"), ("cm_r", d, d, "cm", "r"))] * n
     return out + [("head", d, cfg.vocab_size, False, "head")]
+
+
+def encdec_leaves(cfg) -> list:
+    """`linear_leaves` of the encoder-decoder: qkv, o, gate_up and down of
+    each encoder layer; qkv and o, the cross-attention's qkv (the
+    queries), kv (from the encoder output) and o, gate_up and down of each
+    decoder layer; the head. qkv and o, and the cross-attention's o, are
+    blocked under dp_blocks > 1, as the reference's `gqa_spec`."""
+    d, f = cfg.d_model, cfg.d_ff
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    blocked = cfg.dp_blocks > 1
+    block = [("qkv", d, (h + 2 * kv) * hd, blocked, "attn/qkv"),
+             ("o", h * hd, d, blocked, "attn/o")]
+    mlp = [("gate_up", d, 2 * f, False, "mlp/gate_up"),
+           ("down", f, d, False, "mlp/down")]
+    cross = [("cross_qkv", d, h * hd, False, "cross/qkv"),
+             ("cross_kv", d, 2 * kv * hd, False, "cross/kv"),
+             ("cross_o", h * hd, d, blocked, "cross/o")]
+
+    def at(stack, items):
+        return [(nm, di, do, bl, f"{stack}/{leaf}")
+                for nm, di, do, bl, leaf in items]
+
+    return (at("enc_blocks", block + mlp) * cfg.encoder_layers
+            + at("dec_blocks", block + cross + mlp) * cfg.num_layers
+            + [("head", d, cfg.vocab_size, False, "head")])
 
 
 def lora_pairs(cfg) -> list:
@@ -1855,17 +1921,20 @@ def f64_errors(torch, name, kern, plain, a, g, f) -> dict:
             "plain_f64_rel_err": float(((ref32 - want).abs() / den).max())}
 
 
-def step_keys(name) -> tuple:
-    """The times a kernel's main-shape rows carry."""
-    return SHAPE_KEYS + (("graph_ms",) if name in GRAPHED else ())
+def step_keys(name, graphed=False) -> tuple:
+    """The times a kernel's main-shape rows carry (`graphed`: a graph
+    replay time beside the eager one for a kernel outside GRAPHED)."""
+    return SHAPE_KEYS + (("graph_ms",) if name in GRAPHED or graphed
+                         else ())
 
 
 def main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw, flush,
-                   **extra) -> dict:
+                   graphed=False, **extra) -> dict:
     """One kernel at one captured main-path input against its plain
     version (the sweep's tolerances), then kernel, plain, bound and
-    library ms per call; emits the kernel_main_shapes line and returns
-    it. Raises on a disagreement."""
+    library ms per call, and the CUDA-graph replay ms where the kernel
+    is in GRAPHED or `graphed`; emits the kernel_main_shapes line and
+    returns it. Raises on a disagreement."""
     kern, plain = train_impls()[name]
     got, want = kern(a, g, f), plain(a, g, f)
     lib = library_sum(torch, name, a, g, f)
@@ -1892,9 +1961,10 @@ def main_shape_row(torch, gpu, name, lname, a, g, f, calls, bw, flush,
                             flush),
         "library_ms": cuda_ms(torch, lambda: library_sum(
             torch, name, a, g, f), iters, warm, flush)}
-    if name in GRAPHED:
+    if name in GRAPHED or graphed:
         times["graph_ms"] = graph_ms(torch, lambda: kern(a, g, f), iters,
                                      flush)
+    if name in GRAPHED:
         extra["launch_ms"] = launch_split(torch, lambda: kern(a, g, f))
         extra.update(f64_errors(torch, name, kern, plain, a, g, f))
     blocks = (f[0] if name == "ghost_norm_blocked" else
@@ -2091,12 +2161,15 @@ def phase_train_cuda_vs_cpu(torch, gpu):
     train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees)
 
 
-def train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees):
+def train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees,
+                      inputs=None):
     """One `dp_clipped_gradients` (in `nmb` microbatches) of each case
     (label, mode, execution, config, fused route, microbatches, kwargs of
     numpy arrays) on the card (kernels) and on the CPU (plain versions),
     from the numpy parameter tree `trees[config.name]` and one numpy
-    batch: loss, (K, B) norms and every clipped gradient leaf must agree
+    batch (tokens, targets and `inputs[config.name]`, the stub frames or
+    patches of a config that takes them): loss, (K, B) norms and every
+    clipped gradient leaf must agree
     (TRAIN_RTOL / TRAIN_ATOL_FRAC), a BK case with its twopass on the
     card too; the card must launch exactly the kernels of the route
     (`expected_launches`), the CPU none, and BK must not fall back."""
@@ -2113,8 +2186,9 @@ def train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees):
     def run(mode, execution, cfg, fused, nmb, dev, kw):
         model = build_model(cfg, device=dev)
         params = bridge.train_params_from_numpy(trees[cfg.name], dev)
-        batch = {"tokens": torch.from_numpy(tokens).to(dev),
-                 "targets": torch.from_numpy(targets).to(dev)}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in {
+            "tokens": tokens, "targets": targets,
+            **(inputs or {}).get(cfg.name, {})}.items()}
         kw = {k: torch.as_tensor(v, device=dev) for k, v in kw.items()}
         reset_launch_counts()
         real_fits = FC.fits
@@ -2137,7 +2211,9 @@ def train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees):
         return res, {k: counts[k] for k in counted}
 
     def rel(x, y):
-        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        # on the card: the host's f32 passes over a billion elements took
+        # seconds a case
+        x, y = x.detach().float().cuda(), y.detach().float().cuda()
         atol = TRAIN_ATOL_FRAC * float(y.abs().max())
         ok = bool(torch.allclose(x, y, rtol=TRAIN_RTOL, atol=atol))
         return float((x - y).abs().max() / y.abs().max().clamp_min(1e-30)), ok
@@ -2295,15 +2371,16 @@ def phase_moe_train(torch, gpu, step_ms):
 
 
 def captured_rows(torch, gpu, caps, num_layers, variants, repeats=1,
-                  calls_per_step=None, **tags):
+                  calls_per_step=None, graphed=(), **tags):
     """Training kernels against their plain versions at inputs a training
     path gave them (phase 6's tolerances and timing): `caps` maps a
     linear to its captured (a, g, factors), on the card or the host;
     `variants` maps a variant to (its linears, the kernels they ran);
     each linear runs once a layer (the head once), or
     `calls_per_step[linear]` times, times `repeats` a step (naive_flat:
-    one backward per example). Returns name -> a kernels-line entry: the
-    worst error, the kernel, plain, bound and library ms summed over each
+    one backward per example); the kernels in `graphed` are timed by
+    graph replay too. Returns name -> a kernels-line entry: the worst
+    error, the kernel, plain, bound and library ms summed over each
     variant's step, and the per-call rows."""
     bw = bandwidth(gpu)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -2315,23 +2392,23 @@ def captured_rows(torch, gpu, caps, num_layers, variants, repeats=1,
                 calls_per_step[lname] if calls_per_step is not None
                 else 1 if lname == "head" else num_layers)
             for name in kernels:
+                keys = step_keys(name, name in graphed)
                 row = main_shape_row(torch, gpu, name, lname, a, g, f, calls,
-                                     bw, flush, variant=variant, **tags)
+                                     bw, flush, name in graphed,
+                                     variant=variant, **tags)
                 o = out.setdefault(name, {"max_abs_err": 0.0,
                                           "max_rel_err": 0.0,
                                           "per_step": {}, "shapes": []})
                 o["max_abs_err"] = max(o["max_abs_err"], row["max_abs_err"])
                 o["max_rel_err"] = max(o["max_rel_err"], row["max_rel_err"])
                 step = o["per_step"].setdefault(
-                    variant, {**dict.fromkeys(step_keys(name), 0.0),
-                              "calls": 0})
-                for k in step_keys(name):
+                    variant, {**dict.fromkeys(keys, 0.0), "calls": 0})
+                for k in keys:
                     step[k] += calls * row[k]
                 step["calls"] += calls
                 o["shapes"].append({k: row[k] for k in (
                     "variant", "linear", "a", "g", "calls_per_step",
-                    "max_abs_err", "max_rel_err",
-                    *step_keys(name), "bound_by")})
+                    "max_abs_err", "max_rel_err", *keys, "bound_by")})
             del a, g, f
     return out
 
@@ -6233,9 +6310,11 @@ def rec_wkv(torch, gpu) -> dict:
     return line
 
 
-def rec_fused_rows(torch, gpu, caps, names, calls) -> dict:
-    """(b)'s fused_norm_clip at the decay LoRA's captured inputs (its
-    per_layer route: both sides within `fits`), thresholds at 0.5-1.5 of
+def rec_fused_rows(torch, gpu, caps, names, calls, arch=RWKV_ARCH) -> dict:
+    """(b)'s fused_norm_clip at the captured inputs of `arch`'s linears
+    within its per_layer route (`fits`; phase 19: the decay LoRA, phase
+    20: whisper's 1,024 x 1,024 linears, the encoder's o over 1,500
+    frames and the decoder's first over 256 tokens), thresholds at 0.5-1.5 of
     each example's norm: against its plain version (n and dW, SUM_RTOL /
     SUM_ATOL_FRAC of the largest magnitude), kernel, plain, composed
     (ghost_norm + clip_reduce), library (per-example f32 bmm) and bound
@@ -6260,7 +6339,7 @@ def rec_fused_rows(torch, gpu, caps, names, calls) -> dict:
         if not all(e[2] for e in errs):
             raise RuntimeError(f"fused_norm_clip disagrees at {name}: {errs}")
         row = {"phase": "kernel_main_shapes", "gpu": gpu,
-               "kernel": "fused_norm_clip", "arch": RWKV_ARCH,
+               "kernel": "fused_norm_clip", "arch": arch,
                "variant": "per_layer", "linear": name,
                "a": list(a.shape), "g": list(g.shape),
                "dtype": str(a.dtype), "calls_per_step": calls[name],
@@ -6279,7 +6358,7 @@ def rec_fused_rows(torch, gpu, caps, names, calls) -> dict:
         for err in ("max_abs_err", "max_rel_err"):
             out[err] = max(out[err], row[err])
         step = out["per_step"].setdefault(
-            "rwkv6-7b_per_layer", dict.fromkeys(
+            f"{arch}_per_layer", dict.fromkeys(
                 ("ms", "plain_ms", "composed_ms", "library_ms", "bound_ms"),
                 0.0))
         for k in step:
@@ -6355,6 +6434,582 @@ def phase_recurrent(torch, gpu):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the encoder-decoder and M-RoPE families.
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH, VL_ARCH = "whisper-medium", "qwen2-vl-72b"
+# (a) whisper-medium at full width and depth: B = 8, its 1,500 stub
+# frames, 256 decoder tokens; (label, --clipping, timed steps), per_layer
+# first (the ratios divide by it) and profiled (a profile of its ~23,000
+# device ops a step costs ~10 s of the run's time); one timed step beside
+# per_layer's two, as phase 19's (a ~1.5 s step: the run's time limit)
+ENCDEC_VARIANTS = [("per_layer", "per_layer", TRAIN_TIMED),
+                   ("non_private", "non_private", 1),
+                   ("ghost_flat_bk", "ghost_flat", 1)]
+# (b) qwen2-vl-72b at full width: 256 patches on a 16 x 16 grid and 256
+# text tokens (T = 512 in the layers), three distinct M-RoPE streams.
+# Depths on one 80 GB card: per_layer on every parameter at 1 of 80
+# layers (3.37 B parameters: 6.7 GB of bf16 weights, 27 GB of f32 Adam
+# moments, the head's 5 GB f32 clipped sum); DP-LoRA at rank 32 at 4
+# layers (6.0 B frozen bf16 parameters)
+VL_GRID, VL_TEXT = (16, 16), 256
+VL_TRAIN_DEPTH, VL_LORA_DEPTH, VL_LORA_RANK = 1, 4, 32
+VL_LORA_VARIANTS = [("per_layer", "per_layer"),
+                    ("ghost_flat_bk", "ghost_flat")]
+# (d) card vs CPU in f32: one encoder and one decoder layer of whisper
+# (1,500 frames), one qwen2-vl layer with 16 patches (4 x 4) and 16
+# tokens; qwen2-vl's embedding and head cut to VL_CPU_VOCAB rows (at
+# 152,064 they are 2.49 B f32 parameters a side: tens of seconds of host
+# copies; (c) holds the head's kernels at the full width)
+ENCDEC_CPU = dict(b=2, t=16, grid=(4, 4))
+VL_CPU_VOCAB = 4096
+# (e) serving: whisper at full depth on the contiguous plane; qwen2-vl at
+# VL_SERVE_DEPTH of 80 layers on the paged plane (19 GB of bf16 weights)
+VL_SERVE_DEPTH = 8
+WHISPER_REQ = dict(n_req=8, min_len=4, max_len=12, gen=8, slots=8,
+                   cache_len=32)
+# (e) (2): prefill_cross + serve_step against prefill_step, in f32 (the
+# two paths sum in other orders: bf16 logits would tie too often to
+# judge)
+WHISPER_CROSS = dict(b=4, prompt=12, gen=4)
+VL_REQ = dict(n_req=8, min_len=16, max_len=32, prefix=16, gen=8, slots=8,
+              page_len=16)
+
+
+def stub_inputs(torch, cfg, seed):
+    """`check` for train_variant: the Trainer's batches gain the frontend
+    stubs the CLI has no source for (`launch.inputs`): whisper's frames
+    (B, 1,500, D), qwen2-vl's VLM_PATCHES patch embeddings with its
+    M-RoPE streams on a VL_GRID grid, drawn on the card from `seed`."""
+    from repro_torch.launch.inputs import VLM_PATCHES, mrope_grid_positions
+
+    def check(trainer):
+        text = trainer.next_batch
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def with_stubs():
+            batch = text()
+            b, t = batch["tokens"].shape
+            if cfg.arch_type == "audio":
+                batch["frames"] = (0.1 * torch.randn(
+                    (b, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                    device="cuda")).to(cfg.dtype)
+            else:
+                batch["vision_embeds"] = (0.1 * torch.randn(
+                    (b, VLM_PATCHES, cfg.d_model), generator=gen,
+                    device="cuda")).to(cfg.dtype)
+                batch["positions3_full"] = mrope_grid_positions(
+                    b, VL_GRID, t, "cuda")
+            return batch
+
+        trainer.next_batch = with_stubs
+        keys = (["frames"] if cfg.arch_type == "audio"
+                else ["vision_embeds", "positions3_full"])
+        return lambda tr: {"stub_inputs": keys}
+
+    return check
+
+
+def shape_recorder(torch, real, names, caps):
+    """A kernel wrapper that keeps (on the host) the first call's a, g and
+    factors (thresholds for the fused kernel) at each (din, dout, T) of
+    `names`, keyed by its name, and calls `real`."""
+    def recording(a, g, *rest, **kw):
+        name = names.get((a.shape[-1], g.shape[-1], a.shape[1]))
+        if name is not None and name not in caps:
+            caps[name] = (a.detach().cpu(), g.detach().cpu(),
+                          rest[0].detach().float().cpu())
+        return real(a, g, *rest, **kw)
+    return recording
+
+
+def sc_recorder(step, caps):
+    """Patches for train_variant's `step`: the BK epilogue's
+    `scale_contract` inputs (a, g, factors) kept in `caps` by the leaf
+    path whose weight they contract (`core.bk._leaf_grad` names it), on
+    the card: the sinks, which nothing writes after the epilogue."""
+    from repro_torch.core import bk as BK
+    from repro_torch.kernels import bk as SC
+    real_leaf, real_sc = BK._leaf_grad, SC.scale_contract
+    cur = {}
+
+    def leaf_grad(layout, recipes, residuals, f_rows, node, path, eng):
+        cur["path"] = "/".join(path)
+        return real_leaf(layout, recipes, residuals, f_rows, node, path, eng)
+
+    def recording_sc(a, g, factors):
+        caps[cur["path"]] = (a, g, factors)
+        return real_sc(a, g, factors)
+
+    return [(step, BK, "_leaf_grad", leaf_grad),
+            (step, SC, "scale_contract", recording_sc)]
+
+
+def encdec_train(torch, gpu, launches, caps, fused_caps, sc_caps):
+    """(a): whisper-medium's variants; (c)'s inputs from per_layer's first
+    step: ghost_norm + clip_reduce's at the 1,500-token encoder qkv,
+    gate_up and down, the 1,500-token cross/kv and the 51,865-wide head,
+    fused_norm_clip's at the encoder's o (1,024 x 1,024 over 1,500 frames,
+    within `fits`) and at the decoder's first 1,024 x 1,024 call over its
+    256 tokens (o, cross/qkv and cross/o share the shape); from
+    ghost_flat_bk's last step, `scale_contract`'s at every leaf of its
+    epilogue into `sc_caps`. Returns (cfg, ms per step by variant)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.kernels import fused_clip as FC
+    cfg = get_config(WHISPER_ARCH)
+    d, f, s = cfg.d_model, cfg.d_ff, cfg.encoder_seq_len
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    t = 256  # the decoder's tokens: train_args' --seq
+    names = {(d, (h + 2 * kv) * hd, s): "enc_qkv", (d, 2 * f, s): "enc_gate_up",
+             (f, d, s): "enc_down", (d, 2 * kv * hd, s): "cross_kv",
+             (d, cfg.vocab_size, t): "head"}
+    fused = {(h * hd, d, s): "enc_o", (h * hd, d, t): "dec_1024x1024"}
+    patches = {"per_layer": [
+        (0, CR, "clip_reduce",
+         shape_recorder(torch, CR.clip_reduce, names, caps)),
+        (0, FC, "fused_norm_clip",
+         shape_recorder(torch, FC.fused_norm_clip, fused, fused_caps))]}
+    step_ms = {}
+    for label, mode, timed in ENCDEC_VARIANTS:
+        if label == "ghost_flat_bk":
+            patches[label] = sc_recorder(TRAIN_WARMUP + timed - 1, sc_caps)
+        counts = train_variant(
+            torch, gpu, label, train_args(mode, arch=WHISPER_ARCH), step_ms,
+            patches.get(label, ()), profile=label == "per_layer",
+            timed=timed, check=stub_inputs(torch, cfg, 1),
+            extra={"encoder_layers": cfg.encoder_layers, "frames": s})
+        for k in launches:
+            launches[k] += counts[k]
+    want = sorted(names.values())
+    if sorted(caps) != want or sorted(fused_caps) != sorted(fused.values()):
+        raise RuntimeError(f"whisper: captured {sorted(caps)} + "
+                           f"{sorted(fused_caps)} of {want} + "
+                           f"{sorted(fused.values())}")
+    sc_want = expected_launches("ghost_flat_bk", cfg)["scale_contract"]
+    if len(sc_caps) != sc_want:
+        raise RuntimeError(f"whisper: scale_contract captured at "
+                           f"{sorted(sc_caps)}, {sc_want} leaves expected")
+    return cfg, step_ms
+
+
+def vl_train(torch, gpu, launches, caps, sc_caps):
+    """(b): qwen2-vl-72b per_layer at VL_TRAIN_DEPTH layers (every
+    parameter) and DP-LoRA at rank VL_LORA_RANK, VL_LORA_DEPTH layers, by
+    per_layer and by BK, on patches + text with distinct M-RoPE streams;
+    (c)'s inputs from per_layer's first step: gate_up, down (T = 512)
+    and the head (the 256 text rows); the LoRA BK last step's
+    `scale_contract` inputs at its four stacked adapter leaves into
+    `sc_caps` (the last: the first step's b = 0 zeroes the a side's g).
+    Returns (cfg, ms per step)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import clip_reduce as CR
+    from repro_torch.launch.inputs import VLM_PATCHES
+    full = get_config(VL_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VL_TRAIN_DEPTH)
+    d, f, t = cfg.d_model, cfg.d_ff, VLM_PATCHES + VL_TEXT
+    names = {(d, 2 * f, t): "gate_up", (f, d, t): "down",
+             (d, cfg.vocab_size, VL_TEXT): "head"}
+    why = "full width; the depth one 80 GB card trains with Adam"
+    step_ms = {}
+    counts = train_variant(
+        torch, gpu, "per_layer", train_args("per_layer", arch=VL_ARCH,
+                                            seq=VL_TEXT), step_ms,
+        [(0, CR, "clip_reduce",
+          shape_recorder(torch, CR.clip_reduce, names, caps))],
+        cfg=cfg, profile=True, check=stub_inputs(torch, cfg, 2),
+        extra={"depth_cut": {"num_layers": VL_TRAIN_DEPTH,
+                             "of": full.num_layers, "why": why},
+               "patches": VLM_PATCHES})
+    for k in launches:
+        launches[k] += counts[k]
+    lcfg = dataclasses.replace(full, num_layers=VL_LORA_DEPTH,
+                               lora_rank=VL_LORA_RANK)
+    lms = {}  # the adapters' ratios: to their own per_layer
+    for label, mode in VL_LORA_VARIANTS:
+        counts = train_variant(
+            torch, gpu, label, train_args(mode, arch=VL_ARCH, seq=VL_TEXT),
+            lms, sc_recorder(TRAIN_WARMUP + TRAIN_TIMED - 1, sc_caps)
+            if label == "ghost_flat_bk" else (), cfg=lcfg, profile=False,
+            check=stub_inputs(torch, lcfg, 3),
+            extra={"depth_cut": {"num_layers": VL_LORA_DEPTH,
+                                 "of": full.num_layers, "why": why},
+                   "lora_rank": VL_LORA_RANK, "patches": VLM_PATCHES})
+        for k in launches:
+            launches[k] += counts[k]
+    step_ms.update({f"lora_{k}": v for k, v in lms.items()})
+    if sorted(caps) != sorted(names.values()):
+        raise RuntimeError(f"qwen2-vl: captured {sorted(caps)} of "
+                           f"{sorted(names.values())}")
+    sc_want = expected_launches("ghost_flat_bk", lcfg)["scale_contract"]
+    if len(sc_caps) != sc_want:
+        raise RuntimeError(f"qwen2-vl LoRA: scale_contract captured at "
+                           f"{sorted(sc_caps)}, {sc_want} leaves expected")
+    return cfg, step_ms
+
+
+def encdec_cuda_vs_cpu(torch, gpu):
+    """(d): one per_layer clip of whisper (1 + 1 layers, 1,500 frames) and
+    of qwen2-vl (1 layer, 16 patches + 16 tokens, three distinct streams,
+    VL_CPU_VOCAB rows of embedding and head) at full width in f32, card
+    against CPU (`train_cuda_vs_cpu`), from one numpy tree each (drawn
+    on the card, copied to the host)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import spec as S
+    from repro_torch.launch.inputs import mrope_grid_positions
+    from repro_torch.models.transformer import build_model
+    b, t, grid = ENCDEC_CPU["b"], ENCDEC_CPU["t"], ENCDEC_CPU["grid"]
+    rng = np.random.default_rng(0)
+    wcfg = dataclasses.replace(get_config(WHISPER_ARCH), num_layers=1,
+                               encoder_layers=1, dtype=torch.float32)
+    vcfg = dataclasses.replace(get_config(VL_ARCH), num_layers=1,
+                               vocab_size=VL_CPU_VOCAB, dtype=torch.float32)
+    inputs = {
+        wcfg.name: {"frames": (0.1 * rng.standard_normal(
+            (b, wcfg.encoder_seq_len, wcfg.d_model))).astype(np.float32)},
+        vcfg.name: {"vision_embeds": (0.1 * rng.standard_normal(
+            (b, grid[0] * grid[1], vcfg.d_model))).astype(np.float32),
+            "positions3_full": mrope_grid_positions(b, grid, t).numpy()}}
+    cases, trees = [], {}
+
+    def numpy_tree(tree):
+        return ({k: numpy_tree(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.cpu().numpy())
+
+    for cfg in (wcfg, vcfg):
+        m = build_model(cfg, device="cpu")
+        t0 = time.perf_counter()
+        trees[cfg.name] = numpy_tree(S.init_params(
+            m.spec, torch.Generator(device="cuda").manual_seed(0)))
+        emit({"phase": "encdec_mrope_cpu_tree", "arch": cfg.name,
+              "params": m.num_params, "vocab_size": cfg.vocab_size,
+              "seconds": time.perf_counter() - t0})
+        thr = rng.uniform(0.05, 2.0, m.layout.num_groups).astype(np.float32)
+        cases.append((f"{cfg.name}_per_layer", "per_layer", "bk", cfg, True,
+                      1, {"thresholds": thr}))
+    tokens = rng.integers(0, VL_CPU_VOCAB, (b, t)).astype(np.int32)
+    targets = np.roll(tokens, -1, 1)
+    targets[:, -1] = -1
+    train_cuda_vs_cpu(torch, gpu, cases, tokens, targets, trees, inputs)
+
+
+def top2_of(torch, logits) -> tuple:
+    top = torch.topk(logits.float(), 2)
+    return top.values.cpu().numpy(), top.indices.cpu().numpy()
+
+
+def whisper_serve(torch, gpu) -> dict:
+    """(e) for whisper-medium at full depth: (1) the engine on the
+    contiguous plane from init_cache's zero cross cache (the serve CLI's)
+    against the loop oracle in batches of the pool's width, `paging="on"`
+    refused; (2) `prefill_cross` on stub frames, then serve_step over the
+    prompts and greedily on, against the full-sequence oracle
+    (`prefill_step` on the frames and the tokens so far, once a
+    generated token) at the same batch width, in f32 (WHISPER_CROSS).
+    Both under the tie rule; no kernel launches on whisper's serving
+    path."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.inputs import pad_ragged_prompts
+    from repro_torch.models.transformer import build_model
+    cfg = get_config(WHISPER_ARCH)
+    r = WHISPER_REQ
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    reqs = serve.build_requests(cfg.vocab_size, r["n_req"],
+                                min_len=r["min_len"], max_len=r["max_len"],
+                                shared_prefix=0, seed=3)
+    eng, erun, counts, step_ms = engine_run(
+        torch, model, params, reqs, gen=r["gen"], slots=r["slots"],
+        cache_len=r["cache_len"], paging="auto")
+    if eng.paged or any(counts.values()):
+        raise RuntimeError(f"whisper serving: paged={eng.paged}, launches "
+                           f"{counts}")
+    try:
+        DecodeEngine(model, params, num_slots=r["slots"],
+                     cache_len=r["cache_len"], paging="on")
+        raise RuntimeError("whisper: paging='on' was not refused")
+    except ValueError as e:
+        refused = str(e)
+    lrun = {"tokens": {}, "top2": {}, "top2_idx": {}}
+    for lo in range(0, len(reqs), r["slots"]):
+        prompts, lengths = pad_ragged_prompts(reqs[lo:lo + r["slots"]])
+        _, run = greedy_top2(torch, model, params,
+                             torch.from_numpy(prompts).cuda(),
+                             torch.from_numpy(lengths).cuda(), r["gen"],
+                             r["cache_len"], "loop")
+        for key, rows in run.items():
+            lrun[key].update({lo + i: v for i, v in rows.items()})
+    engine_vs_loop = compare_runs("whisper engine vs loop", erun, lrun, True)
+    stats = {"paged": eng.paged, "serve_steps": eng.stats["serve_steps"],
+             "cache_bytes": eng.cache_bytes()}
+    # (2) the cross cache from frames, the decode against full forwards
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    c = WHISPER_CROSS
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    frames = (0.1 * torch.randn((c["b"], cfg.encoder_seq_len, cfg.d_model),
+                                generator=gen, device="cuda")).to(cfg.dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (c["b"], c["prompt"]),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    cache_len = c["prompt"] + c["gen"]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = model.prefill_cross(params, frames, c["b"], cache_len)
+    torch.cuda.synchronize()
+    cross_ms = 1e3 * (time.perf_counter() - t0)
+    dec = {"tokens": {i: [] for i in range(c["b"])}, "top2": [], "idx": []}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for j in range(c["prompt"]):
+            logits, cache = model.serve_step(
+                params, cache, {"token": prompts[:, j:j + 1]})
+        for _ in range(c["gen"]):
+            v, i = top2_of(torch, logits)
+            dec["top2"].append(v)
+            dec["idx"].append(i)
+            tok = torch.argmax(logits.float(), -1)[:, None].to(torch.int32)
+            for row in range(c["b"]):
+                dec["tokens"][row].append(int(tok[row, 0]))
+            logits, cache = model.serve_step(params, cache, {"token": tok})
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / (c["prompt"] + c["gen"])
+    orc = {"tokens": {i: [] for i in range(c["b"])}, "top2": [], "idx": []}
+    seq = prompts
+    t0 = time.perf_counter()
+    for _ in range(c["gen"]):
+        logits = model.prefill_step(params, {"frames": frames, "tokens": seq})
+        v, i = top2_of(torch, logits)
+        orc["top2"].append(v)
+        orc["idx"].append(i)
+        tok = torch.argmax(logits.float(), -1)[:, None].to(torch.int32)
+        for row in range(c["b"]):
+            orc["tokens"][row].append(int(tok[row, 0]))
+        seq = torch.cat([seq, tok], 1)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0) / c["gen"]
+    cross_counts = launch_counts()
+    if any(cross_counts.values()):
+        raise RuntimeError(f"whisper's serving launched {cross_counts}")
+
+    def as_run(x):
+        return {"tokens": x["tokens"],
+                "top2": {i: np.stack([v[i] for v in x["top2"]])
+                         for i in x["tokens"]},
+                "top2_idx": {i: np.stack([v[i] for v in x["idx"]])
+                             for i in x["tokens"]}}
+
+    line = {"phase": "encdec_serve", "gpu": gpu, "arch": cfg.name,
+            "num_layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers,
+            "requests": len(reqs), "slots": r["slots"],
+            "cache_len": r["cache_len"], "paged": stats["paged"],
+            "paging_on_refused": refused, "launches": counts,
+            "ms_per_serve_step": step_ms,
+            "serve_steps": stats["serve_steps"],
+            "cache_bytes": stats["cache_bytes"],
+            "engine_vs_loop_oracle": engine_vs_loop,
+            "cross": {"rows": c["b"], "frames": cfg.encoder_seq_len,
+                      "prompt": c["prompt"], "gen": c["gen"],
+                      "prefill_cross_ms": cross_ms,
+                      "ms_per_serve_step": decode_ms,
+                      "ms_per_prefill_step": prefill_ms,
+                      "launches": cross_counts,
+                      "dtype": str(cfg.dtype),
+                      "decode_vs_prefill_step": compare_runs(
+                          "whisper decode vs prefill_step", as_run(dec),
+                          as_run(orc), False)}}
+    emit(line)
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def vl_serve(torch, gpu):
+    """(e) for qwen2-vl-72b at VL_SERVE_DEPTH layers: the paged engine
+    (`serve_model`: paged_attn once a layer a serve_step, a prefix hit)
+    against the loop oracle on the contiguous plane in batches of the
+    pool's width, under the tie rule; `prefill_step` with VLM_PATCHES
+    patch embeddings and distinct M-RoPE streams (finite (B, V) logits,
+    its ms). Returns (paged_attn launches, the captured decode input)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.inputs import (VLM_PATCHES, mrope_grid_positions,
+                                           pad_ragged_prompts)
+    full = get_config(VL_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VL_SERVE_DEPTH)
+    r = VL_REQ
+    top2 = Top2()
+    launches, snap, model, params, eng, step_ms = serve_model(
+        torch, gpu, "vlm_serve", cfg, **r, on_token=top2,
+        depth_cut={"num_layers": VL_SERVE_DEPTH, "of": full.num_layers,
+                   "why": "full width; 72.7 B bf16 parameters (145 GB) fit "
+                          "no card"})
+    reqs = serve.build_requests(cfg.vocab_size, r["n_req"],
+                                min_len=r["min_len"], max_len=r["max_len"],
+                                shared_prefix=r["prefix"], seed=0)
+    cache_len = serve_cache_len(r)
+    lrun = {"tokens": {}, "top2": {}, "top2_idx": {}}
+    for lo in range(0, len(reqs), r["slots"]):
+        prompts, lengths = pad_ragged_prompts(reqs[lo:lo + r["slots"]])
+        _, run = greedy_top2(torch, model, params,
+                             torch.from_numpy(prompts).cuda(),
+                             torch.from_numpy(lengths).cuda(), r["gen"],
+                             cache_len, "loop")
+        for key, rows in run.items():
+            lrun[key].update({lo + i: v for i, v in rows.items()})
+    paged_vs_loop = compare_runs("qwen2-vl paged engine vs loop",
+                                 top2.run(), lrun, True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, t = 2, 16
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                                     device="cuda", dtype=torch.int32),
+             "vision_embeds": (0.1 * torch.randn(
+                 (b, VLM_PATCHES, cfg.d_model), generator=gen,
+                 device="cuda")).to(cfg.dtype),
+             "positions3_full": mrope_grid_positions(b, VL_GRID, t, "cuda")}
+    logits = model.prefill_step(params, batch)
+    torch.cuda.synchronize()
+    ms = cuda_ms(torch, lambda: model.prefill_step(params, batch), 3, 1)
+    ok = (tuple(logits.shape) == (b, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()))
+    line = {"phase": "vlm_serve_check", "gpu": gpu, "arch": cfg.name,
+            "num_layers": cfg.num_layers, "ms_per_serve_step": step_ms,
+            "paged_vs_loop_oracle": paged_vs_loop,
+            "prefill_step": {"rows": b, "patches": VLM_PATCHES,
+                             "text_tokens": t, "ms": ms,
+                             "logits": list(logits.shape), "finite": ok}}
+    emit(line)
+    if not ok:
+        raise RuntimeError(f"qwen2-vl prefill_step with patches: logits "
+                           f"{tuple(logits.shape)}, finite {ok}")
+    del eng, model, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, snap
+
+
+def merge_rows(rows, block):
+    """Fold a `captured_rows` block into `rows` (name -> kernels-line
+    block): the worst errors, the per-step sums by variant, the rows."""
+    for k, v in block.items():
+        o = rows.setdefault(k, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                "per_step": {}, "shapes": []})
+        for err in ("max_abs_err", "max_rel_err"):
+            o[err] = max(o[err], v[err])
+        o["per_step"].update(v["per_step"])
+        o["shapes"] += v["shapes"]
+
+
+def phase_encdec_mrope(torch, gpu):
+    """Phase 20. Returns (launches by training kernel over (a) and (b)'s
+    counted steps, the kernels-line blocks of ghost_norm, clip_reduce,
+    scale_contract and fused_norm_clip at (c)'s inputs, paged_attn's
+    launches in (e), its block at qwen2-vl's captured decode input)."""
+    from repro_torch.kernels import paged_attn as K
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def done(part, t0):  # each part's seconds, as it ends
+        secs[part] = time.perf_counter() - t0
+        emit({"phase": "encdec_mrope_part", "part": part,
+              "seconds": secs[part]})
+
+    # (c) times clip_reduce and scale_contract by graph replay beside the
+    # eager calls too (ghost_norm always: GRAPHED)
+    graphed = ("clip_reduce", "scale_contract")
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    wcaps, fcaps, vcaps, wsc, vsc, rows = {}, {}, {}, {}, {}, {}
+    t0 = time.perf_counter()
+    wcfg, wms = encdec_train(torch, gpu, launches, wcaps, fcaps, wsc)
+    done("a_train_whisper", t0)
+    # (c) at the BK epilogue's sinks first: ~14 GB on the card, kept out
+    # of (b)'s peaks
+    t0 = time.perf_counter()
+    merge_rows(rows, captured_rows(
+        torch, gpu, wsc, 1, {f"{WHISPER_ARCH}_ghost_flat_bk": (
+            tuple(sorted(wsc)), ("scale_contract",))},
+        calls_per_step=dict.fromkeys(wsc, 1), graphed=graphed,
+        arch=WHISPER_ARCH))
+    del wsc
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("c_scale_contract_whisper", t0)
+    t0 = time.perf_counter()
+    _, vms = vl_train(torch, gpu, launches, vcaps, vsc)
+    done("b_train_qwen2_vl", t0)
+    t0 = time.perf_counter()
+    for arch, caps, calls in (
+            (WHISPER_ARCH, wcaps, {**dict.fromkeys(
+                ("enc_qkv", "enc_gate_up", "enc_down"),
+                wcfg.encoder_layers), "cross_kv": wcfg.num_layers,
+                "head": 1}),
+            (VL_ARCH, vcaps, dict.fromkeys(vcaps, 1))):
+        names = tuple(sorted(caps))
+        for name in names:
+            a, g, _ = caps[name]
+            emit({"phase": "encdec_mrope_loads", "gpu": gpu, "arch": arch,
+                  "linear": name, "a": list(a.shape), "g": list(g.shape),
+                  "loads": loads(a.cuda(), g.cuda())})
+        merge_rows(rows, captured_rows(
+            torch, gpu, caps, 1,
+            {f"{arch}_per_layer": (names, ("ghost_norm", "clip_reduce"))},
+            calls_per_step={n: calls[n] for n in names}, graphed=graphed,
+            arch=arch))
+    merge_rows(rows, captured_rows(
+        torch, gpu, vsc, 1, {f"{VL_ARCH}_lora_ghost_flat_bk": (
+            tuple(sorted(vsc)), ("scale_contract",))},
+        calls_per_step=dict.fromkeys(vsc, 1), graphed=graphed, arch=VL_ARCH))
+    # the encoder's o over 1,500 frames, a layer; the decoder's o,
+    # cross/qkv and cross/o over 256 tokens, three a layer
+    rows["fused_norm_clip"] = rec_fused_rows(
+        torch, gpu, fcaps, ("enc_o", "dec_1024x1024"),
+        {"enc_o": wcfg.encoder_layers,
+         "dec_1024x1024": 3 * wcfg.num_layers}, arch=WHISPER_ARCH)
+    del wcaps, fcaps, vcaps, vsc
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("c_kernels", t0)
+    t0 = time.perf_counter()
+    encdec_cuda_vs_cpu(torch, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("d_cuda_vs_cpu", t0)
+    t0 = time.perf_counter()
+    whisper_serve(torch, gpu)
+    done("e_serve_whisper", t0)
+    t0 = time.perf_counter()
+    paged, snap = vl_serve(torch, gpu)
+    q, kp, vp, pt, pos, kw = snap
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    row = paged_attn_times(torch, gpu, K, "qwen2_vl_serve", q, kp, vp, pt,
+                           pos, kw["scale"], vp.shape[-1], bandwidth(gpu),
+                           flush)
+    serve_block = {**{k: row[k] for k in SERVE13_KEYS}, "launches": paged}
+    del snap, q, kp, vp, flush
+    done("e_serve_qwen2_vl", t0)
+    emit({"phase": "encdec_mrope", "gpu": gpu, "launches": launches,
+          "paged_attn_launches": paged,
+          "ms_per_step": {WHISPER_ARCH: wms, VL_ARCH: vms},
+          "seconds": time.perf_counter() - t_phase, "seconds_by_part": secs})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows, paged, serve_block
 
 
 def main() -> int:
@@ -6483,6 +7138,13 @@ def run_phases(torch) -> int:
     # phase 19: the recurrent and hybrid families, trained and served
     r_launches, recurrent = phase_recurrent(torch, gpu)
     clock("recurrent")
+    # phase 20: the encoder-decoder and M-RoPE families, trained and served
+    v_launches, encdec, v_paged, v_serve = phase_encdec_mrope(torch, gpu)
+    kernel["vlm_serve"] = v_serve
+    kernel["launches"] += v_paged
+    for err in ("max_abs_err", "max_rel_err"):
+        kernel[err] = max(kernel[err], v_serve[err])
+    clock("encdec and m-rope")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's, the
     # T = 4096 path's, deepseek-v3's and granite's BK epilogue's times
@@ -6491,12 +7153,13 @@ def run_phases(torch) -> int:
         k["launches"] = sum(run[k["name"]] for run in (
             train_launches, moe_launches, scale_launches, service_launches,
             mm_launches, d_train_launches, s_launches, l_launches,
-            a_launches, r_launches))
+            a_launches, r_launches, v_launches))
         for key, extra in (("moe", moe), ("naive_flat", naive),
                            ("long_context", long), ("mla_train", mla),
                            ("moe_bk", moe_bk), ("dense_train", dense),
                            *s_blocks.items(), ("lora", lora),
-                           ("recurrent", recurrent)):
+                           ("recurrent", recurrent),
+                           ("encdec_mrope", encdec)):
             if k["name"] in extra:
                 k[key] = extra[k["name"]]
                 for err in ("max_abs_err", "max_rel_err"):

@@ -19,7 +19,11 @@ clipping group per (layer, expert). An MLA model's attention leaves
 `<stack>_latpool` per layer stack in place of the k/v pools. A QKV bias
 (qwen1.5-32b) crosses as `.../attn/qkv/b`, and a contiguous decode cache
 (`<stack>_k` / `_v`, or MLA's `_ckv` / `_krope`, and `pos`) crosses as a
-paged one does.
+paged one does. Whisper's encoder-decoder crosses the same way: its
+`enc_blocks` and `dec_blocks` stacks (the cross-attention's
+`dec_blocks/cross/{qkv,kv,o}` and `cross_norm` among them) split per
+layer for serving, its `enc_norm` as any leaf, and its decode cache's
+`dec_k` / `dec_v` / `cross_k` / `cross_v` and `pos` by key.
 """
 from __future__ import annotations
 

@@ -1,8 +1,13 @@
-"""Ragged request sets for serving: a copy of the numpy part of
-`repro.launch.inputs`."""
+"""Model inputs: the ragged request sets of serving (a copy of the numpy
+part of `repro.launch.inputs`) and, as in the reference, the only place
+the frontend stubs live: Whisper's precomputed frame embeddings and
+Qwen2-VL's precomputed patch embeddings with their M-RoPE positions."""
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+VLM_PATCHES = 256  # stub vision-token count prepended to the text sequence
 
 
 def pad_ragged_prompts(prompts) -> tuple[np.ndarray, np.ndarray]:
@@ -37,3 +42,51 @@ def synthetic_requests(vocab_size: int, n: int, *, min_len: int,
     lens = rng.integers(min_len, max_len + 1, size=n)
     return [rng.integers(0, vocab_size, size=int(l)).astype(np.int32)
             for l in lens]
+
+
+def concrete_train_batch(cfg, b: int, t: int,
+                         generator: torch.Generator) -> dict:
+    """A small concrete batch on the generator's device, as the
+    reference's: tokens, next-token targets (-1 at the end), and the
+    stubs: Whisper's `frames` (B, encoder_seq_len, D), Qwen2-VL's 8
+    patches of `vision_embeds` (B, 8, D) with `positions3_full` (B, 3,
+    8 + T), the 1-D positions on all three streams (where M-RoPE is
+    RoPE; `mrope_grid_positions` gives distinct ones). Draws from the
+    torch generator: the two packages' batches differ."""
+    dev = generator.device
+    toks = torch.randint(0, cfg.vocab_size, (b, t), generator=generator,
+                         device=dev, dtype=torch.int32)
+    tgt = torch.roll(toks, -1, dims=1)
+    tgt[:, -1] = -1
+    batch = {"tokens": toks, "targets": tgt}
+    if cfg.arch_type == "audio":
+        batch["frames"] = (0.1 * torch.randn(
+            (b, cfg.encoder_seq_len, cfg.d_model), generator=generator,
+            device=dev)).to(cfg.dtype)
+    if cfg.arch_type == "vlm":
+        tv = 8
+        batch["vision_embeds"] = (0.1 * torch.randn(
+            (b, tv, cfg.d_model), generator=generator, device=dev)).to(
+            cfg.dtype)
+        pos = torch.arange(t + tv, dtype=torch.int32, device=dev)
+        batch["positions3_full"] = pos.expand(b, 3, t + tv).contiguous()
+    return batch
+
+
+def mrope_grid_positions(b: int, grid: tuple[int, int], t: int,
+                         device=None) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE positions of one image of grid (h, w) patches
+    followed by t text tokens, (B, 3, h * w + t) int32: a patch's (t, h,
+    w) streams are (0, its row, its column); the text continues from one
+    past the largest patch position on all three streams."""
+    gh, gw = grid
+    rows = torch.arange(gh, dtype=torch.int32, device=device)
+    cols = torch.arange(gw, dtype=torch.int32, device=device)
+    patches = torch.stack([torch.zeros(gh * gw, dtype=torch.int32,
+                                       device=device),
+                           rows.repeat_interleave(gw), cols.repeat(gh)])
+    start = max(gh, gw)  # one past max(0, gh - 1, gw - 1)
+    text = (start + torch.arange(t, dtype=torch.int32,
+                                 device=device)).expand(3, t)
+    return torch.cat([patches, text], dim=1).expand(b, 3, gh * gw + t) \
+        .contiguous()

@@ -42,7 +42,11 @@ reference that is not ported fails in argparse.
 `--arch rwkv6-7b` and `--arch zamba2-7b` serve on the contiguous plane
 (`--paging auto` lands there: recurrent state a slot, and zamba2's
 shared block on a ring of min(window, cache_len)); `--paging on` exits
-with the engine's error.
+with the engine's error. So does `--arch whisper-medium`, whose decode
+attends to the zero cross-attention cache of `init_cache`, as the
+reference's CLI serves it (the CLI has no frame source; a caller with
+frames fills the cache by `model.prefill_cross`). `--arch qwen2-vl-72b`
+serves text on the paged plane, decoding on 1-D RoPE as the reference.
 
 Add `--device cpu` (and `--reduced`) to run without a GPU.
 """

@@ -99,7 +99,13 @@ zamba2-7b` Zamba2's Mamba2 backbone with its one shared attention block,
 every mode and execution; the shared block's groups carry
 sensitivity_mult = its sites, so zamba2's BK falls back to two passes
 the same way (header: `bk_falls_back=twopass(shared block at N
-sites)`). Grouped dispatch (`moe_dispatch =
+sites)`). `--arch qwen2-vl-72b` trains the M-RoPE decoder on text-only
+batches, as the reference's CLI does (its three position streams are the
+1-D positions broadcast, where M-RoPE is RoPE). `--arch whisper-medium`
+is refused before any step: the CLI has no frame source for the
+encoder's `batch['frames']` (the reference's fails at its first step
+with KeyError: 'frames'); the Trainer trains it when a caller supplies
+the frames (`Trainer.next_batch`). Grouped dispatch (`moe_dispatch =
 "grouped"`) has no flag, as in the reference: `build_everything` and
 `Trainer` take a `cfg` to run in place of the `--arch` one.
 
@@ -570,6 +576,7 @@ def step_line(i: int, met) -> str:
 def main(argv=None) -> int:
     started = time.perf_counter()
     args = build_train_parser().parse_args(argv)
+    refuse_frameless(args.arch)
     setup_caches(args)
     mesh = setup_mesh(args)
     try:
@@ -577,6 +584,17 @@ def main(argv=None) -> int:
     finally:
         if mesh is not None:
             mesh_lib.shutdown()
+
+
+def refuse_frameless(arch: str) -> None:
+    """Exit naming the missing input where `arch` is an encoder-decoder:
+    the CLI's batches carry tokens alone, and the encoder needs frames."""
+    cfg = get_config(arch)
+    if cfg.arch_type == "audio":
+        raise SystemExit(
+            f"{arch}: the train CLI has no frame source for the encoder's "
+            f"batch['frames'] (B, {cfg.encoder_seq_len}, {cfg.d_model}); "
+            f"train it through Trainer with the frames in each batch")
 
 
 def run(args, mesh=None, *, started: float | None = None) -> int:

@@ -173,7 +173,11 @@ def _attend_blocked(qg, k, v, qpos, kpos, *, causal, window):
 
 
 def gqa_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = (),
-             sensitivity_mult: float = 1.0) -> dict:
+             cross: bool = False, sensitivity_mult: float = 1.0) -> dict:
+    """cross: the encoder-decoder's cross-attention block, whose queries
+    come from the decoder and keys and values from the encoder: `qkv`
+    projects to the queries alone (d -> h * hd) and a separate `kv` to
+    both (d -> 2 * kv * hd), neither blocked, as in the reference."""
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     sm = sensitivity_mult
@@ -184,6 +188,12 @@ def gqa_spec(cfg: ModelConfig, *, stack: tuple[int, ...] = (),
         "o": L.linear_spec(h * hd, d, stack=stack, dtype=cfg.dtype,
                            blocks=cfg.dp_blocks, sensitivity_mult=sm),
     }
+    if cross:
+        out["qkv"] = L.linear_spec(d, h * hd, bias=cfg.qkv_bias, stack=stack,
+                                   dtype=cfg.dtype, sensitivity_mult=sm)
+        out["kv"] = L.linear_spec(d, 2 * kv * hd, bias=cfg.qkv_bias,
+                                  stack=stack, dtype=cfg.dtype,
+                                  sensitivity_mult=sm)
     if cfg.qk_norm:
         out["q_norm"] = L.rmsnorm_spec(hd, stack=stack, dtype=cfg.dtype)
         out["k_norm"] = L.rmsnorm_spec(hd, stack=stack, dtype=cfg.dtype)
@@ -252,16 +262,24 @@ def gqa_attention(cfg: ModelConfig, params, x, th, positions, *,
     """Self-attention, training (and prefill). x: (B, T, D); th: this
     block's attention thresholds ({'qkv', 'o', 'q_norm', 'k_norm'}: (B,)
     each, (M, B) for the projections when `cfg.dp_blocks = M > 1`), or
-    None for the plain forward; positions: (B, T); window: the sliding
-    window, None for full attention. lora / lora_th: DP-LoRA's adapters
-    {'qkv', 'o'} of this layer and their thresholds (or BK channels),
-    the base projections frozen; lora_th None runs them plainly."""
+    None for the plain forward; positions: (B, T), or Qwen2-VL's (3, B,
+    T) M-RoPE streams (`L.apply_m_rope` over `cfg.m_rope_sections`, the
+    temporal stream driving the mask, as the reference's
+    `_mrope_attention`); window: the sliding window, None for full
+    attention. lora / lora_th: DP-LoRA's adapters {'qkv', 'o'} of this
+    layer and their thresholds (or BK channels), the base projections
+    frozen; lora_th None runs them plainly."""
     qkv = _proj(cfg, params["qkv"], x, None if th is None else th["qkv"],
                 *_pair(lora, lora_th, "qkv"))
     q, k, v = _split_qkv(cfg, qkv)
     q, k = _qk_norm(cfg, params, q, k, th)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if positions.dim() == 3:
+        q = L.apply_m_rope(q, positions, cfg.rope_theta, cfg.m_rope_sections)
+        k = L.apply_m_rope(k, positions, cfg.rope_theta, cfg.m_rope_sections)
+        positions = positions[0]
+    else:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     out = attend(q, k, v, positions, positions, causal=causal, window=window)
     out = out.reshape(x.shape[0], x.shape[1], -1)
     return _proj(cfg, params["o"], out, None if th is None else th["o"],

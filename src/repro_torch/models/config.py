@@ -1,11 +1,12 @@
-"""Model configuration for the decoder families the port runs.
+"""Model configuration for every family the port runs.
 
 The counterpart of `repro.models.config.ModelConfig`, cut to the fields
-the dense, MoE, recurrent and hybrid families read (GQA with its QKV bias
-and sliding window, or MLA attention; flat or grouped dispatch;
-DeepSeek-V3's MTP depth; Mamba2 and RWKV-6 blocks, and Zamba2's shared
-attention block). The encoder-decoder and M-RoPE fields arrive with their
-families. `dtype` is a torch dtype.
+the families read: dense and MoE decoders (GQA with its QKV bias and
+sliding window, or MLA attention; flat or grouped dispatch; DeepSeek-V3's
+MTP depth), Mamba2 and RWKV-6 blocks and Zamba2's shared attention block,
+Whisper's encoder-decoder (`encoder_layers`, `encoder_seq_len`, the
+sinusoidal table's `max_seq_len`) and Qwen2-VL's M-RoPE (`m_rope`,
+`m_rope_sections`). `dtype` is a torch dtype.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # dense | moe | ssm | hybrid
+    arch_type: str  # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     d_ff: int
@@ -65,6 +66,17 @@ class ModelConfig:
     # every `shared_every`-th layer (sensitivity_mult = the site count)
     shared_attention: bool = False
     shared_every: int = 6
+    # encoder-decoder (Whisper): the encoder's layers and the length of its
+    # stub frame embeddings, (B, encoder_seq_len, d_model) (the mel and conv
+    # frontend is stubbed, as in the reference)
+    encoder_layers: int = 0
+    encoder_seq_len: int = 1500
+    # VLM (Qwen2-VL): multimodal RoPE over (t, h, w) position streams,
+    # `m_rope_sections` frequency slots of head_dim / 2 each
+    m_rope: bool = False
+    m_rope_sections: tuple[int, ...] = (16, 24, 24)
+    # the decoder's position horizon (Whisper's sinusoidal decode table)
+    max_seq_len: int = 131_072
     dtype: torch.dtype = torch.float32
     norm_eps: float = 1e-5
     # per-shard clipping layout: the qkv and o projections split into M
@@ -100,14 +112,13 @@ class ModelConfig:
         return (self.layer_pattern * reps)[: self.num_layers]
 
     def validate(self) -> None:
-        if self.arch_type in ("audio", "vlm"):
-            raise NotImplementedError(
-                f"{self.name}: the {self.arch_type} family is not ported "
-                f"yet: ROADMAP.md item A.9 (encoder-decoder and M-RoPE "
-                f"families)")
-        if self.arch_type not in ("dense", "moe", "ssm", "hybrid"):
+        if self.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio",
+                                  "vlm"):
             raise ValueError(f"{self.name}: unknown arch_type "
                              f"{self.arch_type!r}")
+        if self.arch_type == "audio" and self.encoder_layers < 1:
+            raise ValueError(f"{self.name}: an audio config needs "
+                             f"encoder_layers > 0")
         if self.attention_kind not in ("gqa", "mla", "none"):
             raise ValueError(
                 f"{self.name}: attention {self.attention_kind!r} is not "

@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, linear, SwiGLU, rotary embeddings.
+"""Shared building blocks: norms, linear, SwiGLU, rotary embeddings
+(RoPE and Qwen2-VL's multimodal M-RoPE), Whisper's sinusoidal positions.
 
 `rmsnorm`, `linear`, `swiglu` and `broadcast` take an optional `th`,
 this module's slice of the encoded-threshold dict (tensors, or the BK
@@ -113,3 +114,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     o1 = x1 * cos - x2 * sin
     o2 = x1 * sin + x2 * cos
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def apply_m_rope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                 sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL), interleaved pairs as `apply_rope`: the
+    head_dim / 2 frequency slots split into `sections` (t, h, w), each
+    slot rotated by its section's stream. x: (B, T, H, hd); positions3:
+    (3, B, T) int. Equal streams give `apply_rope` of that stream bit for
+    bit."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"m_rope sections {tuple(sections)} must sum to "
+                         f"head_dim / 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)
+    sec_ids = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                    device=x.device)
+                         for i, s in enumerate(sections)])
+    pos = positions3.float()[sec_ids]  # (hd/2, B, T): a slot's stream
+    ang = pos.movedim(0, -1) * freqs  # (B, T, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings, (seq_len, d) f32: sin on the
+    even columns, cos on the odd ones, angle pos / 10000^(2i / d). The
+    denominators are rounded to f32 from float64: torch's f32 `pow` is
+    one f32 step off the correctly rounded value (the reference's) at a
+    few exponents, which moves the angle at position 65,535 by ~2e-3."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float64, device=device)[None, :]
+    ang = pos / (10_000.0 ** (dim / d)).float()
+    out = torch.zeros((seq_len, d), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out

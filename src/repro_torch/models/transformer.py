@@ -1,4 +1,4 @@
-"""Model assembly for the decoder families: the counterpart of
+"""Model assembly for every family: the counterpart of
 `repro.models.transformer`, cut to what serving and DP training run.
 Dense and MoE models (flat or grouped dispatch) with GQA (QKV bias,
 sliding window) or MLA attention serve and train; an MTP config
@@ -11,6 +11,24 @@ of its sites, each site clipped per call as the reference does). They
 decode on the contiguous plane only (`init_paged_cache` is None, the
 reference's `paged_ok`): O(1) recurrent state per slot and the shared
 block's sliding-window ring.
+
+The encoder-decoder and M-RoPE families:
+* Qwen2-VL (`cfg.m_rope`, qwen2-vl-72b), a dense decoder whose training
+  and prefill take stub patch embeddings (`batch['vision_embeds']`, (B,
+  Tv, D), prepended to the text and sliced off before the head) and
+  M-RoPE over three position streams (`batch['positions3_full']`, (B, 3,
+  Tv + T); without it the 1-D positions broadcast, where M-RoPE is plain
+  RoPE). Its decode is the dense one, on 1-D RoPE, as in the reference.
+* Whisper's encoder-decoder (arch_type 'audio', whisper-medium,
+  `_build_encdec`): stub frame embeddings (`batch['frames']`, (B,
+  S_enc, D)) plus sinusoidal positions through `enc_blocks` (non-causal
+  attention blocks), then `dec_blocks` whose blocks add a cross-attention
+  block (`cross`: `qkv` the queries, `kv` from the encoder output) over
+  the encoder's output. `model.encode` runs the encoder and
+  `model.prefill_cross` fills a decode cache's `cross_k` / `cross_v`;
+  `serve_step` decodes on the contiguous plane (`dec_k` / `dec_v`, the
+  sinusoidal table built once per device), and `init_paged_cache` is
+  None.
 
     m = build_model(cfg)
     # serving, on the paged plane or the contiguous one
@@ -71,15 +89,19 @@ from repro_torch.models.config import ModelConfig
 # dim, in the order the layers run: (name, whether its blocks are MoE)
 STACKS = (("dense_blocks", False), ("moe_blocks", True))
 # every stacked subtree: the attention stacks, the recurrent families'
-# `blocks` (Mamba2's or RWKV-6's) and Zamba2's Mamba2 `backbone`
-STACKED = tuple(name for name, _ in STACKS) + ("blocks", "backbone")
+# `blocks` (Mamba2's or RWKV-6's), Zamba2's Mamba2 `backbone` and the
+# encoder-decoder's two stacks
+STACKED = tuple(name for name, _ in STACKS) + ("blocks", "backbone",
+                                               "enc_blocks", "dec_blocks")
 
 
 def _attn_block_spec(cfg: ModelConfig, n: int, *, moe_layer: bool,
-                     sens: float = 1.0) -> dict:
-    """A block's spec, stacked n deep (n = 0: one unstacked block). sens:
-    the sensitivity multiplier of a block shared by several sites (its
-    projections and MLP; the norms keep 1, as in the reference)."""
+                     cross: bool = False, sens: float = 1.0) -> dict:
+    """A block's spec, stacked n deep (n = 0: one unstacked block). cross:
+    a decoder block of the encoder-decoder, with its cross-attention
+    block (`cross_norm`, `cross`). sens: the sensitivity multiplier of a
+    block shared by several sites (its projections and MLP; the norms
+    keep 1, as in the reference)."""
     stack = (n,) if n else ()
     spec = {
         "attn_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
@@ -87,6 +109,10 @@ def _attn_block_spec(cfg: ModelConfig, n: int, *, moe_layer: bool,
                  else A.gqa_spec(cfg, stack=stack, sensitivity_mult=sens)),
         "mlp_norm": L.rmsnorm_spec(cfg.d_model, stack=stack, dtype=cfg.dtype),
     }
+    if cross:
+        spec["cross_norm"] = L.rmsnorm_spec(cfg.d_model, stack=stack,
+                                            dtype=cfg.dtype)
+        spec["cross"] = A.gqa_spec(cfg, stack=stack, cross=True)
     if moe_layer:
         spec["moe"] = MOE.moe_spec(cfg, stack=stack)
     else:
@@ -199,6 +225,24 @@ def _stack_len(node) -> int:
     return node.shape[0]
 
 
+def _layers(params, name) -> list:
+    """The per-layer blocks of stack `name`: views of the stacked
+    training tree, or the serving tree's list."""
+    layers = params[name]
+    return (_unstack(layers, _stack_len(layers)) if isinstance(layers, dict)
+            else layers)
+
+
+def _layer_th(th, name):
+    """Per-layer threshold dicts of stack `name` (None: the plain
+    forward), the stacked (n, B) tensors or BK channels unbound."""
+    if th is None:
+        return None
+    rows = {k: v.unbind(0) for k, v in S.subth(th, name).items()}
+    n = len(next(iter(rows.values())))
+    return [{k: r[i] for k, r in rows.items()} for i in range(n)]
+
+
 def unstack_blocks(tree: dict) -> dict:
     """Split every `STACKED` subtree of a reference-shaped parameter tree
     into a list of per-layer subtrees (views along the stack axis)."""
@@ -227,7 +271,7 @@ class Model:
     # None for the recurrent and hybrid families (the reference's
     # `paged_ok`: their O(1) state and ring have nothing to page)
     init_paged_cache: Callable | None
-    prefill_step: Callable  # (params, {'tokens'}) -> last logits (B, V)
+    prefill_step: Callable  # (params, batch) -> last logits (B, V)
     num_params: int
     # groups the loss consumes twice a step (MTP's second `embed` and
     # `head`): BK falls back to two passes on such a layout
@@ -238,6 +282,10 @@ class Model:
     base_layout: S.GroupLayout | None = None
     trainable_key: str | None = None
     dp_spec: dict | None = None
+    # the encoder-decoder's encoder, (params, frames, th) -> (B, S, D), and
+    # its cross cache fill, (params, frames, batch_size, cache_len) -> cache
+    encode: Callable | None = None
+    prefill_cross: Callable | None = None
 
     def _draw(self, generator: torch.Generator) -> dict:
         # the base first, so its draws do not depend on the adapters
@@ -264,10 +312,12 @@ class Model:
 
 def build_model(cfg: ModelConfig, *, rwkv_formulation: str = "scan",
                 device: str | torch.device = "cuda") -> Model:
-    """The decoder of `cfg`: dense or MoE (GQA or MLA), Mamba2, RWKV-6 or
-    Zamba2's hybrid. rwkv_formulation: RWKV-6's training and prefill form,
-    'scan' (the reference's default) or 'chunked'. `device` is where the
-    decode caches allocate; `cuda` unless the caller asks for the CPU."""
+    """The model of `cfg`: a decoder (dense or MoE with GQA or MLA, dense
+    with M-RoPE, Mamba2, RWKV-6 or Zamba2's hybrid) or Whisper's
+    encoder-decoder (arch_type 'audio'). rwkv_formulation: RWKV-6's
+    training and prefill form, 'scan' (the reference's default) or
+    'chunked'. `device` is where the decode caches allocate; `cuda`
+    unless the caller asks for the CPU."""
     if rwkv_formulation not in ("scan", "chunked"):
         raise ValueError(f"rwkv_formulation must be 'scan' or 'chunked', "
                          f"got {rwkv_formulation!r}")
@@ -276,6 +326,8 @@ def build_model(cfg: ModelConfig, *, rwkv_formulation: str = "scan",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available; pass device='cpu' to run on the CPU")
+    if cfg.arch_type == "audio":
+        return _build_encdec(cfg, device)
     spec = decoder_spec(cfg)
     base_spec = {k: v for k, v in spec.items() if k != "lora"}
     base_layout = S.GroupLayout(base_spec)
@@ -305,13 +357,18 @@ def build_model(cfg: ModelConfig, *, rwkv_formulation: str = "scan",
 
 
 def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False,
-                      window=None, lora=None, lora_th=None):
+                      window=None, lora=None, lora_th=None, causal=True,
+                      enc_out=None):
     """One block -> (x, aux): aux is the MoE block's (B,) f32 load-balance
     loss, None for a dense block; th: this block's thresholds, (B,) per
     group ((E, B) per expert group), or None for the plain forward
-    (prefill); window: GQA's sliding window (MLA has none, as in the
-    reference); lora / lora_th: this layer's DP-LoRA adapters and their
-    thresholds (`models.attention`)."""
+    (prefill); positions: (B, T), or M-RoPE's (3, B, T) streams
+    (`A.gqa_attention`); window: GQA's sliding window (MLA has none, as
+    in the reference); lora / lora_th: this layer's DP-LoRA adapters and
+    their thresholds (`models.attention`); causal: False in the encoder;
+    enc_out: the encoder's output (B, S, D), which a decoder block of the
+    encoder-decoder attends to after its self-attention
+    (`_cross_attention`)."""
     def sub(name):
         return None if th is None else S.subth(th, name)
 
@@ -324,8 +381,15 @@ def _apply_attn_block(cfg, params, x, th, positions, moe_layer=False,
                               lora=lora, lora_th=lora_th)
     else:
         att = A.gqa_attention(cfg, params["attn"], h, sub("attn"), positions,
-                              window=window, lora=lora, lora_th=lora_th)
+                              causal=causal, window=window, lora=lora,
+                              lora_th=lora_th)
     x = x + att
+    if enc_out is not None:
+        h = L.rmsnorm(params["cross_norm"], x, one("cross_norm"),
+                      eps=cfg.norm_eps)
+        x = x + _cross_attention(cfg, params["cross"], h, sub("cross"),
+                                 *_cross_kv(cfg, params["cross"], enc_out,
+                                            sub("cross")))
     h = L.rmsnorm(params["mlp_norm"], x, one("mlp_norm"), eps=cfg.norm_eps)
     if moe_layer:
         y, aux = MOE.moe_fn(cfg)(cfg, params["moe"], h, sub("moe"))
@@ -344,10 +408,35 @@ def _remat(cfg, fn, *args):
 
 
 def _block(cfg, params, x, th, positions, moe_layer=False, window=None,
-           lora=None, lora_th=None):
+           lora=None, lora_th=None, causal=True, enc_out=None):
     """`_apply_attn_block`, rematerialized in backward when `cfg.remat`."""
     return _remat(cfg, _apply_attn_block, cfg, params, x, th, positions,
-                  moe_layer, window, lora, lora_th)
+                  moe_layer, window, lora, lora_th, causal, enc_out)
+
+
+def _cross_kv(cfg, params, enc_out, th=None):
+    """The cross-attention's keys and values, (B, S, KV, hd) each, from the
+    encoder output (B, S, D) through `kv`; th None: the plain forward."""
+    b, s = enc_out.shape[0], enc_out.shape[1]
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv = L.linear(params["kv"], enc_out, _one(th, "kv"))
+    return (kv[..., : kvh * hd].reshape(b, s, kvh, hd),
+            kv[..., kvh * hd:].reshape(b, s, kvh, hd))
+
+
+def _cross_attention(cfg, params, x, th, k, v):
+    """The decoder's non-causal attention over the encoder's keys and
+    values k, v (B, S, KV, hd) (`_cross_kv`, or the decode cache's):
+    queries from x (B, T, D) through `qkv`, positions arange(T) and
+    arange(S) (no rotation, no mask), then `o`; th None: the plain
+    forward."""
+    b, t, s = x.shape[0], x.shape[1], k.shape[1]
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = L.linear(params["qkv"], x, _one(th, "qkv")).reshape(b, t, h, hd)
+    qpos = torch.arange(t, device=x.device)[None].expand(b, t)
+    kpos = torch.arange(s, device=x.device)[None].expand(b, s)
+    out = A.attend(q, k, v, qpos, kpos, causal=False)
+    return L.linear(params["o"], out.reshape(b, t, h * hd), _one(th, "o"))
 
 
 def _sub(th, name):
@@ -390,13 +479,9 @@ def recurrent_backbone(cfg, params, x, th, positions, formulation="scan"):
     block runs before layer i whenever i % shared_every == 0, under its
     one set of thresholds at every site."""
     name = "backbone" if cfg.shared_attention else "blocks"
-    layers = params[name]
-    if isinstance(layers, dict):
-        layers = _unstack(layers, _stack_len(layers))
-    rows = (None if th is None else
-            {k: v.unbind(0) for k, v in S.subth(th, name).items()})
-    for i, bp in enumerate(layers):
-        bth = None if rows is None else {k: r[i] for k, r in rows.items()}
+    ths = _layer_th(th, name)
+    for i, bp in enumerate(_layers(params, name)):
+        bth = None if ths is None else ths[i]
         if cfg.shared_attention:
             if i % cfg.shared_every == 0:
                 x, _ = _block(cfg, params["shared"], x, _sub(th, "shared"),
@@ -418,6 +503,32 @@ def _per_example_ce(logits, targets):
     tok_ll = torch.gather(logits32, -1, tsafe[..., None])[..., 0]
     ce = (lse - tok_ll) * valid
     return torch.sum(ce, dim=-1) / torch.clamp(valid.sum(dim=-1), min=1)
+
+
+def _with_vision(cfg, x, batch, streams=("positions3_full", "positions3")):
+    """The decoder's input rows and positions: x (B, T, D) embedded text,
+    with `batch['vision_embeds']` (B, Tv, D) prepended when given, and the
+    positions of the Tv + T rows: `batch['positions']` or arange; under
+    M-RoPE the first of `streams` in the batch, (B, 3, Tv + T) moved to
+    (3, B, Tv + T), else the 1-D positions broadcast to three equal
+    streams. Returns (x, positions, Tv)."""
+    bsz = x.shape[0]
+    tv = 0
+    ve = batch.get("vision_embeds")
+    if ve is not None:
+        x = torch.cat([ve.to(x.dtype), x], dim=1)
+        tv = ve.shape[1]
+    if cfg.m_rope:
+        for key in streams:
+            if key in batch:
+                return x, batch[key].movedim(1, 0), tv
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+            bsz, x.shape[1])
+    if cfg.m_rope:
+        positions = positions[None].expand((3,) + tuple(positions.shape))
+    return x, positions, tv
 
 
 def _make_decoder_loss(cfg: ModelConfig,
@@ -443,6 +554,9 @@ def _make_decoder_loss(cfg: ModelConfig,
         e = embed(params, nxt, th)
         mtp = params["mtp"]
         h = L.linear(mtp["proj"], torch.cat([x, e], dim=-1), th["mtp/proj"])
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)[
+                None].expand(bsz, tokens.shape[1])
         h, _ = _block(cfg, mtp["block"], h, S.subth(th, "mtp/block"),
                       positions)
         h = L.rmsnorm(mtp["norm"], h, th["mtp/norm"], eps=cfg.norm_eps)
@@ -455,22 +569,19 @@ def _make_decoder_loss(cfg: ModelConfig,
         load-balance losses, plus 0.3 times the MTP loss of an MTP
         config. params: the stacked (reference-layout) tree; batch:
         {'tokens', 'targets' (-1 = ignore), optional 'positions'}, (B, T)
-        each; th: {group name: stack + (B,)} encoded thresholds
+        each, and a VLM's optional 'vision_embeds' and M-RoPE streams
+        (`_with_vision`); th: {group name: stack + (B,)} encoded thresholds
         (`GroupLayout.pack*`), or the BK capture's channels
         (`core.bk.build_channels`), which unbind per layer the same way;
         under DP-LoRA the adapters' only (`lora/...`), the frozen groups
         running at +inf. Each block is rematerialized in backward when
         `cfg.remat`."""
         tokens = batch["tokens"]
-        bsz, t = tokens.shape
+        bsz = tokens.shape[0]
         if base_layout is not None:
             th = {**base_layout.pack_value(float("inf"), bsz,
                                            device=tokens.device), **th}
-        x = embed(params, tokens, th)
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(t, device=tokens.device)[None].expand(
-                bsz, t)
+        x, positions, tv = _with_vision(cfg, embed(params, tokens, th), batch)
         aux = None
         if recurrent:
             x = recurrent_backbone(cfg, params, x, th, positions,
@@ -479,27 +590,27 @@ def _make_decoder_loss(cfg: ModelConfig,
         for name, moe_layer in STACKS:
             if name not in stacks:
                 continue
-            rows = {k: v.unbind(0) for k, v in S.subth(th, name).items()}
-            lora = lora_rows = None
+            ths = _layer_th(th, name)
+            lora = lora_ths = None
             if base_layout is not None:  # the adapters ride the layer loop
                 lora = params["lora"][name]
-                lora_rows = {k: v.unbind(0) for k, v in
-                             S.subth(th, "lora/" + name).items()}
+                lora_ths = _layer_th(th, "lora/" + name)
             for layer, bp in enumerate(stacks[name]):
-                bth = {k: r[layer] for k, r in rows.items()}
+                bth = ths[layer]
                 lp = lth = None
                 if lora is not None:
                     lp = layer_slice(lora, layer)
-                    lth = {k: r[layer] for k, r in lora_rows.items()}
+                    lth = lora_ths[layer]
                 x, aux_l = _block(cfg, bp, x, bth, positions, moe_layer,
                                   cfg.sliding_window, lp, lth)
                 if aux_l is not None:
                     aux = aux_l if aux is None else aux + aux_l
-        x = L.rmsnorm(params["final_norm"], x, th["final_norm"],
+        x = L.rmsnorm(params["final_norm"], x[:, tv:], th["final_norm"],
                       eps=cfg.norm_eps)
         ce = _per_example_ce(head(params, x, th), batch["targets"])
         if cfg.mtp_depth:
-            ce = ce + 0.3 * mtp_loss(params, x, th, batch, positions)
+            ce = ce + 0.3 * mtp_loss(params, x, th, batch, None if cfg.m_rope
+                                     else positions)
         return ce if aux is None else ce + aux
 
     return loss_fn
@@ -517,6 +628,7 @@ _SLOT_AXIS_BY_KEY = {
     "conv": 1, "ssm": 1,  # mamba2 recurrent state, (n, B, ...)
     "tm_prev": 1, "cm_prev": 1, "wkv": 1,  # rwkv6 recurrent state
     "shared_k": 1, "shared_v": 1,  # zamba2's shared-attention ring
+    "dec_k": 1, "dec_v": 1, "cross_k": 1, "cross_v": 1,  # enc-dec
 }
 
 
@@ -779,17 +891,15 @@ def _make_prefill(cfg: ModelConfig, rwkv_formulation: str = "scan"):
         """The full-sequence forward to the last position's logits (B, V),
         in the model dtype: the inference-prefill workload. params: the
         serving parameters (per-layer blocks, as `serve_step` takes);
-        batch: {'tokens': (B, T), optional 'positions': (B, T)}. A LoRA
-        model's trained adapters (`params['lora']`, stacked) run in
-        their layers, as in the reference's prefill. The reference's
-        vision and M-RoPE branches are ROADMAP A.9."""
+        batch: {'tokens': (B, T), optional 'positions': (B, T)}, and a
+        VLM's optional 'vision_embeds' and 'positions3_full'
+        (`_with_vision`; the reference's prefill reads no 'positions3').
+        A LoRA model's trained adapters (`params['lora']`, stacked) run
+        in their layers, as in the reference's prefill."""
         tokens = batch["tokens"]
-        bsz, t = tokens.shape
-        x = params["embed"]["w"][tokens.long()]
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(t, device=tokens.device)[None].expand(
-                bsz, t)
+        x, positions, _ = _with_vision(
+            cfg, params["embed"]["w"][tokens.long()], batch,
+            streams=("positions3_full",))
         lora = params.get("lora")
         if recurrent:
             x = recurrent_backbone(cfg, params, x, None, positions,
@@ -803,3 +913,159 @@ def _make_prefill(cfg: ModelConfig, rwkv_formulation: str = "scan"):
         return L.linear(params["head"], x)[:, 0]
 
     return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (Whisper; the mel and conv frontend stubbed: `frames` are
+# precomputed frame embeddings (B, S_enc, D)).
+# ---------------------------------------------------------------------------
+
+
+def _build_encdec(cfg: ModelConfig, device: torch.device) -> Model:
+    """Whisper's backbone: `enc_blocks` (non-causal blocks over the frames
+    plus sinusoidal positions, then `enc_norm`) and `dec_blocks` (causal
+    self-attention, cross-attention over the encoder output, SwiGLU),
+    each block rematerialized when `cfg.remat`. One clipping group per
+    leaf, as in the reference; the reference builds no adapters here, so
+    a `lora_rank` is refused."""
+    if cfg.lora_rank:
+        raise ValueError(f"{cfg.name}: the encoder-decoder has no DP-LoRA "
+                         f"layout (the reference builds none)")
+    d, v = cfg.d_model, cfg.vocab_size
+    n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    spec = {
+        "embed": {"w": P((v, d), init="embed", dtype=cfg.dtype)},
+        "enc_blocks": _attn_block_spec(cfg, n_enc, moe_layer=False),
+        "enc_norm": L.rmsnorm_spec(d, dtype=cfg.dtype),
+        "dec_blocks": _attn_block_spec(cfg, n_dec, moe_layer=False,
+                                       cross=True),
+        "final_norm": L.rmsnorm_spec(d, dtype=cfg.dtype),
+        "head": {"w": P((d, v), dtype=cfg.dtype)},
+    }
+    layout = S.GroupLayout(spec)
+
+    def arange(b, t, dev):
+        return torch.arange(t, device=dev)[None].expand(b, t)
+
+    def encode(params, frames, th=None):
+        """(B, S, D) frame embeddings -> the encoder output (B, S, D);
+        th: the thresholds (or BK channels), None for the plain forward."""
+        b, s = frames.shape[0], frames.shape[1]
+        x = (frames.to(cfg.dtype)
+             + L.sinusoidal_positions(s, d, frames.device).to(cfg.dtype))
+        positions = arange(b, s, frames.device)
+        ths = _layer_th(th, "enc_blocks")
+        blk = _apply_attn_block if th is None else _block
+        for i, bp in enumerate(_layers(params, "enc_blocks")):
+            x, _ = blk(cfg, bp, x, None if ths is None else ths[i],
+                       positions, causal=False)
+        return L.rmsnorm(params["enc_norm"], x, _one(th, "enc_norm"),
+                         eps=cfg.norm_eps)
+
+    def decode_seq(params, batch, th):
+        """The decoder over the whole token sequence, after the final norm:
+        (B, T, D)."""
+        tokens = batch["tokens"]
+        b, t = tokens.shape
+        enc_out = encode(params, batch["frames"], th)
+        if th is None:
+            x = params["embed"]["w"][tokens.long()]
+        else:
+            x = dpl.dp_embed(params["embed"]["w"], tokens, th["embed"])
+        x = x + L.sinusoidal_positions(t, d, x.device).to(x.dtype)
+        positions = arange(b, t, tokens.device)
+        ths = _layer_th(th, "dec_blocks")
+        blk = _apply_attn_block if th is None else _block
+        for i, bp in enumerate(_layers(params, "dec_blocks")):
+            x, _ = blk(cfg, bp, x, None if ths is None else ths[i],
+                       positions, enc_out=enc_out)
+        return x
+
+    def loss_fn(params, batch, th):
+        """Per-example losses (B,): the decoder's cross-entropy. batch:
+        {'frames': (B, S_enc, D), 'tokens', 'targets' (-1 = ignore)}."""
+        x = decode_seq(params, batch, th)
+        x = L.rmsnorm(params["final_norm"], x, th["final_norm"],
+                      eps=cfg.norm_eps)
+        return _per_example_ce(
+            dpl.dp_linear(params["head"]["w"], None, x, th["head"]),
+            batch["targets"])
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=cfg.dtype, device=device)
+
+    def init_cache(batch_size: int, cache_len: int):
+        """The contiguous plane: `dec_k` / `dec_v` (n_dec, B, cache_len,
+        KV, hd) self-attention caches, `cross_k` / `cross_v` (n_dec, B,
+        encoder_seq_len, KV, hd) cross-attention caches (zeros until
+        `prefill_cross`), and `pos` (B,) int32."""
+        b = batch_size
+        self_kv = (n_dec, b, cache_len, kvh, hd)
+        cross_kv = (n_dec, b, cfg.encoder_seq_len, kvh, hd)
+        return {"pos": torch.zeros((b,), dtype=torch.int32, device=device),
+                "dec_k": zeros(self_kv), "dec_v": zeros(self_kv),
+                "cross_k": zeros(cross_kv), "cross_v": zeros(cross_kv)}
+
+    @torch.no_grad()
+    def prefill_cross(params, frames, batch_size: int, cache_len: int):
+        """A fresh decode cache whose cross-attention caches hold each
+        decoder layer's keys and values of the encoder output of `frames`
+        (B, S, D)."""
+        enc_out = encode(params, frames)
+        cache = init_cache(batch_size, cache_len)
+        ks, vs = zip(*(_cross_kv(cfg, bp["cross"], enc_out)
+                       for bp in _layers(params, "dec_blocks")))
+        cache["cross_k"], cache["cross_v"] = torch.stack(ks), torch.stack(vs)
+        return cache
+
+    postab = {}  # the sinusoidal decode table, built once per device
+
+    @torch.no_grad()
+    def serve_step(params, cache, batch):
+        """One-token decode (no tenants): the self-attention cache written
+        in place (`gqa_decode`, inactive rows keep their bits), the
+        cross-attention over the cache's encoder keys and values; the
+        token's sinusoidal position at min(pos, max_seq_len - 1), as the
+        reference."""
+        token, active = batch["token"], batch.get("active")
+        if "tenant" in batch or "lora_stack" in params:
+            raise ValueError(f"{cfg.name}: multi-tenant serving needs "
+                             f"attention stacks with adapters")
+        pos = cache["pos"]
+        x = params["embed"]["w"][token.long()]  # (B, 1, D)
+        dev = x.device
+        if dev not in postab:
+            postab[dev] = L.sinusoidal_positions(cfg.max_seq_len, d,
+                                                 dev).to(cfg.dtype)
+        tab = postab[dev]
+        x = x + tab[torch.clamp(pos, max=cfg.max_seq_len - 1).long()][:, None]
+        for i, bp in enumerate(params["dec_blocks"]):
+            hn = L.rmsnorm(bp["attn_norm"], x, eps=cfg.norm_eps)
+            x = x + A.gqa_decode(cfg, bp["attn"], hn, cache["dec_k"][i],
+                                 cache["dec_v"][i], pos, active=active)
+            hn = L.rmsnorm(bp["cross_norm"], x, eps=cfg.norm_eps)
+            x = x + _cross_attention(cfg, bp["cross"], hn, None,
+                                     cache["cross_k"][i], cache["cross_v"][i])
+            hn = L.rmsnorm(bp["mlp_norm"], x, eps=cfg.norm_eps)
+            x = x + L.swiglu(bp["mlp"], hn, f=cfg.d_ff)
+        x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+        logits = L.linear(params["head"], x)
+        new_cache = dict(cache)
+        new_cache["pos"] = (pos + 1 if active is None
+                            else pos + active.to(torch.int32))
+        return logits[:, 0], new_cache
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        """The full-sequence forward to the last position's logits (B, V):
+        batch {'frames': (B, S_enc, D), 'tokens': (B, T)}."""
+        x = decode_seq(params, batch, None)
+        x = L.rmsnorm(params["final_norm"], x[:, -1:], eps=cfg.norm_eps)
+        return L.linear(params["head"], x)[:, 0]
+
+    return Model(cfg=cfg, spec=spec, layout=layout, loss_fn=loss_fn,
+                 serve_step=serve_step, init_cache=init_cache,
+                 init_paged_cache=None, prefill_step=prefill_step,
+                 num_params=_count(spec), base_layout=layout,
+                 dp_spec=spec, encode=encode, prefill_cross=prefill_cross)

@@ -169,7 +169,7 @@ def test_spec_and_layout_match_reference(arch, reduced):
 def test_variants_and_arch_list_match_reference():
     assert configs.list_archs() == configs.ARCH_IDS
     assert sorted(set(jax_configs.list_archs()) | {"tiny"}) == sorted(
-        set(configs.ARCH_IDS) | set(configs.NOT_PORTED))
+        configs.ARCH_IDS)
     for arch in configs.ARCH_IDS:
         for reduced in (False, True):
             cfg = configs.get_config(arch, reduced=reduced, variant="swa")
@@ -184,8 +184,8 @@ def test_variants_and_arch_list_match_reference():
                 configs.get_config(arch, reduced=reduced)
     with pytest.raises(ValueError, match="unknown variant"):
         configs.get_config("qwen3-4b", variant="long")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        configs.get_config("whisper-medium", variant="swa")
+    swa = configs.get_config("whisper-medium", variant="swa")
+    assert (swa.name, swa.sliding_window) == ("whisper-medium-swa", 4096)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as REFERENCE_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.core.spec import _walk as jax_walk
 from repro.core.spec import init_params as jax_init_params
@@ -586,11 +587,11 @@ def test_serve_cli_requests_match_reference():
 @pytest.mark.parametrize("argv", [["--backend", "pallas"],
                                   ["--cache", "maybe"], ["--backend", "xla"],
                                   ["--autotune", "auto"],
-                                  ["--arch", "whisper-medium"]])
+                                  ["--arch", "llama-99b"]])
 def test_serve_cli_refuses_unported_flags(argv):
-    """The reference's engine names, values no flag takes, an unported
-    arch. (`--backend`, `--autotune`, `--cache` and `--cache-dir` are
-    ported: the test below.)"""
+    """The reference's engine names, values no flag takes, an arch no
+    package has. (`--backend`, `--autotune`, `--cache` and `--cache-dir`
+    are ported: the test below.)"""
     with pytest.raises(SystemExit):
         serve.build_serve_parser().parse_args(argv)
 
@@ -604,6 +605,11 @@ def test_serve_cli_takes_the_startup_flags():
     assert serve.build_serve_parser().parse_args([]).backend == "kernels"
 
 
-def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A.9"):
-        get_config("whisper-medium")
+@pytest.mark.parametrize("arch", REFERENCE_ARCH_IDS)
+def test_every_reference_arch_builds_reduced(arch):
+    """Every architecture of the reference's registry builds in the port
+    at its reduced size, with the reference's parameter count."""
+    m = build_model(get_config(arch, reduced=True), device="cpu")
+    jm = jax_build_model(jax_get_config(arch, reduced=True))
+    assert m.num_params == jm.num_params
+    assert m.layout.num_groups == jm.layout.num_groups
