@@ -288,9 +288,10 @@ exits non-zero:
   15 dense/  the contiguous plane, batch mode and the remaining dense
      contig.  configs (qwen3-4b cut to QWEN_CUT_DEPTH = 6 layers in
               (a)-(c)):
-              (a) phase 3's request set on the contiguous plane
-              (`paging="off"`, cache_len 272, 8 slots): no paged_attn
-              launch; its tokens equal phase 3's paged tokens up to ties;
+              (a) the first CONTIG_REQ = 8 of phase 3's requests on the
+              contiguous plane (`paging="off"`, cache_len 272, 8 slots):
+              no paged_attn launch; their tokens equal the same
+              requests' paged tokens of phase 3 up to ties;
               ms per serve_step and the cache bytes of both planes, and a
               profile of 3 decode steps;
               (b) `greedy_decode` on 4 ragged prompts of 16-48 tokens, 16
@@ -546,6 +547,29 @@ exits non-zero:
               against the loop oracle, `prefill_step` with the patches,
               and paged_attn at the path's captured input (H 64, KV 8,
               G 8, hd 128). One line with the phase's seconds by part.
+ 21 dry run   `launch.dryrun`, the reference's multi-pod dry run: the
+              real step run once on meta tensors and read as it runs.
+              (a) started after phase 1 and run beside phases 3-20 (host
+              work, one thread a process): the CLI at full width and
+              depth, `--arch qwen3-4b --mesh single` (256 fake ranks,
+              --device cuda), `--shape train_4k` and `--shape
+              decode_32k`, each within DRYRUN_CLI_TIMEOUT_S of its start:
+              status ok, train_4k's one backward pass and its argument
+              bytes equal to the placements' arithmetic
+              (`placed_argument_bytes`); the walls and trace times and
+              the results. (b) qwen3-4b at full width in f32 (as the
+              card-vs-CPU phases), DRYRUN_DEPTH = 4 of 36 layers, B = 8,
+              T = 256, per_layer and ghost_flat by
+              BK, traced on a 1x1 mesh and run on the card under `plain`
+              and `kernels`: every argument leaf's bytes, the traced
+              flops equal to FlopCounterMode's over the plain step, the
+              predicted peak within PEAK_TOL = 15% of the plain step's
+              max_memory_allocated (the ratio printed), the kernels
+              step's ghost_norm / clip_reduce (per_layer) and
+              scale_contract (BK) launches equal to those the traced
+              engine op calls predict, its clipped grads, norms² and
+              loss within TRAIN_RTOL / TRAIN_ATOL_FRAC of plain's, and
+              its own peak beside the prediction.
 
 Phase 1 enables the build cache (`launch.compile_cache`, <repo>/.cache):
 each kernel source builds once a run, and every CLI subprocess after it
@@ -558,7 +582,7 @@ card: phase 18 (c) serves once with no engine scoped to show it).
 Each kernel of the kernels' line carries max_abs_err and max_rel_err,
 the latter relative to the largest magnitude of the plain result (the
 scale of the checks' atol), the worst over its checks; its launches are
-the sum over phases 5, 8, 11, 12, 14, 15, 16, 17, 18, 19 and 20
+the sum over phases 5, 8, 11, 12, 14, 15, 16, 17, 18, 19, 20 and 21
 (paged_attn's: phases 3, 13, 15, 17, 18 and 20; phase 19 gates it at
 0).
 A clock line follows each phase.
@@ -3390,6 +3414,12 @@ def long_inputs(torch, kv, g, hd, seed):
     return q, kp, vp, pt, pos
 
 
+# phase 15 (a)'s requests, the first of phase 3's 16: one wave of its 8
+# slots (all 16 took 56.7 s of host-bound serve_steps on an NVIDIA H100
+# 80GB HBM3 at 700 W)
+CONTIG_REQ = 8
+
+
 def serve_cache_len(req) -> int:
     """serve_model's cache_len for a request set (whole pages)."""
     return -(-(req["prefix"] + req["max_len"] + req["gen"] + 8)
@@ -3470,7 +3500,8 @@ def phase_dense(torch, gpu, main_run):
     from repro_torch.models.transformer import build_model
 
     t_phase = t_part = time.perf_counter()
-    # (a) phase 3's requests on the contiguous plane
+    # (a) the first CONTIG_REQ of phase 3's requests on the contiguous
+    # plane, held to the same requests' paged tokens
     cfg = dataclasses.replace(get_config("qwen3-4b"),
                               num_layers=QWEN_CUT_DEPTH)
     model = build_model(cfg)
@@ -3479,7 +3510,8 @@ def phase_dense(torch, gpu, main_run):
     reqs = serve.build_requests(cfg.vocab_size, req["n_req"],
                                 min_len=req["min_len"],
                                 max_len=req["max_len"],
-                                shared_prefix=req["prefix"], seed=0)
+                                shared_prefix=req["prefix"],
+                                seed=0)[:CONTIG_REQ]
     eng, run, counts, step_ms = engine_run(
         torch, model, params, reqs, gen=req["gen"], slots=req["slots"],
         cache_len=serve_cache_len(req))
@@ -3495,7 +3527,7 @@ def phase_dense(torch, gpu, main_run):
           "cache_bytes": {"contiguous": eng.cache_bytes(),
                           "paged": main_run["cache_bytes"]},
           "stats": eng.stats, "launches": counts,
-          "vs_paged": compare_runs("contiguous vs paged", main_run, run,
+          "vs_paged": compare_runs("contiguous vs paged", run, main_run,
                                    True),
           "seconds": time.perf_counter() - t_part})
     profile_decode(torch, gpu, model, params, eng, step_ms,
@@ -7012,6 +7044,310 @@ def phase_encdec_mrope(torch, gpu):
     return launches, rows, paged, serve_block
 
 
+# phase 21: the dry run (launch.dryrun): (a) its CLI at full width and
+# depth, started after phase 1 beside phases 3-20 (host work only: its
+# tensors are meta tensors, one thread a process), (b) its prediction of
+# a qwen3-4b step at phase 16's depth against that step run on the card
+DRYRUN_CLI = (("qwen3-4b", "train_4k"), ("qwen3-4b", "decode_32k"))
+DRYRUN_CLI_TIMEOUT_S = 900  # from its start, beside phases 3-20
+DRYRUN_DEPTH = 4  # (b)'s qwen3-4b layers of 36, as phase 16's
+DRYRUN_B, DRYRUN_T = 8, 256
+DRYRUN_VARIANTS = (("per_layer", "per_layer", "bk"),
+                   ("ghost_flat_bk", "ghost_flat", "bk"))
+PEAK_TOL = 0.15  # the predicted peak against max_memory_allocated
+
+
+def dryrun_cli_start(work: str) -> list:
+    """(a): the dry-run CLI of each DRYRUN_CLI shape on the production
+    single-pod mesh (--mesh single, 256 fake ranks, --device cuda), one
+    subprocess a shape with one intra-op thread, its results under
+    `work`; returns the running processes (stopped at exit)."""
+    import atexit
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    runs = []
+    for arch, shape in DRYRUN_CLI:
+        out = os.path.join(work, shape)
+        log = os.path.join(work, f"{shape}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--out", out], stdout=f, stderr=subprocess.STDOUT,
+                env=env, cwd=ROOT)
+        runs.append({"arch": arch, "shape": shape, "out": out, "log": log,
+                     "proc": proc, "t0": time.perf_counter()})
+
+    def stop():
+        for r in runs:
+            if r["proc"].poll() is None:
+                r["proc"].kill()
+                r["proc"].wait(10)
+    atexit.register(stop)
+    return runs
+
+
+def placed_argument_bytes(cfg, shape) -> int:
+    """The per-device bytes of a train step's arguments on the (data 16,
+    model 16) mesh by the placements' arithmetic: each weight leaf split
+    16 ways where `_spec_for` puts it on the model axis, Adam's two
+    moments as their weights, the (K,) f32 thresholds whole, tokens and
+    targets split 16 ways over the data axis."""
+    import math as _m
+    from repro_torch.core.spec import _walk
+    from repro_torch.launch.sharding import _spec_for
+    from repro_torch.models.transformer import build_model
+    model = build_model(cfg, device="meta")
+    params = 0
+    for path, p in _walk(model.spec):
+        parts = 16 if "model" in _spec_for("/".join(path), p, 16) else 1
+        params += _m.prod(p.shape) // parts * p.dtype.itemsize
+    batch = 2 * shape.global_batch * shape.seq_len * 4 // 16
+    return 3 * params + 4 * model.layout.num_groups + batch
+
+
+def dryrun_cli_check(torch, gpu, runs) -> dict:
+    """(a)'s results: each CLI exits 0 within its time limit with status
+    ok; the train shape counts one backward pass and its argument bytes
+    equal `placed_argument_bytes`. Emits the results and the seconds this
+    phase waited for each."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import INPUT_SHAPES
+    out = {}
+    for r in runs:
+        t_wait = time.perf_counter()
+        left = DRYRUN_CLI_TIMEOUT_S - (t_wait - r["t0"])
+        try:
+            code = r["proc"].wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            r["proc"].kill()
+            raise RuntimeError(f"dry run {r['shape']}: not done within "
+                               f"{DRYRUN_CLI_TIMEOUT_S} s")
+        waited = time.perf_counter() - t_wait
+        with open(r["log"]) as f:
+            log = f.read()
+        if code:
+            raise RuntimeError(f"dry run {r['shape']} exited {code}:\n"
+                               f"{log[-3000:]}")
+        (name,) = os.listdir(r["out"])
+        with open(os.path.join(r["out"], name)) as f:
+            res = json.load(f)
+        if res["status"] != "ok":
+            raise RuntimeError(f"dry run {r['shape']}: {res}")
+        mem = res["memory"]
+        if res["kind"] == "train":
+            want = placed_argument_bytes(get_config(r["arch"]),
+                                         INPUT_SHAPES[r["shape"]])
+            if res["backward_passes"] != 1 or mem["argument_bytes"] != want:
+                raise RuntimeError(
+                    f"dry run {r['shape']}: backward_passes "
+                    f"{res['backward_passes']}, argument bytes "
+                    f"{mem['argument_bytes']} (placements: {want})")
+        out[r["shape"]] = {
+            "waited_s": waited, "lower_s": res["lower_s"],
+            "trace_s": res["trace_s"], "mesh_s": res["mesh_s"],
+            "devices": res["devices"], "memory": mem,
+            "flops": res["flops"], "bytes_accessed": res["bytes_accessed"],
+            "collectives": res["collectives"],
+            "backward_passes": res["backward_passes"],
+            "kernel_launches": res["kernel_launches"],
+            "line": log.strip().splitlines()[-1]}
+    emit({"phase": "dryrun_cli", "gpu": gpu, "mesh": "single",
+          "device": "cuda", **out})
+    return out
+
+
+def dryrun_real_step(torch, cfg, mode, execution, backend_name, keep):
+    """One step of the dry run's train step (`dryrun.build_train_step`)
+    on the card, on the 1x1 mesh, from seeded parameters: (inputs by
+    path, their bytes, peak bytes of the step over the inputs and what
+    else the process holds, flops (FlopCounterMode, plain only), launch
+    deltas). `keep`: on the plain run, buffers allocated before the step
+    take the pre-noise clipped grads, norms² and loss (so the step
+    allocates nothing for them); on the kernels run, the hook holds them
+    to those within TRAIN_RTOL / TRAIN_ATOL_FRAC."""
+    from repro_torch.core.spec import tree_leaves
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.inputs import concrete_train_batch
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh({"data": 1, "model": 1}, device="cuda", backend="none")
+
+    def hook(res, counts):
+        grads = dict(("/".join(p), g) for p, g in tree_leaves(res.grads))
+        if backend_name == "plain":
+            for k, g in grads.items():
+                keep["grads"][k].copy_(g)
+            keep["norms"].copy_(res.norms_sq)
+            keep["loss"] = float(res.loss)
+            return
+        worst = 0.0
+        for k, g in grads.items():
+            w = keep["grads"][k]
+            scale = float(w.abs().max())
+            for gp, wp in zip(g.reshape(-1).split(1 << 26),
+                              w.reshape(-1).split(1 << 26)):
+                err = (gp.float() - wp.float()).abs()
+                tol = TRAIN_RTOL * wp.float().abs() + TRAIN_ATOL_FRAC * scale
+                if bool((err > tol).any()):
+                    raise RuntimeError(f"dry run (b) {mode}: kernels' {k} "
+                                       f"off plain's by {float(err.max())}")
+                worst = max(worst, float(err.max()) / max(scale, 1e-30))
+        wn = keep["norms"]
+        if not torch.allclose(res.norms_sq, wn, rtol=TRAIN_RTOL,
+                              atol=TRAIN_ATOL_FRAC * float(wn.abs().max())) \
+                or not math.isclose(float(res.loss), keep["loss"],
+                                    rel_tol=TRAIN_RTOL):
+            raise RuntimeError(f"dry run (b) {mode}: kernels' norms² or "
+                               f"loss off plain's")
+        keep["max_rel_err"] = worst
+
+    model, init_fn, step_fn = dryrun.build_train_step(
+        cfg, mesh, clipping=mode, execution=execution, microbatches=1,
+        batch_size=DRYRUN_B, backend=backend_name, on_clip=hook)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init_train_params(gen)
+    for _, leaf in tree_leaves(params):
+        leaf.requires_grad_()
+    opt, dp = init_fn(params)
+    batch = concrete_train_batch(cfg, DRYRUN_B, DRYRUN_T, gen)
+    args = (params, opt, dp, batch)
+    inputs = {}
+    for i, a in enumerate(args):
+        for t in _leaf_tensors(a):
+            inputs[f"{i}/{len(inputs)}"] = t
+    if backend_name == "plain" and not keep:
+        keep.update(grads={"/".join(p): torch.empty_like(g)
+                           for p, g in tree_leaves(params)},
+                    norms=torch.empty((model.layout.num_groups, DRYRUN_B),
+                                      device="cuda"))
+    gc.collect()
+    torch.cuda.synchronize()
+    held = sum(-(-t.untyped_storage().nbytes() // 512) * 512
+               for t in {id(t.untyped_storage()): t
+                         for t in inputs.values()}.values())
+    other = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    flops = torch.utils.flop_counter.FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    with flops if backend_name == "plain" else contextlib.nullcontext():
+        out = step_fn(params, opt, dp, batch, 1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - other
+    counts = launch_counts()
+    if not math.isfinite(float(out[3].loss)):
+        raise RuntimeError(f"dry run (b) {mode} {backend_name}: loss "
+                           f"{float(out[3].loss)}")
+    sizes = [(t.numel() * t.element_size(), t.dtype) for t in inputs.values()]
+    del params, opt, dp, batch, out, args, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sizes": sizes, "peak": peak, "ms": ms, "counts": counts,
+            "flops": flops.get_total_flops() if backend_name == "plain"
+            else None}
+
+
+def _leaf_tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaf_tensors(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaf_tensors(v)]
+    return [tree] if hasattr(tree, "untyped_storage") else []
+
+
+def dryrun_vs_real(torch, gpu) -> dict:
+    """(b): qwen3-4b at full width in f32, DRYRUN_DEPTH layers, B = 8,
+    T = 256, per_layer and ghost_flat by BK on a 1x1 mesh: the dry run's
+    trace
+    (`build_train_trace` + `analyze`, meta tensors, the plain engine)
+    against the same step run on the card under `plain` and `kernels`:
+    (1) every argument leaf's bytes, (2) FlopCounterMode's flops of the
+    plain step, (3) the predicted peak within PEAK_TOL of the plain
+    step's max_memory_allocated over what the process held besides,
+    (4) the kernels step's launches equal the launches the traced op
+    calls predict, (5) its clipped grads, norms² and loss within
+    TRAIN_RTOL / TRAIN_ATOL_FRAC of plain's, (6) its own peak printed.
+    Returns the kernels' launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import InputShape
+    t_phase = time.perf_counter()
+    # f32, as the card-vs-CPU phases: in bf16 the two engines' f32 clipped
+    # sums round a weight's gradient one bf16 step apart (2^-8 relative),
+    # past TRAIN_RTOL
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=DRYRUN_DEPTH,
+                              dtype=torch.float32)
+    shape = InputShape("card", DRYRUN_T, DRYRUN_B, "train")
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    rows = {}
+    for label, mode, execution in DRYRUN_VARIANTS:
+        t0 = time.perf_counter()
+        with dryrun.fake_mesh({"data": 1, "model": 1}, "meta") as mesh, \
+                backend.scoped("plain"), dryrun.shape_only_draws():
+            trace, _, _ = dryrun.build_train_trace(
+                "qwen3-4b", "train_4k", mesh, clipping=mode,
+                execution=execution, microbatches=1, cfg=cfg, shape=shape)
+            found = dryrun.analyze(trace, kind="train", trip=DRYRUN_DEPTH,
+                                   device="cuda")
+            traced = [(t.numel() * t.element_size(), t.dtype)
+                      for a in trace.args[:4] for t in _leaf_tensors(a)]
+        trace_s = time.perf_counter() - t0
+        keep = {}
+        plain = dryrun_real_step(torch, cfg, mode, execution, "plain", keep)
+        kern = dryrun_real_step(torch, cfg, mode, execution, "kernels", keep)
+        predicted = found["kernel_launches"]
+        got = {k: kern["counts"][k] for k in predicted}
+        ratio = found["memory"]["peak_bytes"] / plain["peak"]
+        checks = {"argument_bytes": traced == plain["sizes"],
+                  "flops": found["flops"] == plain["flops"],
+                  "peak": abs(ratio - 1.0) <= PEAK_TOL,
+                  "launches": got == predicted,
+                  "plain_launches": not any(plain["counts"].values()),
+                  "backward_passes": found["backward_passes"] == 1}
+        if not all(checks.values()):
+            raise RuntimeError(
+                f"dry run (b) {label}: {checks}; traced flops "
+                f"{found['flops']} vs {plain['flops']}, peak "
+                f"{found['memory']['peak_bytes']} vs {plain['peak']}, "
+                f"launches {got} vs predicted {predicted}, plain launched "
+                f"{plain['counts']}")
+        for k in launches:
+            launches[k] += kern["counts"][k]
+        rows[label] = {
+            "trace_s": trace_s, "trace_only_s": found["trace_s"],
+            "argument_bytes": found["memory"]["argument_bytes"],
+            "flops": found["flops"],
+            "peak_bytes": {"predicted": found["memory"]["peak_bytes"],
+                           "plain": plain["peak"],
+                           "ratio_predicted_to_plain": ratio,
+                           "kernels": kern["peak"],
+                           "ratio_predicted_to_kernels":
+                               found["memory"]["peak_bytes"] / kern["peak"]},
+            "op_calls": found["op_calls"], "launches": got,
+            "ms": {"plain": plain["ms"], "kernels": kern["ms"]},
+            "kernels_vs_plain_max_rel_err": keep.get("max_rel_err"),
+            "checks": checks}
+    emit({"phase": "dryrun_vs_real", "gpu": gpu, "arch": cfg.name,
+          "num_layers": DRYRUN_DEPTH, "batch": DRYRUN_B, "seq": DRYRUN_T,
+          "peak_tol": PEAK_TOL, **rows,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_dryrun(torch, gpu, runs) -> dict:
+    """Phase 21: (b) on the card, then (a)'s CLI results. Returns the
+    kernels' launches of (b)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dryrun_vs_real(torch, gpu)
+    dryrun_cli_check(torch, gpu, runs)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7039,6 +7375,8 @@ def run_phases(torch) -> int:
     gpu = gpu_name_and_power()
     phase_build(torch, gpu)
     clock("build")
+    # phase 21 (a): the dry-run CLI runs on the host beside phases 3-20
+    dryrun_runs = dryrun_cli_start(tempfile.mkdtemp(prefix="smoke_dryrun_"))
     launches, snap, main_run = phase_main_path(torch, gpu)
     clock("serve")
     kernel = phase_kernels(torch, gpu, snap)
@@ -7145,6 +7483,9 @@ def run_phases(torch) -> int:
     for err in ("max_abs_err", "max_rel_err"):
         kernel[err] = max(kernel[err], v_serve[err])
     clock("encdec and m-rope")
+    # phase 21: the dry run against a real step on the card, and (a)
+    dr_launches = phase_dryrun(torch, gpu, dryrun_runs)
+    clock("dry run")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's, the
     # T = 4096 path's, deepseek-v3's and granite's BK epilogue's times
@@ -7153,7 +7494,7 @@ def run_phases(torch) -> int:
         k["launches"] = sum(run[k["name"]] for run in (
             train_launches, moe_launches, scale_launches, service_launches,
             mm_launches, d_train_launches, s_launches, l_launches,
-            a_launches, r_launches, v_launches))
+            a_launches, r_launches, v_launches, dr_launches))
         for key, extra in (("moe", moe), ("naive_flat", naive),
                            ("long_context", long), ("mla_train", mla),
                            ("moe_bk", moe_bk), ("dense_train", dense),

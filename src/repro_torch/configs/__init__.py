@@ -1,11 +1,12 @@
 """Architecture registry of the port: every architecture of the
-reference's `repro.configs.ARCH_IDS`, and `tiny`."""
+reference's `repro.configs.ARCH_IDS`, and `tiny`; the workload shapes
+`INPUT_SHAPES` re-exported, as the reference does."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 
 ARCH_IDS = ["deepseek-67b", "deepseek-v3-671b", "granite-moe-3b-a800m",
             "minicpm-2b", "qwen1.5-32b", "qwen2-vl-72b", "qwen3-4b",
@@ -34,5 +35,5 @@ def list_archs() -> list[str]:
     return list(ARCH_IDS)
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config",
-           "list_archs"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig",
+           "get_config", "list_archs"]

@@ -61,8 +61,16 @@ gradient) carry the recurrent families' vectors (Mamba2's conv weight,
 dt bias, decay and skip; RWKV-6's token-shift mixes, decay base and
 bonus). Their BK capture stashes the (B, ...) per-example gradient
 itself, f32.
+
+`LINEAR_CALLS` counts the linears' (`DPLinear`, `DPLinearBlocked`,
+`core.lora.DPLoraLinear`) forwards that join the autograd graph outside a
+backward (so not a checkpointed block's recompute) and their backwards:
+the dry run reads the backward passes of a traced step off them
+(`repro_torch.analysis.graph.backward_passes`).
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -75,6 +83,19 @@ from repro_torch.kernels import backend
 
 def _flat3(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1, x.shape[-1])
+
+
+LINEAR_CALLS: collections.Counter = collections.Counter()
+
+
+def count_linear_forward(ctx) -> None:
+    if any(ctx.needs_input_grad) and \
+            torch._C._current_graph_task_id() == -1:
+        LINEAR_CALLS["forward"] += 1
+
+
+def count_linear_backward() -> None:
+    LINEAR_CALLS["backward"] += 1
 
 
 def _forward_context(ctx, channel):
@@ -96,6 +117,7 @@ class DPLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, b, x, c, channel):
         _forward_context(ctx, channel)
+        count_linear_forward(ctx)
         ctx.has_bias = b is not None
         ctx.save_for_backward(w, x, c)
         y = x @ w
@@ -105,6 +127,7 @@ class DPLinear(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
+        count_linear_backward()
         w, x, c = ctx.saved_tensors
         eng = ctx.engine
         need_n = ctx.needs_input_grad[3]
@@ -143,6 +166,7 @@ class DPLinearBlocked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, b, x, c, block_axis, channel):
         _forward_context(ctx, channel)
+        count_linear_forward(ctx)
         ctx.has_bias = b is not None
         ctx.block_axis = block_axis
         ctx.save_for_backward(w, x, c)
@@ -153,6 +177,7 @@ class DPLinearBlocked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
+        count_linear_backward()
         w, x, c = ctx.saved_tensors
         eng, axis = ctx.engine, ctx.block_axis
         need_n = ctx.needs_input_grad[3]

@@ -269,10 +269,12 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor,
     flat = ids.reshape(-1).long()
     n = flat.shape[0]
     x = values.reshape((n, math.prod(values.shape[1:]))).to(ACC_DTYPE)
-    out = torch.zeros((num_segments, x.shape[1]), dtype=ACC_DTYPE,
+    # one spare row past the end (see below)
+    out = torch.zeros((num_segments + 1, x.shape[1]), dtype=ACC_DTYPE,
                       device=x.device)
     if n == 0:
-        return out.reshape((num_segments,) + values.shape[1:])
+        return out[:num_segments].reshape((num_segments,)
+                                          + values.shape[1:])
     order = torch.sort(flat, stable=True).indices
     seg, x = flat[order], x[order]
     k = 1
@@ -282,8 +284,10 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor,
         k *= 2
     last = torch.ones(n, dtype=torch.bool, device=x.device)
     last[:-1] = seg[1:] != seg[:-1]
-    out[seg[last]] = x[last]
-    return out.reshape((num_segments,) + values.shape[1:])
+    # the other rows go to the spare row, so the write's shape does not
+    # depend on the data (the dry run traces it on fake tensors)
+    out[torch.where(last, seg, num_segments)] = x
+    return out[:num_segments].reshape((num_segments,) + values.shape[1:])
 
 
 def clipped_sum_embed(ids: torch.Tensor, g: torch.Tensor,

@@ -38,6 +38,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bk
+from repro_torch.core.dp_layers import (count_linear_backward,
+                                        count_linear_forward)
 from repro_torch.core.ghost import clip_factor, factor_without_norms
 from repro_torch.core.spec import P, _walk
 from repro_torch.kernels import backend
@@ -63,6 +65,7 @@ class DPLoraLinear(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, w, x, c, channel, alpha):
+        count_linear_forward(ctx)
         ctx.engine = backend.active()
         ctx.channel = channel
         ctx.scale = alpha / a.shape[-1]
@@ -71,6 +74,7 @@ class DPLoraLinear(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
+        count_linear_backward()
         a, b, w, x, c = ctx.saved_tensors
         eng, s = ctx.engine, ctx.scale
         need_n = ctx.needs_input_grad[4]

@@ -23,6 +23,7 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+from torch._guards import active_fake_mode
 
 
 def stable_hash(name: str) -> int:
@@ -103,12 +104,32 @@ def init_params(spec: SpecTree, generator: torch.Generator) -> Any:
 def meta_params(spec: SpecTree) -> Any:
     """The parameter tree's shapes and dtypes on the meta device (no
     memory): a template to restore a checkpoint into."""
+    return abstract_params(spec)
+
+
+def shape_only(shape, dtype: torch.dtype, device="meta") -> torch.Tensor:
+    """A tensor of `shape` and `dtype` that holds no memory: on the meta
+    device, or a fake tensor on `device` inside an active
+    `FakeTensorMode` (the dry run's). Raises rather than allocate."""
+    device = torch.device(device)
+    if device.type != "meta" and active_fake_mode() is None:
+        raise RuntimeError(f"a shape-only tensor on {device} needs an "
+                           f"active FakeTensorMode (or device='meta')")
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def abstract_params(spec: SpecTree, device="meta") -> Any:
+    """One shape-only tensor per leaf of `spec`, in its dtype, keyed as
+    the parameters (the reference's ShapeDtypeStruct tree): on the meta
+    device, or fake tensors on `device` inside a `FakeTensorMode`
+    (`shape_only`). Nothing is allocated, so a full-size model costs
+    nothing."""
     out: dict = {}
     for path, p in _walk(spec):
         node = out
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = torch.empty(p.shape, dtype=p.dtype, device="meta")
+        node[path[-1]] = shape_only(p.shape, p.dtype, device)
     return out
 
 

@@ -81,12 +81,22 @@ and `capture_residuals`: the book-keeping capture pass
 primitives refuse a BK channel from a forward run outside it (a capture
 pass returns no parameter gradients and must never pass for a gradient
 pass). The epilogue's `scale_contract` runs outside it.
+
+Every engine counts its op calls in `OP_CALLS` (the outermost call only:
+`linear_clip`'s own norms and clipped sum are not counted again), and
+`linear_clip` also under `linear_clip[fits]` where the norms are asked
+for and `fused_clip.fits` passes, and `linear_clip[no_norms]` where they
+are not: what the `kernels` engine would launch for the same calls
+(`repro_torch.analysis.graph.kernel_launches`). The dry run reads them
+off a traced step.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import functools
+import threading
 
 import torch
 
@@ -103,9 +113,46 @@ __all__ = [
     "Backend", "PlainBackend", "KernelsBackend", "AutoBackend",
     "register_backend", "backends", "make_engine", "active", "scoped",
     "clip_factor", "choose_linear_path", "choose_op", "candidate",
+    "OPS", "OP_CALLS", "reset_op_calls",
 ]
 
 _REGISTRY: dict[str, type["Backend"]] = {}
+
+# the engine ops (`Backend` methods) that `OP_CALLS` counts
+OPS = ("linear_norms_sq", "linear_norms_sq_blocked", "bias_norms_sq",
+       "embed_norms_sq", "scale_norms_sq", "vector_norms_sq",
+       "clipped_sum_linear", "clipped_sum_linear_blocked",
+       "clipped_sum_bias", "clipped_sum_embed", "clipped_sum_scale",
+       "linear_clip", "scale_contract", "paged_attn")
+OP_CALLS: collections.Counter = collections.Counter()
+_NESTED = threading.local()
+
+
+def reset_op_calls() -> None:
+    OP_CALLS.clear()
+
+
+def _counted(name: str, fn):
+    """`fn`, counting its outermost calls in OP_CALLS."""
+
+    @functools.wraps(fn)
+    def op(self, *args, **kwargs):
+        depth = getattr(_NESTED, "depth", 0)
+        if not depth:
+            OP_CALLS[name] += 1
+            if name == "linear_clip":
+                if not kwargs.get("norms", True):
+                    OP_CALLS["linear_clip[no_norms]"] += 1
+                elif fused_clip_mod.fits(args[0].shape[-1],
+                                         args[1].shape[-1]):
+                    OP_CALLS["linear_clip[fits]"] += 1
+        _NESTED.depth = depth + 1
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            _NESTED.depth = depth
+
+    return op
 
 
 def register_backend(name: str):
@@ -128,6 +175,12 @@ class Backend:
     paths; subclasses override the ops they run as kernels."""
 
     name = "base"
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for op in OPS:
+            if op in cls.__dict__:
+                setattr(cls, op, _counted(op, cls.__dict__[op]))
 
     def __init__(self, *, capture_residuals: bool = False,
                  autotune: bool = True):
@@ -216,6 +269,10 @@ class Backend:
         shapes). Base = its plain version, on any device."""
         return paged_attn_mod.paged_attn_ref(q, kpool, vpool, pt, pos,
                                              scale=scale, dv=dv)
+
+
+for _op in OPS:
+    setattr(Backend, _op, _counted(_op, Backend.__dict__[_op]))
 
 
 @register_backend("plain")

@@ -1,13 +1,48 @@
 """Model inputs: the ragged request sets of serving (a copy of the numpy
 part of `repro.launch.inputs`) and, as in the reference, the only place
 the frontend stubs live: Whisper's precomputed frame embeddings and
-Qwen2-VL's precomputed patch embeddings with their M-RoPE positions."""
+Qwen2-VL's precomputed patch embeddings with their M-RoPE positions.
+
+`sds`, `train_batch_specs` and `serve_batch_specs` are the dry run's
+shape-only inputs (the reference's ShapeDtypeStructs): tensors on the
+meta device, or fake tensors on `device` inside a `FakeTensorMode`."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.spec import shape_only
+
 VLM_PATCHES = 256  # stub vision-token count prepended to the text sequence
+
+
+def sds(shape, dtype, device="meta") -> torch.Tensor:
+    """A shape-only tensor (`core.spec.shape_only`)."""
+    return shape_only(shape, dtype, device)
+
+
+def train_batch_specs(cfg, shape, device="meta") -> dict:
+    """The train (and prefill) batch of `shape` (an `InputShape`), shape
+    only: tokens and targets (B, T) int32, Whisper's frames (B,
+    encoder_seq_len, D) and Qwen2-VL's VLM_PATCHES patch embeddings with
+    their (B, 3, T + VLM_PATCHES) M-RoPE positions, in the model dtype."""
+    b, t = shape.global_batch, shape.seq_len
+    batch = {"tokens": sds((b, t), torch.int32, device),
+             "targets": sds((b, t), torch.int32, device)}
+    if cfg.arch_type == "audio":
+        batch["frames"] = sds((b, cfg.encoder_seq_len, cfg.d_model),
+                              cfg.dtype, device)
+    if cfg.arch_type == "vlm":
+        batch["vision_embeds"] = sds((b, VLM_PATCHES, cfg.d_model),
+                                     cfg.dtype, device)
+        batch["positions3_full"] = sds((b, 3, t + VLM_PATCHES), torch.int32,
+                                       device)
+    return batch
+
+
+def serve_batch_specs(cfg, shape, device="meta") -> dict:
+    """The decode batch of `shape`: one token (B, 1) int32 a slot."""
+    return {"token": sds((shape.global_batch, 1), torch.int32, device)}
 
 
 def pad_ragged_prompts(prompts) -> tuple[np.ndarray, np.ndarray]:

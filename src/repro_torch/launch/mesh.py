@@ -13,7 +13,9 @@ fastest, as `jax.make_mesh` orders its devices: rank = d * M + m on a
 (data, model) mesh.
 
 Every collective appends a `Collective(site, axes, dtype, numel)` to
-the rank's collective log (`Mesh.log`), and `Mesh.trace` keeps the
+the rank's collective log (`Mesh.log`) and its HLO kind name
+(all-reduce, all-gather, collective-permute; broadcast for the host's
+object broadcast) to `Mesh.kinds`, and `Mesh.trace` keeps the
 order of issues, waits and the drivers' marks. They take the place of the
 reference's HLO classifier (`analysis/hlo.py:classify_collectives`,
 `model_axis_norm_collectives`) for the paper's Sec. 4 contract.
@@ -127,6 +129,7 @@ class Mesh:
         self.backend = backend
         self.coords = self._coords(self.rank)
         self.log: list[Collective] = []
+        self.kinds: list[str] = []  # each log entry's HLO kind name
         self.trace: list[str] = []
         # checkpoint directories every rank was found to share
         # (`train.check_shared`)
@@ -206,8 +209,9 @@ class Mesh:
             i = i * self.shape[a] + self.coords[a]
         return i
 
-    def _record(self, site, axes, t):
+    def _record(self, site, axes, t, kind):
         self.log.append(Collective(site, axes, _dtype_name(t), t.numel()))
+        self.kinds.append(kind)
 
     def psum(self, t: torch.Tensor, axes, *, site: str,
              async_op: bool = False):
@@ -216,7 +220,7 @@ class Mesh:
         handle whose `wait()` returns it."""
         axes = self._axes(axes)
         group, _ = self._groups[axes]
-        self._record(site, axes, t)
+        self._record(site, axes, t, "all-reduce")
         label = f"{site}#{len(self.log) - 1}"
         self.trace.append(f"issue {label}")
         if group is None:
@@ -234,7 +238,7 @@ class Mesh:
         along `dim` in axis order."""
         axes = self._axes(axes)
         group, ranks = self._groups[axes]
-        self._record(site, axes, t)
+        self._record(site, axes, t, "all-gather")
         self.trace.append(f"issue {site}#{len(self.log) - 1}")
         if group is None:
             return t.clone()
@@ -258,7 +262,7 @@ class Mesh:
         `axis` (the others equal); returns a handle to `wait()` on, which
         keeps the sent buffer (under gloo, a CUDA tensor's host copy)
         alive."""
-        self._record(site, (axis,), t)
+        self._record(site, (axis,), t, "collective-permute")
         label = f"{site}#{len(self.log) - 1}"
         self.trace.append(f"issue {label}")
         self._sends.append(label)
@@ -275,7 +279,7 @@ class Mesh:
         `from_index` along `axis` (blocking, matched by `tag`); under gloo
         on a card, received into a host buffer and copied to the card."""
         buf = torch.empty(shape, dtype=dtype, device=self.device)
-        self._record(site, (axis,), buf)
+        self._record(site, (axis,), buf, "collective-permute")
         if self.stages(buf):
             host = torch.empty(shape, dtype=dtype)
             dist.recv(host, self._peer(axis, from_index), tag=tag)
@@ -289,6 +293,7 @@ class Mesh:
         ranks take one rank's decision."""
         self.log.append(Collective("object_broadcast", self.axis_names,
                                    "object", 1))
+        self.kinds.append("broadcast")
         if self.size == 1:
             return obj
         box = [obj if self.rank == src else None]
@@ -313,6 +318,7 @@ class Mesh:
 
     def reset_log(self) -> None:
         self.log.clear()
+        self.kinds.clear()
         self.trace.clear()
         self._sends.clear()
 

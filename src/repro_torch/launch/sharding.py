@@ -23,19 +23,26 @@ On a mesh (`launch.mesh`), `params_shardings` gives each parameter leaf a
 weights model-sharded between steps (`shard_tree`, each rank its slice)
 and all-gathers them at step entry (`gather_tree`, site `weight_gather`),
 as the reference's `jit_step` does with its in/out shardings. The sharded
-step computes on replicated weights. The serving and batch placements
-(`serving=True`, `batch_shardings`, `cache_shardings`,
-`opt_state_shardings`) feed only the dry run: ROADMAP A.14.
+step computes on replicated weights.
+
+The serving and batch placements (`params_shardings(serving=True)`,
+`batch_shardings`, `cache_shardings`, `opt_state_shardings`) feed only
+the dry run (`launch.dryrun`), which reads each leaf's per-device bytes
+from them (`placed_bytes`). Their entries may name the data plane (a
+tuple of its axes, as the reference's PartitionSpec entries), which
+`Placement.shard` / `gather` do not move.
 """
 from __future__ import annotations
 
 import fnmatch
+import math
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core.spec import P, _walk
+from repro_torch.launch.mesh import data_axes
 
 # pattern -> (kind, axis); kind: 'dim' shards that axis on model,
 # 'expert' the expert dim, 'replicate' nothing
@@ -154,8 +161,10 @@ def group_shard_assignment(layout, model_size: int) -> tuple[int, ...]:
 
 
 class Placement:
-    """Where a leaf lives between steps on `mesh`: `spec` is the
-    `_spec_for` tuple (() replicated; "model" on at most one dim)."""
+    """Where a leaf lives on `mesh`: `spec` has one entry per leading dim
+    (() replicated), each None, an axis name, or a tuple of axis names
+    the dim is split over (the reference's PartitionSpec entries). A
+    training placement (`_spec_for`) has "model" on at most one dim."""
 
     def __init__(self, mesh, spec: tuple):
         self.mesh = mesh
@@ -169,9 +178,20 @@ class Placement:
     def __repr__(self) -> str:
         return f"Placement({self.mesh.describe()}, {self.spec})"
 
+    def parts(self, i: int) -> int:
+        """The number of pieces dim `i` is split into."""
+        e = self.spec[i] if i < len(self.spec) else None
+        axes = () if e is None else (e,) if isinstance(e, str) else e
+        return math.prod(self.mesh.shape[a] for a in axes)
+
+    def local_shape(self, shape) -> tuple[int, ...]:
+        """A rank's piece of a leaf of global `shape`."""
+        return tuple(-(-n // self.parts(i)) for i, n in enumerate(shape))
+
     def shard(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the global `t` (a copy; `t` itself when
         replicated)."""
+        self._model_only()
         if self.dim is None:
             return t
         m = self.mesh.shape["model"]
@@ -183,25 +203,136 @@ class Placement:
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The global leaf from every model shard's slice (an all-gather
         over the model axis, site `weight_gather`)."""
+        self._model_only()
         if self.dim is None:
             return t
         with torch.no_grad():
             return self.mesh.all_gather(t.detach(), ("model",), self.dim,
                                         site="weight_gather")
 
+    def _model_only(self) -> None:
+        if any(e not in (None, "model") for e in self.spec):
+            raise ValueError(f"{self}: only model-axis placements move "
+                             f"tensors (the others are the dry run's)")
 
-def params_shardings(spec, mesh) -> Any:
+
+def _data_plane(mesh) -> tuple[tuple[str, ...], int]:
+    dp = data_axes(mesh)
+    return dp, math.prod(mesh.shape[a] for a in dp)
+
+
+def params_shardings(spec, mesh, *, serving: bool = False) -> Any:
     """A tree of `Placement`s parallel to the parameters: each leaf's
-    `_spec_for` placement on the mesh's model axis."""
+    `_spec_for` placement on the mesh's model axis. serving=True also
+    splits the largest still unsharded dim of every leaf of 2^20 elements
+    or more over the data plane (the reference's weight-FSDP for a serve
+    step, which has no gradient to all-reduce), where the plane divides
+    it."""
     model_size = mesh.shape["model"]
+    dp, dp_size = _data_plane(mesh)
 
     def walk(node, prefix):
         if isinstance(node, P):
-            return Placement(mesh, _spec_for("/".join(prefix), node,
-                                             model_size))
+            ps = _spec_for("/".join(prefix), node, model_size)
+            if serving and math.prod(node.shape) >= (1 << 20):
+                axes = list(ps) + [None] * (len(node.shape) - len(ps))
+                cands = [(node.shape[i], i) for i in range(len(axes))
+                         if axes[i] is None and node.shape[i] % dp_size == 0]
+                if cands:
+                    axes[max(cands)[1]] = dp
+                    ps = tuple(axes)
+            return Placement(mesh, ps)
         return {k: walk(v, prefix + (k,)) for k, v in node.items()}
 
     return walk(spec, ())
+
+
+def _tree_map(fn, tree) -> Any:
+    """`fn` over the leaves of nested dicts, tuples and NamedTuples."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_tree_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
+            items)
+    return fn(tree)
+
+
+def batch_shardings(batch, mesh) -> Any:
+    """Batch leaves split dim 0 over the data (+ pod) plane where it
+    divides, else replicate."""
+    dp, dp_size = _data_plane(mesh)
+
+    def one(leaf):
+        if leaf.dim() >= 1 and leaf.shape[0] % dp_size == 0:
+            return Placement(mesh, (dp,))
+        return Placement(mesh, ())
+
+    return _tree_map(one, batch)
+
+
+def cache_shardings(cache, mesh) -> Any:
+    """Decode caches, (L, B, S, heads, hd)-style leaves: dim 1 (the batch)
+    over the data plane where it divides, else the sequence dim (2, the
+    long-context batch of one); then the model axis on the last trailing
+    dim from heads down to dim 2 that it divides."""
+    dp, dp_size = _data_plane(mesh)
+    model_size = mesh.shape["model"]
+
+    def one(leaf):
+        nd = leaf.dim()
+        if nd <= 1:
+            return Placement(mesh, ())
+        ax: list = [None] * nd
+        if leaf.shape[1] % dp_size == 0:
+            ax[1] = dp
+        elif nd >= 3 and leaf.shape[2] % dp_size == 0:
+            ax[2] = dp
+        for cand in range(nd - 2, 1, -1):  # prefer the heads
+            if ax[cand] is None and leaf.shape[cand] % model_size == 0 \
+                    and leaf.shape[cand] >= model_size:
+                ax[cand] = "model"
+                break
+        return Placement(mesh, tuple(ax))
+
+    return _tree_map(one, cache)
+
+
+def _same_keys(a, b) -> bool:
+    if isinstance(a, dict) != isinstance(b, dict):
+        return False
+    if not isinstance(a, dict):
+        return True
+    return sorted(a) == sorted(b) and all(_same_keys(a[k], b[k]) for k in a)
+
+
+def opt_state_shardings(opt_state, pshard, mesh) -> Any:
+    """Optimizer state: a field with the parameters' tree (the moments)
+    is placed as they are; the others (the step) replicate."""
+
+    def assign(node):
+        if isinstance(node, dict) and _same_keys(node, pshard):
+            return pshard
+        return replicated(node, mesh)
+
+    if hasattr(opt_state, "_fields"):
+        return type(opt_state)(*[assign(getattr(opt_state, f))
+                                 for f in opt_state._fields])
+    return assign(opt_state)
+
+
+def placed_bytes(tree, placements) -> int:
+    """The bytes a rank holds of the tensors of `tree` placed by
+    `placements` (a parallel tree; a leaf that is no tensor, such as a
+    step count, holds none)."""
+    if isinstance(tree, dict):
+        return sum(placed_bytes(tree[k], placements[k]) for k in tree)
+    if isinstance(tree, tuple):
+        return sum(placed_bytes(t, p) for t, p in zip(tree, placements))
+    if not isinstance(tree, torch.Tensor):
+        return 0
+    return (math.prod(placements.local_shape(tree.shape))
+            * tree.element_size())
 
 
 def replicated(tree, mesh) -> Any:

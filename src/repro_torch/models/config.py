@@ -7,6 +7,9 @@ MTP depth), Mamba2 and RWKV-6 blocks and Zamba2's shared attention block,
 Whisper's encoder-decoder (`encoder_layers`, `encoder_seq_len`, the
 sinusoidal table's `max_seq_len`) and Qwen2-VL's M-RoPE (`m_rope`,
 `m_rope_sections`). `dtype` is a torch dtype.
+
+`InputShape` and `INPUT_SHAPES` are the reference's four workload shapes,
+which the dry run (`launch.dryrun`) builds its inputs from.
 """
 from __future__ import annotations
 
@@ -143,3 +146,21 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: dp_blocks={m} must divide the qkv output "
                 f"width {qkv} and the o output width {self.d_model}")
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned workload shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -309,6 +309,17 @@ class Model:
     def cache_slot_axes(cache) -> dict:
         return cache_slot_axes(cache)
 
+    def abstract_cache(self, batch_size: int, cache_len: int) -> dict:
+        """The shape-only `init_cache(batch_size, cache_len)` of every
+        family (the reference's `jax.eval_shape` of it): meta tensors of
+        its shapes and dtypes, made under a `FakeTensorMode` (nothing is
+        allocated on the model's device)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            cache = self.init_cache(batch_size, cache_len)
+        return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in cache.items()}
+
 
 def build_model(cfg: ModelConfig, *, rwkv_formulation: str = "scan",
                 device: str | torch.device = "cuda") -> Model:

@@ -50,7 +50,9 @@ def test_port_package_is_scanned():
                  "launch/sharding.py", "launch/train.py",
                  "launch/service.py", "checkpoint/store.py",
                  "checkpoint/packer.py", "launch/mesh.py",
-                 "core/pipeline.py", "core/lora.py", "launch/swap.py"):
+                 "core/pipeline.py", "core/lora.py", "launch/swap.py",
+                 "analysis/__init__.py", "analysis/graph.py",
+                 "launch/dryrun.py"):
         assert f"src/repro_torch/{name}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
@@ -208,3 +210,15 @@ def test_importing_the_port_builds_nothing():
                                     "ghost_norm_blocked", "clip_reduce",
                                     "scale_contract", "fused_norm_clip"}
     assert set(_build.sources()) == set(launch_counts())
+
+
+def test_dryrun_cli_defaults_to_cuda_and_raises_without_it():
+    from repro_torch.launch import dryrun
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    assert dryrun.build_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--arch", "qwen3-4b", "--shape", "train_4k"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_one("qwen3-4b", "train_4k", "debug", debug=True,
+                       save=False)
