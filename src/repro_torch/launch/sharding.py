@@ -229,7 +229,7 @@ def params_shardings(spec, mesh, *, serving: bool = False) -> Any:
     step, which has no gradient to all-reduce), where the plane divides
     it."""
     model_size = mesh.shape["model"]
-    dp, dp_size = _data_plane(mesh)
+    dp, dp_size = _data_plane(mesh) if serving else ((), 1)
 
     def walk(node, prefix):
         if isinstance(node, P):
