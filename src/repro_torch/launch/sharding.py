@@ -338,13 +338,7 @@ def placed_bytes(tree, placements) -> int:
 def replicated(tree, mesh) -> Any:
     """A replicated `Placement` for every leaf of `tree` (dicts, tuples
     and NamedTuples)."""
-    if isinstance(tree, dict):
-        return {k: replicated(v, mesh) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        items = [replicated(v, mesh) for v in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
-            items)
-    return Placement(mesh, ())
+    return _tree_map(lambda _: Placement(mesh, ()), tree)
 
 
 def _map2(fn, tree, placements):

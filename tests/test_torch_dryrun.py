@@ -11,8 +11,8 @@ package's, piece by piece, on the CPU: the reference's own dry run forces
   `jax.eval_shape` (nothing allocated on either side);
 * the placements (`params_shardings` with and without `serving`,
   `batch_shardings`, `cache_shardings`, `opt_state_shardings`) against
-  the reference's on a device-free `AbstractMesh` of the production
-  shape, and `_spec_for` at `tests/test_launch.py`'s cases;
+  the reference's on a device-free `AbstractMesh` of both production
+  shapes, and `_spec_for` at `tests/test_launch.py`'s cases;
 * the traced step's optimizer and DP state shapes against the
   reference's `jax.eval_shape(init_fn, ...)` (tiny, per_layer and
   ghost_flat by BK);
@@ -50,6 +50,7 @@ from repro.launch import inputs as JI
 from repro.launch import sharding as JS
 from repro.models.config import INPUT_SHAPES as JAX_SHAPES
 from repro.models.transformer import build_model as jax_build_model
+from repro_torch import optim
 from repro_torch.analysis import graph
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.core.spec import P, abstract_params, tree_leaves
@@ -208,6 +209,18 @@ def test_placements_match_the_reference(arch):
                 got = S.cache_shardings(model.abstract_cache(b, t), mesh)
                 want = JS.cache_shardings(jmodel.abstract_cache(b, t), jm)
                 assert _specs(got) == _jspecs(want)
+            # Adam's moments placed as their weights, the step replicated
+            opt = optim.adam(1e-4).init(abstract_params(model.spec))
+            jopt = jax.eval_shape(joptim.adam(1e-4).init,
+                                  jax_abstract_params(jmodel.spec))
+            got = S.opt_state_shardings(
+                opt, S.params_shardings(model.spec, mesh), mesh)
+            want = JS.opt_state_shardings(
+                jopt, JS.params_shardings(jmodel.spec, jm), jm)
+            assert got._fields == want._fields
+            assert _norm_spec(got.step.spec) == _norm_spec(want.step.spec)
+            for f in ("mu", "nu"):
+                assert _specs(getattr(got, f)) == _jspecs(getattr(want, f))
 
 
 def _flat_pl(tree, prefix=""):
