@@ -572,6 +572,25 @@ exits non-zero:
               engine op calls predict, its clipped grads, norms² and
               loss within TRAIN_RTOL / TRAIN_ATOL_FRAC of plain's, and
               its own peak beside the prediction.
+ 22 audit     `launch.audit`, the reference's static DP-safety audit: a
+              taint pass (`analysis.taint`) and the trace rules
+              (`analysis.rules`) over the real step run on meta tensors
+              in the plain engine. (a) started after phase 1 beside
+              phases 3-21 (host work, one thread a process at nice 19),
+              each within AUDIT_CLI_TIMEOUT_S of its start: `--selftest
+              --matrix --device cuda` (the 11 tiny configs green, the
+              sharded half over a fake 2x4 group included, each of the 5
+              seeded violations tripping exactly its rule) and qwen3-4b's
+              per_layer and ghost_flat-bk configs at full width and
+              depth, green over every trainable leaf.
+              (b) the taint pass and the rules over phase 21 (b)'s
+              traced step, per_layer and ghost_flat by BK: zero ERROR,
+              the audited leaves the model's trainable leaves, the
+              engine op calls equal to those of phase 21 (b)'s kernels
+              step on the card and the launches they predict equal to
+              its launches. (c) phase 21 (a)'s train_4k runs with
+              `--audit --sharded`: zero ERROR, one backward traversal,
+              zero model-axis norm collectives (per_layer). One line.
 
 Phase 1 enables the build cache (`launch.compile_cache`, <repo>/.cache):
 each kernel source builds once a run, and every CLI subprocess after it
@@ -7081,11 +7100,14 @@ def dryrun_cli_start(work: str) -> list:
         with open(log, "w") as f:
             # at the lowest priority: the host-bound phases beside it keep
             # their cores
+            # phase 22 (c): the static audit's trace rules on each train
+            # step (`--audit`, the Sec. 4 contract with `--sharded`)
             proc = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
                  "--arch", arch, "--shape", shape, "--mesh", "single",
-                 "--out", out], stdout=f, stderr=subprocess.STDOUT,
-                env=env, cwd=ROOT, preexec_fn=lambda: os.nice(19))
+                 "--audit", "--sharded", "--out", out], stdout=f,
+                stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                preexec_fn=lambda: os.nice(19))
         runs.append({"arch": arch, "shape": shape, "out": out, "log": log,
                      "proc": proc, "t0": time.perf_counter()})
 
@@ -7162,6 +7184,8 @@ def dryrun_cli_check(torch, gpu, runs) -> dict:
             "collectives": res["collectives"],
             "backward_passes": res["backward_passes"],
             "kernel_launches": res["kernel_launches"],
+            "audit": res["audit"],
+            "collectives_by_axis": res["collectives_by_axis"],
             "line": log.strip().splitlines()[-1]}
     emit({"phase": "dryrun_cli", "gpu": gpu, "mesh": "single",
           "device": "cuda", **out})
@@ -7178,7 +7202,7 @@ def dryrun_real_step(torch, cfg, mode, execution, backend_name, keep):
     allocates nothing for them); on the kernels run, the hook holds them
     to those within TRAIN_RTOL / TRAIN_ATOL_FRAC."""
     from repro_torch.core.spec import tree_leaves
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import backend, launch_counts, reset_launch_counts
     from repro_torch.launch import dryrun
     from repro_torch.launch.inputs import concrete_train_batch
     from repro_torch.launch.mesh import Mesh
@@ -7240,6 +7264,7 @@ def dryrun_real_step(torch, cfg, mode, execution, backend_name, keep):
     other = torch.cuda.memory_allocated() - held
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    backend.reset_op_calls()
     flops = torch.utils.flop_counter.FlopCounterMode(display=False)
     t0 = time.perf_counter()
     with flops if backend_name == "plain" else contextlib.nullcontext():
@@ -7248,6 +7273,7 @@ def dryrun_real_step(torch, cfg, mode, execution, backend_name, keep):
     ms = 1e3 * (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() - other
     counts = launch_counts()
+    op_calls = dict(backend.OP_CALLS)
     if not math.isfinite(float(out[3].loss)):
         raise RuntimeError(f"dry run (b) {mode} {backend_name}: loss "
                            f"{float(out[3].loss)}")
@@ -7256,6 +7282,7 @@ def dryrun_real_step(torch, cfg, mode, execution, backend_name, keep):
     gc.collect()
     torch.cuda.empty_cache()
     return {"sizes": sizes, "peak": peak, "ms": ms, "counts": counts,
+            "op_calls": op_calls,
             "flops": flops.get_total_flops() if backend_name == "plain"
             else None}
 
@@ -7280,7 +7307,8 @@ def dryrun_vs_real(torch, gpu) -> dict:
     (4) the kernels step's launches equal the launches the traced op
     calls predict, (5) its clipped grads, norms² and loss within
     TRAIN_RTOL / TRAIN_ATOL_FRAC of plain's, (6) its own peak printed.
-    Returns the kernels' launches."""
+    Returns the kernels' launches and each variant's kernels step
+    (engine op calls, launches) for phase 22 (b)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import backend
@@ -7294,7 +7322,7 @@ def dryrun_vs_real(torch, gpu) -> dict:
                               dtype=torch.float32)
     shape = InputShape("card", DRYRUN_T, DRYRUN_B, "train")
     launches = dict.fromkeys(TRAIN_KERNELS, 0)
-    rows = {}
+    rows, real = {}, {}
     for label, mode, execution in DRYRUN_VARIANTS:
         t0 = time.perf_counter()
         with dryrun.fake_mesh({"data": 1, "model": 1}, "meta") as mesh, \
@@ -7328,6 +7356,7 @@ def dryrun_vs_real(torch, gpu) -> dict:
                 f"{plain['counts']}")
         for k in launches:
             launches[k] += kern["counts"][k]
+        real[label] = {"op_calls": kern["op_calls"], "counts": got}
         rows[label] = {
             "trace_s": trace_s, "trace_only_s": found["trace_s"],
             "argument_bytes": found["memory"]["argument_bytes"],
@@ -7346,17 +7375,234 @@ def dryrun_vs_real(torch, gpu) -> dict:
           "num_layers": DRYRUN_DEPTH, "batch": DRYRUN_B, "seq": DRYRUN_T,
           "peak_tol": PEAK_TOL, **rows,
           "seconds": time.perf_counter() - t_phase})
-    return launches
+    return launches, real
 
 
-def phase_dryrun(torch, gpu, runs) -> dict:
+def phase_dryrun(torch, gpu, runs):
     """Phase 21: (b) on the card, then (a)'s CLI results. Returns the
-    kernels' launches of (b)."""
+    kernels' launches of (b), its kernels steps (`dryrun_vs_real`) and
+    (a)'s results."""
     gc.collect()
     torch.cuda.empty_cache()
-    launches = dryrun_vs_real(torch, gpu)
-    dryrun_cli_check(torch, gpu, runs)
-    return launches
+    launches, real = dryrun_vs_real(torch, gpu)
+    cli = dryrun_cli_check(torch, gpu, runs)
+    return launches, real, cli
+
+
+# phase 22: the static DP-safety audit (launch.audit): (a) its CLI, the
+# selftest and the tiny matrix and qwen3-4b's per_layer and ghost_flat-bk
+# configs at full width, started after phase 1 beside phases 3-20 (host
+# work: meta tensors, one thread a process, nice 19), (b) the taint pass
+# over phase 21 (b)'s traced step against that step on the card, (c)
+# phase 21 (a)'s train_4k with --audit
+AUDIT_CLI_TIMEOUT_S = 900  # from its start, beside phases 3-21
+AUDIT_QWEN = (("per_layer", "bk"), ("ghost_flat", "bk"))
+
+
+def audit_cli_start(work: str) -> list:
+    """(a): `python -m repro_torch.launch.audit --selftest --matrix
+    --device cuda` and one `--arch qwen3-4b --mode M --execution E` run a
+    config of AUDIT_QWEN, each a subprocess with one intra-op thread at
+    the lowest priority, its report under `work`; returns the running
+    processes (stopped at exit)."""
+    import atexit
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    jobs = [("matrix", ["--selftest", "--matrix"])] + [
+        (f"qwen3-4b_{mode}_{ex}", ["--arch", "qwen3-4b", "--mode", mode,
+                                   "--execution", ex])
+        for mode, ex in AUDIT_QWEN]
+    runs = []
+    for name, argv in jobs:
+        out = os.path.join(work, f"{name}.json")
+        log = os.path.join(work, f"{name}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.audit"] + argv
+                + ["--device", "cuda", "--out", out], stdout=f,
+                stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                preexec_fn=lambda: os.nice(19))
+        runs.append({"name": name, "out": out, "log": log, "proc": proc,
+                     "t0": time.perf_counter()})
+
+    def stop():
+        for r in runs:
+            if r["proc"].poll() is None:
+                r["proc"].kill()
+                r["proc"].wait(10)
+    atexit.register(stop)
+    return runs
+
+
+def audit_cli_check(runs) -> dict:
+    """(a)'s results: each run exits 0 within AUDIT_CLI_TIMEOUT_S of its
+    start; the matrix's 11 configs green, the sharded half included, and
+    each of the 5 mutations tripping exactly its rule ("[selftest ok]");
+    qwen3-4b's configs green over every trainable leaf of the model. Its
+    line: each run's seconds and what it found."""
+    from repro_torch.launch.audit import MATRIX, MUTATIONS
+    out = {}
+    for r in runs:
+        t_wait = time.perf_counter()
+        left = AUDIT_CLI_TIMEOUT_S - (t_wait - r["t0"])
+        try:
+            code = r["proc"].wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            r["proc"].kill()
+            raise RuntimeError(f"audit {r['name']}: not done within "
+                               f"{AUDIT_CLI_TIMEOUT_S} s")
+        waited = time.perf_counter() - t_wait
+        with open(r["log"]) as f:
+            log = f.read()
+        if code:
+            raise RuntimeError(f"audit {r['name']} exited {code}:\n"
+                               f"{log[-3000:]}")
+        with open(r["out"]) as f:
+            rep = json.load(f)
+        configs = [(c["mode"], c["execution"], c["sharded"])
+                   for c in rep["configs"]]
+        green = all(c["status"] == "ok" for c in rep["configs"])
+        ok = rep["num_errors"] == 0 and green
+        if r["name"] == "matrix":
+            tripped = [m for m in MUTATIONS
+                       if f"[selftest ok] {m:16s} -> {MUTATIONS[m]}" in log]
+            ok = ok and configs == list(MATRIX) and \
+                tripped == list(MUTATIONS)
+        else:
+            from repro_torch.analysis.taint import leaf_name
+            from repro_torch.configs import get_config
+            from repro_torch.core.spec import _walk
+            from repro_torch.models.transformer import build_model
+            model = build_model(get_config("qwen3-4b"), device="meta")
+            want = [leaf_name(p) for p, _ in _walk(model.dp_spec)]
+            ok = ok and rep["configs"][0]["audited_leaves"] == want
+        if not ok:
+            raise RuntimeError(f"audit {r['name']}: {log[-3000:]}")
+        out[r["name"]] = {
+            "waited_s": waited,
+            "seconds": {f"{c['mode']}/{c['execution']}/"
+                        f"{'sharded' if c['sharded'] else 'unsharded'}":
+                        c["elapsed_s"] for c in rep["configs"]},
+            "configs": len(configs), "num_errors": rep["num_errors"],
+            "findings": sum(len(c["findings"]) for c in rep["configs"]),
+            "leaves": len(rep["configs"][0]["audited_leaves"]),
+            "ops": [c["ops"] for c in rep["configs"]]}
+        if r["name"] == "matrix":
+            out[r["name"]]["mutations"] = tripped
+    return out
+
+
+def audit_vs_real(torch, real) -> dict:
+    """(b): the taint pass (`analysis.taint.trace_step`) and the trace
+    rules over phase 21 (b)'s traced step (qwen3-4b at full width in f32,
+    DRYRUN_DEPTH of 36 layers, B = 8, T = 256, per_layer and ghost_flat
+    by BK on a 1x1 mesh, meta tensors, the plain engine): zero ERROR, the
+    audited leaves the model's trainable leaves, its engine op calls
+    equal to those of the same step run on the card under `kernels`
+    (phase 21's, `real`), and the launches they predict
+    (`graph.kernel_launches`) equal to the launches the card made."""
+    import dataclasses
+    from repro_torch.analysis import graph, taint
+    from repro_torch.analysis.findings import ERROR
+    from repro_torch.analysis.rules import (StepExpectation, TracedStep,
+                                            run_trace_rules)
+    from repro_torch.configs import get_config
+    from repro_torch.core.spec import tree_leaves
+    from repro_torch.kernels import backend
+    from repro_torch.launch import audit, dryrun
+    from repro_torch.models.config import InputShape
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=DRYRUN_DEPTH,
+                              dtype=torch.float32)
+    shape = InputShape("card", DRYRUN_T, DRYRUN_B, "train")
+    rows = {}
+    for label, mode, execution in DRYRUN_VARIANTS:
+        t0 = time.perf_counter()
+        with dryrun.fake_mesh({"data": 1, "model": 1}, "meta") as mesh, \
+                backend.scoped("plain"):
+            trace, model, _ = dryrun.build_train_trace(
+                "qwen3-4b", "train_4k", mesh, clipping=mode,
+                execution=execution, microbatches=1, cfg=cfg, shape=shape)
+            totals, res = graph.analyze_step(
+                lambda *a: taint.trace_step(
+                    trace.fn, a, trainable_key=model.trainable_key),
+                *trace.args, mesh=mesh, device="cuda")
+            traced = TracedStep(
+                totals, loss_calls=trace.loss_calls[0], microbatches=1,
+                state=audit.written_in_place(trace.args[:2], res.out[:2]))
+            expect = StepExpectation(
+                mode=mode, execution=execution, layer_trip=DRYRUN_DEPTH,
+                donated_leaves=len(traced.state))
+            found = list(res.findings) + run_trace_rules(traced, expect)
+        want_leaves = [taint.leaf_name(p) for p, _ in tree_leaves(
+            trace.args[0] if model.trainable_key is None
+            else trace.args[0][model.trainable_key])]
+        predicted = graph.kernel_launches(totals.op_calls)
+        errs = [f for f in found if f.severity == ERROR]
+        checks = {"errors": not errs,
+                  "leaves": res.leaves == want_leaves,
+                  "op_calls": totals.op_calls == real[label]["op_calls"],
+                  "launches": {k: predicted[k] for k in real[label]["counts"]}
+                  == real[label]["counts"]}
+        if not all(checks.values()):
+            raise RuntimeError(
+                f"audit (b) {label}: {checks}; errors {errs[:4]}, op calls "
+                f"{totals.op_calls} vs the card's {real[label]['op_calls']}, "
+                f"launches {predicted} vs {real[label]['counts']}")
+        rows[label] = {"seconds": time.perf_counter() - t0,
+                       "leaves": len(res.leaves), "draws": len(res.draws),
+                       "ops": res.ops, "findings": len(found),
+                       "info": sorted({f.rule for f in found}),
+                       "op_calls": totals.op_calls,
+                       "launches": real[label]["counts"], "checks": checks}
+    return rows
+
+
+def scope_cost_us(calls: int = 200_000) -> dict:
+    """The scope marker's host cost (`core.scopes.scoped`, as on
+    `ghost.clip_factor` and the clipping factors): µs a call of a marked
+    no-op against the bare no-op, over `calls` calls each."""
+    from repro_torch.core import scopes
+
+    def noop():
+        return None
+
+    def per_call(fn) -> float:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return 1e6 * (time.perf_counter() - t0) / calls
+
+    bare = per_call(noop)
+    marked = per_call(scopes.scoped(scopes.CLIP_SCOPE)(noop))
+    return {"bare_us": bare, "marked_us": marked,
+            "overhead_us": marked - bare, "calls": calls}
+
+
+def phase_audit(torch, gpu, runs, real, dryrun_cli) -> None:
+    """Phase 22: (b) in the foreground, then (c) phase 21 (a)'s train_4k
+    audit (zero ERROR, HLO-BWD-COUNT INFO 1, zero model-axis norm
+    collectives for per_layer), then (a)'s CLI results; one line, with
+    the scope marker's host cost (`scope_cost_us`)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    vs_real = audit_vs_real(torch, real)
+    fg_s = time.perf_counter() - t0
+    train = dryrun_cli["train_4k"]
+    aud = train["audit"] or {}
+    info = {f["rule"]: f["message"] for f in aud.get("findings", [])
+            if f["severity"] == "INFO"}
+    c_ok = (aud.get("num_errors") == 0
+            and info.get("HLO-BWD-COUNT", "").startswith("1 backward")
+            and info.get("HLO-COLL-LEAK")
+            == "zero model-axis norm collectives"
+            and train["collectives_by_axis"]["model_axis_norm_count"] == 0)
+    if not c_ok:
+        raise RuntimeError(f"audit (c): train_4k's --audit {aud}")
+    cli = audit_cli_check(runs)
+    emit({"phase": "audit", "gpu": gpu, "vs_real": vs_real,
+          "train_4k_audit": aud, "cli": cli, "foreground_s": fg_s,
+          "scope": scope_cost_us(),
+          "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> int:
@@ -7388,6 +7634,8 @@ def run_phases(torch) -> int:
     clock("build")
     # phase 21 (a): the dry-run CLI runs on the host beside phases 3-20
     dryrun_runs = dryrun_cli_start(tempfile.mkdtemp(prefix="smoke_dryrun_"))
+    # phase 22 (a): the audit CLI too
+    audit_runs = audit_cli_start(tempfile.mkdtemp(prefix="smoke_audit_"))
     launches, snap, main_run = phase_main_path(torch, gpu)
     clock("serve")
     kernel = phase_kernels(torch, gpu, snap)
@@ -7495,8 +7743,11 @@ def run_phases(torch) -> int:
         kernel[err] = max(kernel[err], v_serve[err])
     clock("encdec and m-rope")
     # phase 21: the dry run against a real step on the card, and (a)
-    dr_launches = phase_dryrun(torch, gpu, dryrun_runs)
+    dr_launches, dr_real, dr_cli = phase_dryrun(torch, gpu, dryrun_runs)
     clock("dry run")
+    # phase 22: the static DP-safety audit over phase 21's traced step
+    phase_audit(torch, gpu, audit_runs, dr_real, dr_cli)
+    clock("audit")
     # the training kernels' launches over every training path; the worst
     # error over every path's inputs, granite's, naive_flat's, the
     # T = 4096 path's, deepseek-v3's and granite's BK epilogue's times

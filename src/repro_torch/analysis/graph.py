@@ -29,7 +29,13 @@ eagerly, on meta tensors (shapes and dtypes, no memory), and
                 would launch for the same step;
   linear_calls  the DP linears' forwards and backwards
                 (`core.dp_layers.LINEAR_CALLS`), read by
-                `backward_passes`.
+                `backward_passes`;
+  dynamic_shapes  the ops whose output shape depends on values
+                (`dynamic_shape`: nonzero, masked_select, unique, a
+                boolean index, repeat_interleave by a tensor), each
+                recorded before it runs, so that a meta trace that then
+                fails still reports it (the static audit's
+                HLO-SHAPE-STABLE, `analysis.rules`).
 
 A row of `classify_collectives` takes its axes from the process group the
 collective ran over (the log's entry), not from parsed replica groups.
@@ -62,6 +68,7 @@ class Totals:
     peak_bytes: int | None = None
     op_calls: dict = dataclasses.field(default_factory=dict)
     linear_calls: dict = dataclasses.field(default_factory=dict)
+    dynamic_shapes: list = dataclasses.field(default_factory=list)
 
 
 def leaf_tensors(tree) -> list[torch.Tensor]:
@@ -74,6 +81,27 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 _CUDA_BLOCK = 512  # the caching allocator's smallest block, bytes
+
+# overloads whose output shape depends on their inputs' values
+_DYNAMIC = ("nonzero.default", "masked_select.default", "_unique.default",
+            "_unique2.default", "unique_dim.default",
+            "unique_consecutive.default", "unique_dim_consecutive.default",
+            "repeat_interleave.Tensor", "repeat_interleave.self_Tensor",
+            "argwhere.default")
+
+
+def dynamic_shape(func, args) -> bool:
+    """Whether `func(*args)`'s output shape depends on values: the
+    `_DYNAMIC` overloads and an index by a boolean tensor. (An int
+    `repeat_interleave` reaches the dispatcher as expand and view ops.)"""
+    name = func.__name__
+    if name in _DYNAMIC:
+        return True
+    if name == "index.Tensor" and len(args) > 1:
+        return any(isinstance(i, torch.Tensor)
+                   and i.dtype in (torch.bool, torch.uint8)
+                   for i in args[1] if i is not None)
+    return False
 
 
 class StepMeter(TorchDispatchMode):
@@ -95,6 +123,7 @@ class StepMeter(TorchDispatchMode):
         self.bytes = 0
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.dynamic_shapes: list[tuple[str, str]] = []
 
     def _freed(self, key: int, nbytes: int):
         def done(_ref):
@@ -117,6 +146,9 @@ class StepMeter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if dynamic_shape(func, args):
+            self.dynamic_shapes.append((func.__name__, str(
+                [tuple(t.shape) for t in leaf_tensors(args)])))
         out = func(*args, **kwargs)
         formula = self._formulas.get(func.overloadpacket)
         if formula is not None:
@@ -197,19 +229,32 @@ def analyze_step(fn: Callable, *args, mesh=None, device="cpu"
     the memory from the start, so `peak_bytes` includes the inputs.
     `device`: the device whose allocator the peak models (cuda rounds
     each storage to 512 bytes). Run it on meta tensors (the dry run's) to
-    allocate nothing, or on real tensors to read the same counts."""
+    allocate nothing, or on real tensors to read the same counts. An
+    exception `fn` raises carries the Totals read up to it
+    (`partial_totals`)."""
     backend.reset_op_calls()
     dp_layers.LINEAR_CALLS.clear()
     if mesh is not None:
         mesh.reset_log()
     meter = StepMeter(device)
     meter.track(leaf_tensors(args))
-    with meter:
-        out = fn(*args)
-    totals = Totals(flops=float(meter.flops), bytes=float(meter.bytes),
-                    peak_bytes=int(meter.peak_bytes),
-                    op_calls=dict(backend.OP_CALLS),
-                    linear_calls=dict(dp_layers.LINEAR_CALLS))
+
+    def read() -> Totals:
+        return Totals(flops=float(meter.flops), bytes=float(meter.bytes),
+                      peak_bytes=int(meter.peak_bytes),
+                      op_calls=dict(backend.OP_CALLS),
+                      linear_calls=dict(dp_layers.LINEAR_CALLS),
+                      dynamic_shapes=list(meter.dynamic_shapes))
+
+    try:
+        with meter:
+            out = fn(*args)
+    except Exception as e:
+        # what was read up to the failure (a data-dependent shape cannot
+        # run on meta tensors): the audit reports it
+        e.partial_totals = read()
+        raise
+    totals = read()
     if mesh is not None:
         totals.collectives = collectives_by_kind(classify_collectives(mesh))
     return totals, out

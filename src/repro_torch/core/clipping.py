@@ -79,6 +79,7 @@ import torch
 from repro_torch.core import bk
 from repro_torch.core.ghost import segment_sum
 from repro_torch.core.quantile import clip_counts
+from repro_torch.core.scopes import CLIP_SCOPE, scoped
 from repro_torch.core.spec import P, GroupLayout, _walk, tree_leaves
 from repro_torch.optim.optimizers import slices
 
@@ -116,18 +117,24 @@ def _rebuild(paths, values) -> dict:
     return out
 
 
+@scoped(CLIP_SCOPE)
 def group_clip_factors(norms_sq_groups: torch.Tensor,
                        c: torch.Tensor) -> torch.Tensor:
     """min(1, C_g / ||g_g^(i)||) with 0-norm safety: (G, B) from (G, B)
-    norms² and (G,) thresholds, f32."""
+    norms² and (G,) thresholds, f32. Marked `dp_clip_factor` for the
+    static audit (`analysis.taint`), as `flat_clip_factors`."""
     norm = torch.sqrt(norms_sq_groups.float() + 1e-12)
     return torch.clamp(c.float()[:, None] / norm, max=1.0)
 
 
+@scoped(CLIP_SCOPE)
 def flat_clip_factors(total_norms_sq: torch.Tensor,
                       c: float | torch.Tensor) -> torch.Tensor:
     """min(1, C / ||g^(i)||): the flat-clipping per-example factor, (B,)
-    f32."""
+    f32. The one marked implementation that ghost_flat, naive_flat and
+    sharded clipping share: the static audit (`analysis.taint`) proves the
+    clip by its `dp_clip_factor` scope, so no call site derives the factor
+    inline."""
     c = torch.as_tensor(c, dtype=torch.float32, device=total_norms_sq.device)
     return torch.clamp(c / torch.sqrt(total_norms_sq.float() + 1e-12),
                        max=1.0)

@@ -54,6 +54,7 @@ from repro_torch.core.clipping import (ClipResult, LossFn,
 from repro_torch.core.quantile import (QuantileState, clip_counts,
                                        init_quantile_state,
                                        update_thresholds)
+from repro_torch.core.scopes import NOISE_SCOPE, named_scope
 from repro_torch.core.spec import (GroupLayout, SpecTree, _walk, stable_hash,
                                    tree_leaves)
 from repro_torch.kernels import backend as ghost_backend
@@ -232,6 +233,33 @@ def standard_normal(path: str, shape: tuple[int, ...], rows: slice,
                        device=gen.device)
 
 
+def _noise_leaf(layout, grads, stds, seed, step, path, p) -> None:
+    """One leaf of `add_noise_to_grads`, in place."""
+    g = grads
+    for k in path:
+        g = g[k]
+    grp = layout.group_of_leaf(path)
+    name = "/".join(path)
+    std = stds[grp.offset: grp.offset + grp.count].reshape(
+        grp.stack_shape)
+    gen = generator(g.device, seed, step, stable_hash(name))
+    start = 0
+    for part in slices(g):
+        rows = slice(start, start + (part.shape[0] if g.dim() else 1))
+        z = standard_normal(name, tuple(part.shape), rows, gen)
+        s = std[rows] if p.stack else std  # per-layer std: stack axis
+        if p.blocks > 1:  # per column block of the last axis
+            m = p.blocks
+            s = s.reshape(s.shape[:-1] + (1,) * (part.dim() - p.stack
+                                                 - 1) + (m, 1))
+            z = (z.reshape(part.shape[:-1] + (m, -1)) * s).reshape(
+                part.shape)
+        else:
+            z = z * s.reshape(s.shape + (1,) * (part.dim() - s.dim()))
+        part.copy_((part.float() + z).to(part.dtype))
+        start = rows.stop
+
+
 def add_noise_to_grads(spec: SpecTree, layout: GroupLayout, grads: Any,
                        stds: torch.Tensor, seed: int, step: int) -> Any:
     """grads + N(0, std_k²) IN PLACE, with the std of each leaf's group
@@ -243,29 +271,10 @@ def add_noise_to_grads(spec: SpecTree, layout: GroupLayout, grads: Any,
     leaf draws what an unblocked leaf of its shape draws. Returns
     `grads`."""
     for path, p in _walk(spec):
-        g = grads
-        for k in path:
-            g = g[k]
-        grp = layout.group_of_leaf(path)
-        name = "/".join(path)
-        std = stds[grp.offset: grp.offset + grp.count].reshape(
-            grp.stack_shape)
-        gen = generator(g.device, seed, step, stable_hash(name))
-        start = 0
-        for part in slices(g):
-            rows = slice(start, start + (part.shape[0] if g.dim() else 1))
-            z = standard_normal(name, tuple(part.shape), rows, gen)
-            s = std[rows] if p.stack else std  # per-layer std: stack axis
-            if p.blocks > 1:  # per column block of the last axis
-                m = p.blocks
-                s = s.reshape(s.shape[:-1] + (1,) * (part.dim() - p.stack
-                                                     - 1) + (m, 1))
-                z = (z.reshape(part.shape[:-1] + (m, -1)) * s).reshape(
-                    part.shape)
-            else:
-                z = z * s.reshape(s.shape + (1,) * (part.dim() - s.dim()))
-            part.copy_((part.float() + z).to(part.dtype))
-            start = rows.stop
+        # dp_noise_add:<leaf> marks this leaf's draw and add for the static
+        # audit (`analysis.taint`); '.'-joined, as the reference names it
+        with named_scope(NOISE_SCOPE + ".".join(path)):
+            _noise_leaf(layout, grads, stds, seed, step, path, p)
     return grads
 
 

@@ -26,6 +26,8 @@ import math
 
 import torch
 
+from repro_torch.core.scopes import CLIP_SCOPE, scoped
+
 ACC_DTYPE = torch.float32
 
 DEFAULT_OUTER_MAX_ELEMS = 1 << 22  # per-example materialized grad cap
@@ -51,13 +53,16 @@ def outer_path_cost(t: int, din: int, dout: int) -> int:
     return t * din * dout + din * dout
 
 
+@scoped(CLIP_SCOPE)
 def clip_factor(c: torch.Tensor, norms_sq: torch.Tensor) -> torch.Tensor:
     """Per-example clip factor from encoded thresholds (f32):
 
         c > 0     -> min(1, c / ||g_i||)   (clip to threshold)
         c == +inf -> 1                     (no clipping)
         c < 0     -> |c|                   (direct scale, two-pass modes)
-    """
+
+    Marked `dp_clip_factor` for the static audit (`analysis.taint`): the
+    norms are consumed here, what leaves is a bounded factor."""
     c = c.float()
     n = norms_sq.float()
     clipped = torch.clamp(c * torch.rsqrt(n + _EPS), max=1.0)

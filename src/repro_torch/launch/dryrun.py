@@ -49,9 +49,13 @@ Usage:
 
 `--device` is the device the step is sized for: cuda (the default; it
 raises without a CUDA device) rounds the peak to the caching allocator's
-512-byte blocks, cpu does not (the tests pass it). The reference's `--audit` comes with
-the static DP-safety rules (ROADMAP A.19); its `--cache` / `--cache-dir`
-have no counterpart (the dry run builds nothing).
+512-byte blocks, cpu does not (the tests pass it). `--audit` runs the
+static DP-safety trace rules (`analysis.rules.run_trace_rules`: the
+collective leak with `--sharded`, the backward count, shape stability;
+not the donation rule, which `launch.audit` checks) on each train
+combination's trace, as the reference runs its HLO rules; any ERROR
+fails the run. The reference's `--cache` / `--cache-dir` have no
+counterpart (the dry run builds nothing).
 """
 from __future__ import annotations
 
@@ -147,8 +151,12 @@ class StepTrace:
     are read against (the global trees: a train step's `args` hold the
     rank's model shards of the weights), `placements` the dry run's
     placement of each, `donated` the arguments the step updates in place
-    and returns first; `extra(out)` the rest of the result (metrics,
-    logits), placed replicated."""
+    and returns first (a train step's params and opt_state: the quantile
+    update returns new thresholds, ROADMAP C); `extra(out)` the rest of
+    the result (metrics, logits), placed replicated. `alias_bytes` counts
+    the leaves of the donated arguments that the result holds in their
+    own storage, as the audit's HLO-DONATION rule reads them
+    (`launch.audit.written_in_place`)."""
 
     fn: Callable
     args: tuple
@@ -163,11 +171,13 @@ class StepTrace:
     def memory(self, out, peak_bytes: int | None) -> dict:
         args = [placed_bytes(a, p)
                 for a, p in zip(self.accounted, self.placements)]
-        alias = sum(args[i] for i in self.donated)
+        alias = sum(_aliased_bytes(self.accounted[i], self.placements[i],
+                                   self.args[i], out[j])
+                    for j, i in enumerate(self.donated))
         rest = self.extra(out)
         return {"argument_bytes": sum(args),
-                "output_bytes": alias + placed_bytes(
-                    rest, replicated(rest, self.mesh)),
+                "output_bytes": sum(args[i] for i in self.donated)
+                + placed_bytes(rest, replicated(rest, self.mesh)),
                 "alias_bytes": alias,
                 "peak_bytes": peak_bytes,
                 # what the port's step holds on entry: the mesh step keeps
@@ -175,6 +185,24 @@ class StepTrace:
                 "held_argument_bytes": sum(
                     t.numel() * t.element_size()
                     for t in graph.leaf_tensors(self.args))}
+
+
+def _aliased_bytes(tree, placements, before, after) -> int:
+    """`placed_bytes` of the tensor leaves of `tree` whose leaf in the
+    step's result `after` is the argument's leaf `before` (one storage):
+    what the step wrote in place."""
+    if isinstance(tree, dict):
+        return sum(_aliased_bytes(tree[k], placements[k], before[k],
+                                  after[k]) for k in tree)
+    if isinstance(tree, tuple):
+        return sum(_aliased_bytes(*x)
+                   for x in zip(tree, placements, before, after))
+    if not (isinstance(tree, torch.Tensor)
+            and isinstance(after, torch.Tensor)):
+        return 0
+    same = (after.untyped_storage()._cdata
+            == before.untyped_storage()._cdata)
+    return placed_bytes(tree, placements) if same else 0
 
 
 @contextlib.contextmanager
@@ -301,7 +329,7 @@ def build_train_trace(arch: str, shape_name: str, mesh, *,
         fn=step, args=(params_in, opt_abs, dp_abs, batch_abs, 0),
         accounted=(params_abs, opt_abs, dp_abs, batch_abs, 0),
         placements=(pshard, oshard, dshard, bshard, None),
-        donated=(0, 1, 2), extra=lambda out: tuple(out[3]), mesh=mesh,
+        donated=(0, 1), extra=lambda out: tuple(out[2:4]), mesh=mesh,
         microbatches=microbatches, loss_calls=loss_calls)
     return trace, model, cfg
 
@@ -366,10 +394,13 @@ def _layer_trip(cfg) -> int:
 
 
 def analyze(trace: StepTrace, *, kind: str, trip: int,
-            sharded: bool = False, device: str = "cuda") -> dict:
+            sharded: bool = False, device: str = "cuda",
+            expect=None) -> dict:
     """Run `trace` once under `analysis.graph.analyze_step` (in the
     `plain` engine and `shape_only_draws`) and read the result's
-    analysis keys; `device`: the allocator the peak models."""
+    analysis keys; `device`: the allocator the peak models. `expect`
+    (an `analysis.rules.StepExpectation`): also run the trace rules on a
+    train step (the `audit` key, else None)."""
     t0 = time.time()
     totals, out = graph.analyze_step(trace.fn, *trace.args, mesh=trace.mesh,
                                      device=device)
@@ -380,6 +411,16 @@ def analyze(trace: StepTrace, *, kind: str, trip: int,
         bw_passes = graph.backward_passes(totals.linear_calls,
                                           trace.loss_calls[0],
                                           trace.microbatches)
+    audit = None
+    if expect is not None and kind == "train":
+        from repro_torch.analysis.findings import errors
+        from repro_torch.analysis.rules import TracedStep, run_trace_rules
+        fs = run_trace_rules(
+            TracedStep(totals, loss_calls=trace.loss_calls[0],
+                       microbatches=trace.microbatches),
+            expect, trace.mesh if sharded else None)
+        audit = {"findings": [f.to_dict() for f in fs],
+                 "num_errors": len(errors(fs))}
     axis_coll = None
     if sharded and kind == "train":
         rows = graph.classify_collectives(trace.mesh)
@@ -390,6 +431,7 @@ def analyze(trace: StepTrace, *, kind: str, trip: int,
     return {
         "backward_passes": bw_passes,
         "collectives_by_axis": axis_coll,
+        "audit": audit,
         "trace_s": round(t_trace, 2),
         "analyze_s": round(time.time() - t0, 2),
         "memory": trace.memory(out, totals.peak_bytes),
@@ -429,11 +471,13 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
             microbatches: int | None = None, debug: bool = False,
             moe_dispatch: str | None = None, sharded: bool = False,
             tag: str = "", device: str = "cuda",
-            out_dir: str | None = None) -> dict:
+            out_dir: str | None = None, audit: bool = False) -> dict:
     """Trace one combination and return its result (status ok, skipped
     or error, as the reference's); with `save`, also write it under
-    `out_dir` (default RESULTS_DIR). The fake process group, the fake
-    mode and the engine scope end before it returns."""
+    `out_dir` (default RESULTS_DIR). `audit`: run the trace rules on a
+    train step (`analyze(expect=)`; donation is not counted here, as the
+    reference's dry run leaves it to `launch.audit`). The fake process
+    group, the fake mode and the engine scope end before it returns."""
     check_device(device)
     out_dir = out_dir or RESULTS_DIR
     shape = _shape_for(shape_name, debug)
@@ -466,8 +510,19 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
                 trace, model, cfg = build_serve_trace(arch, shape_name, mesh,
                                                       debug=debug)
             t_lower = time.time() - t0
+            expect = None
+            if audit and kind == "train":
+                from repro_torch.analysis.rules import StepExpectation
+                from repro_torch.core.clipping import base_mode
+                expect = StepExpectation(
+                    mode=("per_layer" if clipping == "per_shard"
+                          else base_mode(clipping)),
+                    execution=("twopass" if clipping.endswith("_twopass")
+                               else execution),
+                    sharded=sharded, layer_trip=_layer_trip(cfg),
+                    donated_leaves=None)
             found = analyze(trace, kind=kind, trip=_layer_trip(cfg),
-                            sharded=sharded, device=device)
+                            sharded=sharded, device=device, expect=expect)
         result = {
             "arch": arch, "shape": shape_name, "mesh": mesh_kind,
             "kind": kind, "clipping": clipping if kind == "train" else None,
@@ -475,7 +530,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
             "sharded": sharded if kind == "train" else None,
             "backward_passes": found.pop("backward_passes"),
             "collectives_by_axis": found.pop("collectives_by_axis"),
-            "audit": None,  # the static DP-safety rules: ROADMAP A.19
+            "audit": found.pop("audit"),
             "status": "ok",
             "num_params": model.num_params,
             "num_groups": model.layout.num_groups,
@@ -514,6 +569,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sharded", action="store_true",
                     help="add the per-mesh-axis collective breakdown "
                          "(collectives_by_axis) to each train result")
+    ap.add_argument("--audit", action="store_true",
+                    help="run the static DP-safety trace rules "
+                         "(repro_torch.analysis.rules) on each traced "
+                         "train step; any ERROR finding fails the run")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -553,8 +612,17 @@ def main(argv=None) -> int:
                             execution=args.execution,
                             microbatches=args.microbatches, save=True,
                             debug=debug, sharded=args.sharded,
-                            device=args.device, out_dir=out_dir)
-                if r["status"] == "ok":
+                            device=args.device, out_dir=out_dir,
+                            audit=args.audit)
+                if r["status"] == "ok" and (r.get("audit") or {}).get(
+                        "num_errors"):
+                    failures += 1
+                    bad = [f for f in r["audit"]["findings"]
+                           if f["severity"] == "ERROR"]
+                    print(f"[FAIL] {a:22s} {s:12s} {mk:6s} audit: "
+                          + "; ".join(f"{f['rule']}: {f['message']}"
+                                      for f in bad), flush=True)
+                elif r["status"] == "ok":
                     gb = (r["memory"]["peak_bytes"] or 0) / 2**30
                     print(f"[ok]   {a:22s} {s:12s} {mk:6s} "
                           f"flops={r['flops']:.3e} peak={gb:.2f}GiB "

@@ -52,7 +52,9 @@ def test_port_package_is_scanned():
                  "checkpoint/packer.py", "launch/mesh.py",
                  "core/pipeline.py", "core/lora.py", "launch/swap.py",
                  "analysis/__init__.py", "analysis/graph.py",
-                 "launch/dryrun.py"):
+                 "launch/dryrun.py", "analysis/findings.py",
+                 "analysis/taint.py", "analysis/rules.py",
+                 "launch/audit.py", "core/scopes.py"):
         assert f"src/repro_torch/{name}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
